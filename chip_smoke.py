@@ -8,14 +8,18 @@ Run from the repository root. Phases, one JSON line each:
 1. ``device``: the card (``nvidia-smi`` name and power limit, torch's device
    name) and the build of every CUDA kernel of the port from ``csrc/``
    (one ``nvcc`` per source, all started together).
-2. ``kernel``: the fused LSLR update (``csrc/fused_sgd.cu``) against its
-   plain PyTorch twin on the card, at the serving path's real shape (the
-   VGG-64 tree of 20-way Omniglot, 8 tasks), in float32 and bfloat16; it must
-   be bit-equal. Times are CUDA-event medians with the L2 cache flushed
-   before every launch.
-3. ``small``: the engine with the kernel against the same engine on the
-   CPU at a small size (2 stages, 8 filters, 3-way), within 1e-5.
-4. ``slice``: the serving path at ``configs/default.yaml`` with
+2. ``kernel``: the fused LSLR update B1 (``csrc/fused_sgd.cu``) against its
+   plain PyTorch twin on the card, at the real shape (the VGG-64 tree of
+   20-way Omniglot, 8 tasks), in float32 and bfloat16; it must be
+   bit-equal. Times are CUDA-event medians with the L2 cache flushed before
+   every launch.
+3. ``kernel_bwd``: its backward B2 (``csrc/fused_sgd_bwd.cu``) against its
+   twin at the same shape: ``dg`` bit-equal, ``dlr`` within the summation
+   bound; then the ``FusedSGD`` gradients on the card against the same
+   Function on the CPU.
+4. ``small``: the serving engine with the kernel against the same engine on
+   the CPU at a small size (2 stages, 8 filters, 3-way), within 1e-5.
+5. ``slice``: the serving path at ``configs/default.yaml`` with
    ``use_pallas_inner_update=true`` (Omniglot 20-way 5-shot, Conv-4 VGG with
    64 filters, 5 inner steps), seeded random weights: a flush of 8 requests
    at support 100, a flush of 3 requests at support 60 (padded to bucket 100
@@ -25,13 +29,22 @@ Run from the repository root. Phases, one JSON line each:
    step of every flush, and agreement with the same engine on the CPU. It
    also reports how far each device's float32 is from a float64 reference,
    and a ``torch.profiler`` breakdown of one adapt flush by kernel.
-5. ``kernels``: every kernel the run launched, with its launches on the
-   serving path, its error against the twin and its times beside its bound.
+6. ``train``: ``MAMLSystem.train_step`` at the same config (meta-batch 8,
+   second order, MSL on) on one class-structured batch: 10 steps at epoch
+   0, one past the MSL window, 3 eval steps. Checks: finite losses, the loss
+   lowered by 10 steps, B1 launched 5 times per train and eval step and B2 5
+   times per train step, the first step's loss against the CPU's and a
+   float64 one, and the meta-gradient at 2 tasks likewise. It reports
+   step times, peak memory and a ``torch.profiler`` breakdown of one step.
+7. ``serve_trained``: the trained state saved with ``save_checkpoint``,
+   loaded by ``AdaptationEngine.from_run_dir`` and served one flush.
+8. ``kernels``: every kernel the run launched, with its launches on the
+   paths, its error against the twin and its times beside its bound.
 
 Then the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. TF32 is off for cuDNN and matmul throughout, so the card computes
-the float32 the CPU cross-check computes.
+the float32 the CPU cross-checks compute.
 """
 
 import argparse
@@ -40,6 +53,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,6 +78,29 @@ F64_FACTOR = 3.0
 SMALL_TOLERANCE = 1e-5
 FLUSH_TOLERANCE = 1e-5
 SUM_TOLERANCE = 1e-5
+# Training at full width, card against CPU (float32 both, TF32 off) and
+# each against the port's plain path in float64 on the CPU. At a random
+# init the 5-step rollout amplifies last-bit differences (as in the serving
+# phase): in the first measuring run each device's first-step loss was
+# 3.6e-4 (CPU) and 9.2e-4 (card) from float64, and its meta-gradient at
+# cosine 0.9936 (CPU) and 0.9997 (card) from float64. So the checks are:
+# the losses within LOSS_RTOL of each other (two float32 results each ~1e-3
+# from float64; 1e-4 is not attainable here); the meta-gradient, compared at
+# CROSS_TASKS tasks (the CPU's second-order step at 8 tasks costs minutes),
+# at cosine >= GRAD_COSINE_F64 from float64 on the card and >= GRAD_COSINE
+# between card and CPU (two vectors each within angle t of the exact one
+# can be 2t apart: cosine 0.975 for the CPU's 0.9936), and the card no
+# further from float64 than F64_FACTOR times the CPU. No elementwise bound
+# is stated: the conv biases' meta-grads are float32 noise (exactly zero in
+# exact arithmetic under transductive BN).
+LOSS_RTOL = 2e-3
+GRAD_COSINE = 0.98
+GRAD_COSINE_F64 = 0.99
+CROSS_TASKS = 2
+TRAIN_STEPS = 10
+EVAL_STEPS = 3
+# 10 outer steps on one batch must lower the loss at least this much
+TRAIN_DROP = 0.9
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "default.yaml")
 
 
@@ -195,6 +232,85 @@ def phase_kernel(seed: int):
     return result
 
 
+def dlr_bound(ct, g):
+    """Per-row bound on two float32 sums of the 128 products ``ct * g`` that
+    add in different orders: each is within 128 * 2**-24 * sum|ct * g| of
+    the exact sum (one rounding per product and per addition), so they are
+    within twice that of each other."""
+    return 2 * 128 * 2.0**-24 * (ct.double() * g.double()).abs().sum(1)
+
+
+def phase_kernel_bwd(seed: int):
+    """B2 against its twin at the training path's shape (the default model's
+    tree over 8 tasks), then the FusedSGD gradients on the card against the
+    CPU for the scalar objective sum(out * w)."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves, tree_map
+
+    _, _, state = full_width_system(seed)
+    tasks = 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    params = tree_map(lambda a: a.unsqueeze(0).expand(tasks, *a.shape).contiguous(), state.params)
+    layout = fu.build_layout(params, batch_dims=1)
+    lrs = iter(torch.linspace(0.01, 0.2, len(tree_leaves(state.params)), device="cuda"))
+    lr_rows = fu.lr_rows_for(tree_map(lambda _: next(lrs), state.params), layout)
+    rows = int(lr_rows.shape[0])
+    result = {"rows": rows, "tasks": tasks}
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        ct = torch.randn(rows, fu.LANE, device="cuda", generator=gen).to(dtype)
+        g = torch.randn(rows, fu.LANE, device="cuda", generator=gen).to(dtype)
+        dg, dlr = fu.fused_sgd_rows_backward(ct, g, lr_rows)
+        ref_dg, ref_dlr = fu.fused_sgd_bwd_reference(ct, g, lr_rows)
+        torch.cuda.synchronize()
+        name = str(dtype).replace("torch.", "")
+        dg_err = float((dg.float() - ref_dg.float()).abs().max())
+        check(torch.equal(dg, ref_dg), "kernel_bwd", "dg differs from its twin", dtype=name, max_abs_err=dg_err)
+        dlr_err = (dlr.double() - ref_dlr.double()).abs()
+        bound = dlr_bound(ct, g)
+        check(bool((dlr_err <= bound).all()), "kernel_bwd", "dlr outside the summation bound", dtype=name,
+              max_abs_err=float(dlr_err.max()), worst_ratio=float((dlr_err / bound).max()))
+        worst = max(worst, dg_err, float(dlr_err.max()))
+        n = ct.numel()
+        moved = 3 * n * ct.element_size() + 2 * rows * 4  # read ct, g, lr; write dg, dlr
+        bound_ms = max(moved / H100_BYTES_PER_S, 3 * n / H100_F32_FLOPS) * 1e3
+        lr_col = lr_rows[:, None]
+        result[name] = {
+            "ms": time_ms(lambda: fu.fused_sgd_rows_backward(ct, g, lr_rows)),
+            "plain_ms": time_ms(lambda: fu.fused_sgd_bwd_reference(ct, g, lr_rows)),
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes dg and dlr together",
+            # for information only: torch.mul + torch.linalg.vecdot, two calls
+            "two_call_ms": time_ms(lambda: (torch.mul(ct, lr_col), torch.linalg.vecdot(ct, g))),
+            "bound_ms": bound_ms,
+            "bytes": moved,
+            "dg_max_abs_err": dg_err,
+            "dlr_max_abs_err": float(dlr_err.max()),
+            "dlr_err_over_bound": float((dlr_err / bound).max()),
+        }
+    result["max_abs_err"] = worst
+
+    # the Function: card (B1 forward, B2 backward) against the CPU (twins)
+    cpu_gen = torch.Generator().manual_seed(seed + 2)
+    p, g, w = (torch.randn(rows, fu.LANE, generator=cpu_gen) for _ in range(3))
+    lr = lr_rows.cpu()
+
+    def grads_on(device):
+        args = [t.to(device).requires_grad_(True) for t in (p, g, lr)]
+        (fu.fused_sgd_rows(*args) * w.to(device)).sum().backward()
+        return [a.grad.cpu() for a in args]
+
+    card, cpu = grads_on("cuda"), grads_on("cpu")
+    check(torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1]), "kernel_bwd",
+          "FusedSGD dp/dg on the card differ from the CPU's")
+    fn_err = (card[2].double() - cpu[2].double()).abs()
+    check(bool((fn_err <= dlr_bound(w, g)).all()), "kernel_bwd", "FusedSGD dlr outside the bound",
+          max_abs_err=float(fn_err.max()))
+    result["function_vs_cpu"] = {"dp_dg_equal": True, "dlr_max_abs_err": float(fn_err.max())}
+    emit({"phase": "kernel_bwd", "ok": True, **result})
+    return result
+
+
 def _check_probs(phase, name, probs, queries, n_way):
     for i, (p, q) in enumerate(zip(probs, queries)):
         check(p.shape == (q, n_way), phase, f"{name}[{i}] shape", shape=list(p.shape))
@@ -254,16 +370,17 @@ def float64_reference(system, state, x, y, q, steps):
     return torch.softmax(logits, -1).numpy()
 
 
-def profile_adapt_flush(engine, items, top: int = 8):
-    """Device time of one adapt flush by kernel (``torch.profiler``): the
-    flush's wall time, the summed kernel time, their ratio (the device's
-    busy share), the number of kernels and the largest by device time."""
+def profile_device(fn, top: int = 8):
+    """Device time of one call of ``fn`` by kernel (``torch.profiler``): the
+    call's wall time, the summed kernel time, their ratio (the device's
+    busy share), the number of kernels, the largest by device time, and the
+    time and share of B1 (``fused_sgd``) and B2 (``fused_sgd_bwd``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.adapt_batch(items)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -271,6 +388,8 @@ def profile_adapt_flush(engine, items, top: int = 8):
     if device_us == 0:
         return {"device_time": "not measured (the profiler saw no device time)", "wall_ms": wall_us / 1e3}
     kernels.sort(key=lambda e: -e.self_device_time_total)
+    b2_us = sum(e.self_device_time_total for e in kernels if "fused_sgd_bwd" in e.key)
+    b1_us = sum(e.self_device_time_total for e in kernels if "fused_sgd" in e.key) - b2_us
     return {
         "wall_ms": wall_us / 1e3,
         "device_ms": device_us / 1e3,
@@ -281,7 +400,10 @@ def profile_adapt_flush(engine, items, top: int = 8):
              "share": e.self_device_time_total / device_us}
             for e in kernels[:top]
         ],
-        "fused_sgd_ms": sum(e.self_device_time_total for e in kernels if "fused_sgd" in e.key) / 1e3,
+        "fused_sgd_ms": b1_us / 1e3,
+        "fused_sgd_share": b1_us / device_us,
+        "fused_sgd_bwd_ms": b2_us / 1e3,
+        "fused_sgd_bwd_share": b2_us / device_us,
     }
 
 
@@ -298,25 +420,32 @@ def serve(engine, req):
     }
 
 
+def slice_requests(cfg, seed: int):
+    """Class-structured support sets (each class its own mean image), as a
+    real support set is: 8 requests at support 100 with 40 queries each
+    (``a``), 3 at support 60 with 15 queries (``b``)."""
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+
+    n_way, img = cfg.num_classes_per_set, cfg.image_shape
+    a = learnable_synthetic_batch(8, n_way, 5, 2, img, seed=seed + 1)
+    b = learnable_synthetic_batch(3, n_way, 3, 1, img, seed=seed + 2)
+    return {
+        "a": [(a["x_support"][i], a["y_support"][i]) for i in range(8)],
+        "qa": [a["x_target"][i].reshape(-1, *img) for i in range(8)],
+        "b": [(b["x_support"][i], b["y_support"][i]) for i in range(3)],
+        "qb": [b["x_target"][i].reshape(-1, *img)[:15] for i in range(3)],
+    }
+
+
 def phase_slice(seed: int):
     from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
-    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
     from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
 
     cfg, system, state = full_width_system(seed)
     engine = AdaptationEngine(system, state)
     n_way, img = cfg.num_classes_per_set, cfg.image_shape
-    # class-structured support sets (each class its own mean image), as a
-    # real support set is
-    a = learnable_synthetic_batch(8, n_way, 5, 2, img, seed=seed + 1)  # support 100, queries 40
-    b = learnable_synthetic_batch(3, n_way, 3, 1, img, seed=seed + 2)  # support 60
-    req = {
-        "a": [(a["x_support"][i], a["y_support"][i]) for i in range(8)],
-        "qa": [a["x_target"][i].reshape(-1, *img) for i in range(8)],
-        "b": [(b["x_support"][i], b["y_support"][i]) for i in range(3)],
-        "qb": [b["x_target"][i].reshape(-1, *img)[:15] for i in range(3)],
-    }
+    req = slice_requests(cfg, seed)
     steps = engine.num_steps
     check(engine.support_bucket(60) == 100 and engine.support_bucket(100) == 100, "slice", "support buckets")
 
@@ -326,7 +455,7 @@ def phase_slice(seed: int):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     adapt_ms, predict_ms = [], []
-    for _ in range(10):
+    for _ in range(5):
         t0 = time.perf_counter()
         fws = engine.adapt_batch(req["a"])
         torch.cuda.synchronize()
@@ -336,7 +465,7 @@ def phase_slice(seed: int):
         predict_ms.append((time.perf_counter() - t0) * 1e3)
     launches = fu.launch_counts["fused_sgd"]  # the serving path ends here
     counts = engine.compile_counts()
-    profile = profile_adapt_flush(engine, req["a"])
+    profile = profile_device(lambda: engine.adapt_batch(req["a"]))
     flushes = 3 + len(adapt_ms)
     check(launches == flushes * steps, "slice", "kernel launches != flushes x adapt_steps",
           launches=launches, flushes=flushes, steps=steps)
@@ -387,6 +516,169 @@ def phase_slice(seed: int):
     return out
 
 
+def _flat(grads):
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    return torch.cat([t.detach().double().cpu().reshape(-1) for t in tree_leaves(grads)])
+
+
+def _cosine(a, b) -> float:
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def float64_plain(state):
+    """The port's plain path (unfused update, no precision casts) in
+    float64 on the CPU, and ``state`` in float64 there."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import load_config
+    from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
+
+    class Float64System(MAMLSystem):
+        def _apply_forward(self, params, bn_state, x, sample_weight=None):
+            return self.model.apply(params, bn_state, x, use_batch_stats=True)[0]
+
+        def _batch(self, b):
+            out = super()._batch(b)
+            return dict(out, x_support=out["x_support"].double(), x_target=out["x_target"].double())
+
+    system = Float64System(load_config(DEFAULT_CONFIG, ["use_pallas_inner_update=false"]), device="cpu")
+    f64 = lambda tree: tree_map(lambda t: t.detach().cpu().double(), tree)  # noqa: E731
+    return system, state._replace(params=f64(state.params), bn_state=f64(state.bn_state),
+                                   inner_hparams=f64(state.inner_hparams), opt_state=None,
+                                   step=state.step.cpu())
+
+
+def train_cross_check(cfg, start, batch, card_loss):
+    """Card against CPU, each against float64: the first step's loss at
+    full width, the meta-gradient at CROSS_TASKS tasks."""
+    from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+
+    t0 = time.perf_counter()
+    cpu_system = MAMLSystem(cfg, device="cpu")
+    cpu_state = cpu_copy(start)
+    f64_system, f64_state = float64_plain(start)
+    cpu_loss = float(cpu_system.meta_objective(cpu_state, batch, epoch=0)[0])
+    exact_loss = float(f64_system.meta_objective(f64_state, batch, epoch=0)[0])
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    small = {k: v[:CROSS_TASKS] for k, v in batch.items()}
+    card = _flat(MAMLSystem(cfg).meta_gradients(start, small, epoch=0)[2])
+    cpu = _flat(cpu_system.meta_gradients(cpu_state, small, epoch=0)[2])
+    exact = _flat(f64_system.meta_gradients(f64_state, small, epoch=0)[2])
+    dist = lambda a: float((a - exact).norm() / exact.norm())  # noqa: E731
+    out = {
+        "loss_card": card_loss, "loss_cpu": cpu_loss, "loss_float64": exact_loss,
+        "loss_rel_card_cpu": rel(card_loss, cpu_loss), "loss_rtol": LOSS_RTOL,
+        "loss_rel_from_f64": {"card": rel(card_loss, exact_loss), "cpu": rel(cpu_loss, exact_loss)},
+        "grad_tasks": CROSS_TASKS, "grad_cosine_card_cpu": _cosine(card, cpu), "grad_cosine_min": GRAD_COSINE,
+        "grad_cosine_card_f64": _cosine(card, exact), "grad_cosine_cpu_f64": _cosine(cpu, exact),
+        "grad_cosine_f64_min": GRAD_COSINE_F64,
+        "grad_rel_l2_from_f64": {"card": dist(card), "cpu": dist(cpu)},
+        "grad_max_abs_card_cpu": float((card - cpu).abs().max()), "cpu_s": time.perf_counter() - t0,
+    }
+    check(out["loss_rel_card_cpu"] <= LOSS_RTOL, "train", "card and CPU losses disagree", **out)
+    check(out["grad_cosine_card_f64"] >= GRAD_COSINE_F64, "train", "card meta-gradient far from float64", **out)
+    check(out["grad_cosine_card_cpu"] >= GRAD_COSINE, "train", "card and CPU meta-gradients disagree", **out)
+    check(dist(card) <= F64_FACTOR * dist(cpu) + 1e-6, "train",
+          "card meta-gradient further from float64 than the CPU's", **out)
+    return out
+
+
+def phase_train(seed: int):
+    """The training path: train_step at the default config (second order,
+    MSL on) on one class-structured meta-batch, then past the MSL window,
+    then eval_step; launches, finiteness, the loss going down, step times,
+    peak memory, a profile, and the CPU cross-check."""
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+
+    cfg, system, state = full_width_system(seed)
+    n_way, img = cfg.num_classes_per_set, cfg.image_shape
+    batch = learnable_synthetic_batch(cfg.batch_size, n_way, cfg.num_samples_per_class,
+                                      cfg.num_target_samples, img, seed=seed + 3)
+    K, K_eval = cfg.number_of_training_steps_per_iter, cfg.number_of_evaluation_steps_per_iter
+    start = state
+    final_epoch = cfg.multi_step_loss_num_epochs
+    check(system.use_second_order(0) and system.msl_active(0) and not system.msl_active(final_epoch),
+          "train", "the default config is not second order with MSL over its window")
+    torch.cuda.reset_peak_memory_stats()
+    losses, train_ms, eval_ms = [], [], []
+    fu.reset_launch_counts()  # the training path starts here
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, out = system.train_step(state, batch, epoch=0)
+        torch.cuda.synchronize()
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.loss))
+    t0 = time.perf_counter()
+    state, final = system.train_step(state, batch, epoch=final_epoch)
+    torch.cuda.synchronize()
+    final_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(EVAL_STEPS):
+        t0 = time.perf_counter()
+        ev = system.eval_step(state, batch)
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fu.launch_counts)  # the training path ends here
+    peak = torch.cuda.max_memory_allocated()
+    train_steps = TRAIN_STEPS + 1
+    want = {"fused_sgd": K * train_steps + K_eval * EVAL_STEPS, "fused_sgd_bwd": K * train_steps}
+    check(launches == want, "train", "kernel launches differ from 5 per step", launches=launches, want=want)
+    finite = all(map(lambda x: x == x and abs(x) != float("inf"), losses + [float(final.loss), float(ev.loss)]))
+    check(finite and bool(torch.isfinite(ev.per_task_target_logits).all()), "train", "non-finite loss",
+          losses=losses, final=float(final.loss), eval=float(ev.loss))
+    queries = n_way * cfg.num_target_samples
+    check(tuple(ev.per_task_target_logits.shape) == (cfg.batch_size, queries, n_way), "train",
+          "eval logits shape", shape=list(ev.per_task_target_logits.shape))
+    check(float(final.loss_importance_vector[-1]) == 1.0 and float(out.loss_importance_vector.sum()) > 0.999,
+          "train", "MSL weights", msl=out.loss_importance_vector.tolist(), final=final.loss_importance_vector.tolist())
+    check(losses[-1] <= TRAIN_DROP * losses[0], "train", "10 steps on one batch did not lower the loss",
+          losses=losses, drop=TRAIN_DROP)
+    profile = profile_device(lambda: system.train_step(state, batch, epoch=0))
+    cross = train_cross_check(cfg, start, batch, losses[0])
+    result = {
+        "phase": "train", "ok": True, "config": "configs/default.yaml + use_pallas_inner_update=true",
+        "meta_batch": cfg.batch_size, "n_way": n_way, "support": n_way * cfg.num_samples_per_class,
+        "target": queries, "inner_steps": K, "eval_steps": K_eval, "train_steps": train_steps,
+        "eval_step_count": EVAL_STEPS, "launches": launches, "losses": losses, "loss_drop_max": TRAIN_DROP,
+        "final_branch_loss": float(final.loss), "eval_loss": float(ev.loss), "eval_accuracy": float(ev.accuracy),
+        "train_step_ms_median": statistics.median(train_ms), "train_step_ms": train_ms,
+        "final_branch_step_ms": final_ms, "eval_step_ms_median": statistics.median(eval_ms),
+        "max_memory_allocated": peak, "train_step_profile": profile, "cross_check": cross,
+        "num_params": system.num_params(start),
+    }
+    emit(result)
+    return result, system, state
+
+
+def phase_serve_trained(seed: int, system, trained):
+    """The trained state through a checkpoint: ``save_checkpoint`` into a
+    run directory, ``AdaptationEngine.from_run_dir`` on the card, one adapt
+    flush of 8 requests and its predictions."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import save_config
+    from howtotrainyourmamlpytorch_tpu_torch.experiment.checkpoint import save_checkpoint
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    cfg = system.cfg
+    req = slice_requests(cfg, seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as run_dir:
+        save_config(cfg, os.path.join(run_dir, "config.yaml"))
+        save_dir = os.path.join(run_dir, "saved_models")
+        save_checkpoint(save_dir, trained, {"epoch": 0}, epoch=0, feature_shape=system.model.feature_shape)
+        fu.reset_launch_counts()  # the serve-from-checkpoint path starts here
+        engine = AdaptationEngine.from_run_dir(run_dir, "latest")
+        probs = engine.predict_batch(list(zip(engine.adapt_batch(req["a"]), req["qa"])))
+        launches = fu.launch_counts["fused_sgd"]  # and ends here
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(engine.state.params), tree_leaves(trained.params)))
+    check(same, "serve_trained", "the served params differ from the trained state's")
+    check(launches == engine.num_steps, "serve_trained", "kernel launches != adapt steps", launches=launches)
+    _check_probs("serve_trained", "a", probs, [q.shape[0] for q in req["qa"]], cfg.num_classes_per_set)
+    emit({"phase": "serve_trained", "ok": True, "launches": launches, "step": int(engine.state.step),
+          "fingerprint": engine.fingerprint[:16]})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -400,25 +692,51 @@ def main() -> int:
 
     smi = phase_device()
     kernel = phase_kernel(args.seed)
+    kernel_bwd = phase_kernel_bwd(args.seed)
     phase_small(args.seed)
     sl = phase_slice(args.seed)
-    f32 = kernel["float32"]
-    emit({"kernels": [{
-        "name": "fused_sgd",
-        "route": "cuda",
-        "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_sgd.cu",
-        "replaces": "howtotrainyourmamlpytorch_tpu/ops/pallas_update.py:125",
-        "launches": sl["launches"],
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": f32["library_ms"],
-        "dtype": "float32",
-        "rows": kernel["rows"],
-        "bfloat16": kernel["bfloat16"],
-    }]})
+    tr, system, trained = phase_train(args.seed)
+    served = phase_serve_trained(args.seed, system, trained)
+    fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served}
+    f32, b32 = kernel["float32"], kernel_bwd["float32"]
+    emit({"kernels": [
+        {
+            "name": "fused_sgd",
+            "route": "cuda",
+            "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_sgd.cu",
+            "replaces": "howtotrainyourmamlpytorch_tpu/ops/pallas_update.py:125",
+            "launches": sum(fwd_paths.values()),
+            "launches_by_path": fwd_paths,
+            "max_abs_err": kernel["max_abs_err"],
+            "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": f32["library_ms"],
+            "dtype": "float32",
+            "rows": kernel["rows"],
+            "bfloat16": kernel["bfloat16"],
+        },
+        {
+            "name": "fused_sgd_bwd",
+            "route": "cuda",
+            "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_sgd_bwd.cu",
+            "replaces": "howtotrainyourmamlpytorch_tpu/ops/pallas_update.py:134",
+            "launches": tr["launches"]["fused_sgd_bwd"],
+            "launches_by_path": {"train": tr["launches"]["fused_sgd_bwd"]},
+            "max_abs_err": kernel_bwd["max_abs_err"],
+            "ms": b32["ms"],
+            "plain_ms": b32["plain_ms"],
+            "bound_ms": b32["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": b32["library_note"],
+            "two_call_ms": b32["two_call_ms"],
+            "dtype": "float32",
+            "rows": kernel_bwd["rows"],
+            "bfloat16": kernel_bwd["bfloat16"],
+        },
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

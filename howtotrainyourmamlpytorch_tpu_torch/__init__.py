@@ -4,15 +4,17 @@
 The JAX package beside this one is the reference. This package keeps its
 module paths and names, so a reader can find one from the other, and its
 public layouts: images NHWC ``[S, H, W, C]``, labels ``[S]``, probabilities
-``[Q, n_way]``. Inside, the modules are plain PyTorch functions on tensor
-dicts; the one TPU kernel on the serving path (the fused LSLR update,
-``ops/fused_update.py``) is a CUDA C++ kernel for ``sm_90a`` under
-``csrc/``, built at first use.
+``[Q, n_way]``, checkpoints in the JAX package's file format and layout.
+Inside, the modules are plain PyTorch functions on tensor dicts; the two
+TPU kernels (the fused LSLR update and its backward, ``ops/fused_update.py``)
+are CUDA C++ kernels for ``sm_90a`` under ``csrc/``, built at first use.
 
-This slice covers the serving path: ``serving.engine.AdaptationEngine``
-over ``core.maml.MAMLSystem`` (first-order adapt, then predict) with the
-VGG backbone. It imports neither ``jax`` nor the JAX package. Entry points
-run on ``device="cuda"`` unless the caller passes ``device="cpu"``.
+It covers meta-training (``core.maml.MAMLSystem.train_step`` /
+``eval_step``: second order, MSL, the outer Adam; ``experiment.checkpoint``
+to save and resume) and serving (``serving.engine.AdaptationEngine``:
+first-order adapt, then predict) with the VGG backbone. It imports neither
+``jax`` nor the JAX package. Entry points run on ``device="cuda"`` unless
+the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,20 +1,30 @@
-"""MAML++ adaptation in PyTorch: the serving subset of the JAX package's
-``core/maml.py`` (``_adapt_loop``, ``adapt_fast_weights``, ``predict_logits``
-and what they stand on).
+"""The MAML++ meta-step and adaptation in PyTorch: the train/eval and serving
+subset of the JAX package's ``core/maml.py``.
 
 The JAX package ``jax.vmap``s a per-task rollout and ``lax.scan``s its inner
 steps. Here the inner steps are a Python loop, and the task axis is explicit:
-``adapt_fast_weights`` takes a task batch ``[T, S, H, W, C]`` and returns
-fast weights whose leaves carry a leading ``T``. Each inner step takes the
-per-task support gradients with ``torch.func.vmap(torch.func.grad(...))`` and
-then applies the inner optimizer OUTSIDE the vmap, to the task-stacked tree:
-with ``use_pallas_inner_update`` the tasks of a flush fold into the rows of
-one fused-update launch (``ops/fused_update.py``).
+a meta-batch ``[B, n_way, k, H, W, C]`` becomes ``[B, n_way * k, H, W, C]``
+and every fast-weight leaf carries a leading task axis. Each inner step
+takes the per-task support gradients with
+``torch.func.vmap(torch.func.grad(...))`` and then applies the inner
+optimizer OUTSIDE the vmap, to the task-stacked tree: with
+``use_pallas_inner_update`` the tasks fold into the rows of one fused-update
+launch (``ops/fused_update.py``), and in ``train_step`` the outer backward
+runs that update's backward kernel once per inner step.
 
-Adaptation is first-order: nothing differentiates through it, so it runs
-under ``torch.no_grad()`` (``torch.func.grad`` still takes the inner
-gradients). Second order, the meta-objective, MSL and the outer optimizer
-come with the training slice (ROADMAP.md).
+``train_step`` differentiates the meta-objective with ``torch.autograd``:
+second order keeps the graph of the inner gradients (``torch.func.grad``'s
+results carry it), first order detaches them. Then the ImageNet +-10 clamp,
+the outer Adam on the cosine schedule (``ops/outer_adam.py``), the lr
+projection and ``step + 1``. ``eval_step``, ``adapt_fast_weights`` and
+``predict_logits`` are first-order and run under ``torch.no_grad()``
+(``torch.func.grad`` still takes the inner gradients).
+
+Not here (ROADMAP.md): the remat policies (``remat_inner_steps`` and
+``remat_policy`` are read but not applied; the port keeps every activation
+of the K-step graph, A6), ``scale_meta_lr`` and the NaN rollback (A9), the
+multi-step chunk programs, strict guard, compile ledger and donation (A10),
+and the anil/protonet strategies (A7).
 
 ``Config.matmul_precision`` is not applied: whether the card's float32
 convolutions and matmuls may use TF32 is the caller's process-wide choice
@@ -23,7 +33,8 @@ convolutions and matmuls may use TF32 is the caller's process-wide choice
 out the same math, so they have no counterpart here.
 """
 
-from typing import Optional
+import math
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import grad, vmap
@@ -33,10 +44,46 @@ from ..models.model import Model
 from ..models.registry import build_model
 from ..ops.inner_optim import build_inner_optimizer
 from ..ops.losses import cross_entropy
-from ..ops.precision import policy_from_config
+from ..ops.msl import final_step_only, per_step_loss_importance
+from ..ops.outer_adam import adam_init, adam_update
+from ..ops.precision import as_f32, policy_from_config
 from ..utils import seeding
-from ..utils.trees import tree_map
+from ..utils.trees import tree_flatten, tree_map
 from .train_state import TrainState
+
+
+class StepOutput(NamedTuple):
+    loss: Any
+    accuracy: Any
+    per_task_losses: Any  # [B]
+    per_task_accuracies: Any  # [B]: mean target accuracy per episode
+    per_task_target_logits: Any  # [B, n_target, n_way]
+    loss_importance_vector: Any  # [num_steps]
+    learning_rate: Any
+
+
+def cosine_epoch_schedule(meta_lr: float, min_lr: float, total_epochs: int, iters_per_epoch: int):
+    """CosineAnnealingLR stepped once per *epoch* with the integer epoch
+    index (reference ``few_shot_learning_system.py:339-340``), as a function
+    of an integer step-count tensor, computed in float32."""
+
+    def schedule(count):
+        epoch = torch.div(torch.as_tensor(count), iters_per_epoch, rounding_mode="floor").to(torch.float32)
+        cos = 0.5 * (1.0 + torch.cos(math.pi * epoch / total_epochs))
+        return min_lr + (meta_lr - min_lr) * cos
+
+    return schedule
+
+
+def _zeros_if_none(grad, like):
+    """An unused trainable gets a zero gradient, as ``jax.grad`` gives it."""
+    return torch.zeros_like(like) if grad is None else grad
+
+
+def _flatten_task(x):
+    """[B, n_way, k, ...] -> [B, n_way*k, ...] (reference view(-1, c, h, w),
+    per task)."""
+    return x.reshape((x.shape[0], -1) + tuple(x.shape[3:]))
 
 #: strategies with a full fast-weight rollout; serving adaptation is
 #: first-order, so the two coincide
@@ -90,6 +137,9 @@ class MAMLSystem:
                 )
             kwargs["fused"] = True
         self.inner_opt = build_inner_optimizer(io.kind, **kwargs)
+        self.schedule = cosine_epoch_schedule(
+            cfg.meta_learning_rate, cfg.min_learning_rate, cfg.total_epochs, cfg.total_iter_per_epoch
+        )
         self.precision = policy_from_config(cfg)
 
     # ------------------------------------------------------------------
@@ -102,7 +152,8 @@ class MAMLSystem:
 
     def init_train_state(self, seed: Optional[int] = None) -> TrainState:
         """Seeded init on the CPU (``utils/seeding.py``), moved to the
-        system's device."""
+        system's device, with a zero outer Adam state over
+        ``{"params", "hparams"}``."""
         gen = seeding.model_init_generator(self.cfg.seed if seed is None else seed)
         params, bn_state = self.model.init(gen)
         to_dev = lambda a: a.to(self.device)  # noqa: E731
@@ -118,8 +169,13 @@ class MAMLSystem:
             params=params,
             bn_state=bn_state,
             inner_hparams=inner_hparams,
-            opt_state=None,
+            opt_state=adam_init({"params": params, "hparams": inner_hparams}),
             step=torch.zeros((), dtype=torch.int64, device=self.device),
+        )
+
+    def num_params(self, state: TrainState) -> int:
+        return sum(
+            t.numel() for t in tree_flatten({"params": state.params, "hparams": state.inner_hparams})[0]
         )
 
     # ------------------------------------------------------------------
@@ -153,11 +209,10 @@ class MAMLSystem:
     def _make_inner_update(self, bn_state, x_support, y_support, second_order, support_weight=None):
         """``inner_update(p, opt_state, hp) -> (p', opt_state')``: one
         support-set gradient step for every task of the batch. ``p`` and the
-        support tensors carry the leading task axis."""
-        if second_order:
-            raise NotImplementedError(
-                "second-order inner updates come with the training slice (ROADMAP.md)"
-            )
+        support tensors carry the leading task axis. The inner gradients of
+        ``vmap(grad(...))`` keep their autograd graph, so a loss of ``p'``
+        differentiates through them (second order); first order detaches
+        them (JAX ``stop_gradient``)."""
 
         def support_loss(q, x, y, w):
             return cross_entropy(self._apply_forward(q, bn_state, x, w), y, sample_weight=w)
@@ -166,6 +221,8 @@ class MAMLSystem:
 
         def inner_update(p, opt_s, hp):
             grads = task_grads(p, x_support, y_support, support_weight)
+            if not second_order:
+                grads = tree_map(torch.Tensor.detach, grads)
             return self.inner_opt.update(grads, opt_s, p, hp, batch_dims=1)
 
         return inner_update
@@ -196,6 +253,200 @@ class MAMLSystem:
         for hp in self._hparam_sequence(hparams, num_steps):
             p, inner_state = inner_update(p, inner_state, hp)
         return p
+
+    def _forward_tasks(self, p, bn_state, x):
+        """Task-stacked fast weights and inputs ``[T, N, ...]`` -> f32 logits
+        ``[T, N, n_way]``."""
+        return vmap(lambda q, xq: self._apply_forward(q, bn_state, xq))(p, x)
+
+    def _rollout(
+        self, params, bn_state, hparams, inner_state, x_support, y_support,
+        x_target, y_target, loss_weights, second_order: bool, num_steps: int,
+        per_step_target: bool,
+    ):
+        """Adapt every task on its support set for ``num_steps``. With
+        ``per_step_target`` (the MSL window) the target loss is taken after
+        *every* inner step and weighted by ``loss_weights``; otherwise only
+        the final fast weights see the target set (reference
+        few_shot_learning_system.py:239-251). Returns (per-task losses
+        ``[T]``, final target logits ``[T, Q, n_way]``)."""
+        task_ce = vmap(cross_entropy)
+        if per_step_target:
+            tasks = x_support.shape[0]
+            params = self.precision.cast_fast_weights(params)
+            inner_state = self.precision.cast_fast_weights(inner_state)
+            p = tree_map(lambda a: a.unsqueeze(0).expand(tasks, *a.shape).contiguous(), params)
+            inner_update = self._make_inner_update(bn_state, x_support, y_support, second_order)
+            weighted = []
+            for i, hp in enumerate(self._hparam_sequence(hparams, num_steps)):
+                p, inner_state = inner_update(p, inner_state, hp)
+                logits = self._forward_tasks(p, bn_state, x_target)
+                weighted.append(loss_weights[i] * task_ce(logits, y_target))
+            return torch.stack(weighted).sum(0), logits
+        p_final = self._adapt_loop(
+            params, bn_state, hparams, inner_state, x_support, y_support,
+            second_order, num_steps,
+        )
+        logits = self._forward_tasks(p_final, bn_state, x_target)
+        return task_ce(logits, y_target), logits
+
+    # ------------------------------------------------------------------
+    # meta objective over a task batch
+    # ------------------------------------------------------------------
+
+    def msl_active(self, epoch: int, training: bool = True) -> bool:
+        """Per-step MSL weighting applies during training in the annealing
+        window (reference few_shot_learning_system.py:239-240)."""
+        return bool(
+            training
+            and self.cfg.use_multi_step_loss_optimization
+            and epoch < self.cfg.multi_step_loss_num_epochs
+        )
+
+    def _loss_weights(self, epoch, num_steps, msl_active: bool):
+        if msl_active:
+            return per_step_loss_importance(
+                epoch, num_steps, self.cfg.multi_step_loss_num_epochs, device=self.device
+            )
+        return final_step_only(num_steps, device=self.device)
+
+    def _batch(self, batch):
+        """A meta-batch dict (numpy or tensors) on the device, with the task
+        axis made explicit: ``[B, n_way, k, ...]`` -> ``[B, n_way * k, ...]``."""
+        return {
+            "x_support": _flatten_task(self._tensor(batch["x_support"], torch.float32)),
+            "y_support": _flatten_task(self._tensor(batch["y_support"], torch.int64)),
+            "x_target": _flatten_task(self._tensor(batch["x_target"], torch.float32)),
+            "y_target": _flatten_task(self._tensor(batch["y_target"], torch.int64)),
+        }
+
+    def _meta_objective(self, trainables, bn_state, batch, epoch, second_order, num_steps, msl_active):
+        """Mean over tasks of each task's (MSL-weighted) target loss, and
+        the aux outputs. ``batch`` is a :meth:`_batch` dict."""
+        params = trainables["params"]
+        hparams = self._inner_hparams_for_rollout(trainables["hparams"], params)
+        inner_state0 = self._initial_inner_state(params, hparams)
+        loss_weights = self._loss_weights(epoch, num_steps, msl_active)
+        task_losses, target_logits = self._rollout(
+            params, bn_state, hparams, inner_state0, batch["x_support"], batch["y_support"],
+            batch["x_target"], batch["y_target"], loss_weights, second_order, num_steps,
+            per_step_target=msl_active,
+        )
+        # mean over tasks (reference get_across_task_loss_metrics,
+        # few_shot_learning_system.py:170-176)
+        loss = task_losses.mean()
+        per_task_acc = as_f32(target_logits.argmax(-1) == batch["y_target"]).mean(-1)
+        aux = {
+            "accuracy": per_task_acc.mean(),
+            "per_task_losses": task_losses,
+            "per_task_accuracies": per_task_acc,
+            "target_logits": target_logits,
+            "loss_weights": loss_weights,
+        }
+        return loss, aux
+
+    # ------------------------------------------------------------------
+    # train / eval steps (reference run_train_iter / run_validation_iter)
+    # ------------------------------------------------------------------
+
+    def use_second_order(self, epoch: int) -> bool:
+        """Second order iff ``second_order`` and ``epoch >
+        first_order_to_second_order_epoch`` (reference
+        few_shot_learning_system.py:288-289); ``fomaml`` pins it False."""
+        if self.strategy == "fomaml":
+            return False
+        return bool(self.cfg.second_order and epoch > self.cfg.first_order_to_second_order_epoch)
+
+    def _step_epoch(self, state: TrainState):
+        return torch.div(state.step, self.cfg.total_iter_per_epoch, rounding_mode="floor")
+
+    def _train_objective(self, state: TrainState, trainables, batch, epoch: Optional[int]):
+        """The train step's objective at ``trainables``. ``epoch`` (host int)
+        selects second/first order and the MSL branch; the MSL weights
+        themselves follow ``state.step``."""
+        cfg = self.cfg
+        if epoch is None:
+            epoch = int(state.step) // cfg.total_iter_per_epoch
+        return self._meta_objective(
+            trainables, state.bn_state, self._batch(batch), self._step_epoch(state),
+            self.use_second_order(epoch), cfg.number_of_training_steps_per_iter, self.msl_active(epoch),
+        )
+
+    def meta_objective(self, state: TrainState, batch, epoch: Optional[int] = None):
+        """The train step's objective and aux outputs at ``state``, without
+        gradients -> ``(loss, aux)``."""
+        with torch.no_grad():
+            return self._train_objective(
+                state, {"params": state.params, "hparams": state.inner_hparams}, batch, epoch
+            )
+
+    def meta_gradients(self, state: TrainState, batch, epoch: Optional[int] = None):
+        """The train step's objective and its gradient over
+        ``{"params", "hparams"}`` -> ``(loss, aux, grads)``."""
+        trainables = tree_map(
+            lambda t: t.detach().requires_grad_(True),
+            {"params": state.params, "hparams": state.inner_hparams},
+        )
+        loss, aux = self._train_objective(state, trainables, batch, epoch)
+        leaves = tree_flatten(trainables)[0]
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+        # rebuilt over the trainables' own structure, so an empty subtree
+        # (no learnable hparams) stays in place
+        grads = tree_map(lambda t: _zeros_if_none(next(grads), t), trainables)
+        return loss.detach(), aux, grads
+
+    def train_step(self, state: TrainState, batch, epoch: Optional[int] = None) -> Tuple[TrainState, StepOutput]:
+        """One outer update: the meta-gradient, the ImageNet +-10 clamp of
+        the classifier grads, outer Adam on the cosine schedule, the lr
+        projection, ``step + 1``. ``epoch`` (host int) selects the variant;
+        when omitted it is read from ``state.step``."""
+        cfg = self.cfg
+        loss, aux, grads = self.meta_gradients(state, batch, epoch)
+        with torch.no_grad():
+            if cfg.is_imagenet:
+                # element-wise clamp of classifier grads only (reference
+                # few_shot_learning_system.py:317-320)
+                grads = {
+                    "params": tree_map(lambda g: torch.clamp(g, -10.0, 10.0), grads["params"]),
+                    "hparams": grads["hparams"],
+                }
+            trainables = {"params": state.params, "hparams": state.inner_hparams}
+            new_trainables, new_opt_state = adam_update(grads, state.opt_state, trainables, self.schedule)
+            new_hparams = new_trainables["hparams"]
+            if cfg.learnable_inner_opt_params:
+                new_hparams = self.inner_opt.project_hparams(new_hparams)
+            new_state = TrainState(
+                params=new_trainables["params"],
+                bn_state=state.bn_state,
+                inner_hparams=new_hparams,
+                opt_state=new_opt_state,
+                step=state.step + 1,
+            )
+            out = self._step_output(loss, aux, state)
+        return new_state, out
+
+    def _step_output(self, loss, aux, state: TrainState) -> StepOutput:
+        return StepOutput(
+            loss=loss.detach(),
+            accuracy=aux["accuracy"].detach(),
+            per_task_losses=aux["per_task_losses"].detach(),
+            per_task_accuracies=aux["per_task_accuracies"].detach(),
+            per_task_target_logits=aux["target_logits"].detach(),
+            loss_importance_vector=aux["loss_weights"],
+            learning_rate=self.schedule(state.step),
+        )
+
+    def eval_step(self, state: TrainState, batch) -> StepOutput:
+        """First-order, ``number_of_evaluation_steps_per_iter`` inner steps,
+        final-step target loss only (reference :239-251); no gradients."""
+        cfg = self.cfg
+        with torch.no_grad():
+            loss, aux = self._meta_objective(
+                {"params": state.params, "hparams": state.inner_hparams}, state.bn_state,
+                self._batch(batch), self._step_epoch(state), False,
+                cfg.number_of_evaluation_steps_per_iter, False,
+            )
+            return self._step_output(loss, aux, state)
 
     # ------------------------------------------------------------------
     # serving entry points

@@ -1,8 +1,10 @@
 """The training-state tuple (JAX package ``core/train_state.py``).
 
-The serving path reads ``params``, ``bn_state`` and ``inner_hparams``. The
-outer optimizer is not ported yet (ROADMAP.md, training slice), so
-``opt_state`` is ``None`` in every state this package builds.
+``opt_state`` is the outer Adam state in optax's layout
+(``ops/outer_adam.py``): ``(ScaleByAdamState(count, mu, nu),
+ScaleByScheduleState(count))`` over ``{"params", "hparams"}``. A state built
+from a serving checkpoint (``checkpoint.InferenceState``) carries ``None``
+there: a server never takes an outer step.
 """
 
 from typing import Any, NamedTuple
@@ -12,5 +14,5 @@ class TrainState(NamedTuple):
     params: Any  # classifier meta-parameters (dict tree of tensors)
     bn_state: Any  # batch-norm running stats (inert under transductive BN)
     inner_hparams: Any  # learnable per-tensor inner-opt hyperparams ({} if not learnable)
-    opt_state: Any  # outer optimizer state (None until the training slice)
+    opt_state: Any  # outer Adam state (None in a serving-only state)
     step: Any  # global meta-step counter (int64 0-d tensor)

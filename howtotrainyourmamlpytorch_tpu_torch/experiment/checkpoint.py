@@ -1,33 +1,53 @@
-"""Read-only access to the JAX package's checkpoints, for serving (JAX
-package ``experiment/checkpoint.py:96-131``, ``:486-516``).
+"""Full-train-state checkpoints in the JAX package's file formats (JAX package
+``experiment/checkpoint.py``), so that either package resumes the other's.
 
-A checkpoint file is flax msgpack. Format 2 wraps the body with its sha256
-digest (``{"format", "sha256", "body"}``) and every load verifies it;
-pre-format-2 files are the bare payload and load unverified. The payload's
-``network`` entry is itself msgpack: the ``TrainState`` keyed by field name,
-with plain dict subtrees. This module decodes it with ``msgpack`` directly
-(flax's serializer imports jax): flax writes an ndarray as
-``ExtType(1, packb((shape, dtype_name, bytes)))`` and a numpy scalar as
-``ExtType(3, ...)`` with the same body.
+A checkpoint file is flax msgpack, encoded here with ``msgpack`` directly
+(flax's serializer imports jax): an ndarray is
+``ExtType(1, packb((shape, dtype_name, bytes)))``, a numpy scalar
+``ExtType(3, ...)`` with the same body, and a NamedTuple or tuple is a dict
+keyed by field name or by index (``"0"``, ``"1"``, ...), as
+``flax.serialization.to_state_dict`` lays it out. The ``network`` entry is
+itself msgpack: the ``TrainState`` by field name, in the JAX layout
+(``utils/interop.py``: HWIO conv kernels, ``[in, out]`` head with NHWC rows,
+int32 step), with the outer Adam state as optax's
+``{"0": {"count", "mu", "nu"}, "1": {"count"}}``.
 
-The trees come back in the JAX layout (numpy arrays; a bfloat16 leaf as a
-bfloat16 tensor, since numpy has no such dtype); ``utils/interop.py`` turns
-them into the port's tensors. Writing checkpoints and format 3 (sharded)
-come with the training slice (ROADMAP.md).
+- Format 2 (written and read): the body wrapped with its sha256 digest
+  (``{"format", "sha256", "body"}``); every load verifies it. Writes are
+  atomic (a unique temp file, then ``os.replace``), and
+  ``max_models_to_save`` rotates the per-epoch files.
+- Pre-format-2 files (the bare payload) load unverified.
+- Format 3 (read only): a digest-wrapped manifest naming per-shard files and
+  their sha256; the shards hold flat ``"params/fc/w"``-keyed leaves, and an
+  empty subtree is one ``__empty_dict__`` key. Writing it needs a sharded
+  mesh and comes with multi-device (ROADMAP.md A9).
+
+A file that fails a digest or does not decode raises
+:class:`CheckpointCorruptError`. The fault injector, quarantine and the
+fallback chain come with the resilience layer (A9).
 """
 
 import hashlib
 import os
-from typing import Any, Dict, NamedTuple, Tuple
+import re
+import threading
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import msgpack
 import numpy as np
 import torch
 
+from ..core.train_state import TrainState
+from ..utils.interop import opt_state_from_jax, opt_state_to_jax, params_from_jax, params_to_jax
+from ..utils.trees import tree_flatten
+
 MODEL_NAME = "train_model"
+CHECKPOINT_FORMAT = 2  # 1 (implicit): bare payload; 2: sha256-wrapped body
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+#: the flat-key leaf that stands for an empty subtree in a format-3 shard
+_EMPTY_MARK = "__empty_dict__"
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -54,6 +74,34 @@ def checkpoint_exists(save_dir: str, idx) -> bool:
     return os.path.exists(_path(save_dir, idx))
 
 
+def available_epochs(save_dir: str) -> List[int]:
+    pattern = re.compile(rf"^{MODEL_NAME}_(\d+)$")
+    if not os.path.isdir(save_dir):
+        return []
+    return sorted(int(m.group(1)) for name in os.listdir(save_dir) if (m := pattern.match(name)))
+
+
+# ---------------------------------------------------------------------------
+# flax msgpack encoding
+# ---------------------------------------------------------------------------
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")), use_bin_type=True)
+
+
+def _ext_pack(obj):
+    if isinstance(obj, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_bytes(obj))
+    if isinstance(obj, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+    return obj
+
+
+def _packb(tree) -> bytes:
+    return msgpack.packb(tree, default=_ext_pack, strict_types=True)
+
+
 def _ndarray(data: bytes):
     shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
     if dtype_name == b"bfloat16":
@@ -73,6 +121,82 @@ def _ext_hook(code: int, data: bytes):
 
 def _restore(blob: bytes):
     return msgpack.unpackb(blob, ext_hook=_ext_hook, raw=False, strict_map_key=False)
+
+
+# ---------------------------------------------------------------------------
+# the state in the JAX layout
+# ---------------------------------------------------------------------------
+
+
+def _to_state_dict(state: TrainState, feature_shape) -> Dict[str, Any]:
+    """A port ``TrainState`` -> flax's state dict of the JAX package's
+    ``TrainState`` (numpy leaves, JAX layout)."""
+    if state.opt_state is None:
+        raise ValueError("a training checkpoint needs the outer optimizer state (opt_state is None)")
+    adam, sched = opt_state_to_jax(state.opt_state, feature_shape)
+    return {
+        "params": params_to_jax(state.params, feature_shape),
+        "bn_state": params_to_jax(state.bn_state, feature_shape),
+        "inner_hparams": params_to_jax(state.inner_hparams, feature_shape),
+        "opt_state": {"0": {"count": adam.count, "mu": adam.mu, "nu": adam.nu}, "1": {"count": sched.count}},
+        "step": np.asarray(int(state.step), dtype=np.int32),
+    }
+
+
+def _from_state_dict(net: Dict[str, Any], feature_shape, template: TrainState) -> TrainState:
+    """flax's state dict of a JAX ``TrainState`` -> a port ``TrainState``
+    with ``template``'s structure, dtypes and device. Raises ``ValueError``
+    when the trees differ in keys or shapes."""
+    device = tree_flatten(template.params)[0][0].device
+    loaded = TrainState(
+        params=params_from_jax(net["params"], feature_shape),
+        bn_state=params_from_jax(net["bn_state"], feature_shape),
+        inner_hparams=params_from_jax(net["inner_hparams"], feature_shape),
+        opt_state=opt_state_from_jax(net["opt_state"], feature_shape),
+        step=torch.as_tensor(np.asarray(net["step"])),
+    )
+    out = []
+    for field, got, want in zip(TrainState._fields, loaded, template):
+        got_leaves, got_paths = tree_flatten(_as_tree(got))
+        want_leaves, want_paths = tree_flatten(_as_tree(want))
+        if got_paths != want_paths:
+            raise ValueError(f"checkpoint {field} has keys {got_paths}, the template {want_paths}")
+        for path, g, w in zip(got_paths, got_leaves, want_leaves):
+            if tuple(g.shape) != tuple(w.shape):
+                raise ValueError(
+                    f"checkpoint {field}/{'/'.join(path)} has shape {tuple(g.shape)}, "
+                    f"the template {tuple(w.shape)}"
+                )
+        out.append(_like(got, want, device))
+    return TrainState(*out)
+
+
+def _as_tree(value):
+    """A NamedTuple/tuple state as a dict tree (flax's key layout), so that
+    it flattens by path like the dicts."""
+    if isinstance(value, tuple) and hasattr(value, "_fields"):
+        return {k: _as_tree(v) for k, v in zip(value._fields, value)}
+    if isinstance(value, tuple):
+        return {str(i): _as_tree(v) for i, v in enumerate(value)}
+    if isinstance(value, dict):
+        return {k: _as_tree(v) for k, v in value.items()}
+    return value
+
+
+def _like(value, template, device):
+    """``value`` with each leaf in ``template``'s dtype, on ``device``,
+    keeping ``value``'s structure (tuples, NamedTuples, dicts)."""
+    if isinstance(value, tuple):
+        items = [_like(v, t, device) for v, t in zip(value, template)]
+        return type(value)(*items) if hasattr(value, "_fields") else tuple(items)
+    if isinstance(value, dict):
+        return {k: _like(value[k], template[k], device) for k in value}
+    return value.to(device=device, dtype=template.dtype)
+
+
+# ---------------------------------------------------------------------------
+# reading
+# ---------------------------------------------------------------------------
 
 
 def _read_payload(path: str) -> Tuple[Dict[str, Any], bytes]:
@@ -102,20 +226,80 @@ def _read_payload(path: str) -> Tuple[Dict[str, Any], bytes]:
     return payload, blob
 
 
+def _read_shards(path: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """Read and digest-verify every shard a format-3 manifest names -> the
+    merged flat leaf dict. A missing or corrupt shard fails the whole
+    checkpoint."""
+    save_dir = os.path.dirname(path)
+    flat: Dict[str, Any] = {}
+    for entry in payload["shards"]:
+        shard_path = os.path.join(save_dir, entry["file"])
+        try:
+            with open(shard_path, "rb") as f:
+                blob = f.read()
+        except OSError as exc:
+            raise CheckpointCorruptError(f"{path}: missing shard {entry['file']} ({exc!r})") from exc
+        digest = hashlib.sha256(blob).hexdigest()
+        if digest != entry["sha256"]:
+            raise CheckpointCorruptError(
+                f"{path}: shard {entry['file']} sha256 mismatch (stored "
+                f"{entry['sha256'][:12]}…, computed {digest[:12]}…)"
+            )
+        try:
+            flat.update(_restore(blob))
+        except Exception as exc:
+            raise CheckpointCorruptError(f"{path}: undecodable shard {entry['file']} ({exc!r})") from exc
+    if len(flat) != payload.get("num_leaves", len(flat)):
+        raise CheckpointCorruptError(
+            f"{path}: manifest promises {payload.get('num_leaves')} leaves, shards hold {len(flat)}"
+        )
+    return flat
+
+
+def _unflatten_state_dict(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Flat ``{"params/fc/w": leaf}`` keys -> the nested state dict; an
+    ``__empty_dict__`` key keeps its (empty) subtree."""
+    nested: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = nested
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        if parts[-1] != _EMPTY_MARK:
+            node[parts[-1]] = value
+    return nested
+
+
+def _network(path: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX ``TrainState`` state dict of a payload, any format."""
+    if "shards" in payload:
+        return _unflatten_state_dict(_read_shards(path, payload))
+    try:
+        return _restore(payload["network"])
+    except Exception as exc:
+        raise CheckpointCorruptError(f"{path}: undecodable network ({exc!r})") from exc
+
+
+def load_checkpoint(save_dir: str, idx, template: TrainState, *, feature_shape) -> Tuple[TrainState, Dict[str, Any]]:
+    """Resume checkpoint ``idx`` (an epoch, ``'latest'`` or ``'best'``),
+    written by either package in format 1, 2 or 3, as a port ``TrainState``
+    with ``template``'s structure and device (an ``init_train_state()``
+    result), the outer Adam state included. ``feature_shape`` is the
+    model's ``(C, H, W)`` before the head (``Model.feature_shape``).
+    Returns ``(state, bookkeeping)``."""
+    path = _path(save_dir, idx)
+    payload, _ = _read_payload(path)
+    return _from_state_dict(_network(path, payload), feature_shape, template), payload["bookkeeping"]
+
+
 def load_for_inference(save_dir: str, idx) -> Tuple[InferenceState, Dict[str, Any]]:
-    """Restore params / BN state / inner hyperparams / step of checkpoint
-    ``idx`` (an epoch, ``'latest'`` or ``'best'``) in the JAX layout. Raises
-    :class:`CheckpointCorruptError` for a file that fails its digest or does
-    not decode."""
+    """Params / BN state / inner hyperparams / step of checkpoint ``idx`` in
+    the JAX layout, any format. A format-3 fingerprint hashes the manifest,
+    which names every shard's digest."""
     path = _path(save_dir, idx)
     payload, blob = _read_payload(path)
-    if "shards" in payload:
-        raise NotImplementedError(
-            f"{path}: sharded checkpoints (format 3) are not readable by the "
-            "PyTorch port yet (ROADMAP.md, training slice)"
-        )
+    net = _network(path, payload)
     try:
-        net = _restore(payload["network"])
         state = InferenceState(
             params=net["params"],
             bn_state=net["bn_state"],
@@ -126,3 +310,77 @@ def load_for_inference(save_dir: str, idx) -> Tuple[InferenceState, Dict[str, An
     except Exception as exc:
         raise CheckpointCorruptError(f"{path}: undecodable network ({exc!r})") from exc
     return state, payload["bookkeeping"]
+
+
+# ---------------------------------------------------------------------------
+# writing (format 2)
+# ---------------------------------------------------------------------------
+
+
+def _serialize(state: TrainState, bookkeeping: Dict[str, Any], feature_shape) -> bytes:
+    body = _packb({"network": _packb(_to_state_dict(state, feature_shape)), "bookkeeping": bookkeeping})
+    # format 2: the body's digest rides inside the file
+    return _packb({"format": CHECKPOINT_FORMAT, "sha256": hashlib.sha256(body).hexdigest(), "body": body})
+
+
+def _write_atomic(target: str, blob: bytes) -> None:
+    # a unique temp per (process, thread): two writers of one target each
+    # rename a COMPLETE file into place
+    tmp = f"{target}.tmp-{os.getpid()}-{threading.get_ident()}"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, target)
+
+
+def _shard_files(path: str) -> List[str]:
+    """The live ``<path>.shard<N>`` files of a format-3 checkpoint."""
+    pattern = re.compile(re.escape(os.path.basename(path)) + r"\.shard\d+$")
+    parent = os.path.dirname(path) or "."
+    if not os.path.isdir(parent):
+        return []
+    return sorted(os.path.join(parent, name) for name in os.listdir(parent) if pattern.fullmatch(name))
+
+
+def _rotate(save_dir: str, keep: int, val_acc_by_epoch: Optional[Dict[int, float]] = None) -> None:
+    """Keep ``keep`` per-epoch files: the most recent, or the best by
+    validation accuracy when ``val_acc_by_epoch`` is given (unrecorded
+    epochs rank lowest, ties oldest-first). A format-3 epoch's shards go
+    with its manifest."""
+    if keep <= 0:
+        return
+    epochs = available_epochs(save_dir)
+    if val_acc_by_epoch is not None:
+        epochs = sorted(epochs, key=lambda e: (val_acc_by_epoch.get(e, -1.0), e))
+    for epoch in epochs[:-keep]:
+        path = _path(save_dir, epoch)
+        for shard in _shard_files(path):
+            os.remove(shard)
+        os.remove(path)
+
+
+def save_checkpoint(
+    save_dir: str,
+    state: TrainState,
+    bookkeeping: Dict[str, Any],
+    epoch: int,
+    *,
+    feature_shape,
+    max_models_to_save: int = 5,
+    val_acc_by_epoch: Optional[Dict[int, float]] = None,
+    num_shards: int = 1,
+) -> str:
+    """Write ``train_model_{epoch}`` and ``train_model_latest`` (format 2,
+    JAX layout) and rotate. ``num_shards >= 2`` (format 3) raises: only a
+    sharded mesh writes it (ROADMAP.md A9)."""
+    if num_shards >= 2:
+        raise NotImplementedError(
+            "writing sharded checkpoints (format 3) is not ported to PyTorch yet "
+            "(ROADMAP.md A9: it comes with multi-device); reading them is"
+        )
+    os.makedirs(save_dir, exist_ok=True)
+    blob = _serialize(state, bookkeeping, feature_shape)
+    path = _path(save_dir, epoch)
+    for target in (path, _path(save_dir, "latest")):
+        _write_atomic(target, blob)
+    _rotate(save_dir, max_models_to_save, val_acc_by_epoch)
+    return path

@@ -43,6 +43,21 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
     },
+    "fused_sgd_bwd.cu": {
+        "fused_sgd_backward": (
+            [
+                ctypes.c_void_p,  # ct
+                ctypes.c_void_p,  # g
+                ctypes.c_void_p,  # lr_rows
+                ctypes.c_void_p,  # dg
+                ctypes.c_void_p,  # dlr_rows
+                ctypes.c_int64,  # n_rows
+                ctypes.c_int,  # dtype code
+                ctypes.c_void_p,  # stream
+            ],
+            ctypes.c_int,
+        ),
+    },
 }
 
 SOURCES = tuple(_SIGNATURES)

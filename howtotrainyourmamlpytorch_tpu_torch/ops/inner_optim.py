@@ -9,7 +9,12 @@ breadth slice (ROADMAP.md, A6).
 ``update`` takes ``batch_dims``: the number of leading task axes the
 params and grads share. The JAX package hides the task axis behind
 ``jax.vmap``; here it is explicit, so that the fused update packs every
-task of a flush into one kernel launch.
+task of a meta-batch into one kernel launch.
+
+Both forms are differentiable in params, grads and lrs, so the
+second-order meta-gradient flows through every inner step: the unfused one
+through autograd's elementwise ops, the fused one through
+``ops/fused_update.py::FusedSGD`` (backward: the B2 kernel on the card).
 """
 
 from typing import Any, Callable, NamedTuple
@@ -33,9 +38,9 @@ class InnerOptimizer(NamedTuple):
 
 def sgd(lr: float = 0.1, fused: bool = False) -> InnerOptimizer:
     """``fused=True`` routes the step through the fused kernel
-    (``ops/fused_update.py``: one launch over the packed tree); otherwise one
-    elementwise ``p - lr * g`` per leaf, the unfused form the JAX package
-    compiles."""
+    (``ops/fused_update.py``: one launch over the packed tree, one more for
+    its backward); otherwise one elementwise ``p - lr * g`` per leaf, the
+    unfused form the JAX package compiles."""
 
     def init_hparams(params):
         return {"lr": tree_scalars_like(params, lr)}

@@ -12,8 +12,12 @@ weights into the port. The trees map by key path, never by leaf position:
 - every other leaf (biases, BN scale/shift and statistics, per-tensor lrs,
   counters) keeps its values and shape.
 
-The inputs may be numpy arrays or tensors; a leading task axis on every
-leaf (``batch_dims=1``) is carried through.
+The rules key on the path inside a params-shaped tree, so a tree that nests
+params under a prefix (the outer Adam's ``mu``/``nu`` over
+``{"params", "hparams"}``) is converted subtree by subtree
+(:func:`trainables_from_jax`, :func:`opt_state_from_jax`). The inputs may be
+numpy arrays or tensors; a leading task axis on every leaf
+(``batch_dims=1``) is carried through.
 """
 
 from typing import Tuple
@@ -21,6 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..ops.outer_adam import ScaleByAdamState, ScaleByScheduleState
 from .trees import Path, tree_flatten, tree_unflatten
 
 
@@ -92,4 +97,65 @@ def state_from_jax(params, bn_state, inner_hparams, feature_shape, device=None):
         params_from_jax(params, feature_shape, device),
         params_from_jax(bn_state, feature_shape, device),
         params_from_jax(inner_hparams, feature_shape, device),
+    )
+
+
+def trainables_from_jax(tree, feature_shape, device=None):
+    """``{"params", "hparams"}`` (a meta-gradient, an Adam moment) -> port
+    tensors, each subtree with its own rules."""
+    return {
+        "params": params_from_jax(tree["params"], feature_shape, device),
+        "hparams": params_from_jax(tree["hparams"], feature_shape, device),
+    }
+
+
+def trainables_to_jax(tree, feature_shape):
+    return {
+        "params": params_to_jax(tree["params"], feature_shape),
+        "hparams": params_to_jax(tree["hparams"], feature_shape),
+    }
+
+
+def _adam_parts(opt_state):
+    """(adam count, mu, nu, schedule count) of an optax-layout state: the
+    optax/port NamedTuples, or flax's state dict of them
+    (``{"0": {"count", "mu", "nu"}, "1": {"count"}}``)."""
+    if isinstance(opt_state, dict):
+        adam, sched = opt_state["0"], opt_state["1"]
+        return adam["count"], adam["mu"], adam["nu"], sched["count"]
+    adam, sched = opt_state
+    return adam.count, adam.mu, adam.nu, sched.count
+
+
+def _count(value, device=None) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(value)), dtype=torch.int32, device=device)
+
+
+def opt_state_from_jax(opt_state, feature_shape, device=None):
+    """The JAX package's outer Adam state -> the port's
+    (``ops/outer_adam.py``): moments converted per subtree, counts as int32
+    integers."""
+    count, mu, nu, sched_count = _adam_parts(opt_state)
+    return (
+        ScaleByAdamState(
+            count=_count(count, device),
+            mu=trainables_from_jax(mu, feature_shape, device),
+            nu=trainables_from_jax(nu, feature_shape, device),
+        ),
+        ScaleByScheduleState(count=_count(sched_count, device)),
+    )
+
+
+def opt_state_to_jax(opt_state, feature_shape):
+    """The inverse of :func:`opt_state_from_jax`: numpy leaves in the JAX
+    layout, int32 0-d counts, in the optax NamedTuple structure."""
+    count, mu, nu, sched_count = _adam_parts(opt_state)
+    as_count = lambda c: np.asarray(int(c), dtype=np.int32)  # noqa: E731
+    return (
+        ScaleByAdamState(
+            count=as_count(count),
+            mu=trainables_to_jax(mu, feature_shape),
+            nu=trainables_to_jax(nu, feature_shape),
+        ),
+        ScaleByScheduleState(count=as_count(sched_count)),
     )

@@ -1,14 +1,18 @@
-"""The port reads the JAX package's checkpoints: a run directory written by
-``experiment.checkpoint.save_checkpoint`` serves through the port's
-``AdaptationEngine.from_run_dir`` with the JAX engine's probabilities (atol
-1e-5, the slice tolerance of test_torch_slice), and a damaged file raises
-``CheckpointCorruptError``."""
+"""Checkpoints between the packages. The port reads the JAX package's: a run
+directory written by ``experiment.checkpoint.save_checkpoint`` serves
+through the port's ``AdaptationEngine.from_run_dir`` with the JAX engine's
+probabilities (atol 1e-5, the slice tolerance of test_torch_slice), and a
+damaged file raises ``CheckpointCorruptError``. Training resumes across
+them in both directions, formats 2 and 3 (linear model of
+test_torch_train: the next step agrees at atol 1e-5); the port writes
+format 2 only."""
 
 import os
 
 import msgpack
 import numpy as np
 import pytest
+import torch
 
 from howtotrainyourmamlpytorch_tpu import config as jcfg
 from howtotrainyourmamlpytorch_tpu.experiment import checkpoint as jax_ckpt
@@ -17,6 +21,7 @@ from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint as ckpt
 from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
 
 from .test_torch_slice import jax_serve, jax_system_and_state, port_serve, port_system, requests
+from .test_torch_train import _jnp, _outputs_close, _state_close, batch, pair
 
 
 @pytest.fixture(scope="module")
@@ -78,9 +83,87 @@ def test_damaged_checkpoint_raises(run_dir, tmp_path, damage):
         AdaptationEngine.from_run_dir(str(tmp_path), "latest", system=port_system())
 
 
-def test_sharded_checkpoint_is_refused_by_name(tmp_path):
-    system, state = jax_system_and_state()
-    jax_ckpt.save_checkpoint(str(tmp_path), state, {"epoch": 1}, epoch=1, num_shards=2)
-    assert os.path.exists(tmp_path / "train_model_1.shard0")
-    with pytest.raises(NotImplementedError, match="format 3"):
-        ckpt.load_for_inference(str(tmp_path), 1)
+def test_format_3_writing_is_refused_naming_a9(tmp_path):
+    _, _, tsys, tstate = pair("linear")
+    with pytest.raises(NotImplementedError, match="A9"):
+        ckpt.save_checkpoint(str(tmp_path), tstate, {"epoch": 1}, epoch=1,
+                             feature_shape=tsys.model.feature_shape, num_shards=2)
+    assert not os.listdir(tmp_path)
+
+
+def _train(system, state, seeds, jax_side=False):
+    for seed in seeds:
+        b = batch(seed=seed)
+        state, _ = system.train_step(state, _jnp(b) if jax_side else b, epoch=0)
+    return state
+
+
+def test_port_checkpoint_resumes_in_jax(tmp_path):
+    """The port trains 2 steps and saves; the JAX package's
+    ``load_checkpoint`` (with its template) resumes it, and its next step
+    equals the port's next step."""
+    jsys, jstate, tsys, tstate = pair("linear")
+    tstate = _train(tsys, tstate, (20, 21))
+    bookkeeping = {"epoch": 0, "mid_epoch_iter": 2, "best_val_acc": 0.5}
+    ckpt.save_checkpoint(str(tmp_path), tstate, bookkeeping, epoch=0, feature_shape=tsys.model.feature_shape)
+    restored, got_bk = jax_ckpt.load_checkpoint(str(tmp_path), "latest", jsys.init_train_state())
+    assert got_bk == bookkeeping and int(restored.step) == 2
+    b = batch(seed=30)
+    jnew, jout = jsys.train_step(restored, _jnp(b), epoch=0)
+    new, out = tsys.train_step(tstate, b, epoch=0)
+    _outputs_close(out, jout)
+    _state_close(tsys, new, jnew)
+
+
+def test_jax_checkpoint_resumes_in_port(tmp_path):
+    """The other way round: JAX trains 2 steps and saves (format 2); the
+    port resumes the full state, outer Adam included, on its own template,
+    and its next step equals JAX's."""
+    jsys, jstate, tsys, _ = pair("linear")
+    jstate = _train(jsys, jstate, (40, 41), jax_side=True)
+    jax_ckpt.save_checkpoint(str(tmp_path), jstate, {"epoch": 0}, epoch=0)
+    tstate, bookkeeping = ckpt.load_checkpoint(
+        str(tmp_path), 0, tsys.init_train_state(), feature_shape=tsys.model.feature_shape
+    )
+    assert bookkeeping == {"epoch": 0} and tstate.step.dtype == torch.int64 and int(tstate.step) == 2
+    _state_close(tsys, tstate, jstate, atol=0.0)  # the bytes JAX wrote
+    b = batch(seed=50)
+    jnew, jout = jsys.train_step(jstate, _jnp(b), epoch=0)
+    new, out = tsys.train_step(tstate, b, epoch=0)
+    _outputs_close(out, jout)
+    _state_close(tsys, new, jnew)
+
+
+@pytest.fixture
+def sharded(tmp_path):
+    """A format-3 checkpoint written by JAX ``save_checkpoint(num_shards=2)``
+    after one step: the linear model has an empty ``bn_state``, stored as
+    one ``__empty_dict__`` key."""
+    jsys, jstate, tsys, _ = pair("linear")
+    jstate = _train(jsys, jstate, (60,), jax_side=True)
+    jax_ckpt.save_checkpoint(str(tmp_path), jstate, {"epoch": 1}, epoch=1, num_shards=2)
+    assert os.path.exists(tmp_path / "train_model_1.shard1")
+    return tmp_path, jstate, tsys
+
+
+def test_jax_sharded_checkpoint_resumes_in_port(sharded):
+    save_dir, jstate, tsys = sharded
+    tstate, bookkeeping = ckpt.load_checkpoint(
+        str(save_dir), 1, tsys.init_train_state(), feature_shape=tsys.model.feature_shape
+    )
+    assert bookkeeping == {"epoch": 1} and tstate.bn_state == {}
+    _state_close(tsys, tstate, jstate, atol=0.0)
+    served, _ = ckpt.load_for_inference(str(save_dir), "latest")
+    np.testing.assert_array_equal(served.params["fc"]["w"], np.asarray(jstate.params["fc"]["w"]))
+
+
+def test_flipped_byte_in_a_shard_raises(sharded):
+    save_dir, _, tsys = sharded
+    shard = save_dir / "train_model_1.shard0"
+    blob = bytearray(shard.read_bytes())
+    blob[len(blob) // 2] ^= 0xFF
+    shard.write_bytes(bytes(blob))
+    with pytest.raises(ckpt.CheckpointCorruptError, match="shard"):
+        ckpt.load_checkpoint(str(save_dir), 1, tsys.init_train_state(), feature_shape=tsys.model.feature_shape)
+    with pytest.raises(ckpt.CheckpointCorruptError, match="shard"):
+        ckpt.load_for_inference(str(save_dir), 1)

@@ -1,7 +1,8 @@
 """The port's fused LSLR update (ops/fused_update.py): packing, the plain
-twin against the JAX package's Pallas update (interpret mode on the CPU),
-the bf16 rounding contract, and the wrapper's dispatch rules. The CUDA
-kernel itself runs only on the card: tests/test_torch_cuda.py."""
+twins of B1 and B2 against the JAX package's Pallas update and its
+``custom_vjp`` (interpret mode on the CPU), the bf16 rounding contracts, the
+``autograd.Function`` around them, and the wrapper's dispatch rules. The
+CUDA kernels themselves run only on the card: tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -139,11 +140,18 @@ def test_wrapper_takes_twin_on_cpu_without_counting():
 
 
 @pytest.mark.parametrize("which", ["p", "g", "lr_rows"])
-def test_wrapper_raises_for_requires_grad(which):
-    args = {"p": torch.randn(4, fu.LANE), "g": torch.randn(4, fu.LANE), "lr_rows": torch.full((4,), 0.1)}
+def test_wrapper_gradient_per_input_equals_twin(which):
+    """The wrapper takes inputs that require grad; each input's gradient is
+    its part of the twin VJP (``dp = ct``, ``dg``, ``dlr_rows``)."""
+    gen = torch.Generator().manual_seed(5)
+    args = {"p": torch.randn(4, fu.LANE, generator=gen), "g": torch.randn(4, fu.LANE, generator=gen),
+            "lr_rows": torch.rand(4, generator=gen)}
+    ct = torch.randn(4, fu.LANE, generator=gen)
     args[which].requires_grad_(True)
-    with pytest.raises(ValueError, match="requires grad"):
-        fu.fused_sgd_rows(args["p"], args["g"], args["lr_rows"])
+    (fu.fused_sgd_rows(args["p"], args["g"], args["lr_rows"]) * ct).sum().backward()
+    dg, dlr = fu.fused_sgd_bwd_reference(ct, args["g"].detach(), args["lr_rows"].detach())
+    want = {"p": ct, "g": dg, "lr_rows": dlr}[which]
+    assert torch.equal(args[which].grad, want)
 
 
 @pytest.mark.parametrize(
@@ -170,3 +178,127 @@ def test_inner_optimizer_fused_equals_unfused_f32():
     fused, _ = opt_f.update(grads, (), params, hp, batch_dims=1)
     plain, _ = opt_p.update(grads, (), params, hp, batch_dims=1)
     _assert_tree_equal(fused, plain)
+
+
+# ---------------------------------------------------------------------------
+# the backward: FusedSGD's VJP (B2's twin) against JAX and the unfused form
+# ---------------------------------------------------------------------------
+
+
+def _objective_weights(batch=()):
+    rng = np.random.RandomState(7)
+    return tree_map(lambda sh: rng.randn(*batch, *sh).astype(np.float32), _SHAPES)
+
+
+def _port_grads(params, grads, lrs, weights, fused=True, batch_dims=0):
+    """Gradients of sum(update(p, g, lr) * W) in the port: fused (the
+    Function) or unfused (``p - lr * g`` per leaf under autograd)."""
+    req = lambda tree: tree_map(lambda a: _torch_leaf(a).requires_grad_(True), tree)  # noqa: E731
+    tp, tg, tl = req(params), req(grads), req(lrs)
+    if fused:
+        layout = fu.build_layout(tp, batch_dims=batch_dims)
+        out = fu.fused_sgd_update(tp, tg, tl, layout)
+    else:
+        out = tree_map(lambda p, g, a: p - a * g, tp, tg, tl)
+    total = sum((o * _torch_leaf(w)).sum() for o, w in zip(tree_leaves(out), tree_leaves(weights)))
+    total.backward()
+    return tuple(tree_map(lambda t: t.grad, tree) for tree in (tp, tg, tl))
+
+
+def _torch_leaf(a):
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+@pytest.mark.parametrize("tasks", [0, 3], ids=["tree", "task_stacked"])
+def test_function_gradients_match_jax_custom_vjp(tasks):
+    """Gradients of sum(out * W) w.r.t. p, g and the per-tensor lrs against
+    ``jax.grad`` through the JAX package's fused update (rtol 1e-5). With a
+    task axis the JAX update is vmapped and the lr gradient sums over the
+    tasks; in the port that sum is autograd's transpose of ``lr_rows_for``."""
+    batch = (tasks,) if tasks else ()
+    params, grads, lrs, weights = _np_tree(0, batch), _np_tree(1, batch), _np_lrs(), _objective_weights(batch)
+    update = jax_fused_sgd_update if not tasks else jax.vmap(jax_fused_sgd_update, in_axes=(0, 0, None))
+
+    def objective(p, g, lr):
+        out = update(p, g, lr)
+        return sum(jnp.sum(o * w) for o, w in zip(jax.tree.leaves(out), jax.tree.leaves(weights)))
+
+    want = jax.grad(objective, argnums=(0, 1, 2))(
+        *(jax.tree.map(jnp.asarray, t) for t in (params, grads, lrs))
+    )
+    got = _port_grads(params, grads, lrs, weights, batch_dims=len(batch))
+    for got_tree, want_tree in zip(got, want):
+        for a, b in zip(tree_leaves(got_tree), jax.tree.leaves(want_tree)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+
+
+def test_function_gradients_equal_unfused_autograd():
+    """Against ``p - lr * g`` per leaf under autograd: ``dp`` and ``dg`` bit
+    for bit (the same products), the lr gradients within 1e-6 relative (the
+    row sums run in another order than the per-leaf sum)."""
+    params, grads, lrs, weights = _np_tree(0, (2,)), _np_tree(1, (2,)), _np_lrs(), _objective_weights((2,))
+    lrs_b = tree_map(lambda a: np.float32(a), lrs)
+    fused = _port_grads(params, grads, lrs_b, weights, batch_dims=1)
+    plain = _port_grads(params, grads, lrs_b, weights, fused=False)
+    for i in (0, 1):
+        _assert_tree_equal(fused[i], plain[i])
+    for a, b in zip(tree_leaves(fused[2]), tree_leaves(plain[2])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6)
+
+
+def _dlr_bound(ct32, g32):
+    """Per-row bound on two f32 sums of 128 products that add in different
+    orders: each is within 128 * 2**-24 * sum|ct * g| of the exact sum (one
+    rounding per product and per addition, at most 128 deep), so they are
+    within twice that of each other, or of a float64 sum."""
+    return 2 * 128 * 2.0**-24 * np.abs(ct32.astype(np.float64) * g32).sum(1)
+
+
+def test_backward_bf16_matches_written_contract():
+    """bf16 operands: ``dp`` and ``dg`` come back bf16, ``dlr_rows`` f32.
+    ``dg`` is ONE f32 product ``-lr * ct`` rounded once to bf16 (computed in
+    numpy), bit for bit; ``dlr_rows`` is within :func:`_dlr_bound` of a
+    float64 sum."""
+    rows = 64
+    rng = np.random.RandomState(4)
+    p = torch.from_numpy(rng.randn(rows, fu.LANE).astype(np.float32)).to(torch.bfloat16).requires_grad_(True)
+    g = torch.from_numpy(rng.randn(rows, fu.LANE).astype(np.float32)).to(torch.bfloat16).requires_grad_(True)
+    lr = torch.from_numpy(rng.uniform(1e-3, 0.5, rows).astype(np.float32)).requires_grad_(True)
+    ct = torch.from_numpy(rng.randn(rows, fu.LANE).astype(np.float32)).to(torch.bfloat16)
+    out = fu.fused_sgd_rows(p, g, lr)
+    out.backward(ct)
+    assert p.grad.dtype == g.grad.dtype == torch.bfloat16 and lr.grad.dtype == torch.float32
+    assert torch.equal(p.grad, ct)
+    ct32, g32 = ct.float().numpy(), g.detach().float().numpy()
+    want_dg = _bf16_round_np((-lr.detach().numpy()[:, None] * ct32).astype(np.float32))
+    np.testing.assert_array_equal(g.grad.view(torch.int16).numpy().view(np.uint16), want_dg)
+    exact = -(ct32.astype(np.float64) * g32).sum(1)
+    assert np.all(np.abs(lr.grad.numpy() - exact) <= _dlr_bound(ct32, g32))
+
+
+def test_double_backward_raises():
+    """The backward is the VJP only (the meta-gradient needs no more):
+    differentiating through it raises instead of returning wrong values."""
+    p = torch.randn(3, fu.LANE, requires_grad=True)
+    g = torch.randn(3, fu.LANE, requires_grad=True)
+    lr = torch.full((3,), 0.1, requires_grad=True)
+    out = fu.fused_sgd_rows(p, g, lr)
+    (dg,) = torch.autograd.grad((out * out).sum(), g, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable|twice"):
+        dg.sum().backward()
+
+
+def test_lr_column_transpose_is_the_segment_sum_over_leaves_and_tasks():
+    """``lr_rows_for`` builds the per-row column with ``cat`` and ``expand``;
+    autograd's transpose of it sums each leaf's rows, over every task, into
+    that leaf's lr: the segment-sum XLA does outside the JAX kernel."""
+    T = 3
+    layout = fu.build_layout(_torch(_np_tree(0, (T,))), batch_dims=1)
+    lrs = tree_map(lambda a: torch.tensor(float(a), requires_grad=True), _np_lrs())
+    cot = torch.randn(T * layout.rows, generator=torch.Generator().manual_seed(2))
+    (fu.lr_rows_for(lrs, layout) * cot).sum().backward()
+    per_task = cot.reshape(T, layout.rows).sum(0)
+    start = 0
+    for lr, n_rows in zip(tree_leaves(lrs), layout.leaf_rows):
+        torch.testing.assert_close(lr.grad, per_task[start : start + n_rows].sum(), rtol=1e-6, atol=0)
+        start += n_rows

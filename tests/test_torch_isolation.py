@@ -57,7 +57,7 @@ def test_importing_the_port_loads_no_jax():
         "from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine\n"
         "from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem\n"
         "from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint\n"
-        "from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update, _kernels\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update, _kernels, msl, outer_adam\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'howtotrainyourmamlpytorch_tpu'))\n"
         "assert not bad, bad\n"
