@@ -8,9 +8,9 @@ and every fast-weight leaf carries a leading task axis. Each inner step
 takes the per-task support gradients with
 ``torch.func.vmap(torch.func.grad(...))`` and then applies the inner
 optimizer OUTSIDE the vmap, to the task-stacked tree: with
-``use_pallas_inner_update`` the tasks fold into the rows of one fused-update
-launch (``ops/fused_update.py``), and in ``train_step`` the outer backward
-runs that update's backward kernel once per inner step.
+``use_pallas_inner_update`` every task's leaves update in one fused-update
+launch over the tree (``ops/fused_update.py``), and in ``train_step`` the
+outer backward runs that update's backward kernel once per inner step.
 
 ``train_step`` differentiates the meta-objective with ``torch.autograd``:
 second order keeps the graph of the inner gradients (``torch.func.grad``'s
@@ -223,7 +223,7 @@ class MAMLSystem:
             grads = task_grads(p, x_support, y_support, support_weight)
             if not second_order:
                 grads = tree_map(torch.Tensor.detach, grads)
-            return self.inner_opt.update(grads, opt_s, p, hp, batch_dims=1)
+            return self.inner_opt.update(grads, opt_s, p, hp)
 
         return inner_update
 

@@ -1,124 +1,73 @@
-// Fused LSLR inner-SGD update for Hopper (sm_90a): out = p - lr_row * g.
+// B1: the fused LSLR inner-SGD update for Hopper (sm_90a), one launch over
+// the whole parameter tree: out_i = p_i - lr_i * g_i for every leaf i.
 //
-// Replaces: howtotrainyourmamlpytorch_tpu/ops/pallas_update.py::_fwd_kernel
-// (launched by _fused_sgd_fwd_impl through pl.pallas_call). It computes the
-// same function over the same packed layout: the whole parameter tree, for
-// every task of a flush, packed into one [rows, 128] buffer, with one f32 lr
-// per 128-lane row (gathered by the caller from the per-tensor lr vector).
+// Replaces: howtotrainyourmamlpytorch_tpu/ops/pallas_update.py:125
+// (_fwd_kernel, launched by _fused_sgd_fwd_impl through pl.pallas_call at
+// :159). The TPU kernel takes the tree packed into [rows, 128] tiles for
+// VMEM and a per-row lr column gathered by XLA. This kernel takes the
+// leaves where they lie, through the leaf table in its launch parameters
+// (csrc/tree_chunks.cuh), and reads each leaf's lr itself: no pack, pad,
+// concat, gather or slice runs around it.
 //
-// Numerics: accumulate in f32 and round once to the operand dtype on store.
-// __fmul_rn / __fsub_rn forbid FMA contraction, and __floats2bfloat162_rn
-// rounds to nearest even, so the result equals the plain PyTorch twin
-// (ops/fused_update.py::fused_sgd_rows_reference: a mul kernel, then a sub
-// kernel, then a cast) bit for bit, in f32 and in bf16.
+// Numerics: accumulate in f32 and round once to the operand dtype on
+// store. __fmul_rn / __fsub_rn forbid FMA contraction and
+// __floats2bfloat162_rn / __float2bfloat16_rn round to nearest even, so the
+// result equals the plain PyTorch twin
+// (ops/fused_update.py::fused_sgd_tree_reference: a mul kernel, a sub
+// kernel, a cast) bit for bit, in f32 and in bf16.
 //
-// What bounds it: memory. Per element it reads p and g and writes out (12
-// bytes in f32, 6 in bf16) for two flops, plus one f32 lr per 128-lane row.
-// That is 1/6 flop per byte against the ~20 flops per byte (67 TFLOP/s f32
-// over 3.35 TB/s) where the H100's arithmetic would start to bind, so the
-// only lever is moving the bytes at full rate. The design does that and
-// nothing else:
-//   - 16-byte vector loads and stores (float4 / 8 x bf16), neighbouring
-//     threads on neighbouring addresses, so every warp access is a full,
-//     coalesced 512-byte transaction;
-//   - a grid-stride loop over a grid sized to a few blocks per SM, so one
-//     launch covers any task count with no tail launch;
-//   - the lr is read through the read-only path (__ldg); consecutive vectors
-//     of a row share it, so it costs one L1 hit per 32 (f32) or 16 (bf16)
-//     vectors;
-//   - no shared memory and no synchronisation: there is no reuse to stage.
+// What bounds it: bytes. Per element it reads p and g and writes out (12
+// bytes in f32, 6 in bf16) for two flops: 1/6 flop per byte against the ~20
+// where the H100's f32 arithmetic would bind. At the main path's tree (the
+// VGG-64 tree of configs/default.yaml, 18 leaves, 113,236 elements per
+// task, 8 tasks: 905,888 elements) that is 10.87 MB, 3.245 us at 3.35 TB/s
+// in f32 and 1.62 us in bf16. At that size a launch is one short wave, and
+// what costs time is latency: the launch itself (an empty kernel, timed as
+// chip_smoke.py times this one, takes ~4.7 us on the H100), DRAM latency,
+// and the chain of dependent reads a block makes before its first data
+// load. So every byte is requested at the start by fat blocks (four
+// 16-byte loads per operand in flight per thread), a block finds its leaf
+// with two dependent reads of the table, and the stores leave as 16-byte
+// vectors (csrc/tree_chunks.cuh). PERF.md has the times, beside the
+// previous design's (which read one packed buffer and so found its data
+// with one read).
 //
-// Interface: plain C, bound with ctypes. Pointers and the stream are
-// passed as void*; the function returns the cudaError_t of the launch.
+// Interface: plain C, bound with ctypes. The function takes kRecordWords
+// uint64 words per leaf and the stream as void*, builds the leaf table (and
+// with it the split into chunks), and returns the cudaError_t of the
+// launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tree_chunks.cuh"
 
 namespace {
 
-constexpr int kLane = 128;
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
-
-__global__ void __launch_bounds__(kThreads)
-fused_sgd_f32_kernel(const float4* __restrict__ p, const float4* __restrict__ g,
-                     const float* __restrict__ lr_rows, float4* __restrict__ out,
-                     int64_t n_vec) {
-  constexpr int kVecPerRow = kLane / 4;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
-    const float lr = __ldg(lr_rows + i / kVecPerRow);
-    const float4 pv = p[i];
-    const float4 gv = g[i];
-    float4 o;
-    o.x = __fsub_rn(pv.x, __fmul_rn(lr, gv.x));
-    o.y = __fsub_rn(pv.y, __fmul_rn(lr, gv.y));
-    o.z = __fsub_rn(pv.z, __fmul_rn(lr, gv.z));
-    o.w = __fsub_rn(pv.w, __fmul_rn(lr, gv.w));
-    out[i] = o;
+struct SgdForward {
+  static constexpr bool kReduce = false;
+  static __device__ __forceinline__ float out(float lr, float p, float g) {
+    return __fsub_rn(p, __fmul_rn(lr, g));
   }
-}
+};
 
-__global__ void __launch_bounds__(kThreads)
-fused_sgd_bf16_kernel(const uint4* __restrict__ p, const uint4* __restrict__ g,
-                      const float* __restrict__ lr_rows, uint4* __restrict__ out,
-                      int64_t n_vec) {
-  constexpr int kVecPerRow = kLane / 8;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
-    const float lr = __ldg(lr_rows + i / kVecPerRow);
-    const uint4 pv = p[i];
-    const uint4 gv = g[i];
-    const __nv_bfloat162* pp = reinterpret_cast<const __nv_bfloat162*>(&pv);
-    const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
-    uint4 ov;
-    __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&ov);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 pf = __bfloat1622float2(pp[k]);
-      const float2 gf = __bfloat1622float2(gp[k]);
-      op[k] = __floats2bfloat162_rn(__fsub_rn(pf.x, __fmul_rn(lr, gf.x)),
-                                    __fsub_rn(pf.y, __fmul_rn(lr, gf.y)));
-    }
-    out[i] = ov;
-  }
-}
-
-int grid_for(int64_t n_vec) {
-  int device = 0;
-  int sms = 132;
-  if (cudaGetDevice(&device) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  const int64_t needed = (n_vec + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
-  return static_cast<int>(needed < cap ? (needed > 0 ? needed : 1) : cap);
+template <typename T>
+__global__ void __launch_bounds__(tree::kThreads) fused_sgd_kernel(const __grid_constant__ tree::Table tab) {
+  tree::walk<SgdForward, T>(tab, nullptr);
 }
 
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16. p, g, out: [n_rows, 128] contiguous,
-// 16-byte aligned; lr_rows: [n_rows] float32. Returns a cudaError_t.
-extern "C" int fused_sgd_forward(const void* p, const void* g, const void* lr_rows,
-                                 void* out, int64_t n_rows, int dtype_code,
-                                 void* stream) {
-  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+// records: n_leaves x {p, g, out, lr, numel}; p, g, out contiguous, in
+// dtype_code's type (0 = float32, 1 = bfloat16); lr a float32 scalar on the
+// card.
+extern "C" int fused_sgd_forward(const uint64_t* records, int n_leaves, int dtype_code, void* stream) {
+  if (dtype_code != 0 && dtype_code != 1) return static_cast<int>(cudaErrorInvalidValue);
+  tree::Table tab{};
+  const int grid = tree::fill_table(records, n_leaves, dtype_code == 0 ? 4 : 2, &tab);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) {
-    const int64_t n_vec = n_rows * (kLane / 4);
-    fused_sgd_f32_kernel<<<grid_for(n_vec), kThreads, 0, s>>>(
-        static_cast<const float4*>(p), static_cast<const float4*>(g),
-        static_cast<const float*>(lr_rows), static_cast<float4*>(out), n_vec);
-  } else if (dtype_code == 1) {
-    const int64_t n_vec = n_rows * (kLane / 8);
-    fused_sgd_bf16_kernel<<<grid_for(n_vec), kThreads, 0, s>>>(
-        static_cast<const uint4*>(p), static_cast<const uint4*>(g),
-        static_cast<const float*>(lr_rows), static_cast<uint4*>(out), n_vec);
+    fused_sgd_kernel<float><<<grid, tree::kThreads, 0, s>>>(tab);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    fused_sgd_kernel<__nv_bfloat16><<<grid, tree::kThreads, 0, s>>>(tab);
   }
   return static_cast<int>(cudaGetLastError());
 }

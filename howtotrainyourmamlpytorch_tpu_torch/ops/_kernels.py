@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``. Nothing is built
+Each ``csrc/*.cu`` file (with the headers ``csrc/*.cuh`` it includes) is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface and loaded with ``ctypes``. Nothing is built
 when this module is imported: :func:`library` builds a source at its first
 use, from the repository's sources only, into ``build/`` beside this package
 (listed in ``.gitignore``). A library's file name carries a hash of its
-source and flags, so an edited kernel is rebuilt and a built one is reused.
+sources and flags, so an edited kernel is rebuilt and a built one is reused.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for all.
 """
 
@@ -27,16 +28,15 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# the C functions each source exports: name -> (argtypes, restype)
+# the C functions each source exports: name -> (argtypes, restype). The
+# leaf records are kRecordWords uint64 words per leaf (csrc/tree_chunks.cuh).
+_RECORDS = ctypes.POINTER(ctypes.c_uint64)
 _SIGNATURES = {
     "fused_sgd.cu": {
         "fused_sgd_forward": (
             [
-                ctypes.c_void_p,  # p
-                ctypes.c_void_p,  # g
-                ctypes.c_void_p,  # lr_rows
-                ctypes.c_void_p,  # out
-                ctypes.c_int64,  # n_rows
+                _RECORDS,  # records: p, g, out, lr, numel per leaf
+                ctypes.c_int,  # n_leaves
                 ctypes.c_int,  # dtype code
                 ctypes.c_void_p,  # stream
             ],
@@ -46,16 +46,24 @@ _SIGNATURES = {
     "fused_sgd_bwd.cu": {
         "fused_sgd_backward": (
             [
-                ctypes.c_void_p,  # ct
-                ctypes.c_void_p,  # g
-                ctypes.c_void_p,  # lr_rows
-                ctypes.c_void_p,  # dg
-                ctypes.c_void_p,  # dlr_rows
-                ctypes.c_int64,  # n_rows
+                _RECORDS,  # records: ct, g, dg, lr, numel per leaf
+                ctypes.c_int,  # n_leaves
+                ctypes.c_void_p,  # partial: float32 scratch, one per chunk
+                ctypes.c_int,  # its length
+                ctypes.c_void_p,  # dlr: [n_leaves] float32
                 ctypes.c_int,  # dtype code
                 ctypes.c_void_p,  # stream
             ],
             ctypes.c_int,
+        ),
+        "fused_sgd_chunks": (
+            [
+                _RECORDS,  # records, as fused_sgd_backward's
+                ctypes.c_int,  # n_leaves
+                ctypes.c_int,  # dtype code
+                ctypes.POINTER(ctypes.c_int32),  # first_chunk: [n_leaves + 1] out, or None
+            ],
+            ctypes.c_int,  # the chunk count, -1 if the records are out of range
         ),
     },
 }
@@ -80,8 +88,14 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path; its name hashes the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
 

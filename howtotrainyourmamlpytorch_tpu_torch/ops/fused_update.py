@@ -1,265 +1,285 @@
 """The fused LSLR inner update, ``p <- p - lr_t * g`` with one learned lr per
-parameter tensor, as ONE kernel launch over the whole parameter tree, and
-its backward as one more (JAX package ``ops/pallas_update.py``; the CUDA
-kernels are ``csrc/fused_sgd.cu``, B1, and ``csrc/fused_sgd_bwd.cu``, B2).
+parameter tensor, as ONE kernel launch over the parameter tree where its
+leaves lie, and its backward as one more (JAX package
+``ops/pallas_update.py``; the CUDA kernels are ``csrc/fused_sgd.cu``, B1,
+and ``csrc/fused_sgd_bwd.cu``, B2).
 
-Layout: every leaf is flattened and padded to whole 128-lane rows, and the
-leaves are laid end to end in sorted-key order, so a tree becomes one
-``[rows, 128]`` buffer; a tree whose leaves share a leading task axis ``T``
-becomes ``[T * rows, 128]`` (task-major), and the task axis is simply more
-rows. The lr travels as one f32 per row, gathered from the per-tensor lr
-vector. Unlike the TPU kernels there is no padding of the row count to a
-tile multiple: the CUDA kernels walk the rows with a grid-stride loop.
+Interface: ``L`` parameter leaves ``p_i`` of any shapes (with or without a
+leading task axis), ``L`` gradient leaves ``g_i`` of the same shapes and
+one dtype (float32 or bfloat16), and ``L`` float32 0-d lrs ``lr_i``. Each
+kernel takes a table of the leaves' pointers in its launch parameters and
+reads every lr in the kernel: nothing is packed, padded, gathered or copied
+around a launch. The JAX package packs the tree into ``[rows, 128]`` tiles
+for the TPU's VMEM and leaves the lr gather and the lr segment-sum to XLA;
+here the kernels work on the leaves as they lie and sum the lr gradient
+themselves.
 
 Numerics (the JAX docstring's contract): accumulate in f32, the lr's dtype,
-and round once to the operand dtype on store. With f32 operands the forward
-is the plain ``p - lr * g``. The backward gives ``dp = ct``,
-``dg = -lr * ct`` (one rounding to the operand dtype) and the per-row lr
-cotangent ``-sum(ct * g)`` in f32.
+and round once to the operand dtype on store. The forward is
+``out_i = p_i - lr_i * g_i`` with the product rounded before the
+difference. The backward gives ``dp_i = ct_i`` (as it is), ``dg_i =
+-lr_i * ct_i`` (one rounding to the operand dtype) and the per-tensor lr
+cotangent ``dlr_i = -sum(ct_i * g_i)`` over all of the leaf's elements and
+tasks, in f32.
 
-:func:`fused_sgd_rows` is ``FusedSGD.apply``, an ``autograd.Function``
-whose forward is B1 and whose backward is B2: the second-order meta-gradient
-flows through it into the fast weights, the inner gradients and the lrs.
-For CUDA tensors each launches its kernel or raises; for CPU tensors each
-computes its plain PyTorch twin (:func:`fused_sgd_rows_reference`,
-:func:`fused_sgd_bwd_reference`), because the tensors lie on the CPU. The
-per-row lr column is built differentiably (:func:`lr_rows_for`: ``cat`` and
-``expand``), so autograd's transpose of it segment-sums the row cotangents
-over leaves and tasks into the per-tensor lr gradients, the step XLA does
-outside the JAX backward kernel.
+:class:`FusedSGD` is an ``autograd.Function`` whose forward is B1 and whose
+backward is B2: the second-order meta-gradient flows through it into the
+fast weights, the inner gradients and the lrs. For CUDA tensors each
+launches its kernel or raises; for CPU tensors each computes its plain
+PyTorch twin (:func:`fused_sgd_tree_reference`,
+:func:`fused_sgd_tree_bwd_reference`), because the tensors lie on the CPU.
+
+Work split: the kernels cut each leaf into chunks of 16 KB per operand
+(four 16-byte vectors for each of a block's 256 threads); no chunk crosses
+a leaf. A leaf whose operands start on 16-byte boundaries has a vector
+body and a scalar rest of fewer than one vector; any other leaf is read
+element by element, in the same launch. The split is made in C, from each
+leaf's pointers and element count (csrc/tree_chunks.cuh ``fill_table``);
+:func:`chunk_starts` reads it back. A leaf that is not contiguous (a
+stride-0 cotangent, a slice, the transposed cotangent a batched linear
+layer's backward gives its weight) is copied first and counted in
+``contiguous_copies``.
 """
 
-import math
-from typing import NamedTuple, Tuple
+from typing import List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from ..utils.trees import Path, tree_flatten, tree_leaves, tree_unflatten
-from .precision import as_f32
+from ..utils.trees import tree_flatten, tree_unflatten
 
-LANE = 128
 KERNEL_SOURCE = "fused_sgd.cu"
 BWD_KERNEL_SOURCE = "fused_sgd_bwd.cu"
+#: leaves the kernels' table holds (csrc/tree_chunks.cuh kMaxLeaves); the
+#: table travels in the launch's parameter space, which is 4 KB
+MAX_LEAVES = 64
+#: elements of one leaf the kernels index in 32 bits
+MAX_LEAF_ELEMENTS = (1 << 31) - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last :func:`reset_launch_counts` (CPU calls,
 #: which take the twin, do not count)
 launch_counts = {"fused_sgd": 0, "fused_sgd_bwd": 0}
+#: non-contiguous leaves the CUDA wrappers copied before a launch, since the
+#: last :func:`reset_launch_counts`
+contiguous_copies = 0
 
 
 def reset_launch_counts() -> None:
+    global contiguous_copies
     for name in launch_counts:
         launch_counts[name] = 0
+    contiguous_copies = 0
 
 
-class PackedLayout(NamedTuple):
-    """Static description of the tree -> ``[batch * rows, 128]`` packing."""
-
-    paths: Tuple[Path, ...]
-    shapes: Tuple[Tuple[int, ...], ...]  # per-task leaf shapes
-    leaf_rows: Tuple[int, ...]  # 128-lane rows each leaf occupies
-    rows: int  # rows per task
-    batch: Tuple[int, ...]  # leading task axes shared by every leaf: () or (T,)
-
-
-def build_layout(tree, batch_dims: int = 0) -> PackedLayout:
-    """Layout of ``tree``; its leaves' first ``batch_dims`` axes are task
-    axes, packed as extra rows."""
-    leaves, paths = tree_flatten(tree)
-    batch = tuple(leaves[0].shape[:batch_dims]) if leaves else ()
-    shapes = []
-    for leaf in leaves:
-        if tuple(leaf.shape[:batch_dims]) != batch:
-            raise ValueError(f"leaves disagree on the task axes: {batch} vs {tuple(leaf.shape)}")
-        shapes.append(tuple(leaf.shape[batch_dims:]))
-    leaf_rows = tuple(max(1, -(-math.prod(s) // LANE)) for s in shapes)
-    return PackedLayout(tuple(paths), tuple(shapes), leaf_rows, sum(leaf_rows), batch)
+def dlr_rounding_chain(chunks: int, element_size: int) -> int:
+    """The longest chain of roundings a product ``ct * g`` passes in B2's sum
+    over a leaf of ``chunks`` chunks (csrc/fused_sgd_bwd.cu): 4 V + 1 fused
+    multiply-adds in a thread (four 16-byte vectors of V elements and a rest
+    element), 5 shuffle levels in its warp and 3 over the block's 8 warps
+    give a chunk's partial; then ceil(chunks / 32) additions in a lane and 5
+    shuffle levels in the last block. So B2's ``dlr`` lies within
+    (chain + 1) * 2**-24 * sum|ct * g| of the exact sum."""
+    return (4 * (16 // element_size) + 1) + 5 + 3 + -(-chunks // 32) + 5
 
 
-def pack(tree, layout: PackedLayout) -> torch.Tensor:
-    """Tree -> contiguous ``[batch * rows, 128]`` buffer (zeros in padding)."""
-    parts = []
-    for leaf, n_rows in zip(tree_leaves(tree), layout.leaf_rows):
-        flat = leaf.reshape(*layout.batch, -1)
-        parts.append(F.pad(flat, (0, n_rows * LANE - flat.shape[-1])))
-    return torch.cat(parts, dim=-1).reshape(-1, LANE)
+# ---------------------------------------------------------------------------
+# plain twins (CPU tensors; chip_smoke.py holds the kernels against them)
+# ---------------------------------------------------------------------------
 
 
-def unpack(buf: torch.Tensor, layout: PackedLayout):
-    """``[batch * rows, 128]`` buffer -> tree whose leaves are views into it."""
-    flat = buf.reshape(*layout.batch, layout.rows * LANE)
-    leaves, offset = [], 0
-    for shape, n_rows in zip(layout.shapes, layout.leaf_rows):
-        size = math.prod(shape)
-        leaves.append(flat[..., offset : offset + size].reshape(*layout.batch, *shape))
-        offset += n_rows * LANE
-    return tree_unflatten(list(layout.paths), leaves)
+def fused_sgd_tree_reference(ps, gs, lrs) -> List[torch.Tensor]:
+    """B1's plain twin, per leaf: f32 multiply, f32 subtract, one rounding
+    to the operand dtype."""
+    return [(p.float() - lr * g.float()).to(p.dtype) for p, g, lr in zip(ps, gs, lrs)]
 
 
-def lr_rows_for(lr_tree, layout: PackedLayout) -> torch.Tensor:
-    """Per-row f32 lr column ``[batch * rows]``: each leaf's scalar lr
-    repeated over that leaf's rows, then over the task axis."""
-    per_task = torch.cat(
-        [
-            as_f32(lr.reshape(1)).expand(n_rows)
-            for lr, n_rows in zip(tree_leaves(lr_tree), layout.leaf_rows)
-        ]
-    )
-    tasks = math.prod(layout.batch)
-    return per_task.expand(tasks, layout.rows).reshape(-1)
+def fused_sgd_tree_bwd_reference(cts, gs, lrs) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """B2's plain twin -> ``(dg, dlr)``: per leaf ``dg = -lr * ct`` as one
+    f32 product rounded once to the operand dtype, and ``dlr [L]`` with
+    ``dlr_i = -sum(ct_i * g_i)``, one float32 ``sum`` over the leaf."""
+    dgs = [(-lr * ct.float()).to(ct.dtype) for ct, lr in zip(cts, lrs)]
+    dlr = torch.stack([-(ct.float() * g.float()).sum() for ct, g in zip(cts, gs)])
+    return dgs, dlr
 
 
-def fused_sgd_rows_reference(p_buf, g_buf, lr_rows):
-    """B1's plain twin: f32 multiply, f32 subtract, one rounding to the
-    operand dtype."""
-    return (p_buf.float() - lr_rows[:, None] * g_buf.float()).to(p_buf.dtype)
+# ---------------------------------------------------------------------------
+# checks and launches
+# ---------------------------------------------------------------------------
 
 
-def fused_sgd_bwd_reference(ct, g_buf, lr_rows):
-    """B2's plain twin -> ``(dg, dlr_rows)``: ``dg = -lr_row * ct`` as one
-    f32 product rounded once to the operand dtype, ``dlr_row = -sum(ct * g)``
-    over the row's lanes in f32."""
-    dg = (-lr_rows[:, None] * ct.float()).to(ct.dtype)
-    dlr_rows = -(ct.float() * g_buf.float()).sum(1)
-    return dg, dlr_rows
-
-
-def _check(p_buf, g_buf, lr_rows, names=("p", "g")) -> None:
-    """Shape, dtype and device checks shared by both kernels' wrappers:
-    two ``[rows, 128]`` operands of one dtype (float32 or bfloat16) and a
-    float32 ``[rows]`` lr column, all on one device."""
+def _check(ps, gs, lrs, names=("p", "g")) -> None:
+    """What both kernels take: 1 to MAX_LEAVES leaves, operands of one dtype
+    (float32 or bfloat16) with equal shapes per leaf, 0-d float32 lrs, all
+    on one device."""
     a, b = names
-    if p_buf.dim() != 2 or p_buf.shape[1] != LANE or g_buf.shape != p_buf.shape:
+    if not (len(ps) == len(gs) == len(lrs)) or not ps:
+        raise ValueError(f"fused_sgd: {len(ps)} {a}, {len(gs)} {b} and {len(lrs)} lr leaves")
+    if len(ps) > MAX_LEAVES:
         raise ValueError(
-            f"fused_sgd: {a} and {b} must both be [rows, {LANE}], got "
-            f"{tuple(p_buf.shape)} and {tuple(g_buf.shape)}"
+            f"fused_sgd: {len(ps)} leaves, the kernels' table holds {MAX_LEAVES} (the "
+            "launch's 4 KB parameter space); deeper trees come with ROADMAP.md A6 "
+            "(ResNet/DenseNet)"
         )
-    if lr_rows.shape != (p_buf.shape[0],) or lr_rows.dtype != torch.float32:
-        raise ValueError(
-            f"fused_sgd: lr_rows must be float32 [{p_buf.shape[0]}], got "
-            f"{lr_rows.dtype} {tuple(lr_rows.shape)}"
-        )
-    if p_buf.dtype not in _DTYPE_CODES or g_buf.dtype != p_buf.dtype:
-        raise TypeError(
-            f"fused_sgd: {a} and {b} must share a dtype in float32/bfloat16, "
-            f"got {p_buf.dtype} and {g_buf.dtype}"
-        )
-    if not (p_buf.device == g_buf.device == lr_rows.device):
-        raise ValueError(f"fused_sgd: {a}, {b} and lr_rows must be on one device")
+    dtype, device = ps[0].dtype, ps[0].device
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_sgd: operands must be float32 or bfloat16, got {dtype}")
+    for i, (p, g, lr) in enumerate(zip(ps, gs, lrs)):
+        if p.dtype != dtype or g.dtype != dtype:
+            raise TypeError(f"fused_sgd: leaf {i}: {a} {p.dtype} and {b} {g.dtype}, expected {dtype}")
+        if p.shape != g.shape:
+            raise ValueError(f"fused_sgd: leaf {i}: {a} {tuple(p.shape)} and {b} {tuple(g.shape)} differ")
+        if p.numel() > MAX_LEAF_ELEMENTS:
+            raise ValueError(f"fused_sgd: leaf {i} has {p.numel()} elements, the kernels take {MAX_LEAF_ELEMENTS}")
+        if lr.dtype != torch.float32 or lr.dim() != 0:
+            raise ValueError(f"fused_sgd: leaf {i}: lr must be a 0-d float32 tensor, got {lr.dtype} {tuple(lr.shape)}")
+        if not (p.device == g.device == lr.device == device):
+            raise ValueError(f"fused_sgd: leaf {i}: {a}, {b} and lr must all be on {device}")
 
 
-def _cuda_operands(**tensors) -> None:
-    """The kernels take contiguous, 16-byte aligned CUDA tensors only."""
-    for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"fused_sgd: no kernel for device {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"fused_sgd: {name} must be contiguous and 16-byte aligned")
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    global contiguous_copies
+    if t.is_contiguous():
+        return t
+    contiguous_copies += 1
+    return t.contiguous()
 
 
-def _launch_forward(p_buf, g_buf, lr_rows):
-    """B1 (csrc/fused_sgd.cu), one launch on the current stream."""
-    _cuda_operands(p=p_buf, g=g_buf, lr_rows=lr_rows)
+def _prepare(a_leaves, b_leaves, lrs):
+    """For one launch -> ``(a_leaves, b_leaves, outs, records)``: the
+    operands as the kernels read them (a leaf that is not contiguous is
+    copied and counted in ``contiguous_copies``), the outputs, and the leaf
+    records the C functions take (per leaf ``a, b, out, lr, numel``:
+    csrc/tree_chunks.cuh). The records hold bare pointers: the caller keeps
+    the returned operands alive until the launch is enqueued, or a copy's
+    memory could go to another tensor of the stream first."""
+    import ctypes
+
+    a_leaves = [_contiguous(a) for a in a_leaves]
+    b_leaves = [_contiguous(b) for b in b_leaves]
+    outs = [torch.empty(b.shape, dtype=b.dtype, device=b.device) for b in b_leaves]
+    records = []
+    for a, b, out, lr in zip(a_leaves, b_leaves, outs, lrs):
+        records += [a.data_ptr(), b.data_ptr(), out.data_ptr(), lr.data_ptr(), a.numel()]
+    return a_leaves, b_leaves, outs, (ctypes.c_uint64 * len(records))(*records)
+
+
+def _library(source: str, device: torch.device):
+    if device.type != "cuda":
+        raise ValueError(f"fused_sgd: no kernel for device {device}")
     from ._kernels import library
 
-    lib = library(KERNEL_SOURCE)
-    out = torch.empty_like(p_buf)
-    with torch.cuda.device(p_buf.device):
+    return library(source)
+
+
+def _launch_forward(ps, gs, lrs) -> List[torch.Tensor]:
+    """B1 (csrc/fused_sgd.cu), one launch on the current stream."""
+    device = ps[0].device
+    lib = _library(KERNEL_SOURCE, device)
+    ps, gs, outs, records = _prepare(ps, gs, lrs)
+    with torch.cuda.device(device):
         err = lib.fused_sgd_forward(
-            p_buf.data_ptr(),
-            g_buf.data_ptr(),
-            lr_rows.data_ptr(),
-            out.data_ptr(),
-            p_buf.shape[0],
-            _DTYPE_CODES[p_buf.dtype],
-            torch.cuda.current_stream(p_buf.device).cuda_stream,
+            records, len(lrs), _DTYPE_CODES[ps[0].dtype], torch.cuda.current_stream(device).cuda_stream
         )
     if err != 0:
         raise RuntimeError(f"fused_sgd_forward failed: cudaError_t {err}")
     launch_counts["fused_sgd"] += 1
-    return out
+    return outs
 
 
-def _launch_backward(ct, g_buf, lr_rows):
-    """B2 (csrc/fused_sgd_bwd.cu), one launch on the current stream."""
-    _cuda_operands(ct=ct, g=g_buf, lr_rows=lr_rows)
-    from ._kernels import library
-
-    lib = library(BWD_KERNEL_SOURCE)
-    dg = torch.empty_like(g_buf)
-    dlr_rows = torch.empty_like(lr_rows)
-    with torch.cuda.device(ct.device):
+def _launch_backward(cts, gs, lrs):
+    """B2 (csrc/fused_sgd_bwd.cu), one launch on the current stream -> ``dg``
+    per leaf and ``dlr [L]``. The kernel writes one partial sum per chunk
+    into scratch and its last block adds them up."""
+    device = cts[0].device
+    lib = _library(BWD_KERNEL_SOURCE, device)
+    cts, gs, dgs, records = _prepare(cts, gs, lrs)
+    code = _DTYPE_CODES[cts[0].dtype]
+    n_chunks = lib.fused_sgd_chunks(records, len(lrs), code, None)
+    if n_chunks <= 0:
+        raise RuntimeError(f"fused_sgd_chunks failed: {n_chunks}")
+    partial = torch.empty(n_chunks, dtype=torch.float32, device=device)
+    dlr = torch.empty(len(lrs), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
         err = lib.fused_sgd_backward(
-            ct.data_ptr(),
-            g_buf.data_ptr(),
-            lr_rows.data_ptr(),
-            dg.data_ptr(),
-            dlr_rows.data_ptr(),
-            ct.shape[0],
-            _DTYPE_CODES[ct.dtype],
-            torch.cuda.current_stream(ct.device).cuda_stream,
+            records, len(lrs), partial.data_ptr(), n_chunks, dlr.data_ptr(), code,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_sgd_backward failed: cudaError_t {err}")
     launch_counts["fused_sgd_bwd"] += 1
-    return dg, dlr_rows
+    return dgs, dlr
 
 
-def fused_sgd_rows_backward(ct, g_buf, lr_rows):
-    """B2's wrapper -> ``(dg, dlr_rows)``: the CUDA kernel for CUDA tensors
-    (one launch, counted), the plain twin for CPU tensors."""
-    _check(ct, g_buf, lr_rows, names=("ct", "g"))
-    if ct.device.type == "cpu":
-        return fused_sgd_bwd_reference(ct, g_buf, lr_rows)
-    return _launch_backward(ct, g_buf, lr_rows)
+def chunk_starts(a_leaves, b_leaves) -> List[int]:
+    """The split a launch over these CUDA leaves makes (csrc/tree_chunks.cuh
+    ``fill_table``): where each leaf's chunks start, then the chunk count.
+    For the error bound of B2's ``dlr`` (:func:`dlr_rounding_chain`); it
+    launches nothing."""
+    import ctypes
+
+    lrs = [torch.zeros((), device=a_leaves[0].device)] * len(a_leaves)
+    _check(a_leaves, b_leaves, lrs)
+    lib = _library(BWD_KERNEL_SOURCE, a_leaves[0].device)
+    a_leaves, b_leaves, _, records = _prepare(a_leaves, b_leaves, lrs)
+    starts = (ctypes.c_int32 * (len(a_leaves) + 1))()
+    if lib.fused_sgd_chunks(records, len(a_leaves), _DTYPE_CODES[a_leaves[0].dtype], starts) <= 0:
+        raise RuntimeError("fused_sgd_chunks failed")
+    return list(starts)
+
+
+def fused_sgd_tree_backward(cts, gs, lrs):
+    """B2's wrapper -> ``(dg per leaf, dlr [L])``: the CUDA kernel for CUDA
+    tensors (one launch, counted), the plain twin for CPU tensors."""
+    _check(cts, gs, lrs, names=("ct", "g"))
+    if cts[0].device.type == "cpu":
+        return fused_sgd_tree_bwd_reference(cts, gs, lrs)
+    return _launch_backward(cts, gs, lrs)
 
 
 class FusedSGD(torch.autograd.Function):
-    """``out = p - lr_rows[:, None] * g`` with its VJP, as the JAX package's
-    ``jax.custom_vjp`` ``_fused_sgd`` gives it: forward B1, backward B2
-    (``dp = ct``, returned as it is). CPU tensors take the twins. The
-    backward is the VJP only: differentiating it again raises."""
+    """``apply(n, *p, *g, *lr) -> tuple(out)``, ``out_i = p_i - lr_i * g_i``
+    over ``n`` leaves, with its VJP, as the JAX package's ``jax.custom_vjp``
+    ``_fused_sgd`` gives it: forward B1, backward B2 (``dp = ct``, returned
+    as it is; ``dlr`` as 0-d views of B2's ``[n]`` output). CPU tensors take
+    the twins. The backward is the VJP only: differentiating it again
+    raises."""
 
     @staticmethod
-    def forward(p_buf, g_buf, lr_rows):
-        if p_buf.device.type == "cpu":
-            return fused_sgd_rows_reference(p_buf, g_buf, lr_rows)
-        return _launch_forward(p_buf, g_buf, lr_rows)
+    def forward(n, *leaves):
+        ps, gs, lrs = leaves[:n], leaves[n : 2 * n], leaves[2 * n :]
+        _check(ps, gs, lrs)
+        if ps[0].device.type == "cpu":
+            return tuple(fused_sgd_tree_reference(ps, gs, lrs))
+        return tuple(_launch_forward(ps, gs, lrs))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, g_buf, lr_rows = inputs
-        ctx.save_for_backward(g_buf, lr_rows)
+        n = inputs[0]
+        ctx.n = n
+        ctx.save_for_backward(*inputs[1 + n :])
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, ct):
-        g_buf, lr_rows = ctx.saved_tensors
-        if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
-            return ct, None, None
-        dg, dlr_rows = fused_sgd_rows_backward(ct.contiguous(), g_buf, lr_rows)
-        return ct, dg, dlr_rows
+    def backward(ctx, *cts):
+        n = ctx.n
+        saved = ctx.saved_tensors
+        gs, lrs = saved[:n], saved[n:]
+        if not any(ctx.needs_input_grad[1 + n :]):
+            return (None, *cts) + (None,) * (2 * n)
+        dgs, dlr = fused_sgd_tree_backward(cts, gs, lrs)
+        return (None, *cts, *dgs, *dlr.unbind())
 
 
-def fused_sgd_rows(p_buf, g_buf, lr_rows):
-    """``out = p - lr_rows[:, None] * g`` over packed buffers, differentiable
-    in all three: B1 for CUDA tensors (one launch, counted) with B2 as its
-    backward, the plain twins for CPU tensors."""
-    _check(p_buf, g_buf, lr_rows)
-    return FusedSGD.apply(p_buf, g_buf, lr_rows)
-
-
-def fused_sgd_update(params, grads, lr_tree, layout: PackedLayout = None):
+def fused_sgd_update(params, grads, lr_tree):
     """One LSLR SGD step ``p - lr_t * g`` over the whole tree as one kernel
-    launch, differentiable in params, grads and lrs. ``lr_tree`` holds one scalar per leaf. The leaves of ``params``
-    and ``grads`` may share one leading task axis (``layout`` built with
-    ``batch_dims=1``): the tasks of a flush then update in the same launch.
-    Returns a tree of views into the kernel's output buffer."""
-    if layout is None:
-        layout = build_layout(params)
-    out = fused_sgd_rows(
-        pack(params, layout), pack(grads, layout), lr_rows_for(lr_tree, layout)
-    )
-    return unpack(out, layout)
+    launch, differentiable in params, grads and lrs (B2 in the backward).
+    ``lr_tree`` holds one scalar per leaf. The leaves of ``params`` and
+    ``grads`` may carry a leading task axis: the tasks of a flush then
+    update in the same launch. Returns a tree of new tensors."""
+    ps, paths = tree_flatten(params)
+    gs, g_paths = tree_flatten(grads)
+    lrs, lr_paths = tree_flatten(lr_tree)
+    if not (paths == g_paths == lr_paths):
+        raise ValueError("fused_sgd: params, grads and lrs must have the same tree structure")
+    return tree_unflatten(paths, list(FusedSGD.apply(len(ps), *ps, *gs, *lrs)))

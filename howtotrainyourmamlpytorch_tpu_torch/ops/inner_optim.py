@@ -6,10 +6,10 @@ reference ``few_shot_learning_system.py:94-107``). This slice ports SGD, the
 default ``gd`` preset; ``adam`` and ``rprop`` come with the training path's
 breadth slice (ROADMAP.md, A6).
 
-``update`` takes ``batch_dims``: the number of leading task axes the
-params and grads share. The JAX package hides the task axis behind
-``jax.vmap``; here it is explicit, so that the fused update packs every
-task of a meta-batch into one kernel launch.
+The JAX package hides the task axis behind ``jax.vmap``; here params and
+grads carry it as their leading axis, and the fused update covers every
+task of a meta-batch in one kernel launch (the task axis is part of each
+leaf).
 
 Both forms are differentiable in params, grads and lrs, so the
 second-order meta-gradient flows through every inner step: the unfused one
@@ -26,7 +26,7 @@ from ..utils.trees import tree_map, tree_scalars_like
 
 class InnerOptimizer(NamedTuple):
     """``init_hparams(params)``, ``init_state(params, hparams)``,
-    ``update(grads, state, params, hparams, batch_dims=0) -> (params, state)``
+    ``update(grads, state, params, hparams) -> (params, state)``
     and ``project_hparams(hparams)``."""
 
     name: str
@@ -38,8 +38,8 @@ class InnerOptimizer(NamedTuple):
 
 def sgd(lr: float = 0.1, fused: bool = False) -> InnerOptimizer:
     """``fused=True`` routes the step through the fused kernel
-    (``ops/fused_update.py``: one launch over the packed tree, one more for
-    its backward); otherwise one elementwise ``p - lr * g`` per leaf, the
+    (``ops/fused_update.py``: one launch over the tree's leaves, one more
+    for its backward); otherwise one elementwise ``p - lr * g`` per leaf, the
     unfused form the JAX package compiles."""
 
     def init_hparams(params):
@@ -48,12 +48,11 @@ def sgd(lr: float = 0.1, fused: bool = False) -> InnerOptimizer:
     def init_state(params, hparams):
         return ()
 
-    def update(grads, state, params, hparams, batch_dims: int = 0):
+    def update(grads, state, params, hparams):
         if fused:
-            from .fused_update import build_layout, fused_sgd_update
+            from .fused_update import fused_sgd_update
 
-            layout = build_layout(params, batch_dims=batch_dims)
-            return fused_sgd_update(params, grads, hparams["lr"], layout), state
+            return fused_sgd_update(params, grads, hparams["lr"]), state
         # the lr stays an f32 master and is cast to the fast-weight dtype at
         # use: a no-op in f32, and under bf16_inner it keeps the update in bf16
         new_params = tree_map(lambda p, g, a: p - a.to(p.dtype) * g, params, grads, hparams["lr"])

@@ -2,8 +2,8 @@
 
 The JAX package holds parameters as pytrees, and ``jax.tree`` flattens a
 dict by sorted keys. Every helper here walks in that same order, so a leaf's
-position in a flattened port tree (the row order of the fused update's packed
-buffer, the order of a per-tensor lr vector) is its position in the JAX
+position in a flattened port tree (its place in the fused update's leaf
+table, the order of a per-tensor lr vector) is its position in the JAX
 package's flattened tree. An empty dict is a subtree with no leaves; any
 value that is not a dict is a leaf.
 """

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: the fused LSLR update (B1) and its
-backward (B2) against their plain twins, and the serving slice and a train
-step with the kernels against the same code on the CPU. Every test here
+backward (B2), one launch each over a parameter tree, against their plain
+twins, and the serving slice and a train step with the kernels against the
+same code on the CPU. Every test here
 needs a CUDA card and skips without one. The file imports no jax, so that
 it runs on a machine that has only the port's dependencies:
 
@@ -32,25 +33,113 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("rows", [1, 13, 8 * 892], ids=["one_row", "ragged", "vgg64_8_tasks"])
-def test_kernel_equals_twin_bitwise(cuda, dtype, rows):
-    gen = torch.Generator(device=cuda).manual_seed(rows)
-    p = torch.randn(rows, fu.LANE, device=cuda, generator=gen).to(dtype)
-    g = torch.randn(rows, fu.LANE, device=cuda, generator=gen).to(dtype)
-    lr = torch.rand(rows, device=cuda, generator=gen)
+# the VGG-64 tree of configs/default.yaml (18 leaves, 113,236 parameters)
+_VGG64 = [s for cin in (1, 64, 64, 64) for s in ((64, cin, 3, 3), (64,), (64,), (64,))] + [(20, 64), (20,)]
+
+
+def _tree(kind, dtype, device, seed):
+    """(first operands, second operands, lrs) of a tree: one element; a
+    ragged tree of 1, 3, 20, 129 and 4,097 elements (every rest length; the
+    129-element leaf's operands both 4 bytes past a 16-byte boundary and
+    the 4,097-element leaf's first operand alone: read element by element);
+    or the VGG-64 tree over 8 tasks."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shift = 4 // torch.empty((), dtype=dtype).element_size()
+
+    def rand(*shape, offset=False):
+        n = int(np.prod(shape))
+        flat = torch.randn(n + (shift if offset else 0), device=device, generator=gen).to(dtype)
+        return flat[shift if offset else 0 :].view(shape)
+
+    if kind == "one_element":
+        a, b = [rand(1)], [rand(1)]
+    elif kind == "ragged":
+        sizes = (1, 3, 20, 129, 4097)
+        a = [rand(n, offset=n in (129, 4097)) for n in sizes]
+        b = [rand(n, offset=n == 129) for n in sizes]
+    else:
+        a, b = [rand(8, *s) for s in _VGG64], [rand(8, *s) for s in _VGG64]
+    lrs = list(torch.rand(len(a), device=device, generator=gen).unbind())
+    return a, b, lrs
+
+
+_TREES = pytest.mark.parametrize("tree", ["one_element", "ragged", "vgg64_8_tasks"])
+_DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+
+
+@_DTYPES
+@_TREES
+def test_kernel_equals_twin_bitwise(cuda, dtype, tree):
+    """B1, one launch over the tree, bit-equal to its twin; no leaf copied
+    (leaves off a 16-byte boundary read where they lie)."""
+    ps, gs, lrs = _tree(tree, dtype, cuda, 1)
     fu.reset_launch_counts()
-    out = fu.fused_sgd_rows(p, g, lr)
+    outs = fu.FusedSGD.apply(len(ps), *ps, *gs, *lrs)
     torch.cuda.synchronize()
-    assert fu.launch_counts["fused_sgd"] == 1
-    assert out.dtype == dtype and torch.equal(out, fu.fused_sgd_rows_reference(p, g, lr))
+    assert fu.launch_counts == {"fused_sgd": 1, "fused_sgd_bwd": 0} and fu.contiguous_copies == 0
+    want = fu.fused_sgd_tree_reference(ps, gs, lrs)
+    assert all(out.dtype == dtype and torch.equal(out, w) for out, w in zip(outs, want))
 
 
-def test_wrapper_refuses_misaligned_cuda_input(cuda):
-    buf = torch.zeros(2 * 4 * fu.LANE + 1, device=cuda)
-    p = buf[1:].view(-1, fu.LANE)  # 4-byte offset
-    with pytest.raises(ValueError, match="aligned"):
-        fu.fused_sgd_rows(p, p.clone(), torch.ones(p.shape[0], device=cuda))
+def _dlr_bound(cts, gs):
+    """Per leaf, the exact lr cotangent in float64 and B2's bound against it:
+    (longest chain of roundings + 1) * 2**-24 * sum|ct * g|."""
+    exact, bound = [], []
+    starts = fu.chunk_starts(cts, gs)
+    for i, (ct, g) in enumerate(zip(cts, gs)):
+        prod = ct.double() * g.double()
+        chain = fu.dlr_rounding_chain(starts[i + 1] - starts[i], ct.element_size())
+        exact.append(-float(prod.sum()))
+        bound.append((chain + 1) * 2.0**-24 * float(prod.abs().sum()))
+    return torch.tensor(exact, dtype=torch.float64), torch.tensor(bound, dtype=torch.float64)
+
+
+def test_one_launch_per_call_and_nothing_copied(cuda):
+    """The Function's forward and backward on the card: one B1 and one B2
+    launch, ``dp = ct`` returned as it is, and no contiguous leaf copied."""
+    ps, gs, lrs = _tree("ragged", torch.float32, cuda, 3)
+    ps = [p.detach().contiguous().requires_grad_(True) for p in ps]
+    lrs = [lr.detach().requires_grad_(True) for lr in lrs]
+    cts = [torch.randn_like(p) for p in ps]
+    fu.reset_launch_counts()
+    outs = fu.FusedSGD.apply(len(ps), *ps, *gs, *lrs)
+    torch.autograd.backward(outs, cts)
+    torch.cuda.synchronize()
+    assert fu.launch_counts == {"fused_sgd": 1, "fused_sgd_bwd": 1} and fu.contiguous_copies == 0
+    assert all(p.grad is ct or torch.equal(p.grad, ct) for p, ct in zip(ps, cts))
+
+
+def _non_contiguous(dtype, device, seed):
+    """(first operands, second operands, lrs, copies) of leaves that are not
+    contiguous, as a launch may be handed them: a stride-0 expansion (the
+    cotangent of a ``.sum()``), strided slices and the transpose of the last
+    two dims (a batched linear layer's weight cotangent), beside contiguous
+    leaves; ``copies`` of them must be copied."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape: torch.randn(*shape, device=device, generator=gen).to(dtype)  # noqa: E731
+    a = [rand(()).expand(8, 4097), rand(8, 258)[:, ::2], rand(2, 64, 20).transpose(1, 2), rand(1000)]
+    b = [rand(8, 4097), rand(8, 129), rand(2, 20, 64), rand(2000)[::2]]
+    lrs = list(torch.rand(len(a), device=device, generator=gen).unbind())
+    return a, b, lrs, 4
+
+
+@_DTYPES
+def test_non_contiguous_leaves_are_copied_and_counted(cuda, dtype):
+    """A leaf that is not contiguous is copied before the launch and counted
+    in ``contiguous_copies``, once per copy, in B1 and in B2; the copies
+    live until their launch is enqueued, so the results equal the twins':
+    B1 and B2's ``dg`` bit for bit, ``dlr`` within its bound."""
+    a, b, lrs, copies = _non_contiguous(dtype, cuda, 4)
+    fu.reset_launch_counts()
+    outs = fu.FusedSGD.apply(len(a), *a, *b, *lrs)
+    dg, dlr = fu.fused_sgd_tree_backward(a, b, lrs)
+    torch.cuda.synchronize()
+    assert fu.launch_counts == {"fused_sgd": 1, "fused_sgd_bwd": 1} and fu.contiguous_copies == 2 * copies
+    assert all(o.dtype == dtype and torch.equal(o, w) for o, w in zip(outs, fu.fused_sgd_tree_reference(a, b, lrs)))
+    want_dg, _ = fu.fused_sgd_tree_bwd_reference(a, b, lrs)
+    assert all(x.is_contiguous() and torch.equal(x, w) for x, w in zip(dg, want_dg))
+    exact, bound = _dlr_bound(a, b)
+    assert bool(((dlr.double().cpu() - exact).abs() <= bound).all())
 
 
 def test_slice_with_kernel_matches_cpu(cuda):
@@ -102,25 +191,24 @@ def test_bf16_inner_slice_runs_the_kernel_in_bf16(cuda):
     np.testing.assert_allclose(probs.sum(-1), 1.0, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("rows", [1, 13, 8 * 892], ids=["one_row", "ragged", "vgg64_8_tasks"])
-def test_backward_kernel_matches_twin(cuda, dtype, rows):
-    """B2: ``dg`` bit for bit; ``dlr_rows`` within 2 * 128 * 2**-24 *
-    sum|ct * g| per row (two f32 sums of 128 products in different orders,
-    each within half that of the exact sum)."""
-    gen = torch.Generator(device=cuda).manual_seed(rows + 1)
-    ct = torch.randn(rows, fu.LANE, device=cuda, generator=gen).to(dtype)
-    g = torch.randn(rows, fu.LANE, device=cuda, generator=gen).to(dtype)
-    lr = torch.rand(rows, device=cuda, generator=gen)
+@_DTYPES
+@_TREES
+def test_backward_kernel_matches_twin(cuda, dtype, tree):
+    """B2, one launch over the tree: ``dg`` bit for bit; ``dlr`` within the
+    bound of the kernel's summation tree from a float64 sum
+    (``fu.dlr_rounding_chain``), and bit-identical across two launches."""
+    cts, gs, lrs = _tree(tree, dtype, cuda, 2)
     fu.reset_launch_counts()
-    dg, dlr = fu.fused_sgd_rows_backward(ct, g, lr)
+    dg, dlr = fu.fused_sgd_tree_backward(cts, gs, lrs)
     torch.cuda.synchronize()
-    assert fu.launch_counts["fused_sgd_bwd"] == 1
-    want_dg, want_dlr = fu.fused_sgd_bwd_reference(ct, g, lr)
-    assert dg.dtype == dtype and dlr.dtype == torch.float32
-    assert torch.equal(dg, want_dg)
-    bound = 2 * 128 * 2.0**-24 * (ct.double() * g.double()).abs().sum(1)
-    assert bool(((dlr.double() - want_dlr.double()).abs() <= bound).all())
+    assert fu.launch_counts == {"fused_sgd": 0, "fused_sgd_bwd": 1} and fu.contiguous_copies == 0
+    want_dg, _ = fu.fused_sgd_tree_bwd_reference(cts, gs, lrs)
+    assert all(a.dtype == dtype and torch.equal(a, b) for a, b in zip(dg, want_dg))
+    assert dlr.dtype == torch.float32 and dlr.shape == (len(cts),)
+    exact, bound = _dlr_bound(cts, gs)
+    assert bool(((dlr.double().cpu() - exact).abs() <= bound).all())
+    _, again = fu.fused_sgd_tree_backward(cts, gs, lrs)
+    assert torch.equal(dlr, again)
 
 
 def test_train_step_with_kernels_matches_cpu(cuda):
