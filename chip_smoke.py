@@ -48,7 +48,21 @@ Run from the repository root. Phases, one JSON line each:
    step times, peak memory and a ``torch.profiler`` breakdown of one step.
 7. ``serve_trained``: the trained state saved with ``save_checkpoint``,
    loaded by ``AdaptationEngine.from_run_dir`` and served one flush.
-8. ``kernels``: every kernel the run launched, with its launches on the
+8. ``runner``: the experiment layer at the same config, on a generated
+   image folder of Omniglot's layout and size (1,623 classes of 20 105x105
+   1-bit PNGs in 50 alphabet folders, read and resized to 28x28 by the
+   loader): ``ExperimentRunner`` in this process for 2 epochs of 10 steps
+   with validation (5 batches) and the best checkpoint's test, then the CLI
+   (``python -m howtotrainyourmamlpytorch_tpu_torch.train``) in a
+   subprocess resuming it to 3 epochs. Checks: the run directory's files
+   and columns, finite losses, B1 launched 5 times per train and eval step
+   and B2 5 times per train step through the runner, 5 leaf copies per
+   train step, the native episode engine for every batch, the resumed
+   process training only epoch 2 from the loader cursor at 160 episodes. It
+   reports epoch times, the runner's step period beside phase ``train``'s
+   bare step, the share of each telemetry phase, the loader's episodes per
+   second alone and a ``torch.profiler`` breakdown of one runner step.
+9. ``kernels``: every kernel the run launched, with its launches on the
    paths, its error against the twin and its times beside its bound.
 
 Then the card's ``nvidia-smi`` name and power limit, and last
@@ -115,6 +129,18 @@ EVAL_STEPS = 3
 TRAIN_DROP = 0.9
 TASKS = 8  # the main paths' task batch: an adapt flush, a train step
 RAGGED = (1, 3, 20, 129, 4097)
+# the runner phase: Omniglot's layout and sizes, the run's length
+OMNIGLOT = {"classes": 1623, "per_class": 20, "alphabets": 50, "side": 105}
+RUNNER_EPOCHS, RESUMED_EPOCHS, RUNNER_ITERS, RUNNER_EVAL_TASKS = 2, 3, 10, 40
+RUNNER_PROFILED_CALL = 5  # one train step of epoch 0 runs under the profiler
+LOADER_BATCHES = 50
+# the JAX package's summary_statistics.csv columns (tests/test_torch_runner.py
+# holds the port's to the JAX runner's on the CPU)
+SUMMARY_COLUMNS = [
+    "epoch", "train_loss_mean", "train_loss_std", "train_accuracy_mean", "train_accuracy_std",
+    "learning_rate", "epoch_run_time", "val_loss_mean", "val_loss_std", "val_accuracy_mean",
+    "val_accuracy_std", "val_accuracy_ci95", "val_num_episodes",
+]
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "default.yaml")
 
 
@@ -904,6 +930,193 @@ def phase_serve_trained(seed: int, system, trained):
     return launches
 
 
+def make_omniglot_folder(root: str, seed: int) -> str:
+    """An image folder of Omniglot's layout and size: OMNIGLOT["classes"]
+    classes of OMNIGLOT["per_class"] 105x105 1-bit PNGs in
+    ``alphabetNN/characterNN/`` folders. Each class is a seeded random
+    binary base image (5x5-pixel blocks) and each image flips 5% of its
+    pixels."""
+    import concurrent.futures
+
+    from PIL import Image
+
+    side, rng = OMNIGLOT["side"], np.random.RandomState(seed)
+    bases = rng.rand(OMNIGLOT["classes"], side // 5, side // 5) > 0.5
+
+    def write(c):
+        noise = np.random.RandomState(seed * 100_003 + c)
+        d = os.path.join(root, f"alphabet{c % OMNIGLOT['alphabets']:02d}",
+                         f"character{c // OMNIGLOT['alphabets']:02d}")
+        os.makedirs(d)
+        base = np.kron(bases[c], np.ones((5, 5), bool))
+        for i in range(OMNIGLOT["per_class"]):
+            Image.fromarray(base ^ (noise.rand(side, side) > 0.95)).save(os.path.join(d, f"{c:04d}_{i:02d}.png"))
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(OMNIGLOT["classes"])))
+    return root
+
+
+def _finite(*values) -> bool:
+    return all(np.isfinite(float(v)) for v in values)
+
+
+def check_run_dir(run_dir: str, epochs: int, n_lrs: int) -> list:
+    """The run directory's artifacts after ``epochs`` epochs -> its rows."""
+    import csv
+
+    from howtotrainyourmamlpytorch_tpu_torch.experiment.storage import load_statistics
+
+    logs = os.path.join(run_dir, "logs")
+    with open(os.path.join(logs, "summary_statistics.csv")) as f:
+        header = next(csv.reader(f))
+    check(header == SUMMARY_COLUMNS, "runner", "summary_statistics.csv columns", header=header)
+    rows = load_statistics(logs)
+    check([int(float(r["epoch"])) for r in rows] == list(range(epochs)), "runner", "summary rows",
+          epochs=[r["epoch"] for r in rows])
+    check(all(_finite(r["train_loss_mean"], r["val_loss_mean"]) for r in rows), "runner", "non-finite loss",
+          rows=rows)
+    with open(os.path.join(run_dir, "lrs.csv")) as f:
+        lrs = list(csv.reader(f))
+    check([len(r) for r in lrs] == [n_lrs] * epochs, "runner", "lrs.csv rows", shape=[len(r) for r in lrs])
+    test = load_statistics(logs, "test_summary.csv")
+    check(bool(test) and _finite(test[-1]["test_accuracy_mean"], test[-1]["test_loss_mean"]), "runner",
+          "test_summary.csv", rows=test)
+    for name in ("config.yaml", os.path.join("logs", "events.jsonl"), os.path.join("logs", "telemetry.jsonl")):
+        check(os.path.exists(os.path.join(run_dir, name)), "runner", f"{name} missing")
+    return rows
+
+
+def phase_runner(seed: int, bare_step_ms: float):
+    """The experiment layer on the card at the default config: the runner
+    in this process for RUNNER_EPOCHS epochs, then the CLI resuming the run
+    in a subprocess; see the module docstring."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import load_config
+    from howtotrainyourmamlpytorch_tpu_torch.data import MetaLearningDataLoader
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint as ckpt
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runner_")
+    try:
+        t0 = time.perf_counter()
+        data = make_omniglot_folder(os.path.join(tmp, "omniglot_dataset"), seed)
+        generate_s = time.perf_counter() - t0
+        overrides = [
+            "use_pallas_inner_update=true", f"dataset.path={data}", f"index_cache_dir={os.path.join(tmp, 'index')}",
+            f"experiment_root={os.path.join(tmp, 'exps')}", f"total_iter_per_epoch={RUNNER_ITERS}",
+            f"num_evaluation_tasks={RUNNER_EVAL_TASKS}", f"seed={seed}",
+        ]
+        cfg = load_config(DEFAULT_CONFIG, overrides + [f"total_epochs={RUNNER_EPOCHS}"])
+        t0 = time.perf_counter()
+        runner = ExperimentRunner(cfg)  # builds the index and the RAM cache
+        init_s = time.perf_counter() - t0
+        check(runner.start_epoch == 0, "runner", "the run directory was not fresh")
+        real, calls, box = runner.system.train_step, [], {}
+
+        def step(state, batch, epoch=None):
+            calls.append(time.perf_counter())
+            if len(calls) != RUNNER_PROFILED_CALL:
+                return real(state, batch, epoch=epoch)
+            box["profile"] = profile_device(lambda: box.setdefault("out", real(state, batch, epoch=epoch)))
+            return box["out"]
+
+        runner.system.train_step = step
+        fu.reset_launch_counts()  # the runner's path starts here
+        t0 = time.perf_counter()
+        result = runner.run_experiment()
+        run_s = time.perf_counter() - t0
+        launches = dict(fu.launch_counts)  # and ends here
+        copies = fu.contiguous_copies
+        phases = runner.hub.registry.summaries("phase.")
+        loader_stats = runner.loader.stats()
+        K, K_eval = cfg.number_of_training_steps_per_iter, cfg.number_of_evaluation_steps_per_iter
+        train_steps = RUNNER_EPOCHS * RUNNER_ITERS
+        eval_batches = RUNNER_EVAL_TASKS // cfg.batch_size
+        eval_steps = (RUNNER_EPOCHS + 1) * eval_batches  # val every epoch, then the test
+        n_lrs = len(tree_leaves(runner.state.inner_hparams["lr"]))
+        rows = check_run_dir(runner.run_dir, RUNNER_EPOCHS, n_lrs)
+        check(n_lrs == 18, "runner", "the default model has 18 learned lrs", n_lrs=n_lrs)
+        check(len(calls) == train_steps, "runner", "train steps", calls=len(calls), want=train_steps)
+        want = {"fused_sgd": K * train_steps + K_eval * eval_steps, "fused_sgd_bwd": K * train_steps}
+        check(launches == want, "runner", "kernel launches through the runner", launches=launches, want=want)
+        check(copies == K * train_steps, "runner", "leaf copies other than the head cotangent per B2 launch",
+              contiguous_copies=copies, want=K * train_steps)
+        batches = train_steps + eval_steps
+        check(loader_stats["numpy_batches"] == 0 and loader_stats["native_batches"] == batches, "runner",
+              "the native episode engine did not assemble every batch", stats=loader_stats, want=batches)
+        check(_finite(result["test_loss_mean"]), "runner", "non-finite test loss", result=result)
+
+        # the step period in epoch 1 (steady state, no profiler): from one
+        # train_step call to the next, data wait and lagged settle included
+        epoch1 = calls[RUNNER_ITERS:]
+        period_ms = [(b - a) * 1e3 for a, b in zip(epoch1, epoch1[1:])]
+        epoch_s = [float(r["epoch_run_time"]) for r in rows]
+        share = {name: phases[name]["sum_ms"] / (run_s * 1e3) for name in
+                 ("data_wait", "dispatch", "settle", "eval", "checkpoint") if name in phases}
+
+        # the loader alone on the same RAM cache: native path, meta-batch 8
+        loader = MetaLearningDataLoader(cfg, dataset=runner.loader.dataset)
+        list(loader.train_batches(2))
+        t0 = time.perf_counter()
+        for _ in loader.train_batches(LOADER_BATCHES):
+            pass
+        loader_s = time.perf_counter() - t0
+        alone = loader.stats()
+        loader.close()
+        check(alone["numpy_batches"] == 0, "runner", "the loader fell back to numpy", stats=alone)
+
+        # the CLI resumes the run in a subprocess
+        _, book = ckpt.load_for_inference(runner.saved_models_dir, "latest")
+        cursor = RUNNER_EPOCHS * RUNNER_ITERS * cfg.batch_size
+        check(book["train_episodes_produced"] == cursor, "runner", "checkpoint cursor", bookkeeping=book)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
+               *overrides, f"total_epochs={RESUMED_EPOCHS}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        tail = (proc.stdout[-3000:], proc.stderr[-3000:])
+        check(proc.returncode == 0, "runner", "the CLI resume failed", rc=proc.returncode, tail=tail)
+        printed = [line.split(":")[0] for line in proc.stdout.splitlines() if line.startswith("epoch ")]
+        check(printed == [f"epoch {RUNNER_EPOCHS}"], "runner", "the resumed CLI trained other epochs",
+              printed=printed)
+        check(f"resumed: epoch {RUNNER_EPOCHS}, train episodes {cursor}" in proc.stdout, "runner",
+              "the resumed CLI's loader cursor", tail=tail)
+        check_run_dir(runner.run_dir, RESUMED_EPOCHS, n_lrs)
+        saved = sorted(os.listdir(runner.saved_models_dir))
+        want_saved = [f"train_model_{i}" for i in (0, 1, 2, "best", "latest")]
+        check(all(name in saved for name in want_saved), "runner", "checkpoints missing", saved=saved)
+        _, book = ckpt.load_for_inference(runner.saved_models_dir, "latest")
+        check(book["epoch"] == RUNNER_EPOCHS and book["train_episodes_produced"] == cursor + RUNNER_ITERS * cfg.batch_size,
+              "runner", "resumed checkpoint bookkeeping", bookkeeping=book)
+        out = {
+            "phase": "runner", "ok": True,
+            "config": "configs/default.yaml + use_pallas_inner_update=true, total_iter_per_epoch=10, "
+                      "num_evaluation_tasks=40",
+            "data": {**OMNIGLOT, "generate_s": generate_s, "runner_init_s": init_s},
+            "epochs": RUNNER_EPOCHS, "resumed_to": RESUMED_EPOCHS, "train_steps": train_steps,
+            "eval_steps": eval_steps, "launches": launches, "contiguous_copies": copies, "loader": loader_stats,
+            "run_s": run_s, "epoch_train_s": epoch_s,
+            "train_steps_per_s": RUNNER_ITERS / epoch_s[-1],
+            "runner_step_period_ms_median": statistics.median(period_ms), "runner_step_period_ms": period_ms,
+            "bare_step_ms_median": bare_step_ms,
+            "phase_share_of_run": share, "phases": phases,
+            "loader_episodes_per_s": LOADER_BATCHES * cfg.batch_size / loader_s,
+            "loader_batches_per_s": LOADER_BATCHES / loader_s,
+            "runner_step_profile": box.get("profile"),
+            "losses": {"train": [float(r["train_loss_mean"]) for r in rows],
+                       "val": [float(r["val_loss_mean"]) for r in rows], "test": result["test_loss_mean"]},
+            "test_accuracy": result["test_accuracy_mean"], "cli_resume_s": cli_s,
+        }
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches_by_path, phase):
     """One kernel's entry of the ``kernels`` line: float32 at the main
     paths' tree under the write flush (the parent design's yardstick) in the
@@ -953,13 +1166,16 @@ def main() -> int:
     sl = phase_slice(args.seed)
     tr, system, trained = phase_train(args.seed)
     served = phase_serve_trained(args.seed, system, trained)
-    fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served}
+    rn = phase_runner(args.seed, tr["train_step_ms_median"])
+    fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
+                 "runner": rn["launches"]["fused_sgd"]}
     emit({"kernels": [
         kernel_entry("fused_sgd", "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_sgd.cu",
                      "howtotrainyourmamlpytorch_tpu/ops/pallas_update.py:125", fwd_paths, kernel),
         kernel_entry("fused_sgd_bwd", "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_sgd_bwd.cu",
                      "howtotrainyourmamlpytorch_tpu/ops/pallas_update.py:134",
-                     {"train": tr["launches"]["fused_sgd_bwd"]}, kernel_bwd),
+                     {"train": tr["launches"]["fused_sgd_bwd"], "runner": rn["launches"]["fused_sgd_bwd"]},
+                     kernel_bwd),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

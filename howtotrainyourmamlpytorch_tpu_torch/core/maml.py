@@ -20,9 +20,10 @@ projection and ``step + 1``. ``eval_step``, ``adapt_fast_weights`` and
 ``predict_logits`` are first-order and run under ``torch.no_grad()``
 (``torch.func.grad`` still takes the inner gradients).
 
-Not here (ROADMAP.md): the remat policies (``remat_inner_steps`` and
-``remat_policy`` are read but not applied; the port keeps every activation
-of the K-step graph, A6), ``scale_meta_lr`` and the NaN rollback (A9), the
+``scale_meta_lr`` rebuilds the outer schedule at scaled rates (the NaN
+rollback's backoff, ``experiment/runner.py``). Not here (ROADMAP.md): the
+remat policies (``remat_inner_steps`` and ``remat_policy`` are read but not
+applied; the port keeps every activation of the K-step graph, A6), the
 multi-step chunk programs, strict guard, compile ledger and donation (A10),
 and the anil/protonet strategies (A7).
 
@@ -137,10 +138,24 @@ class MAMLSystem:
                 )
             kwargs["fused"] = True
         self.inner_opt = build_inner_optimizer(io.kind, **kwargs)
-        self.schedule = cosine_epoch_schedule(
-            cfg.meta_learning_rate, cfg.min_learning_rate, cfg.total_epochs, cfg.total_iter_per_epoch
-        )
+        self.meta_lr_scale = 1.0
+        self.scale_meta_lr(1.0)
         self.precision = policy_from_config(cfg)
+
+    def scale_meta_lr(self, factor: float) -> None:
+        """Scale the outer lr schedule by ``factor`` (the NaN rollback's
+        backoff, ``experiment/runner.py::_note_bad_step``): the cosine
+        schedule is rebuilt at ``meta_lr_scale * factor`` of the configured
+        rates. The Adam state is unchanged, so a restored state keeps
+        working across the swap."""
+        self.meta_lr_scale *= float(factor)
+        cfg = self.cfg
+        self.schedule = cosine_epoch_schedule(
+            cfg.meta_learning_rate * self.meta_lr_scale,
+            cfg.min_learning_rate * self.meta_lr_scale,
+            cfg.total_epochs,
+            cfg.total_iter_per_epoch,
+        )
 
     # ------------------------------------------------------------------
     # state

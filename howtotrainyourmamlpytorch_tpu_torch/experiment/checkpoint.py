@@ -23,15 +23,17 @@ int32 step), with the outer Adam state as optax's
   mesh and comes with multi-device (ROADMAP.md A9).
 
 A file that fails a digest or does not decode raises
-:class:`CheckpointCorruptError`. The fault injector, quarantine and the
-fallback chain come with the resilience layer (A9).
+:class:`CheckpointCorruptError`; :func:`quarantine` moves it aside and
+:func:`load_latest_with_fallback` resumes from the newest valid file.
+:class:`AsyncCheckpointWriter` runs a save on a writer thread with a
+one-save lag. The fault injector's checkpoint seams are not ported (A9).
 """
 
 import hashlib
 import os
 import re
 import threading
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import msgpack
 import numpy as np
@@ -292,6 +294,32 @@ def load_checkpoint(save_dir: str, idx, template: TrainState, *, feature_shape) 
     return _from_state_dict(_network(path, payload), feature_shape, template), payload["bookkeeping"]
 
 
+def load_latest_with_fallback(
+    save_dir: str, template: TrainState, *, feature_shape
+) -> Tuple[TrainState, Dict[str, Any], Any]:
+    """Resume chain: ``latest`` first, then per-epoch files newest-first.
+    Every corrupt candidate is quarantined (``*.corrupt``) and the chain
+    moves on, so one torn write costs one epoch of progress, not the run.
+    Returns ``(state, bookkeeping, idx_used)``; raises
+    :class:`CheckpointCorruptError` only when no candidate survives."""
+    errors = []
+    for idx in ["latest"] + list(reversed(available_epochs(save_dir))):
+        if not checkpoint_exists(save_dir, idx):
+            continue
+        try:
+            state, bookkeeping = load_checkpoint(save_dir, idx, template, feature_shape=feature_shape)
+            return state, bookkeeping, idx
+        except CheckpointCorruptError as exc:
+            quarantined = quarantine(save_dir, idx)
+            errors.append(str(exc))
+            print(
+                f"warning: checkpoint {MODEL_NAME}_{idx} is corrupt — "
+                f"quarantined to {quarantined}; falling back",
+                flush=True,
+            )
+    raise CheckpointCorruptError(f"no valid checkpoint under {save_dir}: " + "; ".join(errors))
+
+
 def load_for_inference(save_dir: str, idx) -> Tuple[InferenceState, Dict[str, Any]]:
     """Params / BN state / inner hyperparams / step of checkpoint ``idx`` in
     the JAX layout, any format. A format-3 fingerprint hashes the manifest,
@@ -341,6 +369,30 @@ def _shard_files(path: str) -> List[str]:
     return sorted(os.path.join(parent, name) for name in os.listdir(parent) if pattern.fullmatch(name))
 
 
+def quarantine(save_dir: str, idx) -> Optional[str]:
+    """Rename a corrupt checkpoint to ``*.corrupt`` (kept for forensics,
+    invisible to ``available_epochs``/``checkpoint_exists``), a format-3
+    checkpoint's shard files with it. Returns the new path, or None if the
+    file was already gone."""
+    path = _path(save_dir, idx)
+    if not os.path.exists(path):
+        return None
+    for shard in _shard_files(path):
+        os.replace(shard, shard + ".corrupt")
+    target = path + ".corrupt"
+    os.replace(path, target)
+    return target
+
+
+def save_named(save_dir: str, state: TrainState, bookkeeping: Dict[str, Any], idx, *, feature_shape) -> str:
+    """Write a single format-2 checkpoint file under any idx (``'best'``,
+    an emergency ``'latest'``)."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = _path(save_dir, idx)
+    _write_atomic(path, _serialize(state, bookkeeping, feature_shape))
+    return path
+
+
 def _rotate(save_dir: str, keep: int, val_acc_by_epoch: Optional[Dict[int, float]] = None) -> None:
     """Keep ``keep`` per-epoch files: the most recent, or the best by
     validation accuracy when ``val_acc_by_epoch`` is given (unrecorded
@@ -384,3 +436,56 @@ def save_checkpoint(
         _write_atomic(target, blob)
     _rotate(save_dir, max_models_to_save, val_acc_by_epoch)
     return path
+
+
+class AsyncCheckpointWriter:
+    """One-save-lag background checkpoint writer.
+
+    The save (serialization and the atomic writes) runs on a writer thread,
+    and the caller blocks only on the *previous* save at the next save
+    point. The writer thread makes no CUDA call: the caller hands it a
+    state already copied to the host.
+
+    A failed save re-raises on the next :meth:`wait`/:meth:`submit`/
+    :meth:`close`, so a dead disk surfaces one save late, never silently.
+    At most one save is in flight; the writes themselves stay atomic
+    (tmp+rename), so killing the process mid-save never leaves a torn
+    checkpoint that loads."""
+
+    def __init__(self, name: str = "ckpt-writer"):
+        self._name = name
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def submit(self, fn: Callable[[], None]) -> None:
+        """Block on the previous save (the one-save lag), then start ``fn``
+        on the writer thread."""
+        self.wait()
+
+        def run():
+            try:
+                fn()
+            except BaseException as exc:  # noqa: BLE001 — carried to wait()
+                self._error = exc
+
+        self._thread = threading.Thread(target=run, name=self._name, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the in-flight save, if any; re-raise its failure."""
+        thread = self._thread
+        if thread is not None:
+            thread.join()
+            self._thread = None
+        if self._error is not None:
+            error = self._error
+            self._error = None
+            raise error
+
+    @property
+    def busy(self) -> bool:
+        thread = self._thread
+        return thread is not None and thread.is_alive()
+
+    def close(self) -> None:
+        self.wait()

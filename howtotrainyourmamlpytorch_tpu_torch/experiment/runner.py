@@ -1,0 +1,795 @@
+"""Experiment runner: the JAX package's ``experiment/runner.py`` on one card.
+
+It builds the experiment folder tree, resumes from 'latest' (the loader's
+cursor with it), loops ``total_epochs x total_iter_per_epoch`` train steps,
+runs ``num_evaluation_tasks/batch_size`` val batches per epoch, appends
+``logs/summary_statistics.csv`` rows, writes per-epoch ``lrs.csv``, rotates
+checkpoints, keeps the best-by-validation checkpoint, and finally evaluates
+it on the test split into ``logs/test_summary.csv``. Around the steps: the
+one-step-lag NaN sentinel with its skip and rollback ladder, SIGTERM/SIGINT
+to an emergency checkpoint and exit 75, the wedge watchdog, the
+early-divergence abort (exit 3), the async checkpoint writer and run
+telemetry. The method names are the JAX runner's, so a reader finds each
+counterpart.
+
+The state lives on the system's device (the card unless ``device="cpu"``).
+Host copies of it (the rollback anchor, checkpoint snapshots) are taken on
+the main thread: the writer and watchdog threads make no CUDA call.
+
+Not here, each refused at construction with the ROADMAP.md item that ports
+it: multi-step dispatch, fused eval, AOT prewarm, state donation and the
+profiler window (A10); fault drills, the lock sanitizer, more than one
+device and sharded checkpoints (A9). The JAX runner's mesh, degraded-mesh
+and grow-back logic, multi-host gathers and sharded placement have no
+single-card counterpart: here they are plain single-device code (A9).
+"""
+
+import contextlib
+import os
+import signal
+import threading
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import exit_codes
+from ..config import Config, save_config
+from ..core.maml import MAMLSystem
+from ..core.train_state import TrainState
+from ..data import MetaLearningDataLoader
+from ..observability import TelemetryHub
+from ..resilience.faults import injector_from
+from ..resilience.watchdog import HeartbeatWatchdog
+from ..utils.trees import tree_leaves
+from . import checkpoint as ckpt
+from . import storage
+
+
+def _mean_std(values):
+    arr = np.asarray(values, np.float64)
+    return float(arr.mean()), float(arr.std())
+
+
+def _episode_stats(split: str, ep_losses, ep_accs) -> Dict[str, Any]:
+    """Eval statistics over *episodes* (one value per task), the unit the
+    published tables use. ``*_std`` is the per-episode standard deviation
+    (spread across tasks, not across seeds); ``*_ci95`` is the
+    1.96*std/sqrt(n) half-width for the mean."""
+    loss_mean, loss_std = _mean_std(ep_losses)
+    acc_mean, acc_std = _mean_std(ep_accs)
+    n = int(np.size(ep_accs))
+    return {
+        f"{split}_loss_mean": loss_mean,
+        f"{split}_loss_std": loss_std,
+        f"{split}_accuracy_mean": acc_mean,
+        f"{split}_accuracy_std": acc_std,
+        f"{split}_accuracy_ci95": float(1.96 * acc_std / np.sqrt(max(n, 1))),
+        f"{split}_num_episodes": n,
+    }
+
+
+def _host(x) -> np.ndarray:
+    """A tensor as a host array of at least one dimension."""
+    return np.atleast_1d(x.detach().cpu().numpy())
+
+
+def _move(tree, device):
+    """A ``TrainState`` (NamedTuples, tuples and dicts over tensors) with
+    every tensor on ``device``."""
+    if isinstance(tree, tuple):
+        items = [_move(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    if isinstance(tree, dict):
+        return {k: _move(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _refuse_unported(cfg: Config, n_devices: int) -> None:
+    """``NotImplementedError`` naming the ROADMAP.md item for every option
+    the port does not run, so that none is quietly ignored."""
+    parallel = cfg.parallel
+    mp = max(parallel.mp, 1)
+    dp = parallel.dp if parallel.dp and parallel.dp > 0 else max(n_devices // mp, 1)
+    refused = [
+        (cfg.train_steps_per_dispatch > 1, f"train_steps_per_dispatch={cfg.train_steps_per_dispatch}", "A10"),
+        (cfg.eval_fused_dispatch, "eval_fused_dispatch", "A10"),
+        (cfg.aot.enabled, "aot.enabled", "A10"),
+        (cfg.donate_train_state, "donate_train_state", "A10"),
+        (bool(cfg.profile_dir), "profile_dir", "A10"),
+        (cfg.resilience.sanitizer or os.environ.get("HTYMP_GRAFTSAN") == "1", "resilience.sanitizer", "A9"),
+        (parallel.shard_meta_batch and dp * mp > 1, f"parallel dp={dp} x mp={mp}", "A9"),
+        (cfg.checkpoint_shards >= 2, f"checkpoint_shards={cfg.checkpoint_shards}", "A9"),
+    ]
+    for hit, what, item in refused:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported to PyTorch yet (ROADMAP.md {item}); the "
+                "port's runner trains one step per dispatch on one device"
+            )
+    injector_from(cfg.resilience)  # raises, naming A9, for a named drill; else inert
+
+
+class ExperimentRunner:
+    def __init__(
+        self,
+        cfg: Config,
+        system: Optional[MAMLSystem] = None,
+        loader: Optional[MetaLearningDataLoader] = None,
+        data_root: Optional[str] = None,
+        device=None,
+    ):
+        """``device``: where the system runs when none is given (default the
+        card; ``"cpu"`` on request). Refused options raise before anything
+        is written."""
+        self.cfg = cfg
+        self._t_init = time.perf_counter()
+        self._cold_start_s: Optional[float] = None
+        self.system = system or MAMLSystem(cfg, device=device)
+        device = self.system.device
+        _refuse_unported(cfg, torch.cuda.device_count() if device.type == "cuda" else 1)
+        self._feature_shape = self.system.model.feature_shape
+        self.run_dir = cfg.run_dir()
+        self.saved_models_dir, self.logs_dir, self.visual_dir = storage.build_experiment_folder(self.run_dir)
+        save_config(cfg, os.path.join(self.run_dir, "config.yaml"))
+        self.experiment_name = cfg.run_name()
+        storage.create_json_experiment_log(self.logs_dir, self.experiment_name, cfg.to_dict())
+        # events.jsonl: appends flushed immediately, closed on every exit
+        # path (run_experiment's finally; the wedge path closes it itself)
+        self.events = storage.EventLog(self.logs_dir)
+        # span tracer + metrics registry + logs/telemetry.jsonl snapshots;
+        # inert when observability.enabled is false
+        self.hub = TelemetryHub.from_config(cfg.observability, logs_dir=self.logs_dir)
+        if self.hub.enabled:
+            kind = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
+            self.hub.registry.set_gauge("device_kind", kind)
+            # the JAX runner's XLA compile ledger and HBM watermarks have no
+            # port yet: record that, so that no artifact claims them
+            missing = [
+                name
+                for name, on in (
+                    ("observability.compile_ledger", cfg.observability.compile_ledger),
+                    ("observability.memory_watermarks", cfg.observability.memory_watermarks),
+                )
+                if on
+            ]
+            if missing:
+                self.events.append(
+                    {"ts": time.time(), "event": "not_ported", "modules": missing, "roadmap": "A10"}
+                )
+        # program variants already run once (second order x MSL): the first
+        # step of each is tagged cold in the trace
+        self._variants_seen: set = set()
+
+        # NaN-ladder counters, preemption flag
+        self._bad_steps = 0  # consecutive non-finite steps discarded
+        self._rollbacks = 0  # rollbacks spent (rc=3 after max_rollbacks more)
+        self._last_good = None  # host-side TrainState copy for rollback
+        self._preempt_signum: Optional[int] = None
+        self._resume_mid_iter = 0  # >0: start_epoch was preempted mid-epoch
+
+        # --- resume (reference continue_from_epoch: latest) ---
+        self.state: TrainState = self.system.init_train_state()
+        self.start_epoch = 0
+        self.best_val_accuracy = -1.0
+        self.best_val_epoch = -1
+        # epoch -> val accuracy, for best_val checkpoint rotation and top-K
+        # test ensembling (persisted in checkpoint bookkeeping)
+        self.val_acc_by_epoch: Dict[int, float] = {}
+        idx = cfg.continue_from_epoch
+        resumable = idx not in ("", "scratch", None)
+        if resumable and not ckpt.checkpoint_exists(self.saved_models_dir, idx):
+            # 'latest' missing = a fresh run; a *named* epoch missing is a
+            # user error: fail fast instead of silently training anew
+            if idx != "latest":
+                raise FileNotFoundError(
+                    f"continue_from_epoch={idx!r} but no such checkpoint in "
+                    f"{self.saved_models_dir} (have epochs "
+                    f"{ckpt.available_epochs(self.saved_models_dir)})"
+                )
+            resumable = False
+        if resumable:
+            if idx == "latest":
+                # a corrupt 'latest' is quarantined and the newest valid
+                # epoch file resumes instead
+                self.state, bookkeeping, used_idx = ckpt.load_latest_with_fallback(
+                    self.saved_models_dir, self.state, feature_shape=self._feature_shape
+                )
+            else:
+                self.state, bookkeeping = ckpt.load_checkpoint(
+                    self.saved_models_dir, idx, self.state, feature_shape=self._feature_shape
+                )
+                used_idx = idx
+            self.start_epoch = int(bookkeeping.get("epoch", -1)) + 1
+            # a preemption checkpoint carries the mid-epoch iteration cursor:
+            # start_epoch is then the interrupted epoch, resumed at exactly
+            # the next iteration (the loader cursor below matches)
+            self._resume_mid_iter = int(bookkeeping.get("mid_epoch_iter", 0) or 0)
+            self.best_val_accuracy = float(bookkeeping.get("best_val_accuracy", -1.0))
+            self.best_val_epoch = int(bookkeeping.get("best_val_epoch", -1))
+            self.val_acc_by_epoch = {
+                int(k): float(v) for k, v in (bookkeeping.get("val_acc_by_epoch") or {}).items()
+            }
+            storage.change_json_log_experiment_status(
+                self.logs_dir, self.experiment_name,
+                f"resumed at epoch {self.start_epoch}"
+                + (f" iter {self._resume_mid_iter}" if self._resume_mid_iter else "")
+                + (f" (from {used_idx})" if used_idx != idx else ""),
+            )
+        print(f"device={device} devices=1", flush=True)
+
+        # one-save-lag checkpoint writer: serialization off the step path
+        self._ckpt_writer: Optional[ckpt.AsyncCheckpointWriter] = (
+            ckpt.AsyncCheckpointWriter() if cfg.checkpoint_async else None
+        )
+        # the runner shuts an owned loader down when run_experiment exits; a
+        # caller-supplied loader is the caller's to close
+        self._owns_loader = loader is None
+        self.loader = loader or MetaLearningDataLoader(
+            cfg,
+            # mid-epoch resume: the stream restarts on the exact next iteration
+            current_iter=self.start_epoch * cfg.total_iter_per_epoch + self._resume_mid_iter,
+            data_root=data_root,
+        )
+        # rollback anchor: the state as it is now (resumed or init),
+        # refreshed on every epoch save
+        self._capture_last_good()
+        # the wedge watchdog's emergency-checkpoint anchor: ONE tuple
+        # (host state, bookkeeping) rebound atomically, so the watchdog
+        # thread never pairs a fresh state with stale bookkeeping
+        self._wedge_anchor = (
+            self._last_good,
+            {
+                "epoch": self.start_epoch - 1,
+                "mid_epoch_iter": self._resume_mid_iter,
+                "mesh": [1, 1],
+                "train_episodes_produced": self.loader.train_episodes_produced,
+                "best_val_accuracy": self.best_val_accuracy,
+                "best_val_epoch": self.best_val_epoch,
+                "val_acc_by_epoch": {str(k): v for k, v in self.val_acc_by_epoch.items()},
+            },
+        )
+
+        # --- wedge watchdog: armed for run_experiment, fed by per-step
+        # progress marks; no progress past the deadline => thread stacks
+        # into events.jsonl, emergency checkpoint from _wedge_anchor, exit 76
+        wd_cfg = cfg.resilience.watchdog
+        self._watchdog: Optional[HeartbeatWatchdog] = None
+        if wd_cfg.enabled:
+            self._watchdog = HeartbeatWatchdog(
+                deadline_s=wd_cfg.deadline_s,
+                poll_s=wd_cfg.poll_s,
+                on_wedge=self._on_wedge,
+                exit_code=wd_cfg.wedge_exit_code,
+                name="runner",
+            )
+        if self.hub.enabled:
+            if self._watchdog is not None:
+                self.hub.add_provider("watchdog_beat_age_s", lambda: round(self._watchdog.beat_age_s(), 3))
+            self.hub.add_provider("loader", self.loader.stats)
+
+    # ------------------------------------------------------------------
+
+    def _traced_batches(self, iterable, epoch: int):
+        """Wrap a loader stream so time blocked on episode assembly is the
+        ``data_wait`` phase. The span closes before the batch is yielded, so
+        an abandoned iterator (preemption break) never leaves a span open."""
+        it = iter(iterable)
+        while True:
+            with self.hub.phase("data_wait", epoch=epoch):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+            yield batch
+
+    def _note_variant(self, key) -> bool:
+        """True exactly once per program variant."""
+        if key in self._variants_seen:
+            return False
+        self._variants_seen.add(key)
+        return True
+
+    def _train_epoch(self, epoch: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        losses, accs, lr = [], [], 0.0
+        start = time.time()
+        # mid-epoch resume: only the remaining iterations of the interrupted
+        # epoch (the loader cursor already points at the next one)
+        skipped = self._resume_mid_iter if epoch == self.start_epoch else 0
+        total_iters = cfg.total_iter_per_epoch - skipped
+
+        # --- NaN sentinel (resilience.nan_guard) -----------------------
+        # Each step's loss is judged on the host with a ONE-step lag: step
+        # i-1's loss is fetched only after step i has been issued, so the
+        # host keeps enqueueing while the card works. A non-finite loss
+        # discards the poisoned step (and the step issued on top of it) by
+        # restoring the state captured before it; the episode stream moves
+        # on past the bad batch. train_step never writes into the tensors of
+        # the state it was given, so the captured state is intact.
+        guard = cfg.resilience.nan_guard
+        pending = None  # (state_before, out, cold)
+
+        def settle() -> bool:
+            """Judge the pending step; True = good (stats recorded)."""
+            nonlocal pending
+            state_before, out, cold = pending
+            pending = None
+            # the lagged fetch of step i-1 while step i is queued: the
+            # pipeline's real device wait
+            with self.hub.phase("settle", epoch=epoch, cold=cold):
+                loss_host = _host(out.loss)
+            self._beat(f"settle epoch {epoch}")
+            if not np.all(np.isfinite(loss_host)):
+                self.state = state_before
+                return False
+            losses.append(loss_host)
+            accs.append(_host(out.accuracy))
+            # a good step breaks the streak: the K threshold counts
+            # CONSECUTIVE discards
+            self._bad_steps = 0
+            self.hub.step_completed(self.loader.batch_size)
+            self._note_cold_start()
+            return True
+
+        preempted = False
+        for batch in self._traced_batches(self.loader.train_batches(total_iters, augment_images=True), epoch):
+            if self._preempt_signum is not None:
+                preempted = True
+                break
+            cold = self._note_variant((self.system.use_second_order(epoch), self.system.msl_active(epoch)))
+            before = self.state
+            # the dispatch phase is host work: the batch's copy to the
+            # device and the step's kernel launches
+            with self.hub.phase("dispatch", epoch=epoch, cold=cold):
+                self.state, out = self.system.train_step(self.state, batch, epoch=epoch)
+            self._beat(f"dispatch epoch {epoch}")
+            lr = out.learning_rate
+            if not guard:
+                losses.append(out.loss)
+                accs.append(out.accuracy)
+                self.hub.step_completed(self.loader.batch_size)
+                self._note_cold_start()
+                continue
+            if pending is not None and not settle():
+                # settle() restored the pre-poison state, which also
+                # discards the step just issued on top of it
+                self._note_bad_step(epoch)
+                continue
+            pending = (before, out, cold)
+        # drain the lagged check (also before an emergency save: the saved
+        # state must be a settled-good one)
+        if pending is not None and not settle():
+            self._note_bad_step(epoch)
+        if preempted or self._preempt_signum is not None:
+            self._emergency_exit(epoch, undispatched=int(preempted))
+        # with the guard off the entries are device tensors: one fetch each
+        # here, after the loop
+        losses = np.concatenate([_host(x) if torch.is_tensor(x) else x for x in losses] or [np.zeros(0)])
+        accs = np.concatenate([_host(x) if torch.is_tensor(x) else x for x in accs] or [np.zeros(0)])
+        if losses.size == 0:
+            # every step of the epoch was discarded as non-finite
+            losses = accs = np.asarray([np.nan])
+        loss_mean, loss_std = _mean_std(losses)
+        acc_mean, acc_std = _mean_std(accs)
+        return {
+            "train_loss_mean": loss_mean,
+            "train_loss_std": loss_std,
+            "train_accuracy_mean": acc_mean,
+            "train_accuracy_std": acc_std,
+            "learning_rate": float(lr),
+            "epoch_run_time": time.time() - start,
+        }
+
+    # ------------------------------------------------------------------
+    # resilience: NaN skip/rollback ladder, preemption, wedge
+    # ------------------------------------------------------------------
+
+    def _beat(self, stage: str) -> None:
+        """Progress mark feeding the wedge watchdog (no-op when disabled)."""
+        if self._watchdog is not None:
+            self._watchdog.beat(stage)
+
+    def _note_cold_start(self) -> None:
+        """First settled train step: runner init -> first useful step,
+        as a gauge and an event."""
+        if self._cold_start_s is not None:
+            return
+        self._cold_start_s = round(time.perf_counter() - self._t_init, 3)
+        if self.hub.enabled:
+            self.hub.registry.set_gauge("cold_start_s", self._cold_start_s)
+        self.events.append(
+            {"ts": time.time(), "event": "cold_start", "cold_start_s": self._cold_start_s, "prewarmed": False}
+        )
+
+    def _drain_ckpt_writer(self) -> None:
+        """Block until any in-flight async save lands; a failed save is
+        reported (events + stderr) but never masks the caller's own exit
+        path."""
+        if self._ckpt_writer is None:
+            return
+        try:
+            self._ckpt_writer.wait()
+        except Exception as exc:  # noqa: BLE001 — surfaced, not fatal here
+            print(f"warning: async checkpoint save failed: {exc!r}", flush=True)
+            try:
+                self.events.append({"ts": time.time(), "event": "checkpoint_save_failed", "error": repr(exc)})
+            except Exception:
+                pass
+
+    def _on_wedge(self, info: Dict[str, Any]) -> None:
+        """Watchdog verdict: no progress past the deadline. Runs ON THE
+        WATCHDOG THREAD and stays on the host: the event with every thread's
+        stack, an emergency 'latest' checkpoint from the last settled host
+        state, then the watchdog exits with the wedge code. Each salvage
+        step is independent."""
+        code = self.cfg.resilience.watchdog.wedge_exit_code
+        msg = (
+            f"WEDGED: no progress for {info['stall_s']:.0f}s "
+            f"(deadline {info['deadline_s']:.0f}s) at stage {info['stage']!r} "
+            f"— emergency checkpoint from the last settled state, exiting "
+            f"{code} (restart to resume)"
+        )
+        print(msg, flush=True)
+        try:
+            self.events.append(
+                {"ts": time.time(), "event": "wedged", "stage": info["stage"], "stall_s": info["stall_s"],
+                 "beats": info["beats"], "threads": info["threads"]}
+            )
+        except Exception:
+            pass
+        # not draining the async writer: per-thread temp files and atomic
+        # renames keep both writes whole, and the last rename wins
+        try:
+            anchor_state, anchor_book = self._wedge_anchor  # one atomic read
+            ckpt.save_named(self.saved_models_dir, anchor_state, dict(anchor_book), "latest",
+                            feature_shape=self._feature_shape)
+            self.events.append(
+                {"ts": time.time(), "event": "wedge_checkpoint", "epoch": anchor_book.get("epoch"),
+                 "mid_epoch_iter": anchor_book.get("mid_epoch_iter")}
+            )
+        except Exception:
+            import traceback
+
+            traceback.print_exc()
+        try:
+            storage.change_json_log_experiment_status(self.logs_dir, self.experiment_name, msg)
+        except Exception:
+            pass
+        # os._exit skips finally blocks: flush telemetry and close the
+        # event log here
+        try:
+            self.hub.close()
+        except Exception:
+            pass
+        self.events.close()
+
+    def _host_state(self) -> TrainState:
+        """The state copied to the host (on the main thread)."""
+        return _move(self.state, "cpu")
+
+    def _place_state(self, host_state: TrainState) -> TrainState:
+        return _move(host_state, self.system.device)
+
+    def _capture_last_good(self) -> None:
+        self._last_good = self._host_state()
+
+    def _note_bad_step(self, epoch: int) -> None:
+        """One discarded non-finite step. After ``max_consecutive_bad_steps``
+        (K) discards, roll the state back to the last checkpointed state
+        with an outer-LR backoff; after ``max_rollbacks`` (M) rollbacks,
+        give up with exit code 3. The episode cursor is NOT rewound:
+        replaying the same stream into the same state would reproduce the
+        same NaN."""
+        res = self.cfg.resilience
+        self._bad_steps += 1
+        self.events.append(
+            {"ts": time.time(), "event": "nan_step_skipped", "epoch": epoch, "consecutive": self._bad_steps}
+        )
+        print(
+            f"warning: non-finite step loss at epoch {epoch} — step discarded "
+            f"({self._bad_steps}/{res.max_consecutive_bad_steps} consecutive)",
+            flush=True,
+        )
+        if self._bad_steps < res.max_consecutive_bad_steps:
+            return
+        if self._rollbacks >= res.max_rollbacks:
+            msg = (
+                f"NAN ABORT: {self._bad_steps} consecutive non-finite steps "
+                f"after {self._rollbacks} rollbacks — unrecoverable"
+            )
+            print(msg, flush=True)
+            self.events.append({"ts": time.time(), "event": "nan_abort", "epoch": epoch})
+            storage.change_json_log_experiment_status(self.logs_dir, self.experiment_name, msg)
+            raise SystemExit(exit_codes.DIVERGED)
+        self._rollbacks += 1
+        self._bad_steps = 0
+        self.state = self._place_state(self._last_good)
+        self.system.scale_meta_lr(res.rollback_lr_backoff)
+        self.events.append(
+            {"ts": time.time(), "event": "nan_rollback", "epoch": epoch, "rollback": self._rollbacks,
+             "meta_lr_scale": self.system.meta_lr_scale}
+        )
+        print(
+            f"warning: rolled back to last good state (rollback "
+            f"{self._rollbacks}/{res.max_rollbacks}, outer LR x{self.system.meta_lr_scale:g})",
+            flush=True,
+        )
+
+    def _handle_preempt_signal(self, signum, frame) -> None:
+        # signal-safe: just flag; the train loop saves at the next step
+        # boundary and exits
+        self._preempt_signum = signum
+
+    @contextlib.contextmanager
+    def _preemption_guard(self):
+        """SIGTERM/SIGINT -> emergency-checkpoint handlers for the duration
+        of run_experiment (main thread only: ``signal.signal`` is a
+        main-thread API)."""
+        if not self.cfg.resilience.preemption_save or threading.current_thread() is not threading.main_thread():
+            yield
+            return
+        prev = {s: signal.signal(s, self._handle_preempt_signal) for s in (signal.SIGTERM, signal.SIGINT)}
+        try:
+            yield
+        finally:
+            for s, handler in prev.items():
+                signal.signal(s, handler)
+
+    def _emergency_exit(self, epoch: int, undispatched: int) -> None:
+        """Preemption mid-epoch: an emergency 'latest' checkpoint whose
+        bookkeeping carries the mid-epoch iteration cursor, then the
+        restart-not-fail exit code. ``undispatched``: batches drawn from the
+        loader but never trained on (drawn again on resume)."""
+        cfg = self.cfg
+        # the emergency 'latest' must be the final one, not raced by a
+        # lagged epoch save
+        self._drain_ckpt_writer()
+        consumed = self.loader.train_episodes_produced // self.loader.batch_size - epoch * cfg.total_iter_per_epoch
+        mid = consumed - undispatched
+        bookkeeping = {
+            "epoch": epoch - 1,  # last fully completed epoch
+            "mid_epoch_iter": mid,
+            "train_episodes_produced": (epoch * cfg.total_iter_per_epoch + mid) * self.loader.batch_size,
+            "best_val_accuracy": self.best_val_accuracy,
+            "best_val_epoch": self.best_val_epoch,
+            "val_acc_by_epoch": {str(k): v for k, v in self.val_acc_by_epoch.items()},
+            "mesh": [1, 1],
+        }
+        ckpt.save_named(self.saved_models_dir, self._host_state(), bookkeeping, "latest",
+                        feature_shape=self._feature_shape)
+        signame = signal.Signals(self._preempt_signum).name
+        msg = (
+            f"PREEMPTED ({signame}) at epoch {epoch} iter {mid}: emergency "
+            f"checkpoint written, exiting {cfg.resilience.preemption_exit_code} (restart to resume)"
+        )
+        print(msg, flush=True)
+        self.events.append({"ts": time.time(), "event": "preempted", "epoch": epoch, "iter": mid})
+        storage.change_json_log_experiment_status(self.logs_dir, self.experiment_name, msg)
+        raise SystemExit(cfg.resilience.preemption_exit_code)
+
+    # ------------------------------------------------------------------
+    # evaluation and checkpoints
+    # ------------------------------------------------------------------
+
+    def _eval_batches(self, split: str):
+        n_batches = max(self.cfg.num_evaluation_tasks // self.loader.batch_size, 1)
+        if split == "val":
+            return self.loader.val_batches(n_batches)
+        return self.loader.test_batches(n_batches)
+
+    def _eval_split(self, split: str) -> Dict[str, Any]:
+        ep_losses, ep_accs = [], []
+        for batch in self._eval_batches(split):
+            with self.hub.phase("eval", split=split, cold=self._note_variant(("eval",))):
+                out = self.system.eval_step(self.state, batch)
+            self._beat(f"eval {split}")
+            ep_losses.append(out.per_task_losses)
+            ep_accs.append(out.per_task_accuracies)
+        # one fetch per list, after the last batch is queued
+        return _episode_stats(split, _host(torch.cat(ep_losses)), _host(torch.cat(ep_accs)))
+
+    def write_inner_opt_stats(self) -> None:
+        """One row per epoch of the learned per-tensor lrs, in the JAX
+        package's column order (sorted key paths)."""
+        if not self.cfg.learnable_inner_opt_params:
+            return
+        lrs = [float(x) for leaf in tree_leaves(self.state.inner_hparams["lr"]) for x in _host(leaf).ravel()]
+        storage.append_hparam_row(self.run_dir, lrs, "lrs.csv")
+
+    def _save(self, epoch: int) -> None:
+        bookkeeping = {
+            "epoch": epoch,
+            "best_val_accuracy": self.best_val_accuracy,
+            "best_val_epoch": self.best_val_epoch,
+            "train_episodes_produced": self.loader.train_episodes_produced,
+            "val_acc_by_epoch": {str(k): v for k, v in self.val_acc_by_epoch.items()},
+            "mesh": [1, 1],
+        }
+        # val_acc_by_epoch mutates across epochs; the writer needs this
+        # epoch's snapshot
+        rotation_accs = dict(self.val_acc_by_epoch) if self.cfg.checkpoint_rotation == "best_val" else None
+
+        with self.hub.phase("checkpoint", epoch=epoch):
+            # the host copy on this thread: the writer makes no CUDA call
+            host_state = self._host_state()
+
+            def write() -> None:
+                ckpt.save_checkpoint(
+                    self.saved_models_dir, host_state, bookkeeping, epoch,
+                    feature_shape=self._feature_shape,
+                    max_models_to_save=self.cfg.max_models_to_save,
+                    val_acc_by_epoch=rotation_accs,
+                )
+                # this durable state is the new NaN-rollback anchor and the
+                # wedge watchdog's anchor: single-reference rebinds
+                self._last_good = host_state
+                self._wedge_anchor = (host_state, {**bookkeeping, "mid_epoch_iter": 0})
+                self._beat(f"checkpoint epoch {epoch}")
+
+            if self._ckpt_writer is not None:
+                # one-save lag: block on the previous epoch's save, then
+                # serialize off the step path
+                self._ckpt_writer.submit(write)
+            else:
+                write()
+
+    def _save_best(self) -> None:
+        ckpt.save_named(
+            self.saved_models_dir, self._host_state(),
+            {"epoch": self.best_val_epoch, "best_val_accuracy": self.best_val_accuracy}, "best",
+            feature_shape=self._feature_shape,
+        )
+
+    def load_best(self) -> None:
+        if ckpt.checkpoint_exists(self.saved_models_dir, "best"):
+            self.state, _ = ckpt.load_checkpoint(self.saved_models_dir, "best", self.state,
+                                                 feature_shape=self._feature_shape)
+
+    def _collect_test_probs(self, state: TrainState, batches):
+        """Per-batch softmax target probabilities for pre-assembled test
+        batches (every ensemble member sees the same episodes)."""
+        probs = []
+        for batch in batches:
+            with self.hub.phase("eval", split="test-ensemble", cold=self._note_variant(("eval",))):
+                out = self.system.eval_step(state, batch)
+            self._beat("eval test-ensemble")
+            probs.append(torch.softmax(out.per_task_target_logits, dim=-1).cpu().numpy())
+        return probs
+
+    def evaluate_test(self) -> Dict[str, Any]:
+        """Test evaluation -> logs/test_summary.csv. With
+        ``test_ensemble_top_k > 1`` the softmax probabilities of the top-K
+        saved checkpoints by validation accuracy are averaged per episode."""
+        k = max(self.cfg.test_ensemble_top_k, 1)
+        ranked = sorted(
+            (e for e in ckpt.available_epochs(self.saved_models_dir) if e in self.val_acc_by_epoch),
+            key=lambda e: self.val_acc_by_epoch[e],
+            reverse=True,
+        )[:k] if k > 1 else []
+        if k > 1 and len(ranked) < k:
+            print(
+                f"warning: test ensemble requested top_k={k} but only "
+                f"{len(ranked)} ranked checkpoints survive rotation "
+                f"(max_models_to_save={self.cfg.max_models_to_save}); "
+                f"{'ensembling ' + str(len(ranked)) if len(ranked) > 1 else 'falling back to single-model evaluation'}",
+                flush=True,
+            )
+        if len(ranked) > 1:
+            batches = list(self._eval_batches("test"))  # assembled once
+            labels = [b["y_target"].reshape(b["y_target"].shape[0], -1) for b in batches]
+            member_probs = []
+            for epoch in ranked:
+                state, _ = ckpt.load_checkpoint(self.saved_models_dir, epoch, self.state,
+                                                feature_shape=self._feature_shape)
+                member_probs.append(self._collect_test_probs(state, batches))
+            ep_accs, ep_losses = [], []
+            for b, y in enumerate(labels):
+                mean_probs = np.mean([m[b] for m in member_probs], axis=0)
+                ep_accs.append((mean_probs.argmax(-1) == y).mean(axis=-1))
+                true_p = np.take_along_axis(mean_probs, y[..., None], axis=-1)
+                ep_losses.append(-np.log(np.maximum(true_p, 1e-12)).mean(axis=(-2, -1)))
+            stats = {
+                **_episode_stats("test", np.concatenate(ep_losses), np.concatenate(ep_accs)),
+                "test_ensemble_size": len(ranked),
+                "test_ensemble_epochs": " ".join(str(e) for e in ranked),
+            }
+        else:
+            stats = self._eval_split("test")
+        storage.save_statistics(self.logs_dir, stats, filename="test_summary.csv")
+        storage.change_json_log_experiment_status(
+            self.logs_dir, self.experiment_name, f"tested: acc={stats['test_accuracy_mean']:.4f}"
+        )
+        return stats
+
+    # ------------------------------------------------------------------
+
+    def run_experiment(self) -> Dict[str, Any]:
+        """Train/eval to completion. An owned loader is shut down on every
+        exit path (completion, the exit-3 abort, preemption, errors);
+        SIGTERM/SIGINT during the run take the emergency-save path; the
+        wedge watchdog is armed for exactly this scope."""
+        try:
+            with self._preemption_guard():
+                if self._watchdog is not None:
+                    with self._watchdog.watching("run_experiment"):
+                        return self._run_experiment()
+                return self._run_experiment()
+        finally:
+            # any in-flight async epoch save lands before the run dir is
+            # read as final
+            self._drain_ckpt_writer()
+            if self._watchdog is not None:
+                self._watchdog.stop()
+            # final telemetry snapshot + Chrome-trace export
+            self.hub.close()
+            self.events.close()
+            if self._owns_loader:
+                self.loader.close()
+
+    def _run_experiment(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        if cfg.evaluate_on_test_set_only:
+            self.load_best()
+            return self.evaluate_test()
+
+        end_epoch = min(cfg.total_epochs, self.start_epoch + cfg.total_epochs_before_pause)
+        for epoch in range(self.start_epoch, end_epoch):
+            stats: Dict[str, Any] = {"epoch": epoch}
+            stats.update(self._train_epoch(epoch))
+            stats.update(self._eval_split("val"))
+            storage.save_statistics(self.logs_dir, stats)
+            storage.update_json_experiment_log_epoch_stats(self.logs_dir, self.experiment_name, epoch, stats)
+            self.events.append({"ts": time.time(), **stats})
+            self.write_inner_opt_stats()
+            self.val_acc_by_epoch[epoch] = float(stats["val_accuracy_mean"])
+            if stats["val_accuracy_mean"] > self.best_val_accuracy:
+                self.best_val_accuracy = stats["val_accuracy_mean"]
+                self.best_val_epoch = epoch
+                self._save_best()
+            self._save(epoch)
+            # after eval + checkpoint so the epoch snapshot's cumulative
+            # phase sums include every phase of this epoch
+            self.hub.snapshot("epoch", epoch=epoch, train_wall_s=round(float(stats["epoch_run_time"]), 3))
+            # a preemption signal that landed during eval/save: the epoch
+            # checkpoint just written is complete, so exit restartable
+            if self._preempt_signum is not None:
+                signame = signal.Signals(self._preempt_signum).name
+                code = cfg.resilience.preemption_exit_code
+                print(
+                    f"PREEMPTED ({signame}) after epoch {epoch}: checkpoint "
+                    f"already written, exiting {code} (restart to resume)",
+                    flush=True,
+                )
+                self.events.append({"ts": time.time(), "event": "preempted", "epoch": epoch})
+                raise SystemExit(code)
+            print(
+                f"epoch {epoch}: train_acc={stats['train_accuracy_mean']:.4f} "
+                f"val_acc={stats['val_accuracy_mean']:.4f} "
+                f"({stats['epoch_run_time']:.1f}s)",
+                flush=True,
+            )
+            # early divergence abort: train accuracy still below the
+            # threshold after the grace window exits with the permanent
+            # code 3; the checkpoints up to this epoch stay on disk
+            if (
+                cfg.early_abort_train_acc > 0.0
+                and epoch + 1 >= cfg.early_abort_epoch
+                and stats["train_accuracy_mean"] < cfg.early_abort_train_acc
+            ):
+                msg = (
+                    f"EARLY ABORT: train_acc {stats['train_accuracy_mean']:.4f} < "
+                    f"{cfg.early_abort_train_acc} after {epoch + 1} epochs "
+                    f"(early_abort_epoch {cfg.early_abort_epoch}) — diverged"
+                )
+                print(msg, flush=True)
+                self.events.append({"ts": time.time(), "event": "early_abort", **stats})
+                storage.change_json_log_experiment_status(self.logs_dir, self.experiment_name, msg)
+                raise SystemExit(exit_codes.DIVERGED)
+        # settle the last epoch's async save (and its rotation) before the
+        # test phase loads the per-epoch checkpoint files
+        self._drain_ckpt_writer()
+        self.load_best()
+        test_stats = self.evaluate_test()
+        return {"best_val_accuracy": self.best_val_accuracy, "best_val_epoch": self.best_val_epoch, **test_stats}

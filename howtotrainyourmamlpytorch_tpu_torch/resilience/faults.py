@@ -1,10 +1,13 @@
-"""Fault-spec grammar, the part of the JAX package's
-``resilience/faults.py`` that ``config.py`` needs: it parses every
-``resilience.faults`` entry at config load, so a config that loads into the
-JAX package loads here with the same values and the same errors.
+"""Fault-spec grammar and the inert injector: the part of the JAX package's
+``resilience/faults.py`` that ``config.py``, the loader and the runner need.
+``config.py`` parses every ``resilience.faults`` entry at config load, so a
+config that loads into the JAX package loads here with the same values and
+the same errors.
 
-The injector itself (the seams that fire faults) is not part of this port
-yet; see ROADMAP.md.
+The drills themselves (an injector that fires faults at the seams) are not
+ported yet (ROADMAP.md A9): :func:`injector_from` returns the inert
+:data:`NULL_INJECTOR` when no drill is named and raises
+``NotImplementedError`` when one is, so a drill is never silently skipped.
 
 Spec grammar (one string per fault)::
 
@@ -14,9 +17,14 @@ Spec grammar (one string per fault)::
     options:  nth=N, times=N, after=N, p=F, delay_s=F
 """
 
+import os
 from dataclasses import dataclass
+from typing import Optional
 
 KINDS = ("raise", "corrupt-bytes", "nan-loss", "delay", "sigterm")
+
+# env var merged into every config-built injector in the JAX package
+ENV_VAR = "HTYMP_FAULTS"
 
 
 @dataclass
@@ -47,3 +55,30 @@ class FaultSpec:
         if not 0.0 <= spec.p <= 1.0:
             raise ValueError(f"fault p must be in [0, 1], got {spec.p} in {text!r}")
         return spec
+
+
+class NullInjector:
+    """The seams' injector with no drill armed: every call is a no-op."""
+
+    def fire(self, site: str) -> Optional[str]:
+        return None
+
+
+#: Shared inert instance for default arguments.
+NULL_INJECTOR = NullInjector()
+
+
+def injector_from(resilience_cfg) -> NullInjector:
+    """The injector for a ``ResilienceConfig``-shaped object: inert when
+    neither ``faults`` nor the ``HTYMP_FAULTS`` environment variable names a
+    drill; a named drill raises, since the drills are not ported."""
+    texts = list(getattr(resilience_cfg, "faults", ()) or ())
+    texts += [t for t in os.environ.get(ENV_VAR, "").split(";") if t.strip()]
+    for text in texts:
+        FaultSpec.parse(text)  # a malformed spec fails as in the JAX package
+    if texts:
+        raise NotImplementedError(
+            f"fault drills {texts} are not ported to PyTorch yet (ROADMAP.md A9: "
+            "the resilience layer); run without resilience.faults and HTYMP_FAULTS"
+        )
+    return NULL_INJECTOR

@@ -5,9 +5,12 @@ probabilities (atol 1e-5, the slice tolerance of test_torch_slice), and a
 damaged file raises ``CheckpointCorruptError``. Training resumes across
 them in both directions, formats 2 and 3 (linear model of
 test_torch_train: the next step agrees at atol 1e-5); the port writes
-format 2 only."""
+format 2 only. ``save_named`` files load in the JAX package, a corrupt
+``latest`` is quarantined and the newest valid epoch resumes, and the async
+writer keeps one save in flight."""
 
 import os
+import threading
 
 import msgpack
 import numpy as np
@@ -167,3 +170,77 @@ def test_flipped_byte_in_a_shard_raises(sharded):
         ckpt.load_checkpoint(str(save_dir), 1, tsys.init_train_state(), feature_shape=tsys.model.feature_shape)
     with pytest.raises(ckpt.CheckpointCorruptError, match="shard"):
         ckpt.load_for_inference(str(save_dir), 1)
+
+
+def test_save_named_best_loads_in_jax(tmp_path):
+    """``save_named(..., "best")`` writes the JAX package's file: its
+    ``load_checkpoint`` restores the state byte for byte."""
+    jsys, _, tsys, tstate = pair("linear")
+    tstate = _train(tsys, tstate, (70,))
+    bookkeeping = {"epoch": 3, "best_val_accuracy": 0.75}
+    path = ckpt.save_named(str(tmp_path), tstate, bookkeeping, "best", feature_shape=tsys.model.feature_shape)
+    assert path == str(tmp_path / "train_model_best") and ckpt.available_epochs(str(tmp_path)) == []
+    restored, got_bk = jax_ckpt.load_checkpoint(str(tmp_path), "best", jsys.init_train_state())
+    assert got_bk == bookkeeping
+    _state_close(tsys, tstate, restored, atol=0.0)
+
+
+def test_corrupt_latest_is_quarantined_and_the_newest_epoch_resumes(tmp_path):
+    _, _, tsys, tstate = pair("linear")
+    fs = tsys.model.feature_shape
+    states = []
+    for epoch, seed in enumerate((80, 81, 82)):
+        tstate = _train(tsys, tstate, (seed,))
+        states.append(tstate)
+        ckpt.save_checkpoint(str(tmp_path), tstate, {"epoch": epoch}, epoch, feature_shape=fs)
+    for idx in ("latest", 2):  # a torn 'latest' and a torn newest epoch
+        blob = bytearray((tmp_path / f"train_model_{idx}").read_bytes())
+        blob[len(blob) // 2] ^= 0xFF
+        (tmp_path / f"train_model_{idx}").write_bytes(bytes(blob))
+    state, bookkeeping, used = ckpt.load_latest_with_fallback(str(tmp_path), tsys.init_train_state(), feature_shape=fs)
+    assert used == 1 and bookkeeping == {"epoch": 1}
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(state), _leaves(states[1])))
+    assert sorted(os.listdir(tmp_path)) == [
+        "train_model_0", "train_model_1", "train_model_2.corrupt", "train_model_latest.corrupt"]
+    assert not ckpt.checkpoint_exists(str(tmp_path), "latest") and ckpt.quarantine(str(tmp_path), "latest") is None
+    for idx in (0, 1):
+        (tmp_path / f"train_model_{idx}").write_bytes(b"not a checkpoint")
+    with pytest.raises(ckpt.CheckpointCorruptError, match="no valid checkpoint"):
+        ckpt.load_latest_with_fallback(str(tmp_path), tsys.init_train_state(), feature_shape=fs)
+
+
+def _leaves(state):
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    return tree_leaves({"p": state.params, "h": state.inner_hparams}) + [state.step]
+
+
+def test_async_writer_keeps_one_save_in_flight_and_drains():
+    """``submit`` returns while its save runs; the next ``submit`` first
+    waits for it (the one-save lag); ``wait`` drains; a failed save
+    re-raises once, at the next call."""
+    writer = ckpt.AsyncCheckpointWriter()
+    release, order = threading.Event(), []
+
+    def slow():
+        assert release.wait(timeout=30)
+        order.append("first")
+
+    writer.submit(slow)
+    assert writer.busy and order == []
+    timer = threading.Timer(0.2, release.set)
+    timer.start()
+    writer.submit(lambda: order.append("second"))  # blocks until "first" lands
+    assert order[0] == "first"
+    writer.wait()
+    assert order == ["first", "second"] and not writer.busy
+
+    def fail():
+        raise OSError("disk full")
+
+    writer.submit(fail)
+    with pytest.raises(OSError, match="disk full"):
+        writer.wait()
+    writer.close()  # the error was reported once
+    timer.join(timeout=5)
+    assert not timer.is_alive()

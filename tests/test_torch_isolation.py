@@ -12,6 +12,7 @@ import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.config import Config
 from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
 from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,6 +59,9 @@ def test_importing_the_port_loads_no_jax():
         "from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem\n"
         "from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint\n"
         "from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update, _kernels, msl, outer_adam\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import data, native, observability, train\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner, storage\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.resilience import faults, retry, watchdog\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'howtotrainyourmamlpytorch_tpu'))\n"
         "assert not bad, bad\n"
@@ -73,3 +77,5 @@ def test_no_device_means_the_card_and_raises_without_one(monkeypatch):
         MAMLSystem(Config())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AdaptationEngine.from_run_dir(os.path.join(_ROOT, "no_such_run"), cfg=Config())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ExperimentRunner(Config())

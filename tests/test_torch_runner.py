@@ -1,0 +1,541 @@
+"""The port's experiment runner on the CPU at a small size (2 stages, 4
+filters, 3-way 2-shot, batch 2, 2 epochs of 3 iterations), on the toy image
+folder of ``tests/test_runner.py``. It mirrors that file's tests (artifact
+contract and resume, test-only evaluation, named and integer epochs,
+per-episode eval statistics, the early abort) and adds: the artifact files
+and CSV columns against a JAX runner's run; the NaN sentinel and its
+rollback; SIGTERM in a subprocess (rc 75, then an exact mid-epoch resume);
+the refused options; the CLI in a subprocess; and a run directory resumed
+across the packages in both directions (the next step's loss within atol
+1e-5, the same loader cursor)."""
+
+import csv
+import dataclasses
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from howtotrainyourmamlpytorch_tpu import config as jcfg
+from howtotrainyourmamlpytorch_tpu.core import MAMLSystem as JaxMAMLSystem
+from howtotrainyourmamlpytorch_tpu.experiment import ExperimentRunner as JaxRunner
+from howtotrainyourmamlpytorch_tpu.models import build_vgg as jax_build_vgg
+from howtotrainyourmamlpytorch_tpu_torch import config as tcfg
+from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
+from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint as ckpt
+from howtotrainyourmamlpytorch_tpu_torch.experiment.storage import load_statistics
+from howtotrainyourmamlpytorch_tpu_torch.models.vgg import build_vgg
+from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LOSS_ATOL = 1e-5
+# CPU threads for the runs here and in their subprocesses: the suite runs
+# on several workers at once, and timing tests elsewhere share the cores
+THREADS = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    before = torch.get_num_threads()
+    torch.set_num_threads(THREADS)
+    yield
+    torch.set_num_threads(before)
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=_ROOT, OMP_NUM_THREADS=str(THREADS))
+
+
+@pytest.fixture(scope="module")
+def toy_dataset(tmp_path_factory):
+    root = tmp_path_factory.mktemp("data") / "omniglot_toy"
+    rng = np.random.RandomState(0)
+    for a in range(4):
+        for c in range(5):
+            d = root / f"alpha{a}" / f"char{c}"
+            d.mkdir(parents=True)
+            base = (rng.rand(28, 28) > 0.5).astype(np.uint8) * 255
+            for i in range(6):
+                noisy = base ^ (rng.rand(28, 28) > 0.95).astype(np.uint8) * 255
+                Image.fromarray(noisy, mode="L").convert("1").save(d / f"{i}.png")
+    return str(root)
+
+
+def _base(module, toy_dataset, root):
+    return dict(
+        dataset=module.DatasetConfig(name="omniglot_toy", path=toy_dataset),
+        num_classes_per_set=3,
+        num_samples_per_class=2,
+        num_target_samples=2,
+        batch_size=2,
+        total_epochs=2,
+        total_iter_per_epoch=3,
+        num_evaluation_tasks=4,
+        number_of_training_steps_per_iter=2,
+        number_of_evaluation_steps_per_iter=2,
+        experiment_root=str(root),
+        experiment_name="toy_run",
+        load_into_memory=True,
+        num_dataprovider_workers=2,
+        train_val_test_split=(0.6, 0.2, 0.2),  # 20 toy classes need a real val split
+    )
+
+
+def runner_config(toy_dataset, root, **overrides):
+    return tcfg.Config(**{**_base(tcfg, toy_dataset, root), **overrides})
+
+
+def jax_config(toy_dataset, root, **overrides):
+    # one device, patches-GEMM convs: what the JAX runner runs on the CPU;
+    # its lax.scan program without remat, the one that agrees with float64
+    # on this jax (ROADMAP.md C: the unrolled and remat programs' train-step
+    # losses move by ~6e-3 here)
+    base = dict(_base(jcfg, toy_dataset, root), parallel=jcfg.ParallelConfig(dp=1), conv_via_patches=True,
+                unroll_inner_steps=False, remat_inner_steps=False)
+    return jcfg.Config(**{**base, **overrides})
+
+
+def small_system(cfg):
+    model = build_vgg((28, 28, 1), cfg.num_classes_per_set, num_stages=2, cnn_num_filters=4)
+    return MAMLSystem(cfg, model=model, device="cpu")
+
+
+def jax_small_system(cfg):
+    model = jax_build_vgg((28, 28, 1), cfg.num_classes_per_set, num_stages=2, cnn_num_filters=4,
+                          conv_via_patches=True)
+    return JaxMAMLSystem(cfg, model=model)
+
+
+def _events(run_dir):
+    with open(os.path.join(run_dir, "logs", "events.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _header(path):
+    with open(path) as f:
+        return next(csv.reader(f))
+
+
+def _files(run_dir):
+    return sorted(
+        os.path.relpath(os.path.join(d, name), run_dir)
+        for d, _, names in os.walk(run_dir)
+        for name in names
+    )
+
+
+# ---------------------------------------------------------------------------
+# module-scoped runs: one epoch by each package's runner
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_run(toy_dataset, tmp_path_factory):
+    """One epoch of the JAX runner (the reference run directory)."""
+    root = tmp_path_factory.mktemp("jax_run")
+    cfg = jax_config(toy_dataset, root, total_epochs=1)
+    runner = JaxRunner(cfg, system=jax_small_system(cfg))
+    runner.run_experiment()
+    return runner.run_dir
+
+
+@pytest.fixture(scope="module")
+def port_run(toy_dataset, tmp_path_factory):
+    root = tmp_path_factory.mktemp("port_run")
+    cfg = runner_config(toy_dataset, root, total_epochs=1)
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    runner.run_experiment()
+    return runner.run_dir
+
+
+# ---------------------------------------------------------------------------
+# the tests of tests/test_runner.py
+# ---------------------------------------------------------------------------
+
+
+def test_end_to_end_artifacts_and_resume(toy_dataset, tmp_path, jax_run):
+    cfg = runner_config(toy_dataset, tmp_path)
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    result = runner.run_experiment()
+
+    run_dir = runner.run_dir
+    logs = os.path.join(run_dir, "logs")
+    assert os.path.isdir(os.path.join(run_dir, "saved_models"))
+    assert os.path.isdir(os.path.join(run_dir, "visual_outputs"))
+    rows = load_statistics(logs)
+    assert len(rows) == 2
+    for col in ("epoch", "train_accuracy_mean", "val_accuracy_mean",
+                "train_loss_mean", "val_loss_mean", "learning_rate"):
+        assert col in rows[0], f"missing column {col}"
+    test_rows = load_statistics(logs, "test_summary.csv")
+    assert "test_accuracy_mean" in test_rows[0]
+    assert os.path.exists(os.path.join(run_dir, "config.yaml"))
+    assert os.path.exists(os.path.join(logs, "toy_run.json"))
+    with open(os.path.join(run_dir, "lrs.csv")) as f:
+        lr_rows = list(csv.reader(f))
+    assert len(lr_rows) == 2
+    assert "test_accuracy_mean" in result
+
+    # the JAX runner's contract: the same files (its XLA compile ledger is
+    # not ported, ROADMAP.md A10) and the same CSV columns
+    jax_files = [f for f in _files(jax_run) if f != os.path.join("logs", "compile_ledger.jsonl")]
+    assert _files(run_dir) == [f for f in jax_files if not f.startswith("saved_models")] + sorted(
+        os.path.join("saved_models", f"train_model_{i}") for i in (0, 1, "best", "latest"))
+    for name in ("summary_statistics.csv", "test_summary.csv"):
+        assert _header(os.path.join(logs, name)) == _header(os.path.join(jax_run, "logs", name)), name
+    with open(os.path.join(jax_run, "lrs.csv")) as f:
+        assert [len(r) for r in lr_rows] == [len(next(csv.reader(f)))] * 2
+
+    # resume: a new runner continues from epoch 2 without retraining
+    cfg2 = runner_config(toy_dataset, tmp_path, total_epochs=3)
+    runner2 = ExperimentRunner(cfg2, system=small_system(cfg2))
+    assert runner2.start_epoch == 2
+    assert runner2.loader.train_episodes_produced == 2 * 3 * 2  # epochs*iters*batch
+    runner2.run_experiment()
+    assert len(load_statistics(logs)) == 3
+
+
+def test_evaluate_on_test_set_only(toy_dataset, tmp_path):
+    cfg = runner_config(toy_dataset, tmp_path, evaluate_on_test_set_only=True, experiment_name="toy_eval_only")
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    stats = runner.run_experiment()
+    assert "test_accuracy_mean" in stats
+    assert not os.path.exists(os.path.join(runner.run_dir, "logs", "summary_statistics.csv"))
+
+
+def test_missing_named_epoch_fails_fast(toy_dataset, tmp_path):
+    cfg = runner_config(toy_dataset, tmp_path, continue_from_epoch="7")
+    with pytest.raises(FileNotFoundError, match="continue_from_epoch"):
+        ExperimentRunner(cfg, system=small_system(cfg))
+
+
+def test_numeric_continue_from_epoch(toy_dataset, tmp_path):
+    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_numeric")
+    ExperimentRunner(cfg, system=small_system(cfg)).run_experiment()
+    cfg2 = runner_config(toy_dataset, tmp_path, experiment_name="toy_numeric", total_epochs=3, continue_from_epoch=0)
+    runner2 = ExperimentRunner(cfg2, system=small_system(cfg2))
+    assert runner2.start_epoch == 1
+    assert runner2.loader.train_episodes_produced == 1 * 3 * 2
+    cfg3 = runner_config(toy_dataset, tmp_path, experiment_name="toy_numeric", continue_from_epoch=7)
+    with pytest.raises(FileNotFoundError, match="continue_from_epoch"):
+        ExperimentRunner(cfg3, system=small_system(cfg3))
+
+
+def test_eval_stats_are_per_episode(toy_dataset, tmp_path):
+    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_epstats", total_epochs=1)
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    runner.run_experiment()
+    logs = os.path.join(runner.run_dir, "logs")
+    row = load_statistics(logs)[0]
+    for col in ("val_accuracy_std", "val_accuracy_ci95", "val_num_episodes"):
+        assert col in row, f"missing column {col}"
+    n_eval = (cfg.num_evaluation_tasks // cfg.batch_size) * cfg.batch_size
+    assert int(float(row["val_num_episodes"])) == n_eval
+    test_row = load_statistics(logs, "test_summary.csv")[0]
+    assert int(float(test_row["test_num_episodes"])) == n_eval
+    std = float(test_row["test_accuracy_std"])
+    ci = float(test_row["test_accuracy_ci95"])
+    assert abs(ci - 1.96 * std / np.sqrt(n_eval)) < 1e-9
+
+
+def test_early_abort_on_divergence(toy_dataset, tmp_path):
+    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_abort", total_epochs=5,
+                        early_abort_train_acc=1.1, early_abort_epoch=2)
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    with pytest.raises(SystemExit) as exc:
+        runner.run_experiment()
+    assert exc.value.code == 3
+    assert len(load_statistics(os.path.join(runner.run_dir, "logs"))) == 2
+    assert any(e.get("event") == "early_abort" for e in _events(runner.run_dir))
+    assert os.path.exists(os.path.join(runner.run_dir, "saved_models", "train_model_latest"))
+
+
+# ---------------------------------------------------------------------------
+# the NaN sentinel and its ladder
+# ---------------------------------------------------------------------------
+
+
+def _snapshot(state):
+    return [t.clone() for t in tree_leaves({"p": state.params, "h": state.inner_hparams})] + [state.step.clone()]
+
+
+def _equal(state, snapshot):
+    return all(torch.equal(a, b) for a, b in zip(_snapshot(state), snapshot))
+
+
+def _poison(runner, nan_calls):
+    """Wrap ``train_step``: the loss of the calls in ``nan_calls`` (1-based)
+    turns NaN; every call's input state is checked unchanged by the step."""
+    real = runner.system.train_step
+    inputs = []
+
+    def step(state, batch, epoch=None):
+        before = _snapshot(state)
+        new, out = real(state, batch, epoch=epoch)
+        assert _equal(state, before), "train_step wrote into its input state"
+        inputs.append((state, before))
+        if len(inputs) in nan_calls:
+            out = out._replace(loss=torch.tensor(float("nan")))
+        return new, out
+
+    runner.system.train_step = step
+    return inputs
+
+
+def test_nan_step_is_discarded_and_the_state_restored(toy_dataset, tmp_path):
+    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_nan")
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    inputs = _poison(runner, nan_calls={2})
+    stats = runner._train_epoch(0)
+    # step 2 is judged while step 3 runs on top of it: both are discarded,
+    # and the state is the one step 2 was given, bit for bit
+    assert len(inputs) == 3
+    assert runner.state is inputs[1][0] and _equal(runner.state, inputs[1][1])
+    assert [e["consecutive"] for e in _events(runner.run_dir) if e.get("event") == "nan_step_skipped"] == [1]
+    assert np.isfinite(stats["train_loss_mean"])
+    runner.events.close()
+    runner.loader.close()
+
+
+def test_consecutive_nans_roll_back_to_the_checkpoint_and_scale_the_outer_lr(toy_dataset, tmp_path):
+    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_rollback", total_iter_per_epoch=8)
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    runner._train_epoch(0)
+    runner._save(0)
+    runner._drain_ckpt_writer()
+    saved, _ = ckpt.load_checkpoint(runner.saved_models_dir, 0, runner.state,
+                                    feature_shape=runner.system.model.feature_shape)
+    inputs = _poison(runner, nan_calls=set(range(2, 100)))
+    runner._train_epoch(1)
+    events = _events(runner.run_dir)
+    # discards at calls 3, 5, 7 (K=3) roll back; the drain's discard starts a new streak
+    assert [e["consecutive"] for e in events if e.get("event") == "nan_step_skipped"] == [1, 2, 3, 1]
+    rollbacks = [e for e in events if e.get("event") == "nan_rollback"]
+    assert [(r["rollback"], r["meta_lr_scale"]) for r in rollbacks] == [(1, 0.5)]
+    assert len(inputs) == 8
+    # call 8 ran from the checkpointed state
+    assert _equal(inputs[7][0], _snapshot(saved))
+    assert runner.system.meta_lr_scale == 0.5
+    # the outer schedule is scaled as the JAX package's scale_meta_lr scales it
+    jcfg_ = jax_config(toy_dataset, tmp_path, total_iter_per_epoch=8)
+    jsys = jax_small_system(jcfg_)
+    jsys.scale_meta_lr(0.5)
+    for step in (0, 8, 9, 16):
+        np.testing.assert_allclose(float(runner.system.schedule(torch.tensor(step))), float(jsys.schedule(step)),
+                                   rtol=1e-7)
+    runner.events.close()
+    runner.loader.close()
+
+
+def test_nan_abort_after_the_rollbacks_are_spent(toy_dataset, tmp_path):
+    res = dataclasses.replace(tcfg.ResilienceConfig(), max_consecutive_bad_steps=1, max_rollbacks=0)
+    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_nan_abort", resilience=res)
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    _poison(runner, nan_calls={1, 2, 3})
+    with pytest.raises(SystemExit) as exc:
+        runner.run_experiment()
+    assert exc.value.code == 3
+    assert any(e.get("event") == "nan_abort" for e in _events(runner.run_dir))
+
+
+# ---------------------------------------------------------------------------
+# SIGTERM, refused options, the CLI
+# ---------------------------------------------------------------------------
+
+_PREEMPT_SCRIPT = r"""
+import json, os, signal
+from howtotrainyourmamlpytorch_tpu_torch import config
+from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
+from howtotrainyourmamlpytorch_tpu_torch.models.vgg import build_vgg
+
+kwargs = json.loads({kwargs!r})
+kwargs["dataset"] = config.DatasetConfig(**kwargs["dataset"])
+cfg = config.Config(**kwargs)
+model = build_vgg((28, 28, 1), cfg.num_classes_per_set, num_stages=2, cnn_num_filters=4)
+runner = ExperimentRunner(cfg, system=MAMLSystem(cfg, model=model, device="cpu"))
+real = runner.system.train_step
+calls = []
+
+def step(state, batch, epoch=None):
+    calls.append(epoch)
+    if len(calls) == {nth}:
+        os.kill(os.getpid(), signal.SIGTERM)  # a preemption during the step
+    return real(state, batch, epoch=epoch)
+
+runner.system.train_step = step
+try:
+    runner.run_experiment()
+finally:
+    print("STEPS", calls, flush=True)
+"""
+
+
+def test_sigterm_saves_mid_epoch_and_resume_continues_there(toy_dataset, tmp_path):
+    """SIGTERM during epoch 1's second step: the step finishes, the next
+    batch is drawn but not trained, and the emergency 'latest' records 2
+    iterations of epoch 1; exit 75. A new runner resumes at that iteration
+    and trains only the last one."""
+    kwargs = dict(_base(tcfg, toy_dataset, tmp_path), experiment_name="toy_preempt")
+    kwargs["dataset"] = dataclasses.asdict(kwargs["dataset"])
+    script = _PREEMPT_SCRIPT.format(kwargs=json.dumps(kwargs), nth=5)
+    env = _env()
+    proc = subprocess.run([sys.executable, "-c", script], cwd=_ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 75, proc.stdout + proc.stderr
+    assert "PREEMPTED (SIGTERM) at epoch 1 iter 2" in proc.stdout
+    assert "STEPS [0, 0, 0, 1, 1]" in proc.stdout
+    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_preempt")
+    saved_models = os.path.join(cfg.run_dir(), "saved_models")
+    _, bookkeeping = ckpt.load_for_inference(saved_models, "latest")
+    assert (bookkeeping["epoch"], bookkeeping["mid_epoch_iter"]) == (0, 2)
+    assert bookkeeping["train_episodes_produced"] == (3 + 2) * 2
+
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    assert (runner.start_epoch, runner._resume_mid_iter) == (1, 2)
+    assert runner.loader.train_episodes_produced == (3 + 2) * 2
+    steps = []
+    real = runner.system.train_step
+    runner.system.train_step = lambda s, b, epoch=None: steps.append(epoch) or real(s, b, epoch=epoch)
+    runner.run_experiment()
+    assert steps == [1]
+    assert [int(float(r["epoch"])) for r in load_statistics(os.path.join(cfg.run_dir(), "logs"))] == [0, 1]
+
+
+REFUSED = {
+    "multi_dispatch": (dict(train_steps_per_dispatch=2), "A10"),
+    "eval_fused": (dict(eval_fused_dispatch=True), "A10"),
+    "aot": (dict(aot=tcfg.AotConfig(enabled=True)), "A10"),
+    "donation": (dict(donate_train_state=True), "A10"),
+    "profile": (dict(profile_dir="prof"), "A10"),
+    "sanitizer": (dict(resilience=tcfg.ResilienceConfig(sanitizer=True)), "A9"),
+    "fault_drill": (dict(resilience=tcfg.ResilienceConfig(faults=["runner.step=nan-loss:nth=2"])), "A9"),
+    "dp2": (dict(parallel=tcfg.ParallelConfig(dp=2)), "A9"),
+    "mp2": (dict(parallel=tcfg.ParallelConfig(mp=2)), "A9"),
+    "sharded_checkpoints": (dict(checkpoint_shards=2), "A9"),
+    "inner_adam": (dict(inner_optim=tcfg.InnerOptimConfig(kind="adam")), "A6"),
+    "resnet": (dict(net="resnet-4"), "A6"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_unported_options_are_refused(toy_dataset, tmp_path, name):
+    overrides, item = REFUSED[name]
+    cfg = runner_config(toy_dataset, tmp_path, **overrides)
+    with pytest.raises(NotImplementedError, match=item):
+        ExperimentRunner(cfg, device="cpu")
+    assert not os.path.exists(cfg.run_dir())
+
+
+def test_fault_drill_from_the_environment_is_refused(toy_dataset, tmp_path, monkeypatch):
+    monkeypatch.setenv("HTYMP_FAULTS", "runner.step=sigterm:nth=3")
+    cfg = runner_config(toy_dataset, tmp_path)
+    with pytest.raises(NotImplementedError, match="A9"):
+        ExperimentRunner(cfg, system=small_system(cfg))
+    monkeypatch.setenv("HTYMP_FAULTS", "runner.step=bogus")
+    with pytest.raises(ValueError, match="bad fault spec"):
+        ExperimentRunner(cfg, system=small_system(cfg))
+
+
+def test_one_device_data_parallel_is_accepted(toy_dataset, tmp_path):
+    """``dp=-1`` (the default) resolves to one device here."""
+    cfg = runner_config(toy_dataset, tmp_path, parallel=tcfg.ParallelConfig(dp=-1))
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    assert runner.start_epoch == 0
+    runner.events.close()
+    runner.loader.close()
+
+
+def _cli(args, cwd):
+    env = _env()
+    cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", *args]
+    return subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_cli_trains_and_resumes_on_the_cpu(toy_dataset, tmp_path):
+    """``python -m howtotrainyourmamlpytorch_tpu_torch.train --device cpu``
+    at the full-width VGG, then a resume that trains only the new epoch."""
+    overrides = [
+        f'dataset={{"name": "omniglot_toy", "path": "{toy_dataset}"}}',
+        "num_classes_per_set=3", "num_samples_per_class=2", "num_target_samples=2", "batch_size=2",
+        "total_iter_per_epoch=2", "num_evaluation_tasks=2", "number_of_training_steps_per_iter=2",
+        "number_of_evaluation_steps_per_iter=2", f"experiment_root={tmp_path}", "load_into_memory=true",
+        "train_val_test_split=[0.6,0.2,0.2]", "num_dataprovider_workers=2",
+    ]
+    proc = _cli(["--device", "cpu", "--config", os.path.join(_ROOT, "configs", "default.yaml"),
+                 "total_epochs=1", *overrides], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    run_dir = os.path.join(tmp_path, "omniglot_toy.3.2")
+    assert f"run dir: {run_dir}" in proc.stdout
+    assert "n_params: " in proc.stdout and "epoch 0: train_acc=" in proc.stdout
+    proc = _cli(["--device", "cpu", "total_epochs=2", *overrides], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "resumed: epoch 1, train episodes 4" in proc.stdout
+    assert "epoch 1: train_acc=" in proc.stdout and "epoch 0:" not in proc.stdout
+    assert len(load_statistics(os.path.join(run_dir, "logs"))) == 2
+    assert load_statistics(os.path.join(run_dir, "logs"), "test_summary.csv")
+
+
+def test_cli_without_a_card_raises(tmp_path):
+    code = ("import torch, sys; torch.cuda.is_available = lambda: False; "
+            "from howtotrainyourmamlpytorch_tpu_torch.train import main; sys.exit(main([]))")
+    env = _env()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert not os.listdir(tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# a run directory across the packages
+# ---------------------------------------------------------------------------
+
+
+def _copy_run(run_dir, root):
+    target = os.path.join(root, os.path.basename(run_dir))
+    shutil.copytree(run_dir, target)
+    return target
+
+
+def _first_step_losses(toy_dataset, tmp_path, run_dir):
+    """Resume ``run_dir`` (copied) in both packages' runners at
+    ``total_epochs=2``; each runner's first train step after the resume on
+    its own loader's next batch -> (port loss, JAX loss), and the cursors."""
+    port_root, jax_root = tmp_path / "port", tmp_path / "jax"
+    _copy_run(run_dir, port_root)
+    _copy_run(run_dir, jax_root)
+    cfg = runner_config(toy_dataset, port_root, total_epochs=2)
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    jcfg_ = jax_config(toy_dataset, jax_root, total_epochs=2)
+    jrunner = JaxRunner(jcfg_, system=jax_small_system(jcfg_))
+    assert runner.start_epoch == jrunner.start_epoch == 1
+    cursors = (runner.loader.train_episodes_produced, jrunner.loader.train_episodes_produced)
+    batch = next(iter(runner.loader.train_batches(1)))
+    jbatch = next(iter(jrunner.loader.train_batches(1)))
+    for key in batch:
+        np.testing.assert_array_equal(batch[key], jbatch[key])
+    _, out = runner.system.train_step(runner.state, batch, epoch=1)
+    _, jout = jrunner.system.train_step(jrunner.state, jrunner._put(jbatch), epoch=1)
+    for r in (runner, jrunner):
+        r.events.close()
+        r.loader.close()
+    return float(out.loss), float(jout.loss), cursors
+
+
+def test_jax_run_resumes_in_the_port(toy_dataset, tmp_path, jax_run):
+    loss, jax_loss, cursors = _first_step_losses(toy_dataset, tmp_path, jax_run)
+    assert cursors == (3 * 2, 3 * 2)
+    assert abs(loss - jax_loss) <= LOSS_ATOL, (loss, jax_loss)
+
+
+def test_port_run_resumes_in_jax(toy_dataset, tmp_path, port_run):
+    loss, jax_loss, cursors = _first_step_losses(toy_dataset, tmp_path, port_run)
+    assert cursors == (3 * 2, 3 * 2)
+    assert abs(loss - jax_loss) <= LOSS_ATOL, (loss, jax_loss)
