@@ -12,14 +12,18 @@ Run from the repository root. Phases, one JSON line each:
    packed ``[rows, 128]`` B1 and B2, copied from git history into DIR),
    built beside them for a comparison in the same call.
 2. ``kernel``: the fused LSLR update B1 (``csrc/fused_sgd.cu``) against its
-   plain PyTorch twin on the card, at the main paths' tree (the VGG-64 tree
-   of 20-way Omniglot, 18 leaves over 8 tasks) and at a ragged tree whose
-   leaves take the rest and element-by-element paths, in float32 and
-   bfloat16; it must be bit-equal. Times are
-   CUDA-event medians with the L2 cache flushed before every launch, under
-   two flushes (``time_ms``): the kernel, the parent design (in turns:
-   parent, kernel, kernel, parent), an empty kernel (the floor), the twin,
-   ``torch.addcmul`` over a packed buffer and two ``torch._foreach`` calls.
+   plain PyTorch twin on the card, at the trees of the main paths (the
+   VGG-64 tree of 20-way Omniglot, 18 leaves over 8 tasks; the ResNet-12
+   tree, 86 leaves over 8 tasks, 34,872,480 elements, which takes the
+   kernels' 256-leaf table), at a ragged tree whose leaves take the rest and
+   element-by-element paths, and at 220 small leaves, in float32 and
+   bfloat16; it must be bit-equal. Times are CUDA-event medians with the L2
+   cache flushed before every launch, under two flushes (``time_ms``): at
+   the VGG tree the kernel, the parent design (in turns: parent, kernel,
+   kernel, parent), an empty kernel (the floor), the twin,
+   ``torch.addcmul`` over a packed buffer and two ``torch._foreach`` calls;
+   at the ResNet-12 tree the kernel, the twin and ``torch.addcmul`` beside
+   the byte bound.
 3. ``kernel_bwd``: its backward B2 (``csrc/fused_sgd_bwd.cu``) against its
    twin at the same trees: ``dg`` bit-equal, ``dlr`` within the bound of
    the kernel's summation tree from a float64 sum, and bit-equal across
@@ -54,7 +58,9 @@ Run from the repository root. Phases, one JSON line each:
    loader): ``ExperimentRunner`` in this process for 2 epochs of 10 steps
    with validation (5 batches) and the best checkpoint's test, then the CLI
    (``python -m howtotrainyourmamlpytorch_tpu_torch.train``) in a
-   subprocess resuming it to 3 epochs. Checks: the run directory's files
+   subprocess resuming it to 3 epochs, then the CLI training ResNet-12 at
+   the fleet row ``omniglot.20.1.resnet-12.gd`` for one epoch of 3 steps on
+   the same folder. Checks: the run directories' files
    and columns, finite losses, B1 launched 5 times per train and eval step
    and B2 5 times per train step through the runner, 5 leaf copies per
    train step, the native episode engine for every batch, the resumed
@@ -62,8 +68,24 @@ Run from the repository root. Phases, one JSON line each:
    reports epoch times, the runner's step period beside phase ``train``'s
    bare step, the share of each telemetry phase, the loader's episodes per
    second alone and a ``torch.profiler`` breakdown of one runner step.
-9. ``kernels``: every kernel the run launched, with its launches on the
-   paths, its error against the twin and its times beside its bound.
+9. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
+   ``omniglot.20.1.resnet-12.gd`` (28x28x1, 20-way 1-shot, meta-batch 8,
+   K=5, second order, MSL on, fused, remat off): 10 train steps, an eval
+   step and the engine serving the trained state, B1 and B2 over the
+   86-leaf tree on every inner step; the first step against the CPU and
+   float64 as in ``train``; then one bf16_inner train step (B1 and B2 in
+   bfloat16).
+10. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
+    ``net=resnet-12`` (84x84x3, 5-way 5-shot) under the remat policies
+    none, full and dots_saveable: the first step's loss and meta-gradient
+    equal across them, peak memory and step times each; the default
+    config's VGG at none and full, peak memory.
+11. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
+    inner Adam with learnable betas and the warm start, inner Rprop, and
+    ``lslr_per_step`` (fused; its per-step lr meta-gradient against the
+    CPU).
+12. ``kernels``: every kernel the run launched, with its launches on the
+    paths, its error against the twin and its times beside its bound.
 
 Then the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -142,6 +164,28 @@ SUMMARY_COLUMNS = [
     "val_accuracy_std", "val_accuracy_ci95", "val_num_episodes",
 ]
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "default.yaml")
+MINI_IMAGENET_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "mini_imagenet_5way_5shot.yaml")
+# the slice's full-width model: the fleet row omniglot.20.1.resnet-12.gd of
+# configs/fleet_accuracy_omniglot.yaml (ResNet-12 at 32/64/128/256, 3
+# BasicBlocks per stage; 28x28x1, 20-way 1-shot, 1 target per class;
+# remat off, as the fleet's base overrides set it)
+RESNET_OVERRIDES = ["net=resnet-12", "num_classes_per_set=20", "num_samples_per_class=1", "num_target_samples=1"]
+RESNET_LEAVES = 86
+MANY_LEAVES = 220  # the synthetic tree past 200 leaves: 1 to 3,000 elements each
+# ResNet-12 card against CPU at K=1 (random init, class-structured batch).
+# In the first measuring run the 8-task loss lay 1.1e-4 (card) and 3.1e-5
+# (CPU) from float64 and the meta-gradient at cosine 0.999997 (card) and
+# 0.999986 (CPU) from float64, 0.999988 apart; the gates are ~10x and
+# ~100x those spreads. At the fleet row's K=5 the meta-gradient lay at
+# cosine 0.72-0.87 from float64 on either device (reported, not gated).
+RESNET_CROSS = {"loss_rtol": 1e-3, "cosine": 0.999, "cosine_f64": 0.999}
+REMAT_POLICIES = ("none", "full", "dots_saveable")
+REMAT_STEPS = 3
+# remat against none on the card (cuDNN deterministic): the same forward,
+# so the loss bit-equal; the recompute's gradient sums add the same terms
+# in another order, so the meta-gradient within REMAT_GRAD_RTOL of its
+# largest element
+REMAT_GRAD_RTOL = 1e-5
 
 
 class CheckFailed(RuntimeError):
@@ -257,20 +301,29 @@ def phase_device(parent_dir=None):
         src: [line.strip() for line in r["ptxas"].splitlines() if "registers" in line or "spill" in line]
         for src, r in report.items()
     }
+    # the 256-leaf table's launches need CUDA 12.1 or later (toolkit and
+    # NVIDIA driver): the parameter space past 4 KB
+    nvcc = subprocess.run([_kernels.nvcc_path(), "--version"], capture_output=True, text=True, timeout=60).stdout
+    nvidia_driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                                   capture_output=True, text=True, timeout=60).stdout.strip()
     emit({
         "phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__, "cuda": torch.version.cuda,
+        "nvcc": nvcc.strip().splitlines()[-1] if nvcc.strip() else "", "nvidia_driver": nvidia_driver,
         "build_s": build_s, "ptxas": ptxas, "parent_kernels": parent_dir, "ok": True,
     })
     return smi, parent
 
 
-def full_width_system(seed: int):
-    """The default config with the fused update, on the card, seeded."""
+def full_width_system(seed: int, overrides=(), config: str = DEFAULT_CONFIG):
+    """A repository config (default: configs/default.yaml) with the fused
+    update and remat off, then ``overrides``, on the card, seeded. (Remat
+    off is the program phases slice, train, serve_trained and runner
+    measured before remat applied in the port.)"""
     from howtotrainyourmamlpytorch_tpu_torch.config import load_config
     from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
 
-    cfg = load_config(DEFAULT_CONFIG, ["use_pallas_inner_update=true"])
+    cfg = load_config(config, ["use_pallas_inner_update=true", "remat_inner_steps=false", *overrides])
     system = MAMLSystem(cfg)
     return cfg, system, system.init_train_state(seed)
 
@@ -285,14 +338,15 @@ def cpu_copy(state):
                       None, state.step.cpu())
 
 
-def main_path_tree(seed: int, dtype, salt: int, cotangents: bool = False):
+def main_path_tree(seed: int, dtype, salt: int, cotangents: bool = False, overrides=()):
     """The tree B1 and B2 take on the main paths: the default model's
-    parameters stacked over TASKS tasks (an adapt flush, a train step), or
-    random cotangents of their shapes, random grads (``salt`` varies them),
-    and distinct lrs as 0-d views of one tensor."""
+    parameters (or with ``overrides`` another's: RESNET_OVERRIDES, the
+    ResNet-12 tree) stacked over TASKS tasks (an adapt flush, a train step),
+    or random cotangents of their shapes, random grads (``salt`` varies
+    them), and distinct lrs as 0-d views of one tensor."""
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
-    _, _, state = full_width_system(seed)
+    _, _, state = full_width_system(seed, overrides)
     gen = torch.Generator(device="cuda").manual_seed(seed + salt)
     ps = [a.unsqueeze(0).expand(TASKS, *a.shape).contiguous().to(dtype) for a in tree_leaves(state.params)]
     if cotangents:
@@ -319,6 +373,29 @@ def ragged_tree(seed: int, dtype):
     return ps, gs, lrs
 
 
+def many_tree(seed: int, dtype):
+    """MANY_LEAVES leaves of 1 to 3,000 elements: past the 64-leaf table
+    and most of the way to the 256-leaf one."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    sizes = [1 + (37 * i) % 3000 for i in range(MANY_LEAVES)]
+    ps = [torch.randn(n, device="cuda", generator=gen).to(dtype) for n in sizes]
+    gs = [torch.randn(n, device="cuda", generator=gen).to(dtype) for n in sizes]
+    lrs = list(torch.rand(len(ps), device="cuda", generator=gen).unbind())
+    return ps, gs, lrs
+
+
+def kernel_trees(seed: int, dtype, salt: int, cotangents: bool = False) -> dict:
+    """Every tree the kernel phases hold B1 and B2 to their twins on: the
+    ragged tree, the main paths' VGG-64 and ResNet-12 trees over TASKS
+    tasks, and MANY_LEAVES small leaves."""
+    return {
+        "ragged": ragged_tree(seed, dtype),
+        "vgg64": main_path_tree(seed, dtype, salt, cotangents),
+        "resnet12": main_path_tree(seed, dtype, salt, cotangents, RESNET_OVERRIDES),
+        "many220": many_tree(seed + salt, dtype),
+    }
+
+
 def packed(leaves):
     """The leaves end to end in a ``[rows, 128]`` buffer (zero padded): the
     parent design's layout and the library calls' operand, the same
@@ -335,11 +412,13 @@ def vectors_of(ps, gs):
 
 
 def phase_kernel(seed: int, parent):
-    """B1 against its twin at the main paths' tree (the default model's 18
-    leaves over 8 tasks) and at a ragged tree, in float32 and bfloat16:
-    bit-equal. Then its times under both flushes beside the parent
-    design's (in turns), an empty kernel's, the twin's and two
-    library yardsticks."""
+    """B1 against its twin at every tree of ``kernel_trees`` (the ragged
+    tree, the VGG-64 and ResNet-12 trees over 8 tasks, 220 small leaves), in
+    float32 and bfloat16: bit-equal. Then its times under both flushes: at
+    the VGG-64 tree beside the parent design's (in turns), an empty
+    kernel's, the twin's and two library yardsticks; at the ResNet-12 tree
+    beside the twin's, ``torch.addcmul``'s and the byte bound; at the
+    220-leaf tree alone."""
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
 
     codes = {torch.float32: 0, torch.bfloat16: 1}
@@ -348,18 +427,38 @@ def phase_kernel(seed: int, parent):
     fu.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for tree, (ps, gs, lrs) in (("ragged", ragged_tree(seed, dtype)), ("vgg64", main_path_tree(seed, dtype, 0))):
+        trees = kernel_trees(seed, dtype, 0)
+        for tree, (ps, gs, lrs) in trees.items():
             ref = fu.fused_sgd_tree_reference(ps, gs, lrs)
             out = fu._launch_forward(ps, gs, lrs)
             torch.cuda.synchronize()
             err = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
             worst = max(worst, err)
             check(all(torch.equal(o, r) for o, r in zip(out, ref)), "kernel", "kernel differs from its twin",
-                  dtype=name, tree=tree, max_abs_err=err)
+                  dtype=name, tree=tree, max_abs_err=err, leaves=len(ps))
         check(fu.contiguous_copies == 0, "kernel", "a leaf was copied", contiguous_copies=fu.contiguous_copies)
-        vectors = vectors_of(*ragged_tree(seed, dtype)[:2])
+        vectors = vectors_of(*trees["ragged"][:2])
         check(vectors.count(False) == 2, "kernel", "the ragged tree misses the element-by-element paths",
               vectors=vectors)
+        ps, gs, lrs = trees["resnet12"]
+        check(len(ps) == RESNET_LEAVES, "kernel", "the ResNet-12 tree", leaves=len(ps))
+        deep = {
+            "ms": both_flushes(lambda: fu._launch_forward(ps, gs, lrs)),
+            "plain_ms": both_flushes(lambda: fu.fused_sgd_tree_reference(ps, gs, lrs)),
+        }
+        p_buf, g_buf = packed(ps), packed(gs)
+        lr_col = torch.rand(p_buf.shape[0], device="cuda")[:, None]
+        deep["library_ms"] = both_flushes(lambda: torch.addcmul(p_buf, lr_col, g_buf, value=-1))
+        del p_buf, g_buf
+        n = sum(p.numel() for p in ps)
+        moved = 3 * n * ps[0].element_size() + 4 * len(lrs)
+        deep.update(bytes=moved, elements=n, leaves=len(ps),
+                    bound_ms=max(moved / H100_BYTES_PER_S, 2 * n / H100_F32_FLOPS) * 1e3)
+        deep["reach"] = {flush: deep["bound_ms"] / deep["ms"][flush] for flush in FLUSHES}
+        ps, gs, lrs = trees["many220"]
+        many_ms = both_flushes(lambda: fu._launch_forward(ps, gs, lrs))
+        ps, gs, lrs = trees["vgg64"]
+        del trees
         n = sum(p.numel() for p in ps)
         moved = 3 * n * ps[0].element_size() + 4 * len(lrs)  # read p, g, lr; write out
         p_buf, g_buf = packed(ps), packed(gs)
@@ -404,7 +503,8 @@ def phase_kernel(seed: int, parent):
             **timing,
             "bound_ms": max(moved / H100_BYTES_PER_S, 2 * n / H100_F32_FLOPS) * 1e3,
             "bytes": moved, "elements": n, "leaves": len(ps), "parent_rows": p_buf.shape[0],
-            "ragged_vectors": vectors,
+            "ragged_vectors": vectors, "resnet12": deep,
+            "many220": {"ms": many_ms, "leaves": MANY_LEAVES},
         }
     result["max_abs_err"] = worst
     emit({"phase": "kernel", "ok": True, **result})
@@ -431,10 +531,10 @@ def dlr_bound(cts, gs):
 
 
 def phase_kernel_bwd(seed: int, parent):
-    """B2 against its twin at the main paths' tree and the ragged tree, in
-    float32 and bfloat16: ``dg`` bit-equal, ``dlr`` within the bound of its
-    summation tree from a float64 sum and bit-equal across launches. Its
-    times beside the parent's (in turns), an empty kernel's and the twin's.
+    """B2 against its twin at every tree of ``kernel_trees``, in float32 and
+    bfloat16: ``dg`` bit-equal, ``dlr`` within the bound of its summation
+    tree from a float64 sum and bit-equal across launches. Its times as
+    B1's (no single library call computes ``dg`` and ``dlr``).
     Then the FusedSGD gradients on the card
     against the same Function on the CPU for the objective sum(out * w)."""
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
@@ -445,8 +545,8 @@ def phase_kernel_bwd(seed: int, parent):
     fu.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for tree, (cts, gs, lrs) in (("ragged", ragged_tree(seed, dtype)),
-                                     ("vgg64", main_path_tree(seed, dtype, 1, cotangents=True))):
+        trees = kernel_trees(seed, dtype, 1, cotangents=True)
+        for tree, (cts, gs, lrs) in trees.items():
             ref_dg, ref_dlr = fu.fused_sgd_tree_bwd_reference(cts, gs, lrs)
             exact, bound, _ = dlr_bound(cts, gs)
             first = None
@@ -468,7 +568,23 @@ def phase_kernel_bwd(seed: int, parent):
                 "dg_max_abs_err": dg_err, "dlr_max_abs_err": float(err.max()),
                 "dlr_err_over_bound": float((err / bound).max()),
                 "dlr_twin_max_abs_err": float((ref_dlr.double().cpu() - exact).abs().max()),
+                "leaves": len(cts),
             }
+        cts, gs, lrs = trees["resnet12"]
+        n = sum(c.numel() for c in cts)
+        moved = 3 * n * cts[0].element_size() + 8 * len(lrs)
+        deep = {
+            "ms": both_flushes(lambda: fu._launch_backward(cts, gs, lrs)),
+            "plain_ms": both_flushes(lambda: fu.fused_sgd_tree_bwd_reference(cts, gs, lrs)),
+            "library_ms": None, "bytes": moved, "elements": n, "leaves": len(cts),
+            "bound_ms": max(moved / H100_BYTES_PER_S, 3 * n / H100_F32_FLOPS) * 1e3,
+        }
+        deep["reach"] = {flush: deep["bound_ms"] / deep["ms"][flush] for flush in FLUSHES}
+        result[name]["resnet12"].update(deep)
+        cts, gs, lrs = trees["many220"]
+        result[name]["many220"]["ms"] = both_flushes(lambda: fu._launch_backward(cts, gs, lrs))
+        cts, gs, lrs = trees["vgg64"]
+        del trees
         n = sum(c.numel() for c in cts)
         moved = 3 * n * cts[0].element_size() + 8 * len(lrs)  # read ct, g, lr; write dg, dlr
         ct_buf, g_buf = packed(cts), packed(gs)
@@ -770,10 +886,12 @@ def _cosine(a, b) -> float:
     return float(a @ b / (a.norm() * b.norm()))
 
 
-def float64_plain(state):
-    """The port's plain path (unfused update, no precision casts) in
-    float64 on the CPU, and ``state`` in float64 there."""
-    from howtotrainyourmamlpytorch_tpu_torch.config import load_config
+def float64_plain(cfg, state):
+    """The port's plain path of ``cfg`` (unfused update, no remat, no
+    precision casts) in float64 on the CPU, and ``state`` in float64
+    there."""
+    import copy
+
     from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
 
@@ -785,22 +903,26 @@ def float64_plain(state):
             out = super()._batch(b)
             return dict(out, x_support=out["x_support"].double(), x_target=out["x_target"].double())
 
-    system = Float64System(load_config(DEFAULT_CONFIG, ["use_pallas_inner_update=false"]), device="cpu")
+    cfg = copy.deepcopy(cfg)
+    cfg.use_pallas_inner_update, cfg.remat_policy = False, "none"
+    system = Float64System(cfg, device="cpu")
     f64 = lambda tree: tree_map(lambda t: t.detach().cpu().double(), tree)  # noqa: E731
     return system, state._replace(params=f64(state.params), bn_state=f64(state.bn_state),
                                    inner_hparams=f64(state.inner_hparams), opt_state=None,
                                    step=state.step.cpu())
 
 
-def train_cross_check(cfg, start, batch, card_loss):
+def train_cross_check(cfg, start, batch, card_loss, phase: str = "train", gate: bool = True,
+                      loss_rtol: float = LOSS_RTOL, cosine: float = GRAD_COSINE, cosine_f64: float = GRAD_COSINE_F64):
     """Card against CPU, each against float64: the first step's loss at
-    full width, the meta-gradient at CROSS_TASKS tasks."""
+    full width, the meta-gradient at CROSS_TASKS tasks; checked against the
+    tolerances given where ``gate``, else only reported."""
     from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
 
     t0 = time.perf_counter()
     cpu_system = MAMLSystem(cfg, device="cpu")
     cpu_state = cpu_copy(start)
-    f64_system, f64_state = float64_plain(start)
+    f64_system, f64_state = float64_plain(cfg, start)
     cpu_loss = float(cpu_system.meta_objective(cpu_state, batch, epoch=0)[0])
     exact_loss = float(f64_system.meta_objective(f64_state, batch, epoch=0)[0])
     rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
@@ -810,20 +932,22 @@ def train_cross_check(cfg, start, batch, card_loss):
     exact = _flat(f64_system.meta_gradients(f64_state, small, epoch=0)[2])
     dist = lambda a: float((a - exact).norm() / exact.norm())  # noqa: E731
     out = {
+        "inner_steps": cfg.number_of_training_steps_per_iter, "gated": gate,
         "loss_card": card_loss, "loss_cpu": cpu_loss, "loss_float64": exact_loss,
-        "loss_rel_card_cpu": rel(card_loss, cpu_loss), "loss_rtol": LOSS_RTOL,
+        "loss_rel_card_cpu": rel(card_loss, cpu_loss), "loss_rtol": loss_rtol,
         "loss_rel_from_f64": {"card": rel(card_loss, exact_loss), "cpu": rel(cpu_loss, exact_loss)},
-        "grad_tasks": CROSS_TASKS, "grad_cosine_card_cpu": _cosine(card, cpu), "grad_cosine_min": GRAD_COSINE,
+        "grad_tasks": CROSS_TASKS, "grad_cosine_card_cpu": _cosine(card, cpu), "grad_cosine_min": cosine,
         "grad_cosine_card_f64": _cosine(card, exact), "grad_cosine_cpu_f64": _cosine(cpu, exact),
-        "grad_cosine_f64_min": GRAD_COSINE_F64,
+        "grad_cosine_f64_min": cosine_f64,
         "grad_rel_l2_from_f64": {"card": dist(card), "cpu": dist(cpu)},
         "grad_max_abs_card_cpu": float((card - cpu).abs().max()), "cpu_s": time.perf_counter() - t0,
     }
-    check(out["loss_rel_card_cpu"] <= LOSS_RTOL, "train", "card and CPU losses disagree", **out)
-    check(out["grad_cosine_card_f64"] >= GRAD_COSINE_F64, "train", "card meta-gradient far from float64", **out)
-    check(out["grad_cosine_card_cpu"] >= GRAD_COSINE, "train", "card and CPU meta-gradients disagree", **out)
-    check(dist(card) <= F64_FACTOR * dist(cpu) + 1e-6, "train",
-          "card meta-gradient further from float64 than the CPU's", **out)
+    if gate:
+        check(out["loss_rel_card_cpu"] <= loss_rtol, phase, "card and CPU losses disagree", **out)
+        check(out["grad_cosine_card_f64"] >= cosine_f64, phase, "card meta-gradient far from float64", **out)
+        check(out["grad_cosine_card_cpu"] >= cosine, phase, "card and CPU meta-gradients disagree", **out)
+        check(dist(card) <= F64_FACTOR * dist(cpu) + 1e-6, phase,
+              "card meta-gradient further from float64 than the CPU's", **out)
     return out
 
 
@@ -1004,7 +1128,8 @@ def phase_runner(seed: int, bare_step_ms: float):
         data = make_omniglot_folder(os.path.join(tmp, "omniglot_dataset"), seed)
         generate_s = time.perf_counter() - t0
         overrides = [
-            "use_pallas_inner_update=true", f"dataset.path={data}", f"index_cache_dir={os.path.join(tmp, 'index')}",
+            "use_pallas_inner_update=true", "remat_inner_steps=false", f"dataset.path={data}",
+            f"index_cache_dir={os.path.join(tmp, 'index')}",
             f"experiment_root={os.path.join(tmp, 'exps')}", f"total_iter_per_epoch={RUNNER_ITERS}",
             f"num_evaluation_tasks={RUNNER_EVAL_TASKS}", f"seed={seed}",
         ]
@@ -1092,6 +1217,25 @@ def phase_runner(seed: int, bare_step_ms: float):
         _, book = ckpt.load_for_inference(runner.saved_models_dir, "latest")
         check(book["epoch"] == RUNNER_EPOCHS and book["train_episodes_produced"] == cursor + RUNNER_ITERS * cfg.batch_size,
               "runner", "resumed checkpoint bookkeeping", bookkeeping=book)
+
+        # the CLI trains the slice's full-width model (ResNet-12 at the fleet
+        # row's shape) on the same folder and index cache, reading the
+        # images from disk (no second RAM cache)
+        resnet_overrides = [*overrides, *RESNET_OVERRIDES, "total_epochs=1", "total_iter_per_epoch=3",
+                            "load_into_memory=false", "experiment_name=resnet12_cli"]
+        resnet_cfg = load_config(DEFAULT_CONFIG, resnet_overrides)
+        cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
+               *resnet_overrides]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        resnet_cli_s = time.perf_counter() - t0
+        tail = (proc.stdout[-3000:], proc.stderr[-3000:])
+        check(proc.returncode == 0, "runner", "the ResNet-12 CLI run failed", rc=proc.returncode, tail=tail)
+        resnet_rows = check_run_dir(resnet_cfg.run_dir(), 1, RESNET_LEAVES)
+        resnet_saved = sorted(os.listdir(os.path.join(resnet_cfg.run_dir(), "saved_models")))
+        check(all(name in resnet_saved for name in ("train_model_0", "train_model_best", "train_model_latest")),
+              "runner", "ResNet-12 checkpoints missing", saved=resnet_saved)
         out = {
             "phase": "runner", "ok": True,
             "config": "configs/default.yaml + use_pallas_inner_update=true, total_iter_per_epoch=10, "
@@ -1110,6 +1254,9 @@ def phase_runner(seed: int, bare_step_ms: float):
             "losses": {"train": [float(r["train_loss_mean"]) for r in rows],
                        "val": [float(r["val_loss_mean"]) for r in rows], "test": result["test_loss_mean"]},
             "test_accuracy": result["test_accuracy_mean"], "cli_resume_s": cli_s,
+            "resnet_cli": {"overrides": RESNET_OVERRIDES + ["total_epochs=1", "total_iter_per_epoch=3"],
+                           "s": resnet_cli_s, "train_loss": float(resnet_rows[0]["train_loss_mean"]),
+                           "val_loss": float(resnet_rows[0]["val_loss_mean"])},
         }
         emit(out)
         return out
@@ -1117,11 +1264,292 @@ def phase_runner(seed: int, bare_step_ms: float):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _steps(system, state, batch, n, epoch=0):
+    """``n`` train steps -> (state, losses, step ms)."""
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, out = system.train_step(state, batch, epoch=epoch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.loss))
+    return state, losses, ms
+
+
+def _record_dtypes(fu):
+    """Wrap the two launchers so that each launch records its operand dtype
+    (the wrappers' counts stay as they are); returns the list and a
+    function that undoes the wrapping."""
+    seen = []
+    fwd, bwd = fu._launch_forward, fu._launch_backward
+
+    def launch_forward(ps, gs, lrs):
+        seen.append(("fused_sgd", str(ps[0].dtype)))
+        return fwd(ps, gs, lrs)
+
+    def launch_backward(cts, gs, lrs):
+        seen.append(("fused_sgd_bwd", str(cts[0].dtype)))
+        return bwd(cts, gs, lrs)
+
+    fu._launch_forward, fu._launch_backward = launch_forward, launch_backward
+
+    def undo():
+        fu._launch_forward, fu._launch_backward = fwd, bwd
+
+    return seen, undo
+
+
+def phase_resnet(seed: int):
+    """The slice's full-width model on the card: ResNet-12 at the fleet row
+    omniglot.20.1.resnet-12.gd (RESNET_OVERRIDES; meta-batch 8, K=5, second
+    order, MSL on, the fused update, remat off). TRAIN_STEPS train steps on
+    one class-structured batch, an eval step, then the engine serving the
+    trained state (one adapt flush of 8 requests and its predictions): B1
+    and B2 over the 86-leaf tree on every inner step. Checks: finite
+    losses, the last below the first, B1 and B2 K launches per train step
+    and B1 K per eval step and per adapt flush, finite probabilities whose
+    rows sum to 1, and the first step against the CPU and float64 as in
+    phase ``train``. Then one bf16_inner train step: finite, B1 and B2 in
+    bf16."""
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    cfg, system, state = full_width_system(seed, RESNET_OVERRIDES)
+    n_way, img = cfg.num_classes_per_set, cfg.image_shape
+    check(len(tree_leaves(state.params)) == RESNET_LEAVES, "resnet", "the ResNet-12 tree",
+          leaves=len(tree_leaves(state.params)))
+    check(system.use_second_order(0) and system.msl_active(0) and system.remat_policy == "none",
+          "resnet", "the fleet row is second order with MSL and no remat")
+    batch = learnable_synthetic_batch(cfg.batch_size, n_way, cfg.num_samples_per_class,
+                                      cfg.num_target_samples, img, seed=seed + 5)
+    K, K_eval = cfg.number_of_training_steps_per_iter, cfg.number_of_evaluation_steps_per_iter
+    start = state
+    torch.cuda.reset_peak_memory_stats()
+    fu.reset_launch_counts()  # the ResNet-12 path starts here
+    state, losses, train_ms = _steps(system, state, batch, TRAIN_STEPS)
+    train_launches, copies = dict(fu.launch_counts), fu.contiguous_copies
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ev = system.eval_step(state, batch)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    engine = AdaptationEngine(system, state)
+    requests = [(batch["x_support"][i], batch["y_support"][i]) for i in range(cfg.batch_size)]
+    queries = [batch["x_target"][i].reshape(-1, *img) for i in range(cfg.batch_size)]
+    t0 = time.perf_counter()
+    probs = engine.predict_batch(list(zip(engine.adapt_batch(requests), queries)))
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fu.launch_counts)  # and ends here
+    want_train = {"fused_sgd": K * TRAIN_STEPS, "fused_sgd_bwd": K * TRAIN_STEPS}
+    check(train_launches == want_train, "resnet", "kernel launches differ from K per train step",
+          launches=train_launches, want=want_train)
+    want = {"fused_sgd": K * TRAIN_STEPS + K_eval + engine.num_steps, "fused_sgd_bwd": K * TRAIN_STEPS}
+    check(launches == want, "resnet", "kernel launches through eval and serving", launches=launches, want=want)
+    check(_finite(*losses, ev.loss) and bool(torch.isfinite(ev.per_task_target_logits).all()), "resnet",
+          "non-finite loss", losses=losses, eval=float(ev.loss))
+    check(losses[-1] < losses[0], "resnet", f"{TRAIN_STEPS} steps on one batch did not lower the loss", losses=losses)
+    _check_probs("resnet", "served", probs, [q.shape[0] for q in queries], n_way)
+    profile = profile_device(lambda: system.train_step(state, batch, epoch=0))
+    # The cross-check runs at K=1, the same model, weights and batch: there
+    # float32 is well conditioned, while at the fleet row's K=5 the rollout
+    # amplifies last-bit differences until either device's meta-gradient is
+    # far from float64 (RESNET_CROSS), so the K=5 distances are reported,
+    # not gated
+    cfg1, system1, _ = full_width_system(seed, RESNET_OVERRIDES + ["number_of_training_steps_per_iter=1"])
+    loss1 = float(system1.meta_objective(start, batch, epoch=0)[0])
+    cross = train_cross_check(cfg1, start, batch, loss1, phase="resnet", **RESNET_CROSS)
+    cross_k5 = train_cross_check(cfg, start, batch, losses[0], phase="resnet", gate=False)
+
+    # one bf16_inner train step: B1 and B2 on the bf16 fast weights
+    cfg16, system16, state16 = full_width_system(seed, RESNET_OVERRIDES + ["precision.enabled=true"])
+    check(system16.precision.name == "bf16_inner", "resnet", "bf16_inner policy", policy=system16.precision.name)
+    seen, undo = _record_dtypes(fu)
+    fu.reset_launch_counts()  # the bf16_inner ResNet-12 step starts here
+    try:
+        _, bf16_losses, bf16_ms = _steps(system16, state16, batch, 1)
+    finally:
+        undo()
+    bf16_launches = dict(fu.launch_counts)  # and ends here
+    check(bf16_launches == {"fused_sgd": K, "fused_sgd_bwd": K}, "resnet", "bf16_inner launches",
+          launches=bf16_launches)
+    check(_finite(*bf16_losses), "resnet", "non-finite bf16_inner loss", losses=bf16_losses)
+    check({dtype for _, dtype in seen} == {"torch.bfloat16"}, "resnet", "B1/B2 not in bf16", seen=seen[:4])
+    result = {
+        "phase": "resnet", "ok": True,
+        "config": "configs/default.yaml + " + " ".join(RESNET_OVERRIDES) + " use_pallas_inner_update=true "
+                  "remat_inner_steps=false (fleet row omniglot.20.1.resnet-12.gd)",
+        "leaves": RESNET_LEAVES, "num_params": system.num_params(start), "meta_batch": cfg.batch_size,
+        "inner_steps": K, "train_steps": TRAIN_STEPS, "launches": launches, "train_launches": train_launches,
+        "contiguous_copies_train": copies, "losses": losses, "eval_loss": float(ev.loss),
+        "eval_accuracy": float(ev.accuracy), "train_step_ms_median": statistics.median(train_ms),
+        "train_step_ms": train_ms, "eval_step_ms": eval_ms, "serve_flush_ms": serve_ms,
+        "max_memory_allocated": peak, "train_step_profile": profile, "cross_check": cross,
+        "cross_check_k5": cross_k5, "bf16_inner": {"loss": bf16_losses[0], "step_ms": bf16_ms[0], "launches": bf16_launches,
+                       "launch_dtypes": sorted({dtype for _, dtype in seen})},
+    }
+    emit(result)
+    return result
+
+
+def phase_remat(seed: int):
+    """The remat policies on the card: configs/mini_imagenet_5way_5shot.yaml
+    with net=resnet-12 (84x84x3, 5-way 5-shot, meta-batch 8, K=5, the
+    ImageNet +-10 clamp; the fused update), the same batch and start state
+    under each of REMAT_POLICIES, cuDNN deterministic: the first step's
+    loss and meta-gradient, then REMAT_STEPS train steps; peak memory and
+    step times per policy. The first step's loss must be equal across
+    policies and its meta-gradient within REMAT_GRAD_RTOL of its largest
+    element; B1 launches K times per meta-gradient without remat and 2 K
+    with it (the recompute), B2 K. A policy that runs out of the card's
+    memory is recorded and the others go on. Then configs/default.yaml (the
+    VGG) at none and full: one train step's peak memory each."""
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+
+    out, first, launches_total = {}, {}, {"fused_sgd": 0, "fused_sgd_bwd": 0}
+    batch = None
+    for policy in REMAT_POLICIES:
+        cfg, system, state = full_width_system(seed, ["net=resnet-12", f"remat_policy={policy}"],
+                                               config=MINI_IMAGENET_CONFIG)
+        check(cfg.is_imagenet and system.remat_policy == policy, "remat", "config", policy=system.remat_policy)
+        K = cfg.number_of_training_steps_per_iter
+        if batch is None:
+            batch = learnable_synthetic_batch(cfg.batch_size, cfg.num_classes_per_set, cfg.num_samples_per_class,
+                                              cfg.num_target_samples, cfg.image_shape, seed=seed + 6)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.backends.cudnn.deterministic = True
+        try:
+            fu.reset_launch_counts()  # this policy's path starts here
+            loss, _, grads = system.meta_gradients(state, batch, epoch=0)
+            torch.cuda.synchronize()
+            grad_launches = dict(fu.launch_counts)
+            first[policy] = (float(loss), _flat(grads))
+            del grads
+            _, losses, ms = _steps(system, state, batch, REMAT_STEPS)
+            launches = dict(fu.launch_counts)  # and ends here
+        except torch.cuda.OutOfMemoryError as exc:
+            out[policy] = {"oom": str(exc).splitlines()[0][:300]}
+            continue
+        finally:
+            torch.backends.cudnn.deterministic = False
+        per = 1 if policy == "none" else 2
+        want = {"fused_sgd": per * K, "fused_sgd_bwd": K}
+        check(grad_launches == want, "remat", "launches per meta-gradient", policy=policy, launches=grad_launches,
+              want=want)
+        check(_finite(*losses), "remat", "non-finite loss", policy=policy, losses=losses)
+        for name in launches_total:
+            launches_total[name] += launches[name]
+        out[policy] = {"max_memory_allocated": torch.cuda.max_memory_allocated(), "step_ms_median": statistics.median(ms),
+                       "step_ms": ms, "losses": losses, "first_loss": first[policy][0], "launches": launches}
+    check(len(first) >= 2, "remat", "fewer than two policies ran", out=out)
+    ref_policy = next(iter(first))
+    ref_loss, ref_grad = first[ref_policy]
+    scale = float(ref_grad.abs().max())
+    for policy, (loss, g) in first.items():
+        diff = float((g - ref_grad).abs().max())
+        out[policy].update(first_loss_equal=loss == ref_loss, grad_max_abs_vs_ref=diff)
+        check(loss == ref_loss and diff <= REMAT_GRAD_RTOL * scale, "remat", "policies disagree on the first step",
+              policy=policy, reference=ref_policy, loss=loss, ref_loss=ref_loss, diff=diff, bound=REMAT_GRAD_RTOL * scale)
+    vgg = {}
+    for policy in ("none", "full"):
+        cfg, system, state = full_width_system(seed, [f"remat_policy={policy}"])
+        batch_vgg = learnable_synthetic_batch(cfg.batch_size, cfg.num_classes_per_set, cfg.num_samples_per_class,
+                                              cfg.num_target_samples, cfg.image_shape, seed=seed + 3)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fu.reset_launch_counts()  # and the VGG's
+        _, losses, ms = _steps(system, state, batch_vgg, 1)
+        launches = dict(fu.launch_counts)
+        for name in launches_total:
+            launches_total[name] += launches[name]
+        vgg[policy] = {"max_memory_allocated": torch.cuda.max_memory_allocated(), "step_ms": ms[0],
+                       "loss": losses[0], "launches": launches}
+    result = {"phase": "remat", "ok": True,
+              "config": "configs/mini_imagenet_5way_5shot.yaml + net=resnet-12 use_pallas_inner_update=true",
+              "reference_policy": ref_policy, "grad_bound": REMAT_GRAD_RTOL * scale, "policies": out,
+              "vgg_default": vgg, "launches": launches_total}
+    emit(result)
+    return result
+
+
+#: the breadth cells: (name, config, overrides, train steps)
+BREADTH = (
+    ("omniglot.5.1.densenet-8.gd", DEFAULT_CONFIG,
+     ["net=densenet-8", "num_classes_per_set=5", "num_samples_per_class=1"], 3),
+    ("omniglot.5.1.densenet-12.gd", DEFAULT_CONFIG,
+     ["net=densenet-12", "num_classes_per_set=5", "num_samples_per_class=1"], 1),
+    ("omniglot.20.5.vgg.adam", DEFAULT_CONFIG,
+     ["inner_optim=adam", "use_pallas_inner_update=false", "num_samples_per_class=5"], 5),
+    ("omniglot.20.5.vgg.rprop", DEFAULT_CONFIG, ["inner_optim=rprop", "use_pallas_inner_update=false"], 2),
+    ("default.lslr_per_step", DEFAULT_CONFIG, ["lslr_per_step=true"], 1),
+)
+
+
+def phase_breadth(seed: int):
+    """The training path's breadth through ``train_step`` on the card, each
+    cell (BREADTH) from a fresh seeded state on one class-structured batch:
+    DenseNet-8 (61 leaves) and DenseNet-12 (85) with the fused update, inner
+    Adam (learnable betas, warm-started from the outer Adam) and Rprop
+    unfused, and ``lslr_per_step`` with the fused update, whose ``[K]`` lr
+    meta-gradient per tensor is held to the CPU's at CROSS_TASKS tasks
+    (cosine >= GRAD_COSINE, phase ``train``'s bound). Checks: finite losses,
+    K launches of B1 and B2 per step where fused and none where not, Adam's
+    betas moved and within [1e-4, 0.99]."""
+    from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    cells, launches_total = {}, {"fused_sgd": 0, "fused_sgd_bwd": 0}
+    for name, config, overrides, steps in BREADTH:
+        cfg, system, state = full_width_system(seed, overrides, config=config)
+        K = cfg.number_of_training_steps_per_iter
+        batch = learnable_synthetic_batch(cfg.batch_size, cfg.num_classes_per_set, cfg.num_samples_per_class,
+                                          cfg.num_target_samples, cfg.image_shape, seed=seed + 7)
+        start = state
+        fu.reset_launch_counts()  # this cell's path starts here
+        state, losses, ms = _steps(system, state, batch, steps)
+        launches = dict(fu.launch_counts)  # and ends here
+        for key in launches_total:
+            launches_total[key] += launches[key]
+        fused = cfg.use_pallas_inner_update
+        want = {"fused_sgd": K * steps if fused else 0, "fused_sgd_bwd": K * steps if fused else 0}
+        check(launches == want, "breadth", "kernel launches", cell=name, launches=launches, want=want)
+        check(_finite(*losses), "breadth", "non-finite loss", cell=name, losses=losses)
+        cell = {"leaves": len(tree_leaves(state.params)), "inner_optim": cfg.inner_optim.kind, "fused": fused,
+                "steps": steps, "losses": losses, "step_ms": ms, "launches": launches}
+        if cfg.inner_optim.kind == "adam":
+            betas = torch.cat([b.reshape(-1) for k in ("beta1", "beta2") for b in tree_leaves(state.inner_hparams[k])])
+            moved = float((betas - torch.cat([b.reshape(-1) for k in ("beta1", "beta2")
+                                               for b in tree_leaves(start.inner_hparams[k])])).abs().max())
+            check(moved > 0 and bool(((betas >= 1e-4) & (betas <= 0.99)).all()), "breadth", "Adam's betas",
+                  moved=moved, lo=float(betas.min()), hi=float(betas.max()))
+            cell.update(betas_moved_max=moved, betas_range=[float(betas.min()), float(betas.max())])
+        if cfg.lslr_per_step:
+            small = {k: v[:CROSS_TASKS] for k, v in batch.items()}
+            card = MAMLSystem(cfg).meta_gradients(start, small, epoch=0)[2]["hparams"]
+            cpu = MAMLSystem(cfg, device="cpu").meta_gradients(cpu_copy(start), small, epoch=0)[2]["hparams"]
+            shapes = {tuple(t.shape) for t in tree_leaves(card)}
+            check(shapes == {(K,)}, "breadth", "lslr_per_step lr meta-gradient shape", shapes=sorted(shapes))
+            cosine = _cosine(_flat(card), _flat(cpu))
+            check(cosine >= GRAD_COSINE, "breadth", "lslr_per_step lr meta-gradient: card and CPU disagree",
+                  cosine=cosine, min=GRAD_COSINE)
+            cell.update(lr_grad_cosine_card_cpu=cosine, lr_grad_shape=[K])
+        cells[name] = cell
+    result = {"phase": "breadth", "ok": True, "cells": cells, "launches": launches_total}
+    emit(result)
+    return result
+
+
 def kernel_entry(name, source, replaces, launches_by_path, phase):
-    """One kernel's entry of the ``kernels`` line: float32 at the main
-    paths' tree under the write flush (the parent design's yardstick) in the
-    contract's keys, the read flush, the floor, the parent design and
-    bfloat16 beside them."""
+    """One kernel's entry of the ``kernels`` line: float32 at the VGG-64
+    tree under the write flush (the yardstick of the earlier slices) in the
+    contract's keys, the ResNet-12 tree's (86 leaves, 34.9 M elements)
+    beside it under both flushes, then the read flush, the floor, the parent
+    design and bfloat16."""
     f32 = phase["float32"]
     return {
         "name": name,
@@ -1140,6 +1568,8 @@ def kernel_entry(name, source, replaces, launches_by_path, phase):
         "elements": f32["elements"],
         "leaves": f32["leaves"],
         "read_flush": {key: f32[key]["read"] for key in ("ms", "plain_ms", "floor_ms")},
+        "resnet12": {key: f32["resnet12"][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "reach",
+                                                             "elements", "leaves")},
         "float32": f32,
         "bfloat16": phase["bfloat16"],
     }
@@ -1167,15 +1597,24 @@ def main() -> int:
     tr, system, trained = phase_train(args.seed)
     served = phase_serve_trained(args.seed, system, trained)
     rn = phase_runner(args.seed, tr["train_step_ms_median"])
+    rs = phase_resnet(args.seed)
+    rm = phase_remat(args.seed)
+    br = phase_breadth(args.seed)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
-                 "runner": rn["launches"]["fused_sgd"]}
+                 "runner": rn["launches"]["fused_sgd"], "resnet": rs["launches"]["fused_sgd"],
+                 "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd"], "remat": rm["launches"]["fused_sgd"],
+                 "breadth": br["launches"]["fused_sgd"]}
+    bwd_paths = {"train": tr["launches"]["fused_sgd_bwd"], "runner": rn["launches"]["fused_sgd_bwd"],
+                 "resnet": rs["launches"]["fused_sgd_bwd"],
+                 "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd_bwd"],
+                 "remat": rm["launches"]["fused_sgd_bwd"], "breadth": br["launches"]["fused_sgd_bwd"]}
+    for paths in (fwd_paths, bwd_paths):
+        check(all(n > 0 for n in paths.values()), "kernels", "a path launched a kernel no time", paths=paths)
     emit({"kernels": [
         kernel_entry("fused_sgd", "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_sgd.cu",
                      "howtotrainyourmamlpytorch_tpu/ops/pallas_update.py:125", fwd_paths, kernel),
         kernel_entry("fused_sgd_bwd", "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_sgd_bwd.cu",
-                     "howtotrainyourmamlpytorch_tpu/ops/pallas_update.py:134",
-                     {"train": tr["launches"]["fused_sgd_bwd"], "runner": rn["launches"]["fused_sgd_bwd"]},
-                     kernel_bwd),
+                     "howtotrainyourmamlpytorch_tpu/ops/pallas_update.py:134", bwd_paths, kernel_bwd),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

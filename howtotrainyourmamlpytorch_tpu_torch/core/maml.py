@@ -20,10 +20,20 @@ projection and ``step + 1``. ``eval_step``, ``adapt_fast_weights`` and
 ``predict_logits`` are first-order and run under ``torch.no_grad()``
 (``torch.func.grad`` still takes the inner gradients).
 
+The inner optimizer is sgd (fused or not), adam or rprop, its state carried
+with the task axis from step 0; inner Adam warm-starts its moments from the
+outer Adam's (``warm_start_inner_opt_from_outer``) in the meta-objective and
+``adapt_fast_weights``, and from zero where no outer state is given (the
+serving engine). ``lslr_per_step`` learns a ``[K]`` vector per hparam
+tensor, step i reading element i as a 0-d view.
+
+Remat (``Config.resolved_remat_policy``, ``core/remat.py``): each inner
+step of ``_adapt_loop`` and of the MSL branch of ``_rollout`` is recomputed
+in the outer backward instead of keeping its activations, where autograd
+records it.
+
 ``scale_meta_lr`` rebuilds the outer schedule at scaled rates (the NaN
 rollback's backoff, ``experiment/runner.py``). Not here (ROADMAP.md): the
-remat policies (``remat_inner_steps`` and ``remat_policy`` are read but not
-applied; the port keeps every activation of the K-step graph, A6), the
 multi-step chunk programs, strict guard, compile ledger and donation (A10),
 and the anil/protonet strategies (A7).
 
@@ -50,6 +60,7 @@ from ..ops.outer_adam import adam_init, adam_update
 from ..ops.precision import as_f32, policy_from_config
 from ..utils import seeding
 from ..utils.trees import tree_flatten, tree_map
+from .remat import apply_remat_policy
 from .train_state import TrainState
 
 
@@ -79,6 +90,16 @@ def cosine_epoch_schedule(meta_lr: float, min_lr: float, total_epochs: int, iter
 def _zeros_if_none(grad, like):
     """An unused trainable gets a zero gradient, as ``jax.grad`` gives it."""
     return torch.zeros_like(like) if grad is None else grad
+
+
+def _task_stack(tree, tasks: int):
+    """Every tensor leaf repeated over a leading task axis ``[tasks, ...]``
+    (the fast weights and the inner optimizer state at rollout entry, as
+    ``jax.vmap`` broadcasts them per task); other leaves pass through."""
+    return tree_map(
+        lambda a: a.unsqueeze(0).expand(tasks, *a.shape).contiguous() if isinstance(a, torch.Tensor) else a,
+        tree,
+    )
 
 
 def _flatten_task(x):
@@ -130,6 +151,8 @@ class MAMLSystem:
         )
         io = cfg.inner_optim
         kwargs = {"lr": io.lr}
+        if io.kind == "adam":
+            kwargs.update(beta1=io.beta1, beta2=io.beta2)
         if cfg.use_pallas_inner_update:
             if io.kind not in ("sgd", "gd"):
                 raise ValueError(
@@ -141,6 +164,7 @@ class MAMLSystem:
         self.meta_lr_scale = 1.0
         self.scale_meta_lr(1.0)
         self.precision = policy_from_config(cfg)
+        self.remat_policy = cfg.resolved_remat_policy
 
     def scale_meta_lr(self, factor: float) -> None:
         """Scale the outer lr schedule by ``factor`` (the NaN rollback's
@@ -203,10 +227,30 @@ class MAMLSystem:
         # non-learnable: constant per-tensor scalars from config
         return self.inner_opt.init_hparams(params)
 
-    def _initial_inner_state(self, params, hparams):
-        """SGD carries no inner state. (The inner-Adam warm start from the
-        outer moments comes with inner Adam, ROADMAP.md A6.)"""
-        return self.inner_opt.init_state(params, hparams)
+    def _initial_inner_state(self, params, hparams, opt_state):
+        """The inner optimizer's state at step 0 (JAX package
+        ``core/maml.py::_initial_inner_state``): per-step hparams are read
+        at step 0 (rprop's step size starts at the lr). With
+        ``warm_start_inner_opt_from_outer``, inner Adam takes its moments
+        from the outer Adam's over the params and its step from the outer
+        count (the intent of the reference's deepcopy,
+        ``few_shot_learning_system.py:219-220``); ``opt_state=None`` (the
+        serving engine) starts from zero moments."""
+        init_hp = hparams
+        if self._per_step_hparams:
+            init_hp = tree_map(lambda a: a[0], hparams)
+        inner_state = self.inner_opt.init_state(params, init_hp)
+        if not (self.cfg.warm_start_inner_opt_from_outer and self.inner_opt.name == "adam" and opt_state is not None):
+            return inner_state
+        adam_state = next((part for part in opt_state if hasattr(part, "mu")), None)
+        if adam_state is None:
+            return inner_state
+        count = adam_state.count.to(torch.float32)
+        return {
+            "step": tree_map(lambda p: count, params),
+            "exp_avg": adam_state.mu["params"],
+            "exp_avg_sq": adam_state.nu["params"],
+        }
 
     def _apply_forward(self, params, bn_state, x, sample_weight=None):
         """One model forward in the policy's compute dtype, f32 logits out.
@@ -251,22 +295,26 @@ class MAMLSystem:
             return [tree_map(lambda a, i=i: a[min(i, K - 1)], hparams) for i in range(num_steps)]
         return [hparams] * num_steps
 
+    def _rollout_start(self, params, inner_state, tasks: int):
+        """The fast weights and the inner state at rollout entry: cast once
+        to the fast-weight dtype (bf16 under bf16_inner), then stacked over
+        the tasks."""
+        cast = self.precision.cast_fast_weights
+        return _task_stack(cast(params), tasks), _task_stack(cast(inner_state), tasks)
+
     def _adapt_loop(
         self, params, bn_state, hparams, inner_state, x_support, y_support,
         second_order: bool, num_steps: int, support_weight=None,
     ):
         """``num_steps`` support-set updates of every task -> task-stacked
-        fast weights. Under bf16_inner the fast weights are cast to bf16
-        once, here."""
-        tasks = x_support.shape[0]
-        params = self.precision.cast_fast_weights(params)
-        inner_state = self.precision.cast_fast_weights(inner_state)
-        p = tree_map(lambda a: a.unsqueeze(0).expand(tasks, *a.shape).contiguous(), params)
-        inner_update = self._make_inner_update(
-            bn_state, x_support, y_support, second_order, support_weight
+        fast weights, each step under the remat policy."""
+        p, inner_state = self._rollout_start(params, inner_state, x_support.shape[0])
+        step = apply_remat_policy(
+            self._make_inner_update(bn_state, x_support, y_support, second_order, support_weight),
+            self.remat_policy,
         )
         for hp in self._hparam_sequence(hparams, num_steps):
-            p, inner_state = inner_update(p, inner_state, hp)
+            p, inner_state = step(p, inner_state, hp)
         return p
 
     def _forward_tasks(self, p, bn_state, x):
@@ -287,16 +335,19 @@ class MAMLSystem:
         ``[T]``, final target logits ``[T, Q, n_way]``)."""
         task_ce = vmap(cross_entropy)
         if per_step_target:
-            tasks = x_support.shape[0]
-            params = self.precision.cast_fast_weights(params)
-            inner_state = self.precision.cast_fast_weights(inner_state)
-            p = tree_map(lambda a: a.unsqueeze(0).expand(tasks, *a.shape).contiguous(), params)
+            p, inner_state = self._rollout_start(params, inner_state, x_support.shape[0])
             inner_update = self._make_inner_update(bn_state, x_support, y_support, second_order)
+
+            def msl_step(p, opt_s, hp, weight):
+                p, opt_s = inner_update(p, opt_s, hp)
+                logits = self._forward_tasks(p, bn_state, x_target)
+                return p, opt_s, logits, weight * task_ce(logits, y_target)
+
+            step = apply_remat_policy(msl_step, self.remat_policy)
             weighted = []
             for i, hp in enumerate(self._hparam_sequence(hparams, num_steps)):
-                p, inner_state = inner_update(p, inner_state, hp)
-                logits = self._forward_tasks(p, bn_state, x_target)
-                weighted.append(loss_weights[i] * task_ce(logits, y_target))
+                p, inner_state, logits, loss = step(p, inner_state, hp, loss_weights[i])
+                weighted.append(loss)
             return torch.stack(weighted).sum(0), logits
         p_final = self._adapt_loop(
             params, bn_state, hparams, inner_state, x_support, y_support,
@@ -335,12 +386,13 @@ class MAMLSystem:
             "y_target": _flatten_task(self._tensor(batch["y_target"], torch.int64)),
         }
 
-    def _meta_objective(self, trainables, bn_state, batch, epoch, second_order, num_steps, msl_active):
+    def _meta_objective(self, trainables, bn_state, opt_state, batch, epoch, second_order, num_steps, msl_active):
         """Mean over tasks of each task's (MSL-weighted) target loss, and
-        the aux outputs. ``batch`` is a :meth:`_batch` dict."""
+        the aux outputs. ``batch`` is a :meth:`_batch` dict; ``opt_state``
+        (the outer Adam's) warm-starts inner Adam."""
         params = trainables["params"]
         hparams = self._inner_hparams_for_rollout(trainables["hparams"], params)
-        inner_state0 = self._initial_inner_state(params, hparams)
+        inner_state0 = self._initial_inner_state(params, hparams, opt_state)
         loss_weights = self._loss_weights(epoch, num_steps, msl_active)
         task_losses, target_logits = self._rollout(
             params, bn_state, hparams, inner_state0, batch["x_support"], batch["y_support"],
@@ -383,7 +435,7 @@ class MAMLSystem:
         if epoch is None:
             epoch = int(state.step) // cfg.total_iter_per_epoch
         return self._meta_objective(
-            trainables, state.bn_state, self._batch(batch), self._step_epoch(state),
+            trainables, state.bn_state, state.opt_state, self._batch(batch), self._step_epoch(state),
             self.use_second_order(epoch), cfg.number_of_training_steps_per_iter, self.msl_active(epoch),
         )
 
@@ -457,7 +509,7 @@ class MAMLSystem:
         cfg = self.cfg
         with torch.no_grad():
             loss, aux = self._meta_objective(
-                {"params": state.params, "hparams": state.inner_hparams}, state.bn_state,
+                {"params": state.params, "hparams": state.inner_hparams}, state.bn_state, state.opt_state,
                 self._batch(batch), self._step_epoch(state), False,
                 cfg.number_of_evaluation_steps_per_iter, False,
             )
@@ -487,7 +539,7 @@ class MAMLSystem:
         w = None if support_weight is None else self._tensor(support_weight, torch.float32)
         with torch.no_grad():
             hparams = self._inner_hparams_for_rollout(state.inner_hparams, state.params)
-            inner_state = self._initial_inner_state(state.params, hparams)
+            inner_state = self._initial_inner_state(state.params, hparams, state.opt_state)
             return self._adapt_loop(
                 state.params, state.bn_state, hparams, inner_state, x, y,
                 second_order=False, num_steps=num_steps, support_weight=w,

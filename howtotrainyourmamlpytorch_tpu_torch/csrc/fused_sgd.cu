@@ -30,7 +30,11 @@
 // with two dependent reads of the table, and the stores leave as 16-byte
 // vectors (csrc/tree_chunks.cuh). PERF.md has the times, beside the
 // previous design's (which read one packed buffer and so found its data
-// with one read).
+// with one read). At the ResNet-12 tree (86 leaves x 8 tasks, 34,872,480
+// elements: 418.5 MB in f32, 0.1249 ms at 3.35 TB/s) the launch is bound by
+// bytes: each of the 264 blocks walks ~33 chunks of 16 KB per operand. It
+// takes the 256-leaf table (csrc/tree_chunks.cuh), in the launch parameter
+// space past 4 KB that CUDA 12.1 and later give sm_70 and newer.
 //
 // Interface: plain C, bound with ctypes. The function takes kRecordWords
 // uint64 words per leaf and the stream as void*, builds the leaf table (and
@@ -48,26 +52,32 @@ struct SgdForward {
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(tree::kThreads) fused_sgd_kernel(const __grid_constant__ tree::Table tab) {
+template <typename T, int N>
+__global__ void __launch_bounds__(tree::kThreads) fused_sgd_kernel(const __grid_constant__ tree::Table<N> tab) {
   tree::walk<SgdForward, T>(tab, nullptr);
+}
+
+template <int N>
+int forward(const uint64_t* records, int n_leaves, int dtype_code, cudaStream_t s) {
+  tree::Table<N> tab{};
+  const int grid = tree::fill_table(records, n_leaves, dtype_code == 0 ? 4 : 2, &tab);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype_code == 0) {
+    fused_sgd_kernel<float, N><<<grid, tree::kThreads, 0, s>>>(tab);
+  } else {
+    fused_sgd_kernel<__nv_bfloat16, N><<<grid, tree::kThreads, 0, s>>>(tab);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // records: n_leaves x {p, g, out, lr, numel}; p, g, out contiguous, in
 // dtype_code's type (0 = float32, 1 = bfloat16); lr a float32 scalar on the
-// card.
+// card. At most tree::kLargeLeaves leaves.
 extern "C" int fused_sgd_forward(const uint64_t* records, int n_leaves, int dtype_code, void* stream) {
   if (dtype_code != 0 && dtype_code != 1) return static_cast<int>(cudaErrorInvalidValue);
-  tree::Table tab{};
-  const int grid = tree::fill_table(records, n_leaves, dtype_code == 0 ? 4 : 2, &tab);
-  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 0) {
-    fused_sgd_kernel<float><<<grid, tree::kThreads, 0, s>>>(tab);
-  } else {
-    fused_sgd_kernel<__nv_bfloat16><<<grid, tree::kThreads, 0, s>>>(tab);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tree::small_table(n_leaves) ? forward<tree::kSmallLeaves>(records, n_leaves, dtype_code, s)
+                                     : forward<tree::kLargeLeaves>(records, n_leaves, dtype_code, s);
 }

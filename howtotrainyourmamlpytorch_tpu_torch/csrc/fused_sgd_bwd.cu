@@ -44,7 +44,11 @@
 // ~2.5 us on the H100 over B1 (PERF.md), mostly the serial tail: the last
 // block can only start once every other block's partials are visible, and
 // then reads them. (Taking the ticket before the block's last stores, so
-// that its release waits on the partial alone, ran no faster.)
+// that its release waits on the partial alone, ran no faster.) At the
+// ResNet-12 tree (86 leaves x 8 tasks, 34.9 M elements, 0.1249 ms of bytes
+// in f32) the walk is bound by bytes and the tail is a small part; the
+// last block sums 64 leaves per pass (tree::leaf_sums), so 86 leaves take
+// two passes.
 //
 // Interface: plain C, bound with ctypes, as B1's, with the scratch of one
 // float per chunk (partial) and the dlr output ([n_leaves] float32) added,
@@ -62,9 +66,9 @@ struct SgdBackward {
 
 __device__ unsigned g_ticket = 0;
 
-template <typename T>
+template <typename T, int N>
 __global__ void __launch_bounds__(tree::kThreads)
-    fused_sgd_bwd_kernel(const __grid_constant__ tree::Table tab, float* __restrict__ partial,
+    fused_sgd_bwd_kernel(const __grid_constant__ tree::Table<N> tab, float* __restrict__ partial,
                          float* __restrict__ dlr) {
   tree::walk<SgdBackward, T>(tab, partial);
   __shared__ bool last;
@@ -84,27 +88,46 @@ __global__ void __launch_bounds__(tree::kThreads)
   tree::leaf_sums(tab, partial, dlr);
 }
 
+template <int N>
+int backward(const uint64_t* records, int n_leaves, float* partial, int n_partial, float* dlr, int dtype_code,
+             cudaStream_t s) {
+  tree::Table<N> tab{};
+  const int grid = tree::fill_table(records, n_leaves, dtype_code == 0 ? 4 : 2, &tab);
+  if (grid == 0 || tab.n_chunks > n_partial) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype_code == 0) {
+    fused_sgd_bwd_kernel<float, N><<<grid, tree::kThreads, 0, s>>>(tab, partial, dlr);
+  } else {
+    fused_sgd_bwd_kernel<__nv_bfloat16, N><<<grid, tree::kThreads, 0, s>>>(tab, partial, dlr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+int chunks(const uint64_t* records, int n_leaves, int dtype_code, int32_t* first_chunk) {
+  tree::Table<N> tab{};
+  if (tree::fill_table(records, n_leaves, dtype_code == 0 ? 4 : 2, &tab) == 0) return -1;
+  if (first_chunk != nullptr) {
+    for (int i = 0; i <= n_leaves; ++i) first_chunk[i] = tab.first_chunk[i];
+  }
+  return tab.n_chunks;
+}
+
 }  // namespace
 
 // records: n_leaves x {ct, g, dg, lr, numel}; ct, g, dg contiguous, in
 // dtype_code's type (0 = float32, 1 = bfloat16); lr a float32 scalar on the
 // card; partial: [n_partial] float32 scratch, at least the chunk count
-// (fused_sgd_chunks); dlr: [n_leaves] float32 out.
+// (fused_sgd_chunks); dlr: [n_leaves] float32 out. At most tree::kLargeLeaves
+// leaves.
 extern "C" int fused_sgd_backward(const uint64_t* records, int n_leaves, void* partial, int n_partial,
                                   void* dlr, int dtype_code, void* stream) {
   if (dtype_code != 0 && dtype_code != 1) return static_cast<int>(cudaErrorInvalidValue);
-  tree::Table tab{};
-  const int grid = tree::fill_table(records, n_leaves, dtype_code == 0 ? 4 : 2, &tab);
-  if (grid == 0 || tab.n_chunks > n_partial) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
   float* out = static_cast<float*>(dlr);
-  if (dtype_code == 0) {
-    fused_sgd_bwd_kernel<float><<<grid, tree::kThreads, 0, s>>>(tab, part, out);
-  } else {
-    fused_sgd_bwd_kernel<__nv_bfloat16><<<grid, tree::kThreads, 0, s>>>(tab, part, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tree::small_table(n_leaves)
+             ? backward<tree::kSmallLeaves>(records, n_leaves, part, n_partial, out, dtype_code, s)
+             : backward<tree::kLargeLeaves>(records, n_leaves, part, n_partial, out, dtype_code, s);
 }
 
 // The split a launch over these records makes: writes where each leaf's
@@ -113,10 +136,6 @@ extern "C" int fused_sgd_backward(const uint64_t* records, int n_leaves, void* p
 // the records are out of range. The wrapper sizes partial with it.
 extern "C" int fused_sgd_chunks(const uint64_t* records, int n_leaves, int dtype_code, int32_t* first_chunk) {
   if (dtype_code != 0 && dtype_code != 1) return -1;
-  tree::Table tab{};
-  if (tree::fill_table(records, n_leaves, dtype_code == 0 ? 4 : 2, &tab) == 0) return -1;
-  if (first_chunk != nullptr) {
-    for (int i = 0; i <= n_leaves; ++i) first_chunk[i] = tab.first_chunk[i];
-  }
-  return tab.n_chunks;
+  return tree::small_table(n_leaves) ? chunks<tree::kSmallLeaves>(records, n_leaves, dtype_code, first_chunk)
+                                     : chunks<tree::kLargeLeaves>(records, n_leaves, dtype_code, first_chunk);
 }

@@ -3,13 +3,22 @@
 // launch over L leaves that lie where PyTorch put them, with nothing packed
 // and nothing copied around the launch.
 //
-// The leaf table (Table) travels by value in the launch's parameter space
-// (__grid_constant__, about 3 KB of the 4 KB): per leaf its operand pointers
-// a, b (p, g for B1; ct, g for B2), its output pointer, a pointer to its f32
-// learning rate, its element count and vector count, and its first chunk;
-// and per block the leaf its run of chunks starts in, so that a block finds
-// its first leaf with one read instead of a scan. So no host-to-device copy
-// and no other launch comes before the kernel.
+// The leaf table (Table<N>) travels by value in the launch's parameter space
+// (__grid_constant__): per leaf its operand pointers a, b (p, g for B1; ct,
+// g for B2), its output pointer, a pointer to its f32 learning rate, its
+// element count and vector count, and its first chunk; and per block the
+// leaf its run of chunks starts in, so that a block finds its first leaf with
+// one read instead of a scan. So no host-to-device copy and no other launch
+// comes before the kernel.
+//
+// Two capacities. Table<kSmallLeaves> (64 leaves, 3,096 bytes) fits the
+// classic 4 KB parameter space: the VGG trees take it, and their launches
+// are what they were. Table<kLargeLeaves> (256 leaves, 11,808 bytes, 16-bit
+// start leaves) takes deeper trees (ResNet-12: 86 leaves, DenseNet-12: 85).
+// It travels in the larger parameter space Hopper gets from CUDA 12.1 on
+// (up to 32,764 bytes on sm_70 and newer). Each kernel's host function
+// launches with the smaller table that holds the tree (small_table); a tree
+// of more than kLargeLeaves leaves is refused.
 //
 // Chunks. Every leaf is cut into chunks of kChunkBytes per operand: kVecs
 // 16-byte vectors for each of the block's 256 threads (vector u * 256 + t
@@ -43,11 +52,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tree {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLeaves = 64;
+constexpr int kSmallLeaves = 64;
+constexpr int kLargeLeaves = 256;
 constexpr int kVecs = 4;                          // 16-byte vectors per thread per chunk
 constexpr int kChunkVectors = kVecs * kThreads;
 constexpr int kChunkBytes = kChunkVectors * 16;  // per operand
@@ -66,20 +78,29 @@ struct Leaf {
   int32_t vecs;  // 16-byte vectors in the body; -1: read element by element
 };
 
+template <int N>
 struct Table {
-  Leaf leaf[kMaxLeaves];
-  int32_t first_chunk[kMaxLeaves + 1];  // [n_leaves] = n_chunks
-  uint8_t start_leaf[kMaxGrid];         // the leaf of each block's first chunk
+  static constexpr int kCapacity = N;
+  using StartLeaf = typename std::conditional<(N <= kSmallLeaves), uint8_t, uint16_t>::type;
+  Leaf leaf[N];
+  int32_t first_chunk[N + 1];     // [n_leaves] = n_chunks
+  StartLeaf start_leaf[kMaxGrid];  // the leaf of each block's first chunk
   int32_t n_leaves;
   int32_t n_chunks;
   int32_t run;  // chunks per block: block b takes [b * run, min((b + 1) * run, n_chunks))
 };
 // B2 passes two pointers beside it
-static_assert(sizeof(Table) + 16 <= 4096, "the table must fit the launch's 4 KB parameter space");
+static_assert(sizeof(Table<kSmallLeaves>) + 16 <= 4096, "the small table must fit the classic 4 KB parameter space");
+static_assert(sizeof(Table<kLargeLeaves>) + 16 <= 32764, "the large table must fit the 32,764-byte parameter space");
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+
+// The table a launch over n_leaves leaves takes: the small one where it holds
+// them (its launch stays in the classic 4 KB parameter space), else the large
+// one; fill_table refuses a tree of more than kLargeLeaves leaves.
+inline bool small_table(int n_leaves) { return n_leaves <= kSmallLeaves; }
 
 // Chunks per block: as few as let kCtasPerSm blocks per SM (at most
 // kMaxGrid) cover the list.
@@ -101,8 +122,9 @@ inline int run_for(int n_chunks) {
 // and ceil(vectors / kChunkVectors) chunks (chunk 0 also takes the rest),
 // any other leaf ceil(n / (kChunkVectors * V)) chunks, every leaf at least
 // one. Returns the grid, or 0 when the records are out of range.
-inline int fill_table(const uint64_t* records, int n_leaves, int element_size, Table* tab) {
-  if (n_leaves <= 0 || n_leaves > kMaxLeaves) return 0;
+template <int N>
+inline int fill_table(const uint64_t* records, int n_leaves, int element_size, Table<N>* tab) {
+  if (n_leaves <= 0 || n_leaves > N) return 0;
   const int64_t vec = 16 / element_size;
   int64_t n_chunks = 0;
   for (int i = 0; i < n_leaves; ++i) {
@@ -127,7 +149,7 @@ inline int fill_table(const uint64_t* records, int n_leaves, int element_size, T
   int leaf = 0;
   for (int b = 0; b < grid; ++b) {
     while (tab->first_chunk[leaf + 1] <= b * tab->run) ++leaf;
-    tab->start_leaf[b] = static_cast<uint8_t>(leaf);
+    tab->start_leaf[b] = static_cast<typename Table<N>::StartLeaf>(leaf);
   }
   return grid;
 }
@@ -225,7 +247,8 @@ __device__ __forceinline__ float block_sum(float v) {
 
 // the leaf of chunk c, searching forward from leaf l (chunks are walked in
 // increasing order)
-__device__ __forceinline__ int leaf_of(const Table& tab, int c, int l) {
+template <class Tab>
+__device__ __forceinline__ int leaf_of(const Tab& tab, int c, int l) {
   while (tab.first_chunk[l + 1] <= c) ++l;
   return l;
 }
@@ -302,8 +325,8 @@ __device__ __forceinline__ float chunk_update(const Leaf& leaf, int k, int nvec,
 // Block b's run of chunks: for each, a thread issues its kVecs loads per
 // operand, then computes and stores; Op::kReduce writes the block sum of
 // a * b of every chunk c to partial[c].
-template <class Op, typename T>
-__device__ __forceinline__ void walk(const Table& tab, float* partial) {
+template <class Op, typename T, class Tab>
+__device__ __forceinline__ void walk(const Tab& tab, float* partial) {
   // the start leaf first: with the run's bounds it is all a block's first
   // data loads wait for, besides that leaf's entry
   int l = tab.start_leaf[blockIdx.x];
@@ -339,38 +362,46 @@ __device__ __forceinline__ void walk(const Table& tab, float* partial) {
 // B2's last block: dlr[l] = -(sum of leaf l's chunk partials), lane j of a
 // warp adding chunks j, j + 32, ... in order, then 5 shuffle levels. Every
 // dependent round trip to L2 lengthens the kernel's tail, so a warp first
-// issues the loads of kBatch partials per lane for all of its leaves
-// (leaves warp, warp + 8, ...), then adds; a leaf of more than 32 * kBatch
-// chunks adds the rest in a loop, in the same order. The zeros past a
+// issues the loads of kBatch partials per lane for kLeavesPerWarp of its
+// leaves (leaves warp, warp + 8, ... of the pass), then adds; a leaf of more
+// than 32 * kBatch chunks adds the rest in a loop, in the same order. A tree
+// of more than kWarps * kLeavesPerWarp (64) leaves takes several passes,
+// which keeps the registers a thread holds at 8 x 4 partials whatever the
+// table's capacity; a leaf's sum is the same chain in any pass, so dlr is
+// bit-identical across launches and across the two tables. The zeros past a
 // leaf's end add exactly.
-__device__ __forceinline__ void leaf_sums(const Table& tab, const float* partial, float* dlr) {
+template <class Tab>
+__device__ __forceinline__ void leaf_sums(const Tab& tab, const float* partial, float* dlr) {
   constexpr int kBatch = 4;
-  constexpr int kLeavesPerWarp = kMaxLeaves / kWarps;
+  constexpr int kLeavesPerWarp = 8;
+  constexpr int kPass = kLeavesPerWarp * kWarps;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float v[kLeavesPerWarp][kBatch];
+  for (int base = 0; base < Tab::kCapacity && base < tab.n_leaves; base += kPass) {
+    float v[kLeavesPerWarp][kBatch];
 #pragma unroll
-  for (int j = 0; j < kLeavesPerWarp; ++j) {
-    const int l = warp + j * kWarps;
-    const int first = l < tab.n_leaves ? tab.first_chunk[l] : 0;
-    const int end = l < tab.n_leaves ? tab.first_chunk[l + 1] : 0;
+    for (int j = 0; j < kLeavesPerWarp; ++j) {
+      const int l = base + warp + j * kWarps;
+      const int first = l < tab.n_leaves ? tab.first_chunk[l] : 0;
+      const int end = l < tab.n_leaves ? tab.first_chunk[l + 1] : 0;
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int c = first + lane + 32 * u;
-      v[j][u] = c < end ? __ldcg(partial + c) : 0.0f;
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = first + lane + 32 * u;
+        v[j][u] = c < end ? __ldcg(partial + c) : 0.0f;
+      }
     }
-  }
 #pragma unroll
-  for (int j = 0; j < kLeavesPerWarp; ++j) {
-    const int l = warp + j * kWarps;
-    if (l >= tab.n_leaves) break;
-    float s = 0.0f;
+    for (int j = 0; j < kLeavesPerWarp; ++j) {
+      const int l = base + warp + j * kWarps;
+      if (l >= tab.n_leaves) break;
+      float s = 0.0f;
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) s += v[j][u];
-    const int end = tab.first_chunk[l + 1];
-    for (int c = tab.first_chunk[l] + lane + 32 * kBatch; c < end; c += 32) s += __ldcg(partial + c);
-    s = warp_sum(s);
-    if (lane == 0) dlr[l] = -s;
+      for (int u = 0; u < kBatch; ++u) s += v[j][u];
+      const int end = tab.first_chunk[l + 1];
+      for (int c = tab.first_chunk[l] + lane + 32 * kBatch; c < end; c += 32) s += __ldcg(partial + c);
+      s = warp_sum(s);
+      if (lane == 0) dlr[l] = -s;
+    }
   }
 }
 

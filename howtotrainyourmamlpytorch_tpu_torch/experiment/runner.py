@@ -3,9 +3,10 @@
 It builds the experiment folder tree, resumes from 'latest' (the loader's
 cursor with it), loops ``total_epochs x total_iter_per_epoch`` train steps,
 runs ``num_evaluation_tasks/batch_size`` val batches per epoch, appends
-``logs/summary_statistics.csv`` rows, writes per-epoch ``lrs.csv``, rotates
-checkpoints, keeps the best-by-validation checkpoint, and finally evaluates
-it on the test split into ``logs/test_summary.csv``. Around the steps: the
+``logs/summary_statistics.csv`` rows, writes per-epoch ``lrs.csv`` (and
+``betas.csv``), rotates checkpoints, keeps the best-by-validation
+checkpoint, and finally evaluates it on the test split into
+``logs/test_summary.csv``. Around the steps: the
 one-step-lag NaN sentinel with its skip and rollback ladder, SIGTERM/SIGINT
 to an emergency checkpoint and exit 75, the wedge watchdog, the
 early-divergence abort (exit 3), the async checkpoint writer and run
@@ -591,12 +592,23 @@ class ExperimentRunner:
         return _episode_stats(split, _host(torch.cat(ep_losses)), _host(torch.cat(ep_accs)))
 
     def write_inner_opt_stats(self) -> None:
-        """One row per epoch of the learned per-tensor lrs, in the JAX
-        package's column order (sorted key paths)."""
+        """One row per epoch of the learned per-tensor lrs (``[K]`` each
+        under ``lslr_per_step``), and for inner Adam of its betas,
+        interleaved b1, b2 per tensor, in the JAX package's column order
+        (sorted key paths)."""
         if not self.cfg.learnable_inner_opt_params:
             return
-        lrs = [float(x) for leaf in tree_leaves(self.state.inner_hparams["lr"]) for x in _host(leaf).ravel()]
+        hp = self.state.inner_hparams
+        lrs = [float(x) for leaf in tree_leaves(hp["lr"]) for x in _host(leaf).ravel()]
         storage.append_hparam_row(self.run_dir, lrs, "lrs.csv")
+        if self.cfg.inner_optim.kind == "adam":
+            betas = [
+                float(x)
+                for b1, b2 in zip(tree_leaves(hp["beta1"]), tree_leaves(hp["beta2"]))
+                for pair in zip(_host(b1).ravel(), _host(b2).ravel())
+                for x in pair
+            ]
+            storage.append_hparam_row(self.run_dir, betas, "betas.csv")
 
     def _save(self, epoch: int) -> None:
         bookkeeping = {

@@ -1,5 +1,5 @@
-"""Functional NN primitives over dict trees, the subset the VGG backbone
-uses (JAX package ``models/layers.py:176-306``, ``:369-442``).
+"""Functional NN primitives over dict trees, the subset the VGG, ResNet and
+DenseNet backbones use (JAX package ``models/layers.py``).
 
 Each layer is a pair of plain functions: ``init_*`` returning a params dict
 (and, for batch-norm, a state dict) and an apply function on tensors, so the
@@ -12,9 +12,10 @@ PyTorch's own layouts. Models convert NHWC input at their entry.
 ``utils/interop.py`` converts JAX weights, including the flatten order of the
 first linear layer (JAX flattens ``(h, w, c)``, this port ``(c, h, w)``).
 
-Initializers draw from torch's default distributions (kaiming-uniform with
-a=sqrt(5) for conv and linear weights, fan-in uniform biases) with an
-explicit ``torch.Generator``.
+Initializers draw from the JAX package's distribution families (torch's
+defaults: kaiming-uniform with a=sqrt(5) for conv and linear weights, fan-in
+uniform biases; kaiming-normal fan_out for ResNet's convs and fan_in for
+DenseNet's) with an explicit ``torch.Generator``.
 """
 
 import math
@@ -31,19 +32,30 @@ def _uniform(gen, shape, bound):
     return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
 
 
-def init_conv(gen, kh, kw, cin, cout, bias=True):
-    """torch Conv2d default: kaiming_uniform_(a=sqrt(5)) => U(+-1/sqrt(fan_in))."""
-    fan_in = cin * kh * kw
-    bound = math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in)
-    params = {"w": _uniform(gen, (cout, cin, kh, kw), bound)}
+def init_conv(gen, kh, kw, cin, cout, bias=True, init="torch_default"):
+    """``torch_default``: Conv2d's kaiming_uniform_(a=sqrt(5)) =>
+    U(+-1/sqrt(fan_in)); ``kaiming_normal_fan_out`` / ``_fan_in``:
+    N(0, 2 / fan) (ResNet, DenseNet)."""
+    fan_in, fan_out = cin * kh * kw, cout * kh * kw
+    shape = (cout, cin, kh, kw)
+    if init == "torch_default":
+        w = _uniform(gen, shape, math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in))
+    elif init in ("kaiming_normal_fan_out", "kaiming_normal_fan_in"):
+        fan = fan_out if init == "kaiming_normal_fan_out" else fan_in
+        w = math.sqrt(2.0 / fan) * torch.randn(shape, generator=gen)
+    else:
+        raise ValueError(init)
+    params = {"w": w}
     if bias:
         params["b"] = _uniform(gen, (cout,), 1.0 / math.sqrt(fan_in))
     return params
 
 
-def init_linear(gen, cin, cout):
+def init_linear(gen, cin, cout, zero_bias=False):
     bound = math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / cin)
-    return {"w": _uniform(gen, (cout, cin), bound), "b": _uniform(gen, (cout,), 1.0 / math.sqrt(cin))}
+    w = _uniform(gen, (cout, cin), bound)
+    b = torch.zeros(cout) if zero_bias else _uniform(gen, (cout,), 1.0 / math.sqrt(cin))
+    return {"w": w, "b": b}
 
 
 def init_batch_norm(c):
@@ -136,8 +148,29 @@ def max_pool(x, window=2, *, force_reduce_window=False):
     return x.reshape(b, c, ho, window, wo, window).amax(dim=(3, 5))
 
 
+def avg_pool(x, window=2):
+    """Non-overlapping AvgPool2d(window, stride=window), floor mode, NCHW."""
+    b, c, h, w = x.shape
+    ho, wo = h // window, w // window
+    x = x[:, :, : ho * window, : wo * window]
+    return x.reshape(b, c, ho, window, wo, window).mean(dim=(3, 5))
+
+
+def global_avg_pool(x):
+    """AdaptiveAvgPool2d((1, 1)) + flatten: NCHW -> NC."""
+    return x.mean(dim=(2, 3))
+
+
 def leaky_relu(x, negative_slope=0.01):
     return torch.where(x >= 0, x, negative_slope * x)
+
+
+def relu(x):
+    """``max(x, 0)``, as the JAX package's ``jnp.maximum(x, 0)``: at exactly
+    0 the gradient is 0.5 (``torch.maximum`` splits a tie evenly), where
+    ``torch.relu``'s is 0. Transductive BN makes exact zeros reachable (a
+    channel that is constant over the batch normalises to its bias)."""
+    return torch.maximum(x, torch.zeros_like(x))
 
 
 def flatten(x):

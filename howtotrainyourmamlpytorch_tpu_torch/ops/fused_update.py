@@ -29,6 +29,11 @@ launches its kernel or raises; for CPU tensors each computes its plain
 PyTorch twin (:func:`fused_sgd_tree_reference`,
 :func:`fused_sgd_tree_bwd_reference`), because the tensors lie on the CPU.
 
+Trees of up to :data:`MAX_LEAVES` leaves: the C functions launch with a
+64-leaf table in the classic 4 KB parameter space where it holds the tree
+(the VGG trees), else with a 256-leaf table (ResNet-12's 86 leaves,
+DenseNet-12's 85) in the larger space CUDA 12.1 gives sm_70 and newer.
+
 Work split: the kernels cut each leaf into chunks of 16 KB per operand
 (four 16-byte vectors for each of a block's 256 threads); no chunk crosses
 a leaf. A leaf whose operands start on 16-byte boundaries has a vector
@@ -50,9 +55,11 @@ from ..utils.trees import tree_flatten, tree_unflatten
 
 KERNEL_SOURCE = "fused_sgd.cu"
 BWD_KERNEL_SOURCE = "fused_sgd_bwd.cu"
-#: leaves the kernels' table holds (csrc/tree_chunks.cuh kMaxLeaves); the
-#: table travels in the launch's parameter space, which is 4 KB
-MAX_LEAVES = 64
+#: leaves the kernels' large table holds (csrc/tree_chunks.cuh kLargeLeaves,
+#: 11.8 KB in Hopper's 32 KB launch parameter space); a tree of at most
+#: SMALL_TABLE_LEAVES leaves launches with the 4 KB table (kSmallLeaves)
+MAX_LEAVES = 256
+SMALL_TABLE_LEAVES = 64
 #: elements of one leaf the kernels index in 32 bits
 MAX_LEAF_ELEMENTS = (1 << 31) - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,9 +124,8 @@ def _check(ps, gs, lrs, names=("p", "g")) -> None:
         raise ValueError(f"fused_sgd: {len(ps)} {a}, {len(gs)} {b} and {len(lrs)} lr leaves")
     if len(ps) > MAX_LEAVES:
         raise ValueError(
-            f"fused_sgd: {len(ps)} leaves, the kernels' table holds {MAX_LEAVES} (the "
-            "launch's 4 KB parameter space); deeper trees come with ROADMAP.md A6 "
-            "(ResNet/DenseNet)"
+            f"fused_sgd: {len(ps)} leaves, the kernels' largest table holds {MAX_LEAVES} "
+            "(csrc/tree_chunks.cuh kLargeLeaves)"
         )
     dtype, device = ps[0].dtype, ps[0].device
     if dtype not in _DTYPE_CODES:

@@ -4,11 +4,17 @@ Torch's generator cannot reproduce ``jax.random`` init, so a parity check,
 or a server loading a checkpoint the JAX package wrote, moves the JAX
 weights into the port. The trees map by key path, never by leaf position:
 
-- a conv kernel (``.../conv/w``) goes from HWIO to OIHW;
-- the head (``fc/w``) goes from ``[in, out]`` to ``[out, in]``, and its
-  input rows from the JAX flatten order ``(h, w, c)`` (NHWC) to the port's
-  ``(c, h, w)`` (NCHW). Without that reordering the logits are wrong while
-  every shape still checks;
+- a conv kernel (the 4-d ``w`` under a ``conv``, ``conv1`` or ``conv2``
+  key: VGG's ``stage_i/conv``, ResNet's ``conv1``/``conv2`` and
+  ``downsample/conv``, DenseNet's ``conv1``/``conv2`` and
+  ``transition_i/conv``) goes from HWIO to OIHW;
+- the head (the 2-d ``w`` of ``fc`` or ``classifier``) goes from
+  ``[in, out]`` to ``[out, in]``. Where the activation it reads has H·W > 1
+  (the VGG at 84x84, ``feature_shape`` (64, 5, 5)) its input rows also go
+  from the JAX flatten order ``(h, w, c)`` (NHWC) to the port's
+  ``(c, h, w)`` (NCHW); without that reordering the logits are wrong while
+  every shape still checks. ResNet and DenseNet end in a global average
+  pool (``feature_shape`` (C, 1, 1)), so their head is only transposed;
 - every other leaf (biases, BN scale/shift and statistics, per-tensor lrs,
   counters) keeps its values and shape.
 
@@ -29,10 +35,14 @@ from ..ops.outer_adam import ScaleByAdamState, ScaleByScheduleState
 from .trees import Path, tree_flatten, tree_unflatten
 
 
+CONV_KEYS = ("conv", "conv1", "conv2")
+HEAD_KEYS = ("fc", "classifier")
+
+
 def _kind(path: Path, ndim: int) -> str:
-    if path[-2:] == ("conv", "w") and ndim == 4:
+    if len(path) >= 2 and path[-1] == "w" and path[-2] in CONV_KEYS and ndim == 4:
         return "conv"
-    if path == ("fc", "w") and ndim == 2:
+    if len(path) == 2 and path[0] in HEAD_KEYS and path[1] == "w" and ndim == 2:
         return "head"
     if ndim > 1:
         raise ValueError(f"no layout rule for the {ndim}-d leaf {'/'.join(path)}")

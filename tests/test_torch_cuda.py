@@ -16,9 +16,11 @@ from howtotrainyourmamlpytorch_tpu_torch.config import Config, PrecisionConfig, 
 from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
 from howtotrainyourmamlpytorch_tpu_torch.core.train_state import TrainState
 from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+from howtotrainyourmamlpytorch_tpu_torch.models.registry import build_model
 from howtotrainyourmamlpytorch_tpu_torch.models.vgg import build_vgg
 from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
 from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+from howtotrainyourmamlpytorch_tpu_torch.utils.seeding import model_init_generator
 from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_flatten, tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
@@ -37,12 +39,24 @@ def cuda():
 _VGG64 = [s for cin in (1, 64, 64, 64) for s in ((64, cin, 3, 3), (64,), (64,), (64,))] + [(20, 64), (20,)]
 
 
+def _resnet12_shapes():
+    """The ResNet-12 tree of the fleet row omniglot.20.1.resnet-12.gd (86
+    leaves, 4,359,060 parameters), past the kernels' 64-leaf table."""
+    params, _ = build_model("resnet-12", (28, 28, 1), 20).init(model_init_generator(0))
+    return [tuple(t.shape) for t in tree_leaves(params)]
+
+
+#: leaves of the synthetic tree with more than 200 small leaves
+_MANY = [1 + (37 * i) % 3000 for i in range(220)]
+
+
 def _tree(kind, dtype, device, seed):
     """(first operands, second operands, lrs) of a tree: one element; a
     ragged tree of 1, 3, 20, 129 and 4,097 elements (every rest length; the
     129-element leaf's operands both 4 bytes past a 16-byte boundary and
     the 4,097-element leaf's first operand alone: read element by element);
-    or the VGG-64 tree over 8 tasks."""
+    the VGG-64 tree over 8 tasks; the ResNet-12 tree over 8 tasks (86
+    leaves, 34,872,480 elements); or 220 leaves of 1 to 3,000 elements."""
     gen = torch.Generator(device=device).manual_seed(seed)
     shift = 4 // torch.empty((), dtype=dtype).element_size()
 
@@ -57,13 +71,16 @@ def _tree(kind, dtype, device, seed):
         sizes = (1, 3, 20, 129, 4097)
         a = [rand(n, offset=n in (129, 4097)) for n in sizes]
         b = [rand(n, offset=n == 129) for n in sizes]
+    elif kind == "many_220":
+        a, b = [rand(n) for n in _MANY], [rand(n) for n in _MANY]
     else:
-        a, b = [rand(8, *s) for s in _VGG64], [rand(8, *s) for s in _VGG64]
+        shapes = _VGG64 if kind == "vgg64_8_tasks" else _resnet12_shapes()
+        a, b = [rand(8, *s) for s in shapes], [rand(8, *s) for s in shapes]
     lrs = list(torch.rand(len(a), device=device, generator=gen).unbind())
     return a, b, lrs
 
 
-_TREES = pytest.mark.parametrize("tree", ["one_element", "ragged", "vgg64_8_tasks"])
+_TREES = pytest.mark.parametrize("tree", ["one_element", "ragged", "vgg64_8_tasks", "resnet12_8_tasks", "many_220"])
 _DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 
 
@@ -221,7 +238,7 @@ def test_train_step_with_kernels_matches_cpu(cuda):
     1e-5."""
     cfg = Config(
         num_classes_per_set=3, num_samples_per_class=2, num_target_samples=2, batch_size=2,
-        number_of_training_steps_per_iter=2, use_pallas_inner_update=True,
+        number_of_training_steps_per_iter=2, use_pallas_inner_update=True, remat_inner_steps=False,
     )
     model = build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8)
     gpu = MAMLSystem(cfg, model=model, device=cuda)
@@ -252,3 +269,52 @@ def test_train_step_with_kernels_matches_cpu(cuda):
         if path[-2:] != ("conv", "b"):
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-5)
     np.testing.assert_allclose(float(out.loss), float(cpu_out.loss), rtol=1e-5)
+
+
+def test_wrapper_refuses_more_leaves_than_the_largest_table(cuda):
+    """Above MAX_LEAVES the wrapper raises before any launch; at it, one
+    launch of the large table."""
+    for n, ok in ((fu.MAX_LEAVES, True), (fu.MAX_LEAVES + 1, False)):
+        ps = [torch.randn(3, device=cuda) for _ in range(n)]
+        gs = [torch.randn(3, device=cuda) for _ in range(n)]
+        lrs = list(torch.rand(n, device=cuda).unbind())
+        fu.reset_launch_counts()
+        if ok:
+            outs = fu.FusedSGD.apply(n, *ps, *gs, *lrs)
+            torch.cuda.synchronize()
+            assert all(torch.equal(o, r) for o, r in zip(outs, fu.fused_sgd_tree_reference(ps, gs, lrs)))
+        else:
+            with pytest.raises(ValueError, match="largest table"):
+                fu.FusedSGD.apply(n, *ps, *gs, *lrs)
+        assert fu.launch_counts == {"fused_sgd": int(ok), "fused_sgd_bwd": 0}
+
+
+@pytest.mark.parametrize("policy", ["full", "dots_saveable"])
+def test_remat_train_step_matches_no_remat_and_relaunches_b1(cuda, policy):
+    """A second-order meta-gradient of a small ResNet (resnet-4, 16x16x1,
+    3-way 2-shot, K=2) under remat against the same without it, both on the card with cuDNN deterministic: the loss equal,
+    the meta-gradient within 1e-5 of its largest element; B1 launches twice
+    per inner step under remat (the recompute), B2 once."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for pol in ("none", policy):
+            cfg = Config(
+                num_classes_per_set=3, num_samples_per_class=2, num_target_samples=2, batch_size=2,
+                number_of_training_steps_per_iter=2, use_pallas_inner_update=True, remat_policy=pol,
+            )
+            system = MAMLSystem(cfg, model=build_model("resnet-4", (16, 16, 1), 3), device=cuda)
+            state = system.init_train_state()
+            fu.reset_launch_counts()
+            loss, _, grads = system.meta_gradients(state, learnable_synthetic_batch(2, 3, 2, 2, (16, 16, 1), seed=0), 0)
+            torch.cuda.synchronize()
+            out[pol] = (loss, grads, dict(fu.launch_counts))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    K = 2
+    assert out["none"][2] == {"fused_sgd": K, "fused_sgd_bwd": K}
+    assert out[policy][2] == {"fused_sgd": 2 * K, "fused_sgd_bwd": K}
+    assert torch.equal(out["none"][0], out[policy][0])
+    scale = max(float(g.abs().max()) for g in tree_leaves(out["none"][1]))
+    for a, b in zip(tree_leaves(out[policy][1]), tree_leaves(out["none"][1])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0, atol=1e-5 * scale)

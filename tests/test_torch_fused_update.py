@@ -391,3 +391,50 @@ def test_twin_dlr_is_the_segment_sum_of_jax_row_cotangents():
         prod = c.astype(np.float64) * g
         rows_bound = 127 * 2.0**-24 * float(np.abs(prod).sum())
         assert abs(float(dlr[i]) - segment[i]) <= _float32_sum_bound(prod) + rows_bound
+
+
+# ---------------------------------------------------------------------------
+# trees past the small table: ResNet-12 (86 leaves) and DenseNet-12 (85)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("net", ["resnet-12", "densenet-12"])
+def test_deep_tree_records_and_twins_match_jax(net):
+    """The leaf trees the large table takes (more than SMALL_TABLE_LEAVES,
+    at most MAX_LEAVES): one record of five words per leaf, and the twins
+    against the JAX package's fused update and its ``custom_vjp``
+    (Pallas interpret mode) over the whole tree, as in the tests above."""
+    from howtotrainyourmamlpytorch_tpu_torch.models.registry import build_model
+    from howtotrainyourmamlpytorch_tpu_torch.utils import seeding
+
+    params, _ = build_model(net, (28, 28, 1), 20).init(seeding.model_init_generator(0))
+    shapes = tree_map(lambda t: tuple(t.shape), params)
+    n = len(tree_leaves(shapes))
+    assert fu.SMALL_TABLE_LEAVES < n <= fu.MAX_LEAVES
+    rng = np.random.RandomState(5)
+    p, g, w = (tree_map(lambda s: rng.randn(*s).astype(np.float32), shapes) for _ in range(3))
+    leaves = tree_leaves(shapes)
+    lr_it = iter(np.float32(0.01 + 0.002 * i) for i in range(n))
+    lrs = tree_map(lambda _: next(lr_it), shapes)
+
+    ps, gs, lr_t = tree_leaves(_torch(p)), tree_leaves(_torch(g)), tree_leaves(_torch(lrs))
+    a_leaves, _, outs, records = fu._prepare(ps, gs, lr_t)
+    words = list(records)
+    assert len(words) == 5 * n and words[4::5] == [int(np.prod(s)) for s in leaves]
+
+    want = jax_fused_sgd_update(*(jax.tree.map(jnp.asarray, t) for t in (p, g, lrs)))
+    got = fu.fused_sgd_update(_torch(p), _torch(g), _torch(lrs))
+    _assert_close_to_jax(got, want, g, lrs)
+
+    def objective(pp, gg, ll):
+        out = jax_fused_sgd_update(pp, gg, ll)
+        return sum(jnp.sum(o * jnp.asarray(x)) for o, x in zip(jax.tree.leaves(out), jax.tree.leaves(w)))
+
+    jgrads = jax.grad(objective, argnums=(1, 2))(*(jax.tree.map(jnp.asarray, t) for t in (p, g, lrs)))
+    dg, dlr = fu.fused_sgd_tree_bwd_reference(tree_leaves(_torch(w)), gs, lr_t)
+    for a, b in zip(dg, jax.tree.leaves(jgrads[0])):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=0)
+    # each side a float32 sum of the leaf's products in its own order
+    for got_lr, want_lr, ct, gg in zip(dlr.numpy(), jax.tree.leaves(jgrads[1]), tree_leaves(w), tree_leaves(g)):
+        prod = np.asarray(ct, np.float64) * np.asarray(gg, np.float64)
+        assert abs(float(got_lr) - float(want_lr)) <= 2 * _float32_sum_bound(prod)

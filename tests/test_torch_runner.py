@@ -420,8 +420,6 @@ REFUSED = {
     "dp2": (dict(parallel=tcfg.ParallelConfig(dp=2)), "A9"),
     "mp2": (dict(parallel=tcfg.ParallelConfig(mp=2)), "A9"),
     "sharded_checkpoints": (dict(checkpoint_shards=2), "A9"),
-    "inner_adam": (dict(inner_optim=tcfg.InnerOptimConfig(kind="adam")), "A6"),
-    "resnet": (dict(net="resnet-4"), "A6"),
 }
 
 
@@ -432,6 +430,34 @@ def test_unported_options_are_refused(toy_dataset, tmp_path, name):
     with pytest.raises(NotImplementedError, match=item):
         ExperimentRunner(cfg, device="cpu")
     assert not os.path.exists(cfg.run_dir())
+
+
+A6_OPTIONS = {
+    "inner_adam": dict(inner_optim=tcfg.InnerOptimConfig(kind="adam")),
+    "resnet": dict(net="resnet-4"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(A6_OPTIONS))
+def test_a6_options_are_accepted(toy_dataset, tmp_path, name):
+    """Inner Adam and the ResNet backbone, refused before ROADMAP.md A6,
+    build a runner on the CPU and train an epoch: finite losses, and for
+    inner Adam a ``betas.csv`` row of interleaved per-tensor betas."""
+    cfg = runner_config(toy_dataset, tmp_path, total_epochs=1, total_iter_per_epoch=1, **A6_OPTIONS[name])
+    runner = ExperimentRunner(cfg, device="cpu")
+    assert runner.system.inner_opt.name == ("adam" if name == "inner_adam" else "sgd")
+    assert runner.system.model.name == ("resnet" if name == "resnet" else "vgg")
+    runner.run_experiment()
+    rows = load_statistics(os.path.join(cfg.run_dir(), "logs"))
+    assert len(rows) == 1 and np.isfinite(float(rows[0]["train_loss_mean"]))
+    n_leaves = len(tree_leaves(runner.state.params))
+    with open(os.path.join(cfg.run_dir(), "lrs.csv")) as f:
+        assert [len(r) for r in csv.reader(f)] == [n_leaves]
+    betas = os.path.join(cfg.run_dir(), "betas.csv")
+    assert os.path.exists(betas) == (name == "inner_adam")
+    if name == "inner_adam":
+        with open(betas) as f:
+            assert [len(r) for r in csv.reader(f)] == [2 * n_leaves]
 
 
 def test_fault_drill_from_the_environment_is_refused(toy_dataset, tmp_path, monkeypatch):

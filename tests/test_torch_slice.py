@@ -180,7 +180,6 @@ def test_unported_paths_raise(reference):
     refine.serving.refine_enabled = True
     with pytest.raises(NotImplementedError, match="A8"):
         AdaptationEngine(system, engine.state, serving_cfg=refine.serving)
-    with pytest.raises(NotImplementedError, match="A6"):
-        MAMLSystem(tcfg.load_config(None, ["inner_optim=adam"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        MAMLSystem(tcfg.load_config(None, ["net=resnet-4"]), device="cpu")
+    # inner Adam and the ResNet backbone (ROADMAP.md A6) construct
+    assert MAMLSystem(tcfg.load_config(None, ["inner_optim=adam"]), device="cpu").inner_opt.name == "adam"
+    assert MAMLSystem(tcfg.load_config(None, ["net=resnet-4"]), device="cpu").model.name == "resnet"
