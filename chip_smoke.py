@@ -13,7 +13,8 @@ Run from the repository root. Phases, one JSON line each:
    built beside them for a comparison in the same call.
 2. ``kernel``: the fused LSLR update B1 (``csrc/fused_sgd.cu``) against its
    plain PyTorch twin on the card, at the trees of the main paths (the
-   VGG-64 tree of 20-way Omniglot, 18 leaves over 8 tasks; the ResNet-12
+   VGG-64 tree of 20-way Omniglot, 18 leaves over 8 tasks; its anil head,
+   2 leaves over 8 tasks, also timed beside the floor; the ResNet-12
    tree, 86 leaves over 8 tasks, 34,872,480 elements, which takes the
    kernels' 256-leaf table), at a ragged tree whose leaves take the rest and
    element-by-element paths, and at 220 small leaves, in float32 and
@@ -52,7 +53,25 @@ Run from the repository root. Phases, one JSON line each:
    step times, peak memory and a ``torch.profiler`` breakdown of one step.
 7. ``serve_trained``: the trained state saved with ``save_checkpoint``,
    loaded by ``AdaptationEngine.from_run_dir`` and served one flush.
-8. ``runner``: the experiment layer at the same config, on a generated
+8. ``strategies``: the strategy registry at the fleet row
+   ``omniglot.20.5.vgg.gd.anil`` (the default config with
+   ``strategy=anil``): 10 anil train steps and an eval step, B1 and B2 over
+   the head's 2 leaves, K launches each per step; the anil step faster
+   than phase ``train``'s maml++ step; one step under remat ``full`` (B1
+   2 K, B2 K); the card against the CPU at a small size (1e-5) and, at full
+   width, each device against float64 as in ``train``. Then the engine
+   serves maml++, fomaml, anil and protonet from the trained state: per
+   strategy a lone request against its place in a padded flush (cuDNN
+   deterministic; within 1e-6, protonet 1e-5, or the distance the request
+   moves when its images move by 1e-6, where that is larger) and timed flushes of 8 requests at support 100 with
+   8 x 40 queries (finite probabilities whose rows sum to 1); maml++ and
+   fomaml bit-equal; protonet's adapt flush faster than maml++'s; one
+   refine flush each for maml++ and anil, K launches of B1.
+9. ``precision``: the default config's train step under
+   ``matmul_precision`` ``highest`` (IEEE float32) and ``high`` (TF32
+   matmuls and convolutions): the flags read back, the first step's loss
+   and the median step of each.
+10. ``runner``: the experiment layer at the same config, on a generated
    image folder of Omniglot's layout and size (1,623 classes of 20 105x105
    1-bit PNGs in 50 alphabet folders, read and resized to 28x28 by the
    loader): ``ExperimentRunner`` in this process for 2 epochs of 10 steps
@@ -60,7 +79,11 @@ Run from the repository root. Phases, one JSON line each:
    (``python -m howtotrainyourmamlpytorch_tpu_torch.train``) in a
    subprocess resuming it to 3 epochs, then the CLI training ResNet-12 at
    the fleet row ``omniglot.20.1.resnet-12.gd`` for one epoch of 3 steps on
-   the same folder. Checks: the run directories' files
+   the same folder, then the CLI with ``strategy=anil`` likewise, then the
+   port's run analysis (``python -m howtotrainyourmamlpytorch_tpu_torch.analysis``;
+   the tables alone, with a line saying so, where matplotlib does not
+   import) over the three runs. Every CLI leg runs at the config's
+   ``matmul_precision``, as this process does. Checks: the run directories' files
    and columns, finite losses, B1 launched 5 times per train and eval step
    and B2 5 times per train step through the runner, 5 leaf copies per
    train step, the native episode engine for every batch, the resumed
@@ -68,29 +91,32 @@ Run from the repository root. Phases, one JSON line each:
    reports epoch times, the runner's step period beside phase ``train``'s
    bare step, the share of each telemetry phase, the loader's episodes per
    second alone and a ``torch.profiler`` breakdown of one runner step.
-9. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
+11. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
    ``omniglot.20.1.resnet-12.gd`` (28x28x1, 20-way 1-shot, meta-batch 8,
    K=5, second order, MSL on, fused, remat off): 10 train steps, an eval
    step and the engine serving the trained state, B1 and B2 over the
    86-leaf tree on every inner step; the first step against the CPU and
    float64 as in ``train``; then one bf16_inner train step (B1 and B2 in
    bfloat16).
-10. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
+12. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
     ``net=resnet-12`` (84x84x3, 5-way 5-shot) under the remat policies
     none, full and dots_saveable: the first step's loss and meta-gradient
     equal across them, peak memory and step times each; the default
     config's VGG at none and full, peak memory.
-11. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
+13. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
     inner Adam with learnable betas and the warm start, inner Rprop, and
     ``lslr_per_step`` (fused; its per-step lr meta-gradient against the
     CPU).
-12. ``kernels``: every kernel the run launched, with its launches on the
+14. ``kernels``: every kernel the run launched, with its launches on the
     paths, its error against the twin and its times beside its bound.
 
 Then the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
-that line. TF32 is off for cuDNN and matmul throughout, so the card computes
-the float32 the CPU cross-checks compute.
+that line. Matmuls and convolutions run in IEEE float32 (no TF32)
+throughout but in phase ``precision``: ``MAMLSystem`` applies the config's
+``matmul_precision`` (``default``: IEEE float32), here and in the CLI
+subprocesses alike, so the card computes the float32 the CPU cross-checks
+compute.
 """
 
 import argparse
@@ -186,6 +212,34 @@ REMAT_STEPS = 3
 # in another order, so the meta-gradient within REMAT_GRAD_RTOL of its
 # largest element
 REMAT_GRAD_RTOL = 1e-5
+# the strategies phase: the fleet row omniglot.20.5.vgg.gd.anil of
+# configs/fleet_accuracy_omniglot.yaml, whose shape is configs/default.yaml
+# (VGG-64, 20-way 5-shot, 1 target, meta-batch 8, K=5, second order, MSL;
+# remat off, as the fleet's base overrides set it); the engine serves the
+# four strategies from its trained state
+STRATEGIES = ("maml++", "fomaml", "anil", "protonet")
+HEAD_LEAVES = 2  # fc/b and fc/w: what B1 and B2 cover under anil
+SERVE_REPS = 3  # timed flushes per strategy, after one untimed
+# A lone request against its place in a padded flush, cuDNN deterministic:
+# the two differ only in float32 rounding (cuDNN picks its algorithms, and
+# so its summation orders, by the batch's shape), so the bound is the
+# larger of ALONE_TOLERANCE and how far the same request moves when its
+# support images move by NOISE_SCALE (the rollout's own float32 noise
+# floor). The maml++ rollout at this config is chaotic: on the CPU such a
+# 1e-6 change moved its probabilities by 5e-3 (anil's by 4e-7), and on an
+# H100 its lone request lay 9.6e-4 from the flush in one of three runs. A
+# padding fault (padded samples in the BN statistics or the loss) moves
+# them by far more. protonet's logits are squared distances of ~1e2, so it
+# takes the slice phase's FLUSH_TOLERANCE (1.8e-6 in the first run).
+ALONE_TOLERANCE = {"maml++": 1e-6, "fomaml": 1e-6, "anil": 1e-6, "protonet": FLUSH_TOLERANCE}
+NOISE_SCALE = 1e-6
+# the anil step on the card against the CPU at a small size (2 stages, 8
+# filters, 3-way 2-shot, K=2), where float32 is well conditioned: the loss
+# relative, the meta-gradient of head and body of its largest element
+SMALL_TRAIN_TOLERANCE = 1e-5
+# the precision phase: train steps per Config.matmul_precision value, the
+# first one untimed
+PRECISION_STEPS = 6
 
 
 class CheckFailed(RuntimeError):
@@ -356,6 +410,15 @@ def main_path_tree(seed: int, dtype, salt: int, cotangents: bool = False, overri
     return ps, gs, lrs
 
 
+def head_tree(seed: int, dtype, salt: int, cotangents: bool = False):
+    """The tree B1 and B2 take under anil: the default model's classifier
+    head (``fc``: 2 leaves, 1,300 parameters at 20-way) over TASKS tasks,
+    as ``main_path_tree`` makes it."""
+    ps, gs, lrs = main_path_tree(seed, dtype, salt, cotangents)
+    # sorted-key order puts the head's two leaves (fc/b, fc/w) first
+    return ps[:HEAD_LEAVES], gs[:HEAD_LEAVES], lrs[:HEAD_LEAVES]
+
+
 def ragged_tree(seed: int, dtype):
     """Leaves of RAGGED elements (every rest length): the 129-element
     leaf's two operands both start 4 bytes past a 16-byte boundary and the
@@ -386,11 +449,12 @@ def many_tree(seed: int, dtype):
 
 def kernel_trees(seed: int, dtype, salt: int, cotangents: bool = False) -> dict:
     """Every tree the kernel phases hold B1 and B2 to their twins on: the
-    ragged tree, the main paths' VGG-64 and ResNet-12 trees over TASKS
-    tasks, and MANY_LEAVES small leaves."""
+    ragged tree, the main paths' VGG-64 tree, its anil head and the
+    ResNet-12 tree over TASKS tasks, and MANY_LEAVES small leaves."""
     return {
         "ragged": ragged_tree(seed, dtype),
         "vgg64": main_path_tree(seed, dtype, salt, cotangents),
+        "anil_head": head_tree(seed, dtype, salt, cotangents),
         "resnet12": main_path_tree(seed, dtype, salt, cotangents, RESNET_OVERRIDES),
         "many220": many_tree(seed + salt, dtype),
     }
@@ -411,14 +475,35 @@ def vectors_of(ps, gs):
     return [p.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0 for p, g in zip(ps, gs)]
 
 
+def head_timing(ps, gs, lrs, launch, twin, backward: bool) -> dict:
+    """B1 (or B2 where ``backward``) at the anil head tree under both
+    flushes, beside an empty kernel (the floor), its twin, the byte bound
+    and, for B1, ``torch.addcmul`` over the packed leaves."""
+    n = sum(p.numel() for p in ps)
+    moved = 3 * n * ps[0].element_size() + (8 if backward else 4) * len(lrs)
+    out = {
+        "ms": both_flushes(lambda: launch(ps, gs, lrs)),
+        "plain_ms": both_flushes(lambda: twin(ps, gs, lrs)),
+        "floor_ms": both_flushes(lambda: torch.cuda._sleep(0)),
+        "library_ms": None, "bytes": moved, "elements": n, "leaves": len(ps),
+        "bound_ms": max(moved / H100_BYTES_PER_S, (3 if backward else 2) * n / H100_F32_FLOPS) * 1e3,
+    }
+    if not backward:
+        p_buf, g_buf = packed(ps), packed(gs)
+        lr_col = torch.rand(p_buf.shape[0], device="cuda")[:, None]
+        out["library_ms"] = both_flushes(lambda: torch.addcmul(p_buf, lr_col, g_buf, value=-1))
+    return out
+
+
 def phase_kernel(seed: int, parent):
     """B1 against its twin at every tree of ``kernel_trees`` (the ragged
-    tree, the VGG-64 and ResNet-12 trees over 8 tasks, 220 small leaves), in
-    float32 and bfloat16: bit-equal. Then its times under both flushes: at
-    the VGG-64 tree beside the parent design's (in turns), an empty
-    kernel's, the twin's and two library yardsticks; at the ResNet-12 tree
-    beside the twin's, ``torch.addcmul``'s and the byte bound; at the
-    220-leaf tree alone."""
+    tree, the VGG-64 tree, its anil head and the ResNet-12 tree over 8
+    tasks, 220 small leaves), in float32 and bfloat16: bit-equal. Then its
+    times under both flushes: at the VGG-64 tree beside the parent design's
+    (in turns), an empty kernel's, the twin's and two library yardsticks;
+    at the ResNet-12 tree beside the twin's, ``torch.addcmul``'s and the
+    byte bound; at the anil head beside the floor, the twin,
+    ``torch.addcmul`` and the bound; at the 220-leaf tree alone."""
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
 
     codes = {torch.float32: 0, torch.bfloat16: 1}
@@ -457,6 +542,7 @@ def phase_kernel(seed: int, parent):
         deep["reach"] = {flush: deep["bound_ms"] / deep["ms"][flush] for flush in FLUSHES}
         ps, gs, lrs = trees["many220"]
         many_ms = both_flushes(lambda: fu._launch_forward(ps, gs, lrs))
+        head = trees["anil_head"]
         ps, gs, lrs = trees["vgg64"]
         del trees
         n = sum(p.numel() for p in ps)
@@ -505,6 +591,7 @@ def phase_kernel(seed: int, parent):
             "bytes": moved, "elements": n, "leaves": len(ps), "parent_rows": p_buf.shape[0],
             "ragged_vectors": vectors, "resnet12": deep,
             "many220": {"ms": many_ms, "leaves": MANY_LEAVES},
+            "anil_head": head_timing(*head, fu._launch_forward, fu.fused_sgd_tree_reference, backward=False),
         }
     result["max_abs_err"] = worst
     emit({"phase": "kernel", "ok": True, **result})
@@ -534,7 +621,8 @@ def phase_kernel_bwd(seed: int, parent):
     """B2 against its twin at every tree of ``kernel_trees``, in float32 and
     bfloat16: ``dg`` bit-equal, ``dlr`` within the bound of its summation
     tree from a float64 sum and bit-equal across launches. Its times as
-    B1's (no single library call computes ``dg`` and ``dlr``).
+    B1's, at the anil head too (no single library call computes ``dg`` and
+    ``dlr``).
     Then the FusedSGD gradients on the card
     against the same Function on the CPU for the objective sum(out * w)."""
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
@@ -583,6 +671,8 @@ def phase_kernel_bwd(seed: int, parent):
         result[name]["resnet12"].update(deep)
         cts, gs, lrs = trees["many220"]
         result[name]["many220"]["ms"] = both_flushes(lambda: fu._launch_backward(cts, gs, lrs))
+        result[name]["anil_head"].update(head_timing(*trees["anil_head"], fu._launch_backward,
+                                                     fu.fused_sgd_tree_bwd_reference, backward=True))
         cts, gs, lrs = trees["vgg64"]
         del trees
         n = sum(c.numel() for c in cts)
@@ -1236,6 +1326,25 @@ def phase_runner(seed: int, bare_step_ms: float):
         resnet_saved = sorted(os.listdir(os.path.join(resnet_cfg.run_dir(), "saved_models")))
         check(all(name in resnet_saved for name in ("train_model_0", "train_model_best", "train_model_latest")),
               "runner", "ResNet-12 checkpoints missing", saved=resnet_saved)
+
+        # the CLI trains strategy=anil (the fleet row omniglot.20.5.vgg.gd.anil)
+        # on the same folder, at the config's matmul precision like every leg
+        anil_overrides = [*overrides, "strategy=anil", "total_epochs=1", "total_iter_per_epoch=3",
+                          "load_into_memory=false", "experiment_name=anil_cli"]
+        anil_cfg = load_config(DEFAULT_CONFIG, anil_overrides)
+        cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
+               *anil_overrides]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        anil_cli_s = time.perf_counter() - t0
+        tail = (proc.stdout[-3000:], proc.stderr[-3000:])
+        check(proc.returncode == 0, "runner", "the anil CLI run failed", rc=proc.returncode, tail=tail)
+        anil_rows = check_run_dir(anil_cfg.run_dir(), 1, n_lrs)
+        check(load_config(os.path.join(anil_cfg.run_dir(), "config.yaml")).strategy == "anil", "runner",
+              "the anil run's config.yaml")
+        report = analysis_report(os.path.join(tmp, "exps"), os.path.join(tmp, "analysis"), env,
+                                 [runner.run_dir, resnet_cfg.run_dir(), anil_cfg.run_dir()])
         out = {
             "phase": "runner", "ok": True,
             "config": "configs/default.yaml + use_pallas_inner_update=true, total_iter_per_epoch=10, "
@@ -1257,11 +1366,45 @@ def phase_runner(seed: int, bare_step_ms: float):
             "resnet_cli": {"overrides": RESNET_OVERRIDES + ["total_epochs=1", "total_iter_per_epoch=3"],
                            "s": resnet_cli_s, "train_loss": float(resnet_rows[0]["train_loss_mean"]),
                            "val_loss": float(resnet_rows[0]["val_loss_mean"])},
+            "anil_cli": {"overrides": ["strategy=anil", "total_epochs=1", "total_iter_per_epoch=3"],
+                         "s": anil_cli_s, "train_loss": float(anil_rows[0]["train_loss_mean"]),
+                         "val_loss": float(anil_rows[0]["val_loss_mean"])},
+            "analysis": report,
         }
         emit(out)
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def analysis_report(exps_root: str, out_dir: str, env, run_dirs) -> dict:
+    """The port's run analysis (``python -m
+    howtotrainyourmamlpytorch_tpu_torch.analysis``) over an experiment root:
+    it must list ``run_dirs``. Its plots need matplotlib; where that does not
+    import, a line says so and only the tables are made (``collect_runs``,
+    ``aggregate_test_accuracy``, ``to_markdown``) in this process."""
+    from howtotrainyourmamlpytorch_tpu_torch import analysis
+
+    runs = analysis.collect_runs(exps_root)
+    listed = sorted(os.path.abspath(r.run_dir) for r in runs)
+    check(listed == sorted(os.path.abspath(d) for d in run_dirs), "runner", "the analysis does not list the runs",
+          listed=listed, want=run_dirs)
+    rows = analysis.aggregate_test_accuracy(runs)
+    check(len(rows) >= 1 and "|" in analysis.to_markdown(rows), "runner", "the analysis aggregated no row")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: matplotlib does not import ({exc}); the analysis holds the tables only", flush=True)
+        return {"runs": len(runs), "table_rows": len(rows), "matplotlib": False}
+    cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.analysis", exps_root, out_dir]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, "runner", "the analysis CLI failed", rc=proc.returncode,
+          tail=(proc.stdout[-2000:], proc.stderr[-2000:]))
+    summary = json.loads(proc.stdout[: proc.stdout.rindex("}") + 1])
+    check(summary["runs"] == len(runs), "runner", "the analysis CLI's runs", summary=summary)
+    plots = sorted(name for name in os.listdir(out_dir) if name.endswith(".png"))
+    return {"runs": len(runs), "table_rows": len(rows), "matplotlib": True, "plots": plots}
 
 
 def _steps(system, state, batch, n, epoch=0):
@@ -1276,19 +1419,19 @@ def _steps(system, state, batch, n, epoch=0):
     return state, losses, ms
 
 
-def _record_dtypes(fu):
-    """Wrap the two launchers so that each launch records its operand dtype
-    (the wrappers' counts stay as they are); returns the list and a
-    function that undoes the wrapping."""
+def _record_launches(fu):
+    """Wrap the two launchers so that each launch records its kernel, its
+    operand dtype and its number of leaves (the wrappers' counts stay as
+    they are); returns the list and a function that undoes the wrapping."""
     seen = []
     fwd, bwd = fu._launch_forward, fu._launch_backward
 
     def launch_forward(ps, gs, lrs):
-        seen.append(("fused_sgd", str(ps[0].dtype)))
+        seen.append(("fused_sgd", str(ps[0].dtype), len(ps)))
         return fwd(ps, gs, lrs)
 
     def launch_backward(cts, gs, lrs):
-        seen.append(("fused_sgd_bwd", str(cts[0].dtype)))
+        seen.append(("fused_sgd_bwd", str(cts[0].dtype), len(cts)))
         return bwd(cts, gs, lrs)
 
     fu._launch_forward, fu._launch_backward = launch_forward, launch_backward
@@ -1365,7 +1508,7 @@ def phase_resnet(seed: int):
     # one bf16_inner train step: B1 and B2 on the bf16 fast weights
     cfg16, system16, state16 = full_width_system(seed, RESNET_OVERRIDES + ["precision.enabled=true"])
     check(system16.precision.name == "bf16_inner", "resnet", "bf16_inner policy", policy=system16.precision.name)
-    seen, undo = _record_dtypes(fu)
+    seen, undo = _record_launches(fu)
     fu.reset_launch_counts()  # the bf16_inner ResNet-12 step starts here
     try:
         _, bf16_losses, bf16_ms = _steps(system16, state16, batch, 1)
@@ -1375,7 +1518,7 @@ def phase_resnet(seed: int):
     check(bf16_launches == {"fused_sgd": K, "fused_sgd_bwd": K}, "resnet", "bf16_inner launches",
           launches=bf16_launches)
     check(_finite(*bf16_losses), "resnet", "non-finite bf16_inner loss", losses=bf16_losses)
-    check({dtype for _, dtype in seen} == {"torch.bfloat16"}, "resnet", "B1/B2 not in bf16", seen=seen[:4])
+    check({dtype for _, dtype, _ in seen} == {"torch.bfloat16"}, "resnet", "B1/B2 not in bf16", seen=seen[:4])
     result = {
         "phase": "resnet", "ok": True,
         "config": "configs/default.yaml + " + " ".join(RESNET_OVERRIDES) + " use_pallas_inner_update=true "
@@ -1387,7 +1530,7 @@ def phase_resnet(seed: int):
         "train_step_ms": train_ms, "eval_step_ms": eval_ms, "serve_flush_ms": serve_ms,
         "max_memory_allocated": peak, "train_step_profile": profile, "cross_check": cross,
         "cross_check_k5": cross_k5, "bf16_inner": {"loss": bf16_losses[0], "step_ms": bf16_ms[0], "launches": bf16_launches,
-                       "launch_dtypes": sorted({dtype for _, dtype in seen})},
+                       "launch_dtypes": sorted({dtype for _, dtype, _ in seen})},
     }
     emit(result)
     return result
@@ -1544,12 +1687,249 @@ def phase_breadth(seed: int):
     return result
 
 
+def small_anil_cross_check(seed: int) -> dict:
+    """One second-order anil meta-gradient (MSL on) of a small VGG (2
+    stages, 8 filters, 8x8x1, 3-way 2-shot, K=2, the fused update) on the
+    card against the same on the CPU: the loss within
+    SMALL_TRAIN_TOLERANCE relative, the meta-gradient of head and body
+    within SMALL_TRAIN_TOLERANCE of its largest element."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import Config
+    from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.models.vgg import build_vgg
+
+    cfg = Config(num_classes_per_set=3, num_samples_per_class=2, num_target_samples=2, batch_size=2,
+                 strategy="anil", number_of_training_steps_per_iter=2, use_pallas_inner_update=True,
+                 remat_inner_steps=False)
+    model = build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8)
+    gpu = MAMLSystem(cfg, model=model)
+    state = gpu.init_train_state(seed)
+    batch = learnable_synthetic_batch(2, 3, 2, 2, (8, 8, 1), seed=seed)
+    loss, _, grads = gpu.meta_gradients(state, batch, epoch=0)
+    cpu_loss, _, cpu_grads = MAMLSystem(cfg, model=model, device="cpu").meta_gradients(cpu_copy(state), batch, epoch=0)
+    card, cpu = _flat(grads), _flat(cpu_grads)
+    out = {"loss_rel": abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss)),
+           "grad_max_abs_over_scale": float((card - cpu).abs().max() / cpu.abs().max()),
+           "tolerance": SMALL_TRAIN_TOLERANCE}
+    check(out["loss_rel"] <= SMALL_TRAIN_TOLERANCE and out["grad_max_abs_over_scale"] <= SMALL_TRAIN_TOLERANCE,
+          "strategies", "the small anil step: card and CPU disagree", **out)
+    return out
+
+
+def serve_strategies(seed: int, cfg, system, state) -> dict:
+    """The engine over the anil-trained state, serving STRATEGIES: per
+    strategy, the checked pass under cuDNN's deterministic algorithms (the
+    slice's flush of 3 requests at support 60 padded to 100 and a task batch
+    of 4, and its third request alone), then 1 + SERVE_REPS timed flushes of
+    8 requests at support 100 and their predictions on 8 x 40 queries; then
+    one refine flush each for maml++ and anil."""
+    import dataclasses
+
+    from howtotrainyourmamlpytorch_tpu_torch.core.strategies import split_head_body
+    from howtotrainyourmamlpytorch_tpu_torch.models.registry import build_model
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+    from howtotrainyourmamlpytorch_tpu_torch.utils.seeding import model_init_generator
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    engine = AdaptationEngine(system, state, serving_cfg=dataclasses.replace(cfg.serving, strategies=list(STRATEGIES)))
+    n_way, steps = cfg.num_classes_per_set, engine.num_steps
+    req = slice_requests(cfg, seed)
+    out, adapted, checked = {}, {}, {}
+    fu.reset_launch_counts()  # the serving path of the strategies starts here
+    for strategy in STRATEGIES:
+        torch.backends.cudnn.deterministic = True
+        try:
+            checked[strategy] = engine.adapt_batch(req["b"], strategy=strategy)
+            probs_b = engine.predict_batch(list(zip(checked[strategy], req["qb"])), strategy=strategy)
+            x, y = req["b"][2]
+            alone = engine.predict(engine.adapt(x, y, strategy=strategy), req["qb"][2], strategy=strategy)
+            moved = (x + NOISE_SCALE * np.random.RandomState(seed).randn(*x.shape)).astype(np.float32)
+            noisy = engine.predict(engine.adapt(moved, y, strategy=strategy), req["qb"][2], strategy=strategy)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        adapt_ms, predict_ms = [], []
+        for _ in range(1 + SERVE_REPS):
+            t0 = time.perf_counter()
+            fws = engine.adapt_batch(req["a"], strategy=strategy)
+            torch.cuda.synchronize()
+            adapt_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            probs_a = engine.predict_batch(list(zip(fws, req["qa"])), strategy=strategy)
+            predict_ms.append((time.perf_counter() - t0) * 1e3)
+        adapted[strategy] = fws
+        _check_probs("strategies", f"{strategy} a", probs_a, [40] * 8, n_way)
+        _check_probs("strategies", f"{strategy} b", probs_b, [15] * 3, n_way)
+        _check_probs("strategies", f"{strategy} alone", [alone], [15], n_way)
+        alone_dev = float(abs(alone - probs_b[2]).max())
+        noise_floor = float(abs(alone - noisy).max())
+        bound = max(ALONE_TOLERANCE[strategy], noise_floor)
+        check(alone_dev <= bound, "strategies", "lone request differs from its place in the flush",
+              strategy=strategy, max_abs=alone_dev, bound=bound, noise_floor=noise_floor)
+        out[strategy] = {"adapt_flush_ms_median": statistics.median(adapt_ms[1:]), "adapt_flush_ms": adapt_ms,
+                         "predict_flush_ms_median": statistics.median(predict_ms[1:]), "predict_flush_ms": predict_ms,
+                         "alone_vs_flush_max_abs": alone_dev, "alone_vs_noisy_input_max_abs": noise_floor}
+    # the checked passes (deterministic cuDNN): serving is first order, so
+    # maml++ and fomaml are one rollout
+    check(all(torch.equal(a, b) for fa, fb in zip(checked["maml++"], checked["fomaml"])
+              for a, b in zip(tree_leaves(fa), tree_leaves(fb))),
+          "strategies", "maml++ and fomaml adapt differ")
+    check(out["protonet"]["adapt_flush_ms_median"] < out["maml++"]["adapt_flush_ms_median"], "strategies",
+          "protonet's adapt flush is not faster than maml++'s", protonet=out["protonet"], maml=out["maml++"])
+    head, body = split_head_body(adapted["anil"][0])
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(body), tree_leaves(split_head_body(state.params)[1]))),
+          "strategies", "anil adapt changed the body")
+    for strategy in ("maml++", "anil"):
+        before = fu.launch_counts["fused_sgd"]
+        t0 = time.perf_counter()
+        refined = engine.refine_batch([(fw, x, y) for fw, (x, y) in zip(adapted[strategy], req["a"])],
+                                      strategy=strategy)
+        torch.cuda.synchronize()
+        out[strategy]["refine_flush_ms"] = (time.perf_counter() - t0) * 1e3
+        out[strategy]["refine_launches"] = fu.launch_counts["fused_sgd"] - before
+        check(out[strategy]["refine_launches"] == steps, "strategies", "refine launches != adapt steps",
+              strategy=strategy, launches=out[strategy]["refine_launches"])
+        _check_probs("strategies", f"{strategy} refined",
+                     engine.predict_batch(list(zip(refined, req["qa"])), strategy=strategy), [40] * 8, n_way)
+    launches = fu.launch_counts["fused_sgd"]  # and ends here
+    # per gradient strategy: the checked flush, the lone request, the one with
+    # moved images, and the timed flushes
+    flushes = 3 + 1 + SERVE_REPS
+    want = 3 * flushes * steps + 2 * steps
+    check(launches == want, "strategies", "serving launches", launches=launches, want=want)
+    # what predict_batch's stack of the trees copies per request under
+    # anil: the body, as under maml++ (its leaves are views of the masters)
+    resnet, _ = build_model("resnet-12", (28, 28, 1), n_way).init(model_init_generator(seed))
+    body_bytes = {name: sum(t.numel() * 4 for t in tree_leaves(split_head_body(p)[1]))
+                  for name, p in (("vgg64", state.params), ("resnet12", resnet))}
+    return {"strategies": out, "launches": launches, "flushes_per_strategy": flushes,
+            "predict_stack_body_bytes_per_request": body_bytes,
+            "head_leaves": len(tree_leaves(head))}
+
+
+def phase_strategies(seed: int, maml_step_ms: float):
+    """The strategy registry on the card at the fleet row
+    omniglot.20.5.vgg.gd.anil: TRAIN_STEPS anil train steps and an eval
+    step (B1 and B2 over the head's 2 leaves, K launches each per step),
+    one step under remat ``full`` (B1 2 K, B2 K), the small and the
+    full-width cross-checks, then the engine serving STRATEGIES from the
+    trained state (``serve_strategies``). The anil step must be faster than
+    phase ``train``'s maml++ step at the same shape."""
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+
+    cfg, system, state = full_width_system(seed, ["strategy=anil"])
+    check(system.strategy == "anil" and system.use_second_order(0) and system.msl_active(0)
+          and system.remat_policy == "none", "strategies", "the fleet row is second-order anil with MSL, no remat")
+    n_way, img = cfg.num_classes_per_set, cfg.image_shape
+    batch = learnable_synthetic_batch(cfg.batch_size, n_way, cfg.num_samples_per_class, cfg.num_target_samples, img,
+                                      seed=seed + 3)
+    K, K_eval = cfg.number_of_training_steps_per_iter, cfg.number_of_evaluation_steps_per_iter
+    start = state
+    seen, undo = _record_launches(fu)
+    torch.cuda.reset_peak_memory_stats()
+    fu.reset_launch_counts()  # the anil training path starts here
+    try:
+        state, losses, train_ms = _steps(system, state, batch, TRAIN_STEPS)
+        train_launches, copies = dict(fu.launch_counts), fu.contiguous_copies
+        t0 = time.perf_counter()
+        ev = system.eval_step(state, batch)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    launches = dict(fu.launch_counts)  # and ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = {"fused_sgd": K * TRAIN_STEPS, "fused_sgd_bwd": K * TRAIN_STEPS}
+    check(train_launches == want, "strategies", "anil launches differ from K per train step",
+          launches=train_launches, want=want)
+    check(launches["fused_sgd"] == want["fused_sgd"] + K_eval, "strategies", "anil eval launches", launches=launches)
+    check({n for _, _, n in seen} == {HEAD_LEAVES}, "strategies", "B1/B2 ran over other than the head's leaves",
+          leaves=sorted({n for _, _, n in seen}))
+    check(_finite(*losses, ev.loss) and bool(torch.isfinite(ev.per_task_target_logits).all()), "strategies",
+          "non-finite loss", losses=losses, eval=float(ev.loss))
+    check(losses[-1] < losses[0], "strategies", f"{TRAIN_STEPS} anil steps on one batch did not lower the loss",
+          losses=losses)
+    anil_ms = statistics.median(train_ms)
+    check(anil_ms < maml_step_ms, "strategies", "the anil step is not faster than the maml++ step",
+          anil_ms=anil_ms, maml_ms=maml_step_ms)
+    profile = profile_device(lambda: system.train_step(state, batch, epoch=0))
+    _, remat_system = full_width_system(seed, ["strategy=anil", "remat_policy=full"])[:2]
+    fu.reset_launch_counts()  # the anil step under remat full starts here
+    _, remat_losses, remat_ms = _steps(remat_system, start, batch, 1)
+    remat_launches = dict(fu.launch_counts)  # and ends here
+    check(remat_launches == {"fused_sgd": 2 * K, "fused_sgd_bwd": K}, "strategies", "anil remat launches",
+          launches=remat_launches)
+    check(remat_losses[0] == losses[0], "strategies", "remat changed the first step's loss",
+          remat=remat_losses[0], none=losses[0])
+    small = small_anil_cross_check(seed)
+    cross = train_cross_check(cfg, start, batch, losses[0], phase="strategies")
+    served = serve_strategies(seed, cfg, system, state)
+    result = {
+        "phase": "strategies", "ok": True,
+        "config": "configs/default.yaml + strategy=anil use_pallas_inner_update=true remat_inner_steps=false "
+                  "(fleet row omniglot.20.5.vgg.gd.anil)",
+        "inner_steps": K, "train_steps": TRAIN_STEPS, "train_launches": train_launches,
+        "launches_with_eval": launches, "launch_leaves": sorted({n for _, _, n in seen}),
+        "contiguous_copies_train": copies, "contiguous_copies_per_step": copies / TRAIN_STEPS, "losses": losses,
+        "eval_loss": float(ev.loss), "eval_accuracy": float(ev.accuracy), "eval_step_ms": eval_ms,
+        "train_step_ms_median": anil_ms, "train_step_ms": train_ms, "maml_step_ms_median": maml_step_ms,
+        "max_memory_allocated": peak, "train_step_profile": profile,
+        "remat_full": {"launches": remat_launches, "step_ms": remat_ms[0], "loss": remat_losses[0]},
+        "small_cross_check": small, "cross_check": cross, **served,
+    }
+    emit(result)
+    return result
+
+
+def phase_precision(seed: int):
+    """``Config.matmul_precision`` on the card: the default config's VGG
+    train step (second order, MSL, the fused update) from one start state
+    under ``highest`` (IEEE float32) and ``high`` (TF32 matmuls and
+    convolutions), PRECISION_STEPS steps each, the first untimed; the
+    first step's loss and the median step. The flags are read back, and
+    restored to IEEE float32 after."""
+    import warnings
+
+    from howtotrainyourmamlpytorch_tpu_torch.core.maml import apply_matmul_precision, fp32_precision_flags
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+
+    out, start, batch = {}, None, None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # each switch of the process-wide flags warns
+        try:
+            for value in ("highest", "high"):
+                cfg, system, state = full_width_system(seed, [f"matmul_precision={value}"])
+                flags = fp32_precision_flags()
+                check(flags == (("tf32",) * 2 if value == "high" else ("ieee",) * 2), "precision",
+                      "the flags do not follow matmul_precision", value=value, flags=list(flags))
+                if start is None:
+                    start = state
+                    batch = learnable_synthetic_batch(cfg.batch_size, cfg.num_classes_per_set,
+                                                      cfg.num_samples_per_class, cfg.num_target_samples,
+                                                      cfg.image_shape, seed=seed + 3)
+                _, losses, ms = _steps(system, start, batch, PRECISION_STEPS)
+                check(_finite(*losses), "precision", "non-finite loss", value=value, losses=losses)
+                out[value] = {"flags": list(flags), "first_loss": losses[0], "losses": losses,
+                              "step_ms_median": statistics.median(ms[1:]), "step_ms": ms}
+        finally:
+            apply_matmul_precision("highest")
+    result = {"phase": "precision", "ok": True, "config": "configs/default.yaml + use_pallas_inner_update=true",
+              "values": out,
+              "first_loss_rel_high_vs_highest": abs(out["high"]["first_loss"] - out["highest"]["first_loss"])
+              / abs(out["highest"]["first_loss"]),
+              "step_ms_high_over_highest": out["high"]["step_ms_median"] / out["highest"]["step_ms_median"]}
+    emit(result)
+    return result
+
+
 def kernel_entry(name, source, replaces, launches_by_path, phase):
     """One kernel's entry of the ``kernels`` line: float32 at the VGG-64
     tree under the write flush (the yardstick of the earlier slices) in the
-    contract's keys, the ResNet-12 tree's (86 leaves, 34.9 M elements)
-    beside it under both flushes, then the read flush, the floor, the parent
-    design and bfloat16."""
+    contract's keys, the ResNet-12 tree's (86 leaves, 34.9 M elements) and
+    the anil head's (2 leaves, 10,400 elements) beside it under both
+    flushes, then the read flush, the floor, the parent design and
+    bfloat16."""
     f32 = phase["float32"]
     return {
         "name": name,
@@ -1570,6 +1950,8 @@ def kernel_entry(name, source, replaces, launches_by_path, phase):
         "read_flush": {key: f32[key]["read"] for key in ("ms", "plain_ms", "floor_ms")},
         "resnet12": {key: f32["resnet12"][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "reach",
                                                              "elements", "leaves")},
+        "anil_head": {key: f32["anil_head"][key] for key in ("ms", "plain_ms", "library_ms", "floor_ms", "bound_ms",
+                                                             "elements", "leaves")},
         "float32": f32,
         "bfloat16": phase["bfloat16"],
     }
@@ -1585,8 +1967,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on the card", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from howtotrainyourmamlpytorch_tpu_torch.core.maml import apply_matmul_precision
+
+    # IEEE float32 matmuls and convolutions (no TF32) until a system applies
+    # its config's matmul_precision ("default" is the same)
+    apply_matmul_precision("highest")
     torch.cuda.set_device(0)
 
     smi, parent = phase_device(args.parent_kernels)
@@ -1596,16 +1981,21 @@ def main() -> int:
     sl = phase_slice(args.seed)
     tr, system, trained = phase_train(args.seed)
     served = phase_serve_trained(args.seed, system, trained)
+    st = phase_strategies(args.seed, tr["train_step_ms_median"])
+    phase_precision(args.seed)
     rn = phase_runner(args.seed, tr["train_step_ms_median"])
     rs = phase_resnet(args.seed)
     rm = phase_remat(args.seed)
     br = phase_breadth(args.seed)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
+                 "anil_train": st["launches_with_eval"]["fused_sgd"],
+                 "anil_remat": st["remat_full"]["launches"]["fused_sgd"], "strategies_serving": st["launches"],
                  "runner": rn["launches"]["fused_sgd"], "resnet": rs["launches"]["fused_sgd"],
                  "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd"], "remat": rm["launches"]["fused_sgd"],
                  "breadth": br["launches"]["fused_sgd"]}
-    bwd_paths = {"train": tr["launches"]["fused_sgd_bwd"], "runner": rn["launches"]["fused_sgd_bwd"],
-                 "resnet": rs["launches"]["fused_sgd_bwd"],
+    bwd_paths = {"train": tr["launches"]["fused_sgd_bwd"], "anil_train": st["train_launches"]["fused_sgd_bwd"],
+                 "anil_remat": st["remat_full"]["launches"]["fused_sgd_bwd"],
+                 "runner": rn["launches"]["fused_sgd_bwd"], "resnet": rs["launches"]["fused_sgd_bwd"],
                  "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd_bwd"],
                  "remat": rm["launches"]["fused_sgd_bwd"], "breadth": br["launches"]["fused_sgd_bwd"]}
     for paths in (fwd_paths, bwd_paths):

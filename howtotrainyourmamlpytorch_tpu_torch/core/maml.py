@@ -32,25 +32,38 @@ step of ``_adapt_loop`` and of the MSL branch of ``_rollout`` is recomputed
 in the outer backward instead of keeping its activations, where autograd
 records it.
 
+Strategies (``core/strategies.py``): ``Config.strategy`` selects what the
+meta-objective trains: ``maml++``, ``fomaml`` (the same rollout, first
+order at every epoch) or ``anil`` (the head-only inner loop).
+``adapt_fast_weights`` and ``refine_fast_weights`` take a strategy per call
+(serving is first order, so maml++ and fomaml coincide there);
+``protonet_adapt`` and ``protonet_predict_logits`` serve ProtoNet.
+``refine_fast_weights`` runs the adapt rollout from fast weights that
+already carry the task axis, with the hparams and inner state of the
+masters.
+
 ``scale_meta_lr`` rebuilds the outer schedule at scaled rates (the NaN
 rollback's backoff, ``experiment/runner.py``). Not here (ROADMAP.md): the
-multi-step chunk programs, strict guard, compile ledger and donation (A10),
-and the anil/protonet strategies (A7).
+multi-step chunk programs, strict guard, compile ledger and donation (A10).
 
-``Config.matmul_precision`` is not applied: whether the card's float32
-convolutions and matmuls may use TF32 is the caller's process-wide choice
-(``torch.backends.cudnn.allow_tf32``, ``torch.backends.cuda.matmul.allow_tf32``).
+``Config.matmul_precision`` is applied process-wide by the constructor, as
+the JAX package applies it (``jax_default_matmul_precision``): it sets the
+float32 precision of cuBLAS matmuls and of cuDNN convolutions together
+(:data:`FP32_PRECISION`): ``"highest"`` and ``"default"`` are IEEE float32
+(no TF32), ``"high"`` is TF32. The last-constructed system wins, and a
+change of a value that something else had already set is warned.
 ``conv_via_patches`` and ``precision.fuse_conv_bn`` only change how XLA lays
 out the same math, so they have no counterpart here.
 """
 
 import math
+import warnings
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import grad, vmap
 
-from ..config import Config
+from ..config import SERVING_STRATEGIES, TRAIN_STRATEGIES, Config
 from ..models.model import Model
 from ..models.registry import build_model
 from ..ops.inner_optim import build_inner_optimizer
@@ -60,6 +73,7 @@ from ..ops.outer_adam import adam_init, adam_update
 from ..ops.precision import as_f32, policy_from_config
 from ..utils import seeding
 from ..utils.trees import tree_flatten, tree_map
+from . import strategies
 from .remat import apply_remat_policy
 from .train_state import TrainState
 
@@ -107,11 +121,6 @@ def _flatten_task(x):
     per task)."""
     return x.reshape((x.shape[0], -1) + tuple(x.shape[3:]))
 
-#: strategies with a full fast-weight rollout; serving adaptation is
-#: first-order, so the two coincide
-ROLLOUT_STRATEGIES = ("maml++", "fomaml")
-
-
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card: raise where there is none, never fall back
     to the CPU silently."""
@@ -125,12 +134,52 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def check_rollout_strategy(strategy: str) -> None:
-    if strategy not in ROLLOUT_STRATEGIES:
-        raise NotImplementedError(
-            f"strategy {strategy!r} is not ported to PyTorch yet (ROADMAP.md "
-            f"A7: core/strategies.py); this slice serves {list(ROLLOUT_STRATEGIES)}"
+def check_rollout_strategy(strategy: str, known=SERVING_STRATEGIES) -> None:
+    """``ValueError`` for a strategy outside ``known`` (the train strategies
+    for a system, the serving ones for a call) and for ``protonet`` where a
+    fast-weight rollout is asked for."""
+    if strategy == "protonet":
+        raise ValueError(
+            "protonet adaptation is a prototype reduction, not a fast-weight rollout; "
+            "use protonet_adapt/protonet_predict_logits (or recompute the prototypes to refine)"
         )
+    if strategy not in known:
+        raise ValueError(f"unknown strategy {strategy!r}; valid: {list(known)}")
+
+
+#: ``Config.matmul_precision`` -> the float32 precision of cuBLAS matmuls
+#: and cuDNN convolutions (``torch.backends.cuda.matmul.fp32_precision``,
+#: ``torch.backends.cudnn.conv.fp32_precision``)
+FP32_PRECISION = {"default": "ieee", "high": "tf32", "highest": "ieee"}
+
+
+def fp32_precision_flags() -> Tuple[str, str]:
+    """The process's (matmul, convolution) float32 precision."""
+    return torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision
+
+
+#: the flags as the process had them when the port was imported
+_STARTUP_FP32_FLAGS = fp32_precision_flags()
+
+
+def apply_matmul_precision(value: str) -> None:
+    """Set the process's float32 precision for matmuls and convolutions
+    from a ``Config.matmul_precision`` value (:data:`FP32_PRECISION`), with
+    torch's ``fp32_precision`` flags only: mixing them with the legacy
+    ``allow_tf32`` flags makes torch raise on a read. Warns where it
+    changes flags that were set since the import to another value."""
+    if value not in FP32_PRECISION:
+        raise ValueError(f"matmul_precision must be one of {sorted(FP32_PRECISION)}, got {value!r}")
+    target = FP32_PRECISION[value]
+    prev = fp32_precision_flags()
+    if prev != (target, target) and prev != _STARTUP_FP32_FLAGS:
+        warnings.warn(
+            f"matmul_precision={value!r} sets the process-wide float32 precision of matmuls and "
+            f"convolutions to {target!r} (was {prev[0]!r} and {prev[1]!r}); operations from now on use it",
+            stacklevel=2,
+        )
+    torch.backends.cuda.matmul.fp32_precision = target
+    torch.backends.cudnn.conv.fp32_precision = target
 
 
 class MAMLSystem:
@@ -142,7 +191,8 @@ class MAMLSystem:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.strategy = getattr(cfg, "strategy", "maml++")
-        check_rollout_strategy(self.strategy)
+        check_rollout_strategy(self.strategy, TRAIN_STRATEGIES)
+        apply_matmul_precision(cfg.matmul_precision)
         self.model = model or build_model(
             cfg.net,
             cfg.image_shape,
@@ -295,20 +345,22 @@ class MAMLSystem:
             return [tree_map(lambda a, i=i: a[min(i, K - 1)], hparams) for i in range(num_steps)]
         return [hparams] * num_steps
 
-    def _rollout_start(self, params, inner_state, tasks: int):
+    def _rollout_start(self, params, inner_state, tasks: int, stacked: bool = False):
         """The fast weights and the inner state at rollout entry: cast once
         to the fast-weight dtype (bf16 under bf16_inner), then stacked over
-        the tasks."""
+        the tasks (the params not where they are ``stacked`` already: the
+        fast weights a refinement starts from)."""
         cast = self.precision.cast_fast_weights
-        return _task_stack(cast(params), tasks), _task_stack(cast(inner_state), tasks)
+        p = cast(params) if stacked else _task_stack(cast(params), tasks)
+        return p, _task_stack(cast(inner_state), tasks)
 
     def _adapt_loop(
         self, params, bn_state, hparams, inner_state, x_support, y_support,
-        second_order: bool, num_steps: int, support_weight=None,
+        second_order: bool, num_steps: int, support_weight=None, stacked: bool = False,
     ):
         """``num_steps`` support-set updates of every task -> task-stacked
         fast weights, each step under the remat policy."""
-        p, inner_state = self._rollout_start(params, inner_state, x_support.shape[0])
+        p, inner_state = self._rollout_start(params, inner_state, x_support.shape[0], stacked)
         step = apply_remat_policy(
             self._make_inner_update(bn_state, x_support, y_support, second_order, support_weight),
             self.remat_policy,
@@ -332,7 +384,13 @@ class MAMLSystem:
         *every* inner step and weighted by ``loss_weights``; otherwise only
         the final fast weights see the target set (reference
         few_shot_learning_system.py:239-251). Returns (per-task losses
-        ``[T]``, final target logits ``[T, Q, n_way]``)."""
+        ``[T]``, final target logits ``[T, Q, n_way]``). ``anil`` runs the
+        head-only rollout (``core/strategies.py``)."""
+        if self.strategy == "anil":
+            return strategies.anil_rollout(
+                self, params, bn_state, hparams, inner_state, x_support, y_support, x_target, y_target,
+                loss_weights, second_order, num_steps, per_step_target,
+            )
         task_ce = vmap(cross_entropy)
         if per_step_target:
             p, inner_state = self._rollout_start(params, inner_state, x_support.shape[0])
@@ -522,14 +580,11 @@ class MAMLSystem:
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-    def adapt_fast_weights(
-        self, state: TrainState, x_support, y_support, num_steps: Optional[int] = None,
-        support_weight=None, strategy: Optional[str] = None,
-    ):
-        """Inner-loop adaptation of a task batch: support ``[T, S, H, W, C]``
-        / ``[T, S]`` (and ``support_weight`` ``[T, S]``, 0 = padding) ->
-        fast weights with a leading ``T`` on every leaf. First-order, no
-        target forward."""
+    def _serving_rollout(self, state: TrainState, start, x_support, y_support, num_steps, support_weight,
+                         strategy, stacked: bool):
+        """The first-order rollout of a task batch from ``start`` (the
+        masters, or ``stacked`` fast weights), with the hparams and the
+        inner state of the masters."""
         strategy = self.strategy if strategy is None else strategy
         check_rollout_strategy(strategy)
         if num_steps is None:
@@ -540,10 +595,57 @@ class MAMLSystem:
         with torch.no_grad():
             hparams = self._inner_hparams_for_rollout(state.inner_hparams, state.params)
             inner_state = self._initial_inner_state(state.params, hparams, state.opt_state)
-            return self._adapt_loop(
-                state.params, state.bn_state, hparams, inner_state, x, y,
-                second_order=False, num_steps=num_steps, support_weight=w,
-            )
+            args = (start, state.bn_state, hparams, inner_state, x, y)
+            kwargs = dict(second_order=False, num_steps=num_steps, support_weight=w, stacked=stacked)
+            if strategy == "anil":
+                return strategies.anil_adapt_loop(self, *args, **kwargs)
+            return self._adapt_loop(*args, **kwargs)
+
+    def adapt_fast_weights(
+        self, state: TrainState, x_support, y_support, num_steps: Optional[int] = None,
+        support_weight=None, strategy: Optional[str] = None,
+    ):
+        """Inner-loop adaptation of a task batch: support ``[T, S, H, W, C]``
+        / ``[T, S]`` (and ``support_weight`` ``[T, S]``, 0 = padding) ->
+        fast weights with a leading ``T`` on every leaf. First-order, no
+        target forward. ``strategy`` (default: the system's) picks the
+        rollout per call: ``maml++`` and ``fomaml`` the full one, ``anil``
+        the head's (the body's leaves are views of the masters');
+        ``protonet`` raises (:meth:`protonet_adapt`)."""
+        return self._serving_rollout(state, state.params, x_support, y_support, num_steps, support_weight,
+                                     strategy, stacked=False)
+
+    def refine_fast_weights(
+        self, state: TrainState, fast_weights, x_support, y_support, num_steps: Optional[int] = None,
+        support_weight=None, strategy: Optional[str] = None,
+    ):
+        """Refinement: the rollout of :meth:`adapt_fast_weights` started from
+        earlier fast weights (a leading ``T`` on every leaf) instead of the
+        masters. The hparams and the inner optimizer's state still come from
+        the masters: a refinement is a fresh K-step episode on new support
+        data, under the lr schedule the checkpoint was trained with.
+        ``protonet`` raises: its prototypes are recomputed by
+        :meth:`protonet_adapt`."""
+        return self._serving_rollout(state, fast_weights, x_support, y_support, num_steps, support_weight,
+                                     strategy, stacked=True)
+
+    def protonet_adapt(self, state: TrainState, x_support, y_support, support_weight=None):
+        """ProtoNet ``adapt`` of a task batch: one embedding forward and a
+        masked per-class mean -> ``{"prototypes": [T, n_way, D]}``."""
+        x = self._tensor(x_support, torch.float32)
+        y = self._tensor(y_support, torch.int64)
+        w = None if support_weight is None else self._tensor(support_weight, torch.float32)
+        with torch.no_grad():
+            return strategies.protonet_prototypes(self, state.params, state.bn_state, x, y, w)
+
+    def protonet_predict_logits(self, params, bn_state, prototypes, x_query, sample_weight=None):
+        """ProtoNet ``predict``: queries ``[T, Q, H, W, C]`` embedded through
+        the master ``params``, scored against each task's prototype table ->
+        distance logits ``[T, Q, n_way]``."""
+        x = self._tensor(x_query, torch.float32)
+        w = None if sample_weight is None else self._tensor(sample_weight, torch.float32)
+        with torch.no_grad():
+            return strategies.protonet_logits(self, params, bn_state, prototypes, x, w)
 
     def predict_logits(self, fast_weights, bn_state, x, sample_weight=None):
         """Task-stacked fast weights and queries ``[T, Q, H, W, C]`` -> f32

@@ -1,10 +1,11 @@
 """Run telemetry: span tracing (:mod:`trace`), the metrics registry
-(:mod:`metrics`) and the hub that snapshots both to ``logs/telemetry.jsonl``
-(:mod:`telemetry`), copies of the JAX package's stdlib and numpy modules.
+(:mod:`metrics`), the hub that snapshots both to ``logs/telemetry.jsonl``
+(:mod:`telemetry`) and the serving request context (:mod:`context`),
+copies of the JAX package's stdlib and numpy modules.
 
 The XLA-specific modules of the JAX package's ``observability/`` (the
-compile ledger, ``costs``, ``memory`` and ``donation``) and the serving
-request context are not ported (ROADMAP.md A10, A8).
+compile ledger, ``costs``, ``memory`` and ``donation``) are not ported
+(ROADMAP.md A10).
 """
 
 from .metrics import MetricsRegistry  # noqa: F401

@@ -1,34 +1,49 @@
-"""The adaptation engine: a model state as two entry points, adapt and
-predict (JAX package ``serving/engine.py``).
+"""The adaptation engine: a model state as request entry points, adapt,
+refine and predict (JAX package ``serving/engine.py``).
 
 ``adapt_batch`` runs the first-order inner loop for a group of support sets
-and returns one adapted-weight tree per request; ``predict_batch`` forwards
-each request's queries through its own adapted weights and returns softmax
-probabilities. Requests are padded to the same shape buckets as in the JAX
-engine: the support/query size up to the smallest configured bucket (padded
-samples carry zero ``sample_weight``, which masks them out of the support
-loss and of the transductive-BN statistics, so bucketing never changes
-predictions), and the task batch up to a power of two (by repeating the
-last request). One flush is one task-batched call of ``MAMLSystem``, so with
-``use_pallas_inner_update`` every inner step of a flush is one launch of the
-fused-update kernel.
+and returns one adapted-weight tree per request; ``refine_batch`` runs it
+again from each request's earlier adapted weights; ``predict_batch``
+forwards each request's queries through its own adapted weights and returns
+softmax probabilities. Requests are padded to the same shape buckets as in
+the JAX engine: the support/query size up to the smallest configured bucket
+(padded samples carry zero ``sample_weight``, which masks them out of the
+support loss and of the transductive-BN statistics, so bucketing never
+changes predictions), and the task batch up to a power of two (by repeating
+the last request). One flush is one task-batched call of ``MAMLSystem``, so
+with ``use_pallas_inner_update`` every inner step of a flush is one launch
+of the fused-update kernel.
+
+Strategies (``core/strategies.py``): a request names one of
+``serving.strategies`` (``None``: the first). ``maml++`` and ``fomaml``
+adapt every leaf, ``anil`` the head only (the fused update runs over the
+head's leaves); ``protonet`` adapts to a prototype table
+``{"prototypes": [n_way, n_way]}`` and predicts through the master params.
+A flush never mixes strategies. Each dispatch is a span of ``tracer``
+(``serve.adapt_dispatch``, ``serve.refine_dispatch``,
+``serve.predict_dispatch``); the request contexts ``ctxs`` get the dispatch
+seconds and their trace flows end there.
 
 PyTorch runs eagerly and compiles nothing, so the buckets here only bound
-the set of shapes the card sees. Left out of this slice: the tracer, fault
+the set of shapes the card sees. Left out of this slice: the fault
 injector, compile ledger, strict guard, tenant pager, refine sessions and
-the anil/protonet strategies (ROADMAP.md A7, A8, A10).
+``clone_for_device`` (ROADMAP.md A8, A9, A10).
 """
 
 import os
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config, ServingConfig, load_config
-from ..core.maml import MAMLSystem, check_rollout_strategy
+from ..core.maml import MAMLSystem
+from ..core.strategies import validate_request_strategy
 from ..core.train_state import TrainState
 from ..experiment import checkpoint as ckpt
+from ..observability.context import flow_end
+from ..observability.trace import NULL_TRACER
 from ..ops import fused_update
 from ..utils.interop import state_from_jax
 from ..utils.trees import tree_map
@@ -76,17 +91,20 @@ class AdaptationEngine:
         state,
         serving_cfg: Optional[ServingConfig] = None,
         fingerprint: Optional[str] = None,
+        tracer=None,
     ):
         self.system = system
         self.cfg = system.cfg
         self.device = system.device
         self.serving = serving_cfg or self.cfg.serving
+        # the strategy menu; the first entry is the default
         self.strategies = tuple(self.serving.strategies)
-        for strategy in self.strategies:
-            check_rollout_strategy(strategy)
+        # span tracer of the dispatches (observability/trace.py)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         if self.serving.refine_enabled:
             raise NotImplementedError(
-                "refine sessions are not ported to PyTorch yet (ROADMAP.md A8)"
+                "refine sessions (serving.refine_enabled) are not ported to PyTorch yet "
+                "(ROADMAP.md A8); refine_batch serves without them"
             )
         if self.serving.tenant_registry:
             raise NotImplementedError(
@@ -168,41 +186,75 @@ class AdaptationEngine:
         return x, y
 
     def _strategy(self, strategy: Optional[str], tenant: Optional[str]) -> str:
+        strategy = validate_request_strategy(strategy, self.strategies)
         if tenant is not None:
             raise NotImplementedError(
                 f"request names tenant {tenant!r}: multi-tenant serving is not "
                 "ported to PyTorch yet (ROADMAP.md A8)"
             )
-        strategy = strategy or self.strategies[0]
-        check_rollout_strategy(strategy)
-        if strategy not in self.strategies:
-            raise ValueError(
-                f"strategy {strategy!r} is not served by this engine "
-                f"(serving.strategies={list(self.strategies)})"
-            )
         return strategy
 
-    def adapt_batch(self, items: List[Tuple[Any, Any]], strategy: Optional[str] = None,
-                    tenant: Optional[str] = None):
-        """Adapt a group of support sets ``(x_support, y_support)`` in one
-        task-batched call; returns one adapted-parameter tree per item
-        (tensors on the engine's device)."""
-        strategy = self._strategy(strategy, tenant)
-        flat = [self._flatten_support(x, y) for x, y in items]
+    @staticmethod
+    def _dispatch_flows(ctxs):
+        """Flow-finish pairs for the dispatch span: the request arcs this
+        device call ends (observability/context.py)."""
+        return flow_end(ctxs) if ctxs else None
+
+    @staticmethod
+    def _stamp_dispatch(ctxs, seconds: float) -> None:
+        """Every request of a flush shares its one device call, so each
+        carries the call's full duration."""
+        for c in ctxs or ():
+            if c is not None:
+                c.dispatch_s = seconds
+
+    def _dispatch(self, name: str, ctxs, strategy: str, n: int, bucket: int, call):
+        """``call()`` under the dispatch span ``name``; the span and the
+        request contexts get its wall seconds (up to the first
+        synchronisation: predict copies to the host inside ``call``)."""
+        t0 = time.monotonic()
+        with self.tracer.span(name, flows=self._dispatch_flows(ctxs), batch=n, bucket=bucket, strategy=strategy):
+            out = call()
+        self._stamp_dispatch(ctxs, time.monotonic() - t0)
+        return out
+
+    def _support_flush(self, supports):
+        """Padded support sets of a flush -> (xs, ys, ws, bucket, task-batch
+        bucket), the last request repeated up to the task-batch bucket."""
+        flat = [self._flatten_support(x, y) for x, y in supports]
         sizes = [x.shape[0] for x, _ in flat]
         bucket = self.support_bucket(max(sizes))
         xs = [_pad_axis0(x, bucket) for x, _ in flat]
         ys = [_pad_axis0(y, bucket) for _, y in flat]
         ws = _weights(sizes, bucket)
-        n = len(items)
-        b = _batch_bucket(n, self.serving.max_batch_size)
+        b = _batch_bucket(len(supports), self.serving.max_batch_size)
         while len(xs) < b:  # pad the task axis by replicating the last task
             xs.append(xs[-1]); ys.append(ys[-1]); ws.append(ws[-1])
+        return np.stack(xs), np.stack(ys), np.stack(ws), bucket, b
+
+    @staticmethod
+    def _stack_trees(trees, b: int):
+        """One request's tree per item, the last repeated up to ``b`` ->
+        one tree with a leading task axis."""
+        trees = list(trees) + [trees[-1]] * (b - len(trees))
+        return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+    def adapt_batch(self, items: List[Tuple[Any, Any]], ctxs=None, strategy: Optional[str] = None,
+                    tenant: Optional[str] = None):
+        """Adapt a group of support sets ``(x_support, y_support)`` in one
+        task-batched call; returns one adapted tree per item (tensors on
+        the engine's device): fast weights, or under ``protonet`` a
+        prototype table."""
+        strategy = self._strategy(strategy, tenant)
+        xs, ys, ws, bucket, b = self._support_flush(items)
+        n = len(items)
         self._adapt_shapes.add((strategy, bucket, b))
-        stacked = self.system.adapt_fast_weights(
-            self.state, np.stack(xs), np.stack(ys), num_steps=self.num_steps,
-            support_weight=np.stack(ws), strategy=strategy,
-        )
+        if strategy == "protonet":
+            call = lambda: self.system.protonet_adapt(self.state, xs, ys, support_weight=ws)  # noqa: E731
+        else:
+            call = lambda: self.system.adapt_fast_weights(  # noqa: E731
+                self.state, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+        stacked = self._dispatch("serve.adapt_dispatch", ctxs, strategy, n, bucket, call)
         return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
 
     def adapt(self, x_support, y_support, strategy: Optional[str] = None,
@@ -210,30 +262,61 @@ class AdaptationEngine:
         """Single-task convenience wrapper over :meth:`adapt_batch`."""
         return self.adapt_batch([(x_support, y_support)], strategy=strategy, tenant=tenant)[0]
 
-    def predict_batch(self, items: List[Tuple[Any, Any]], strategy: Optional[str] = None,
+    def refine_batch(self, items: List[Tuple[Any, Any, Any]], ctxs=None, strategy: Optional[str] = None,
+                     tenant: Optional[str] = None):
+        """Refine a group in one task-batched call: each item's rollout
+        starts from its own earlier fast weights. ``items`` is a list of
+        ``(fast_weights, x_support, y_support)``; returns one refined tree
+        per item. ``protonet`` raises: a prototype table is recomputed by
+        :meth:`adapt_batch`."""
+        strategy = self._strategy(strategy, tenant)
+        if strategy == "protonet":
+            raise ValueError("protonet has no refine rollout: recompute the prototypes with adapt_batch")
+        xs, ys, ws, bucket, b = self._support_flush([(x, y) for _, x, y in items])
+        stacked_fw = self._stack_trees([fw for fw, _, _ in items], b)
+        n = len(items)
+        call = lambda: self.system.refine_fast_weights(  # noqa: E731
+            self.state, stacked_fw, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+        stacked = self._dispatch("serve.refine_dispatch", ctxs, strategy, n, bucket, call)
+        return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
+
+    def refine(self, fast_weights, x_support, y_support, strategy: Optional[str] = None,
+               tenant: Optional[str] = None):
+        """Single-request convenience wrapper over :meth:`refine_batch`."""
+        return self.refine_batch([(fast_weights, x_support, y_support)], strategy=strategy, tenant=tenant)[0]
+
+    def predict_batch(self, items: List[Tuple[Any, Any]], ctxs=None, strategy: Optional[str] = None,
                       tenant: Optional[str] = None) -> List[np.ndarray]:
         """Forward a group of query batches, each through its own adapted
-        weights, in one task-batched call. ``items`` is a list of
-        ``(fast_weights, x_query)``; returns per-item softmax probabilities
-        ``[Q_i, num_classes]`` as host arrays, padding sliced off."""
+        tree (from the same strategy's adapt), in one task-batched call.
+        ``items`` is a list of ``(adapted, x_query)``; returns per-item
+        softmax probabilities ``[Q_i, num_classes]`` as host arrays, padding
+        sliced off. Under ``protonet`` the queries embed through the master
+        params and are scored against each item's prototype table."""
         strategy = self._strategy(strategy, tenant)
         queries = [np.asarray(x, np.float32) for _, x in items]
         sizes = [q.shape[0] for q in queries]
         bucket = self.query_bucket(max(sizes))
         xs = [_pad_axis0(q, bucket) for q in queries]
         ws = _weights(sizes, bucket)
-        trees = [fw for fw, _ in items]
         n = len(items)
         b = _batch_bucket(n, self.serving.max_batch_size)
         while len(xs) < b:
-            xs.append(xs[-1]); ws.append(ws[-1]); trees.append(trees[-1])
+            xs.append(xs[-1]); ws.append(ws[-1])
+        xs, ws = np.stack(xs), np.stack(ws)
         self._predict_shapes.add((strategy, bucket, b))
-        stacked_fw = tree_map(lambda *leaves: torch.stack(leaves), *trees)
-        logits = self.system.predict_logits(
-            stacked_fw, self.state.bn_state, np.stack(xs), np.stack(ws)
-        )
-        # the flush's one device-to-host copy: predictions go back to clients
-        probs = torch.softmax(logits, dim=-1).cpu().numpy()
+        stacked = self._stack_trees([fw for fw, _ in items], b)
+        system, state = self.system, self.state
+
+        def call():
+            if strategy == "protonet":
+                logits = system.protonet_predict_logits(state.params, state.bn_state, stacked, xs, ws)
+            else:
+                logits = system.predict_logits(stacked, state.bn_state, xs, ws)
+            # the flush's one device-to-host copy: predictions go back to clients
+            return torch.softmax(logits, dim=-1).cpu().numpy()
+
+        probs = self._dispatch("serve.predict_dispatch", ctxs, strategy, n, bucket, call)
         return [probs[i, : sizes[i]] for i in range(n)]
 
     def predict(self, fast_weights, x_query, strategy: Optional[str] = None,

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.config import Config, PrecisionConfig, ServingConfig
-from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem, apply_matmul_precision
 from howtotrainyourmamlpytorch_tpu_torch.core.train_state import TrainState
 from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
 from howtotrainyourmamlpytorch_tpu_torch.models.registry import build_model
@@ -30,13 +30,14 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    apply_matmul_precision("highest")  # IEEE float32 matmuls and convolutions, no TF32
     return torch.device("cuda")
 
 
 # the VGG-64 tree of configs/default.yaml (18 leaves, 113,236 parameters)
 _VGG64 = [s for cin in (1, 64, 64, 64) for s in ((64, cin, 3, 3), (64,), (64,), (64,))] + [(20, 64), (20,)]
+# its head, the tree the fused update covers under anil (2 leaves, 1,300)
+_ANIL_HEAD = [(20,), (20, 64)]
 
 
 def _resnet12_shapes():
@@ -55,8 +56,9 @@ def _tree(kind, dtype, device, seed):
     ragged tree of 1, 3, 20, 129 and 4,097 elements (every rest length; the
     129-element leaf's operands both 4 bytes past a 16-byte boundary and
     the 4,097-element leaf's first operand alone: read element by element);
-    the VGG-64 tree over 8 tasks; the ResNet-12 tree over 8 tasks (86
-    leaves, 34,872,480 elements); or 220 leaves of 1 to 3,000 elements."""
+    the VGG-64 tree over 8 tasks; its anil head over 8 tasks (2 leaves,
+    10,400 elements); the ResNet-12 tree over 8 tasks (86 leaves,
+    34,872,480 elements); or 220 leaves of 1 to 3,000 elements."""
     gen = torch.Generator(device=device).manual_seed(seed)
     shift = 4 // torch.empty((), dtype=dtype).element_size()
 
@@ -74,13 +76,14 @@ def _tree(kind, dtype, device, seed):
     elif kind == "many_220":
         a, b = [rand(n) for n in _MANY], [rand(n) for n in _MANY]
     else:
-        shapes = _VGG64 if kind == "vgg64_8_tasks" else _resnet12_shapes()
+        shapes = {"vgg64_8_tasks": _VGG64, "anil_head_8_tasks": _ANIL_HEAD}.get(kind) or _resnet12_shapes()
         a, b = [rand(8, *s) for s in shapes], [rand(8, *s) for s in shapes]
     lrs = list(torch.rand(len(a), device=device, generator=gen).unbind())
     return a, b, lrs
 
 
-_TREES = pytest.mark.parametrize("tree", ["one_element", "ragged", "vgg64_8_tasks", "resnet12_8_tasks", "many_220"])
+_TREES = pytest.mark.parametrize(
+    "tree", ["one_element", "ragged", "vgg64_8_tasks", "anil_head_8_tasks", "resnet12_8_tasks", "many_220"])
 _DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 
 
@@ -318,3 +321,75 @@ def test_remat_train_step_matches_no_remat_and_relaunches_b1(cuda, policy):
     scale = max(float(g.abs().max()) for g in tree_leaves(out["none"][1]))
     for a, b in zip(tree_leaves(out[policy][1]), tree_leaves(out["none"][1])):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("policy", ["none", "full"])
+def test_anil_train_step_runs_the_kernels_over_the_head(cuda, policy):
+    """A second-order anil meta-gradient (MSL on) of a small VGG on the card
+    against the same on the CPU: B1 K launches per step (2 K under remat
+    ``full``, the recompute) and B2 K, over the head's 2 leaves; the loss
+    within 1e-5 relative and the meta-gradient of head and body within
+    1e-4 of its largest element (as the maml++ step above)."""
+    cfg = Config(
+        num_classes_per_set=3, num_samples_per_class=2, num_target_samples=2, batch_size=2, strategy="anil",
+        number_of_training_steps_per_iter=2, use_pallas_inner_update=True, remat_policy=policy,
+    )
+    model = build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8)
+    gpu = MAMLSystem(cfg, model=model, device=cuda)
+    cpu = MAMLSystem(cfg, model=model, device="cpu")
+    state = gpu.init_train_state()
+    cpu_state = TrainState(*(tree_map(lambda t: t.cpu(), s) for s in state[:3]), None, state.step.cpu())
+    batch = learnable_synthetic_batch(2, 3, 2, 2, (8, 8, 1), seed=0)
+    seen = []
+    launch = fu._launch_forward
+    fu._launch_forward = lambda ps, gs, lrs: seen.append(len(ps)) or launch(ps, gs, lrs)
+    try:
+        fu.reset_launch_counts()
+        loss, _, grads = gpu.meta_gradients(state, batch, epoch=0)
+        torch.cuda.synchronize()
+    finally:
+        fu._launch_forward = launch
+    K = cfg.number_of_training_steps_per_iter
+    assert fu.launch_counts == {"fused_sgd": (1 if policy == "none" else 2) * K, "fused_sgd_bwd": K}
+    assert set(seen) == {2}
+    cpu_loss, _, cpu_grads = cpu.meta_gradients(cpu_state, batch, epoch=0)
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+    scale = max(float(b.abs().max()) for b in tree_leaves(cpu_grads))
+    for a, b in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-4 * scale)
+    assert float(grads["params"]["stage_0"]["conv"]["w"].abs().max()) > 0
+
+
+def test_every_strategy_serves_on_the_card_as_on_the_cpu(cuda):
+    """The engine serving maml++, fomaml, anil and protonet on the card
+    against the same engine on the CPU: probabilities within 1e-5; one B1
+    launch per inner step of every adapt and refine flush (none for
+    protonet)."""
+    cfg = Config(
+        num_classes_per_set=3, num_samples_per_class=2, number_of_evaluation_steps_per_iter=2,
+        use_pallas_inner_update=True,
+        serving=ServingConfig(support_buckets=[8], query_buckets=[8], max_batch_size=4,
+                              strategies=["maml++", "fomaml", "anil", "protonet"]),
+    )
+    model = build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8)
+    gpu = MAMLSystem(cfg, model=model, device=cuda)
+    state = gpu.init_train_state()
+    cpu = MAMLSystem(cfg, model=model, device="cpu")
+    cpu_state = TrainState(*(tree_map(lambda t: t.cpu(), s) for s in state[:3]), None, state.step.cpu())
+    rng = np.random.RandomState(2)
+    supports = [(rng.rand(s, 8, 8, 1).astype(np.float32), np.arange(s) % 3) for s in (6, 6, 3)]
+    queries = [rng.rand(q, 8, 8, 1).astype(np.float32) for q in (5, 8, 3)]
+    steps = cfg.number_of_evaluation_steps_per_iter
+    for strategy in cfg.serving.strategies:
+        probs = {}
+        for name, system, st in (("gpu", gpu, state), ("cpu", cpu, cpu_state)):
+            engine = AdaptationEngine(system, st)
+            fu.reset_launch_counts()
+            fws = engine.adapt_batch(supports, strategy=strategy)
+            if strategy != "protonet":
+                fws = engine.refine_batch([(fw, x, y) for fw, (x, y) in zip(fws, supports)], strategy=strategy)
+            probs[name] = engine.predict_batch(list(zip(fws, queries)), strategy=strategy)
+            if name == "gpu":
+                assert fu.launch_counts["fused_sgd"] == (0 if strategy == "protonet" else 2 * steps), strategy
+        for a, b in zip(probs["gpu"], probs["cpu"]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)

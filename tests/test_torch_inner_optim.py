@@ -22,6 +22,8 @@ package's, on the same numpy inputs.
   float64 to at most JAX's.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,10 +33,13 @@ import torch
 from howtotrainyourmamlpytorch_tpu import config as jcfg
 from howtotrainyourmamlpytorch_tpu.core import MAMLSystem as JaxMAMLSystem
 from howtotrainyourmamlpytorch_tpu.models import build_model as jax_build_model
+from howtotrainyourmamlpytorch_tpu.models import build_vgg as jax_build_vgg
 from howtotrainyourmamlpytorch_tpu.ops import build_inner_optimizer as jax_build_inner_optimizer
 from howtotrainyourmamlpytorch_tpu_torch import config as tcfg
 from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem, _task_stack
+from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
 from howtotrainyourmamlpytorch_tpu_torch.models.registry import build_model
+from howtotrainyourmamlpytorch_tpu_torch.models.vgg import build_vgg
 from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update
 from howtotrainyourmamlpytorch_tpu_torch.ops.inner_optim import build_inner_optimizer
 from howtotrainyourmamlpytorch_tpu_torch.utils.interop import trainables_to_jax
@@ -332,3 +337,58 @@ def test_small_resnet_train_step_matches_jax_scan(fused):
         })
         exact = _flat(trainables_to_jax(f64.meta_gradients(st64, b, epoch=0)[2], fs))
         assert np.abs(_flat(got) - exact).max() <= np.abs(_flat(jgrads) - exact).max()
+
+
+# ---------------------------------------------------------------------------
+# inner Adam at a reduced omniglot.20.5.vgg.adam: five outer steps
+# ---------------------------------------------------------------------------
+
+
+def test_vgg_inner_adam_five_outer_steps_follow_jax():
+    """The fleet row omniglot.20.5.vgg.adam of configs/default.yaml (inner
+    Adam at lr 0.1 with betas 0.5 learnable and warm-started from the outer
+    Adam; 20-way 5-shot, 28x28, K=5, second order, MSL), reduced to VGG
+    with 8 filters and 2 tasks: 5 outer steps of the JAX package on one
+    batch, and at each the port's step from JAX's state carried over. The
+    step's loss within 1e-6 (JAX casts its logits and loss to float32, whose
+    ulp at 2.3 is 2.4e-7) and the next params, lrs and betas within 1e-6.
+
+    Both packages run in float64 (JAX under ``jax.enable_x64``, the port's
+    plain path): here JAX's float32 program puts the first step's loss 3e-4
+    from float64 (the port's 5e-7), and the trajectory is chaotic, since
+    each inner Adam step is near sign(g) at lr 0.1 and the warm start feeds
+    the outer moments into it, so free-running trajectories part after one
+    step at any precision. Holding each step from the same state compares
+    the function. The JAX trajectory itself rises after its second step,
+    as inner Adam did on the card: the rise belongs to the configuration."""
+    overrides = ["inner_optim=adam", "batch_size=2", "num_samples_per_class=5",
+                 "unroll_inner_steps=false", "remat_inner_steps=false"]
+    default = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "default.yaml")
+    jc, tc = jcfg.load_config(default, overrides), tcfg.load_config(default, overrides)
+    assert (jc.num_classes_per_set, jc.number_of_training_steps_per_iter, jc.inner_optim.lr) == (20, 5, 0.1)
+    jsys = JaxMAMLSystem(jc, model=jax_build_vgg(jc.image_shape, 20, cnn_num_filters=8))
+    tsys = _Float64System(tc, model=build_vgg(tc.image_shape, 20, cnn_num_filters=8), device="cpu")
+    b = learnable_synthetic_batch(2, 20, 5, jc.num_target_samples, jc.image_shape, seed=7)
+    fs = tsys.model.feature_shape
+    to64 = lambda tree: jax.tree.map(  # noqa: E731
+        lambda a: jnp.asarray(a, jnp.float64) if jnp.issubdtype(jnp.asarray(a).dtype, jnp.floating) else a, tree)
+    jlosses, jstate = [], jsys.init_train_state(0)
+    with jax.enable_x64(True):
+        jstate = jstate._replace(**{k: to64(getattr(jstate, k)) for k in ("params", "bn_state", "inner_hparams",
+                                                                          "opt_state")})
+        b64 = _jnp({k: v.astype(np.float64) if v.dtype.kind == "f" else v for k, v in b.items()})
+        for _ in range(5):
+            tstate = _double(port_state(jax.tree.map(np.asarray, jstate), tsys))
+            jstate, jout = jsys.train_step(jstate, b64, epoch=0)
+            jlosses.append(float(jout.loss))
+            new, out = tsys.train_step(tstate, b, epoch=0)
+            np.testing.assert_allclose(float(out.loss), jlosses[-1], rtol=0, atol=1e-6)
+            want = jax.tree.map(np.asarray, jstate)
+            _close(trainables_to_jax({"params": new.params, "hparams": new.inner_hparams}, fs),
+                   {"params": want.params, "hparams": want.inner_hparams}, atol=1e-6)
+    assert set(new.inner_hparams) == {"lr", "beta1", "beta2"}
+    assert all(np.isfinite(jlosses)) and max(jlosses[2:]) > jlosses[1]
+
+
+def _double(state):
+    return jax.tree.map(lambda t: t.double() if t.is_floating_point() else t, state)

@@ -62,6 +62,10 @@ def test_importing_the_port_loads_no_jax():
         "from howtotrainyourmamlpytorch_tpu_torch import data, native, observability, train\n"
         "from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner, storage\n"
         "from howtotrainyourmamlpytorch_tpu_torch.resilience import faults, retry, watchdog\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.core import strategies\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.observability import context\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import analysis\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.utils import results_archive\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'howtotrainyourmamlpytorch_tpu'))\n"
         "assert not bad, bad\n"

@@ -202,6 +202,34 @@ def test_end_to_end_artifacts_and_resume(toy_dataset, tmp_path, jax_run):
     assert len(load_statistics(logs)) == 3
 
 
+def test_anil_run_trains_validates_checkpoints_and_resumes(toy_dataset, tmp_path):
+    """``strategy=anil`` through the runner: an epoch with validation, its
+    checkpoints, the best checkpoint's test; a new runner resumes it and
+    trains only the next epoch; the body's weights moved (the outer step
+    reaches the body through the forwards)."""
+    cfg = runner_config(toy_dataset, tmp_path, strategy="anil", total_epochs=1)
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    assert runner.system.strategy == "anil"
+    start = {k: t.clone() for k, t in runner.state.params["stage_0"]["conv"].items()}
+    result = runner.run_experiment()
+    assert np.isfinite(result["test_loss_mean"])
+    assert not torch.equal(runner.state.params["stage_0"]["conv"]["w"], start["w"])
+    logs = os.path.join(cfg.run_dir(), "logs")
+    assert len(load_statistics(logs)) == 1 and np.isfinite(float(load_statistics(logs)[0]["val_loss_mean"]))
+    assert {"train_model_0", "train_model_best", "train_model_latest"} <= set(
+        os.listdir(os.path.join(cfg.run_dir(), "saved_models")))
+    cfg2 = runner_config(toy_dataset, tmp_path, strategy="anil", total_epochs=2)
+    runner2 = ExperimentRunner(cfg2, system=small_system(cfg2))
+    assert runner2.start_epoch == 1
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(runner2.state.params), tree_leaves(runner.state.params)))
+    steps = []
+    real = runner2.system.train_step
+    runner2.system.train_step = lambda s, b, epoch=None: steps.append(epoch) or real(s, b, epoch=epoch)
+    runner2.run_experiment()
+    assert steps == [1] * cfg.total_iter_per_epoch
+    assert [int(float(r["epoch"])) for r in load_statistics(logs)] == [0, 1]
+
+
 def test_evaluate_on_test_set_only(toy_dataset, tmp_path):
     cfg = runner_config(toy_dataset, tmp_path, evaluate_on_test_set_only=True, experiment_name="toy_eval_only")
     runner = ExperimentRunner(cfg, system=small_system(cfg))
@@ -565,3 +593,54 @@ def test_port_run_resumes_in_jax(toy_dataset, tmp_path, port_run):
     loss, jax_loss, cursors = _first_step_losses(toy_dataset, tmp_path, port_run)
     assert cursors == (3 * 2, 3 * 2)
     assert abs(loss - jax_loss) <= LOSS_ATOL, (loss, jax_loss)
+
+
+# ---------------------------------------------------------------------------
+# run analysis without jax (the port's analysis.py and results_archive.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("which", ["jax_run", "port_run"])
+def test_analysis_reports_a_run_of_either_package_as_jax_does(which, request, tmp_path):
+    """The port's ``write_report`` over the experiment root of a run by
+    each package's runner writes the JAX package's tables byte for byte
+    (markdown, LaTeX, JSON), lists the run and aggregates its test
+    accuracy."""
+    from howtotrainyourmamlpytorch_tpu import analysis as jax_analysis
+    from howtotrainyourmamlpytorch_tpu_torch import analysis
+
+    root = os.path.dirname(request.getfixturevalue(which))
+    got = analysis.write_report(root, str(tmp_path / "port"))
+    want = jax_analysis.write_report(root, str(tmp_path / "jax"))
+    assert (got["runs"], got["table_rows"]) == (want["runs"], want["table_rows"]) == (1, 1)
+    assert [os.path.basename(p) for p in got["plots"]] == [os.path.basename(p) for p in want["plots"]]
+    for name in ("test_accuracy.md", "test_accuracy.tex", "test_accuracy.json"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+    runs = analysis.collect_runs(root)
+    assert len(runs) == 1 and runs[0].lrs is not None and runs[0].lrs.shape[0] == 1
+
+
+def test_analysis_cli_and_results_archive(port_run, tmp_path):
+    """``python -m howtotrainyourmamlpytorch_tpu_torch.analysis ROOT OUT``
+    reports the port's run (rc 0) and exits 2 over an empty root; the
+    archive packs the run's logs and config without its checkpoints."""
+    import tarfile
+
+    from howtotrainyourmamlpytorch_tpu_torch.utils import results_archive
+
+    root = os.path.dirname(port_run)
+    cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.analysis", root, str(tmp_path / "out")]
+    proc = subprocess.run(cmd, cwd=_ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout[: proc.stdout.rindex("}") + 1])["runs"] == 1
+    empty = subprocess.run(cmd[:3] + [str(tmp_path / "none"), str(tmp_path / "out2")], cwd=_ROOT, env=_env(),
+                           capture_output=True, text=True, timeout=300)
+    assert empty.returncode == 2 and "0 runs matched" in empty.stderr
+    path = results_archive.pack_run(port_run, str(tmp_path / "archives"))
+    with tarfile.open(path) as tar:
+        names = tar.getnames()
+    assert any(n.endswith("summary_statistics.csv") for n in names) and any(n.endswith("config.yaml") for n in names)
+    assert not any("saved_models" in n for n in names)
+    assert results_archive.list_archives(str(tmp_path / "archives")) == [path]
+    results_archive.delete_archive(path)
+    assert results_archive.list_archives(str(tmp_path / "archives")) == []

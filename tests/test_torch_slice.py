@@ -172,8 +172,11 @@ def test_unported_paths_raise(reference):
     jax_state, supports, _, _, _ = reference
     system = port_system()
     engine = AdaptationEngine(system, port_state(jax_state, system))
-    with pytest.raises(NotImplementedError, match="A7"):
-        engine.adapt_batch(supports, strategy="anil")
+    # anil serves since ROADMAP.md A7: the head adapted, the body unchanged
+    anil = engine.adapt_batch(supports, strategy="anil")
+    assert len(anil) == len(supports)
+    assert all(torch.equal(fw["stage_0"]["conv"]["w"], engine.state.params["stage_0"]["conv"]["w"]) for fw in anil)
+    assert not torch.equal(anil[0]["fc"]["w"], engine.state.params["fc"]["w"])
     with pytest.raises(NotImplementedError, match="A8"):
         engine.adapt_batch(supports, tenant="t1")
     refine = _cfg(tcfg)
