@@ -53,7 +53,23 @@ Run from the repository root. Phases, one JSON line each:
    step times, peak memory and a ``torch.profiler`` breakdown of one step.
 7. ``serve_trained``: the trained state saved with ``save_checkpoint``,
    loaded by ``AdaptationEngine.from_run_dir`` and served one flush.
-8. ``strategies``: the strategy registry at the fleet row
+8. ``http``: the trained state served over HTTP by ``python -m
+   howtotrainyourmamlpytorch_tpu_torch.serve RUN_DIR`` in a subprocess on
+   the card, with ``serving.refine_enabled=true``: 8 client threads of 8
+   /adapt each at support 100, then /predict of 40 queries per adaptation
+   id, a repeated /adapt (a cache hit, no launch), /adapt with refine,
+   /adapt_predict, a malformed body (400) and an unknown id (404); SIGTERM
+   (exit 0, the sessions spilled), then a restart (the sessions
+   rehydrated, a cache hit, the same probabilities within 1e-5). Checks:
+   adaptation ids equal to ``support_digest``, B1 launched 5 times per
+   adapt and refine flush (the server's count in /metrics), and each
+   answer within the float32 noise floor of the same request served alone
+   in this process (1e-6, or the largest distance any of the 64 requests
+   moves when its images move by 1e-6), which another request's weights
+   exceed. It reports client and server
+   p50/p99 of /adapt and /predict, the median ``timing`` breakdown, and
+   flushes per /adapt.
+9. ``strategies``: the strategy registry at the fleet row
    ``omniglot.20.5.vgg.gd.anil`` (the default config with
    ``strategy=anil``): 10 anil train steps and an eval step, B1 and B2 over
    the head's 2 leaves, K launches each per step; the anil step faster
@@ -67,11 +83,11 @@ Run from the repository root. Phases, one JSON line each:
    8 x 40 queries (finite probabilities whose rows sum to 1); maml++ and
    fomaml bit-equal; protonet's adapt flush faster than maml++'s; one
    refine flush each for maml++ and anil, K launches of B1.
-9. ``precision``: the default config's train step under
+10. ``precision``: the default config's train step under
    ``matmul_precision`` ``highest`` (IEEE float32) and ``high`` (TF32
    matmuls and convolutions): the flags read back, the first step's loss
    and the median step of each.
-10. ``runner``: the experiment layer at the same config, on a generated
+11. ``runner``: the experiment layer at the same config, on a generated
    image folder of Omniglot's layout and size (1,623 classes of 20 105x105
    1-bit PNGs in 50 alphabet folders, read and resized to 28x28 by the
    loader): ``ExperimentRunner`` in this process for 2 epochs of 10 steps
@@ -91,23 +107,23 @@ Run from the repository root. Phases, one JSON line each:
    reports epoch times, the runner's step period beside phase ``train``'s
    bare step, the share of each telemetry phase, the loader's episodes per
    second alone and a ``torch.profiler`` breakdown of one runner step.
-11. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
+12. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
    ``omniglot.20.1.resnet-12.gd`` (28x28x1, 20-way 1-shot, meta-batch 8,
    K=5, second order, MSL on, fused, remat off): 10 train steps, an eval
    step and the engine serving the trained state, B1 and B2 over the
    86-leaf tree on every inner step; the first step against the CPU and
    float64 as in ``train``; then one bf16_inner train step (B1 and B2 in
    bfloat16).
-12. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
+13. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
     ``net=resnet-12`` (84x84x3, 5-way 5-shot) under the remat policies
     none, full and dots_saveable: the first step's loss and meta-gradient
     equal across them, peak memory and step times each; the default
     config's VGG at none and full, peak memory.
-13. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
+14. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
     inner Adam with learnable betas and the warm start, inner Rprop, and
     ``lslr_per_step`` (fused; its per-step lr meta-gradient against the
     CPU).
-14. ``kernels``: every kernel the run launched, with its launches on the
+15. ``kernels``: every kernel the run launched, with its launches on the
     paths, its error against the twin and its times beside its bound.
 
 Then the card's ``nvidia-smi`` name and power limit, and last
@@ -240,6 +256,11 @@ SMALL_TRAIN_TOLERANCE = 1e-5
 # the precision phase: train steps per Config.matmul_precision value, the
 # first one untimed
 PRECISION_STEPS = 6
+# the http phase: concurrent clients, /adapt requests each (support 100 of
+# 20-way 5-shot), queries per /predict; seconds to wait for a server to
+# answer /healthz, and for one HTTP call
+HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_QUERIES = 8, 8, 40
+HTTP_READY_S, HTTP_CALL_S = 240, 120
 
 
 class CheckFailed(RuntimeError):
@@ -1144,6 +1165,269 @@ def phase_serve_trained(seed: int, system, trained):
     return launches
 
 
+def _http(base: str, path: str, body=None):
+    """One HTTP call -> (status, decoded JSON body, wall ms). ``body`` is
+    the request's bytes (POST) or None (GET)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_CALL_S) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        status, raw = exc.code, exc.read()
+    return status, json.loads(raw), (time.perf_counter() - t0) * 1e3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_server(run_dir: str, log_path: str):
+    """``python -m howtotrainyourmamlpytorch_tpu_torch.serve RUN_DIR`` (on
+    the card: no ``--device``) with refinement on, on a free port; returns
+    (process, base URL) once /healthz answers 200."""
+    port = _free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = open(log_path, "a")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve", run_dir, "--port", str(port),
+         "serving.refine_enabled=true"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=log, stderr=subprocess.STDOUT,
+    )
+    log.close()
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + HTTP_READY_S
+    while True:
+        try:
+            status, health, _ = _http(base, "/healthz")
+            if status == 200:
+                return proc, base, health
+        except OSError:
+            pass
+        if proc.poll() is not None or time.monotonic() > deadline:
+            stop_server(proc)
+            with open(log_path) as f:
+                check(False, "http", "the server did not come up", rc=proc.returncode, log=f.read()[-4000:])
+        time.sleep(0.25)
+
+
+def stop_server(proc, sig=None) -> int:
+    """SIGTERM (graceful drain) and wait; kill what does not exit."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(sig or signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return proc.returncode
+
+
+def _in_threads(calls, clients: int):
+    """Run ``calls`` (zero-argument functions) on ``clients`` threads, each
+    taking every ``clients``-th call in order -> results in call order."""
+    import threading
+
+    out = [None] * len(calls)
+
+    def client(c):
+        for i in range(c, len(calls), clients):
+            out[i] = calls[i]()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _percentiles(values) -> dict:
+    p50, p99 = np.percentile(np.asarray(values, np.float64), [50, 99])
+    return {"p50_ms": float(p50), "p99_ms": float(p99), "n": len(values)}
+
+
+def phase_http(seed: int, system, trained):
+    """Serving over HTTP on the card through the CLI: the trained state in a
+    run directory (``config.yaml``, ``save_checkpoint``), ``python -m
+    howtotrainyourmamlpytorch_tpu_torch.serve`` in a subprocess with
+    ``serving.refine_enabled=true``; one /adapt and /predict timed apart
+    (the server's cold start), then HTTP_CLIENTS threads of HTTP_PER_CLIENT
+    /adapt each at support 100, then /predict of 40 queries per adaptation
+    id; one cache hit, one refine, one /adapt_predict, a 400 and a 404;
+    SIGTERM (a clean drain, the sessions spilled), a restart (rehydrated,
+    a cache hit with the same probabilities). B1 launches are the server
+    process's count (zero at its start), read from /metrics before the
+    drain. Each answer is held against the same request adapted and
+    predicted alone in this process (the bound below)."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import save_config
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.experiment.checkpoint import save_checkpoint
+    from howtotrainyourmamlpytorch_tpu_torch.serving.cache import support_digest
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+
+    cfg = system.cfg
+    n_way, img = cfg.num_classes_per_set, cfg.image_shape
+    n = HTTP_CLIENTS * HTTP_PER_CLIENT
+    # n timed requests, one for /adapt_predict, one to warm the server up
+    data = learnable_synthetic_batch(n + 2, n_way, 5, 2, img, seed=seed + 7)
+    supports = [(data["x_support"][i], data["y_support"][i]) for i in range(n + 2)]
+    queries = [data["x_target"][i].reshape(-1, *img)[:HTTP_QUERIES] for i in range(n + 2)]
+    support_body = [json.dumps({"x_support": x.tolist(), "y_support": y.tolist()}).encode() for x, y in supports]
+    # what the server does to a request body before the engine sees it
+    decode_ms = []
+    for body in support_body[:5]:
+        t0 = time.perf_counter()
+        req = json.loads(body)
+        AdaptationEngine._flatten_support(req["x_support"], req["y_support"])
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    engine = AdaptationEngine(system, trained)  # the lone-request reference, in this process
+    out = {"phase": "http", "clients": HTTP_CLIENTS, "adapts_per_client": HTTP_PER_CLIENT, "support": 100,
+           "queries": HTTP_QUERIES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_http_") as run_dir:
+        save_config(cfg, os.path.join(run_dir, "config.yaml"))
+        save_checkpoint(os.path.join(run_dir, "saved_models"), trained, {"epoch": 0}, epoch=0,
+                        feature_shape=system.model.feature_shape)
+        log_path = os.path.join(run_dir, "serve.log")
+        proc, base, health = start_server(run_dir, log_path)
+        try:
+            check(health["platform"] == "cuda" and health["status"] == "ok", "http", "healthz", health=health)
+            # the server's first adapt and predict: its cold start, timed apart
+            status, cold, cold_adapt_ms = _http(base, "/adapt", support_body[n + 1])
+            status_p, _, cold_predict_ms = _http(base, "/predict", json.dumps(
+                {"adaptation_id": cold.get("adaptation_id"), "x_query": queries[n + 1].tolist()}).encode())
+            check(status == status_p == 200, "http", "the first /adapt and /predict", body=cold)
+            adapts = _in_threads([lambda b=b: _http(base, "/adapt", b) for b in support_body[:n]], HTTP_CLIENTS)
+            check(all(status == 200 for status, _, _ in adapts), "http", "an /adapt failed",
+                  errors=[body for status, body, _ in adapts if status != 200][:3])
+            ids = [body["adaptation_id"] for _, body, _ in adapts]
+            want_ids = [support_digest(*engine._flatten_support(x, y), engine.num_steps, "maml++")
+                        for x, y in supports[:n]]
+            check(ids == want_ids, "http", "adaptation ids differ from support_digest")
+            check(not any(body["cached"] for _, body, _ in adapts), "http", "a fresh /adapt was a cache hit")
+            predict_body = [json.dumps({"adaptation_id": i, "x_query": q.tolist()}).encode()
+                            for i, q in zip(ids, queries)]
+            predicts = _in_threads([lambda b=b: _http(base, "/predict", b) for b in predict_body], HTTP_CLIENTS)
+            check(all(status == 200 for status, _, _ in predicts), "http", "a /predict failed",
+                  errors=[body for status, body, _ in predicts if status != 200][:3])
+            probs = [np.asarray(body["probs"], np.float32) for _, body, _ in predicts]
+            _check_probs("http", "predict", probs, [HTTP_QUERIES] * n, n_way)
+
+            before = _http(base, "/metrics")[1]
+            status, hit, _ = _http(base, "/adapt", support_body[0])
+            after = _http(base, "/metrics")[1]
+            hit_launches = after["compiled"]["fused_sgd_launches"] - before["compiled"]["fused_sgd_launches"]
+            check(status == 200 and hit["cached"] and hit_launches == 0, "http",
+                  "a repeated /adapt is not a cache hit without launches", body=hit, launches=hit_launches)
+            x0, y0 = supports[0]
+            refine_body = json.dumps({"refine": True, "session_id": ids[0], "x_support": x0.tolist(),
+                                      "y_support": y0.tolist()}).encode()
+            status, refined, refine_ms = _http(base, "/adapt", refine_body)
+            check(status == 200 and refined["refined"], "http", "/adapt with refine", body=refined)
+            xs, ys = supports[n]
+            ap_body = json.dumps({"x_support": xs.tolist(), "y_support": ys.tolist(),
+                                  "x_query": queries[n].tolist()}).encode()
+            status, ap, ap_ms = _http(base, "/adapt_predict", ap_body)
+            check(status == 200 and not ap["cached"], "http", "/adapt_predict", body={k: ap.get(k) for k in ap
+                                                                                       if k != "probs"})
+            _check_probs("http", "adapt_predict", [np.asarray(ap["probs"], np.float32)], [HTTP_QUERIES], n_way)
+            bad = _http(base, "/adapt", b"{not json")[0]
+            missing = _http(base, "/adapt", json.dumps({"x_support": x0.tolist()}).encode())[0]
+            unknown = _http(base, "/predict", json.dumps({"adaptation_id": "deadbeef",
+                                                          "x_query": queries[0].tolist()}).encode())[0]
+            check((bad, missing, unknown) == (400, 400, 404), "http", "error statuses",
+                  malformed=bad, missing_labels=missing, unknown_id=unknown)
+
+            metrics = _http(base, "/metrics")[1]
+            launches = metrics["compiled"]["fused_sgd_launches"]  # the HTTP serving path ends here
+            adapt_b, refine_b = metrics["adapt_batcher"], metrics["refine_batcher"]
+            flushes = adapt_b["flushes"] + refine_b["flushes"]
+            check(launches == engine.num_steps * flushes, "http", "B1 launches != 5 x (adapt + refine flushes)",
+                  launches=launches, adapt_flushes=adapt_b["flushes"], refine_flushes=refine_b["flushes"])
+            entries = metrics["cache"]["entries"]
+            rc = stop_server(proc)
+            with open(log_path) as f:
+                log = f.read()
+            spilled = len(os.listdir(os.path.join(run_dir, "saved_models", "sessions")))
+            check(rc == 0 and f"{entries} session(s) spilled" in log and spilled == entries, "http",
+                  "SIGTERM drain", rc=rc, entries=entries, spilled_files=spilled, log=log[-2000:])
+
+            proc, base, _ = start_server(run_dir, log_path)
+            again = _http(base, "/metrics")[1]
+            status, hit2, _ = _http(base, "/adapt", support_body[1])
+            status_p, pred2, _ = _http(base, "/predict", predict_body[1])
+            restart_dev = float(abs(np.asarray(pred2["probs"], np.float32) - probs[1]).max())
+            check(again["sessions"]["rehydrated"] == entries and status == 200 and hit2["cached"]
+                  and status_p == 200 and restart_dev <= FLUSH_TOLERANCE, "http", "the restart",
+                  sessions=again["sessions"], hit=hit2, restart_max_abs=restart_dev)
+            rc2 = stop_server(proc)
+            check(rc2 == 0, "http", "the second drain", rc=rc2)
+        finally:
+            stop_server(proc)
+
+    # each answer against the same request alone in this process. The
+    # bound is the rollout's float32 noise floor at this config: the
+    # largest distance any of the n requests moves when its images move by
+    # NOISE_SCALE (one draw per request is too noisy an estimate to gate
+    # each of 64 requests by its own: in the first card run one answer lay
+    # 6.1e-4 from its lone twin against its own draw's 4.8e-4). Another
+    # request's weights on the same queries show how far a routing or
+    # padding fault would land.
+    fws = [engine.adapt(x, y) for x, y in supports[:n]]
+    devs, floors, wrong = [], [], []
+    for i, ((x, y), q, p) in enumerate(zip(supports[:n], queries[:n], probs)):
+        alone = engine.predict(fws[i], q)
+        moved = (x + NOISE_SCALE * np.random.RandomState(seed + i).randn(*x.shape)).astype(np.float32)
+        devs.append(float(abs(p - alone).max()))
+        floors.append(float(abs(alone - engine.predict(engine.adapt(moved, y), q)).max()))
+        wrong.append(float(abs(p - engine.predict(fws[(i + 1) % n], q)).max()))
+    bound = max(ALONE_TOLERANCE["maml++"], max(floors))
+    worst = max(range(n), key=lambda i: devs[i])
+    check(devs[worst] <= bound, "http", "an HTTP answer differs from the request served alone", index=worst,
+          max_abs=devs[worst], bound=bound)
+    check(min(wrong) > bound, "http", "another request's weights answer within the bound", min_max_abs=min(wrong),
+          bound=bound)
+
+    timing = {key: statistics.median(body["timing"][key] for _, body, _ in adapts)
+              for key in ("queue_wait_ms", "dispatch_ms", "total_ms")}
+    predict_timing = {key: statistics.median(body["timing"][key] for _, body, _ in predicts)
+                      for key in ("queue_wait_ms", "dispatch_ms", "total_ms")}
+    server_latency = {phase: {k: metrics["latency"][phase][k] for k in ("p50_ms", "p99_ms", "count")}
+                      for phase in ("adapt", "predict", "adapt_cached", "refine") if phase in metrics["latency"]}
+    out.update({
+        "ok": True, "launches": launches, "adapt_flushes": adapt_b["flushes"],
+        "refine_flushes": refine_b["flushes"], "flushes_per_adapt_request": adapt_b["flushes"] / adapt_b["requests"],
+        "adapt_mean_batch": adapt_b["mean_batch"], "flushes_continuous": adapt_b["flushes_continuous"],
+        "predict_flushes": metrics["predict_batcher"]["flushes"],
+        "client_adapt": _percentiles([ms for _, _, ms in adapts]),
+        "client_predict": _percentiles([ms for _, _, ms in predicts]),
+        # the timed requests' own timing.total_ms: /adapt from the frontend's
+        # entry (after the body's parse), /predict from the handler's
+        "server_adapt": _percentiles([body["timing"]["total_ms"] for _, body, _ in adapts]),
+        "server_predict": _percentiles([body["timing"]["total_ms"] for _, body, _ in predicts]),
+        "metrics_latency_with_cold_start": server_latency, "adapt_timing_median_ms": timing,
+        "predict_timing_median_ms": predict_timing, "refine_ms": refine_ms, "adapt_predict_ms": ap_ms,
+        "refine_rolled_back": refined["rolled_back"], "sessions_spilled": entries, "restart_max_abs": restart_dev,
+        "alone_max_abs": max(devs), "alone_max_abs_median": statistics.median(devs), "alone_bound": bound,
+        "alone_noise_floor_min": min(floors), "alone_noise_floor_median": statistics.median(floors),
+        "answers_above_own_noise_draw": sum(d > f for d, f in zip(devs, floors)),
+        "other_request_min_max_abs": min(wrong),
+        "request_bytes": len(support_body[0]), "host_decode_ms_median": statistics.median(decode_ms),
+        "cold_adapt_ms": cold_adapt_ms, "cold_predict_ms": cold_predict_ms,
+    })
+    emit(out)
+    return out
+
+
 def make_omniglot_folder(root: str, seed: int) -> str:
     """An image folder of Omniglot's layout and size: OMNIGLOT["classes"]
     classes of OMNIGLOT["per_class"] 105x105 1-bit PNGs in
@@ -1981,6 +2265,7 @@ def main() -> int:
     sl = phase_slice(args.seed)
     tr, system, trained = phase_train(args.seed)
     served = phase_serve_trained(args.seed, system, trained)
+    http = phase_http(args.seed, system, trained)
     st = phase_strategies(args.seed, tr["train_step_ms_median"])
     phase_precision(args.seed)
     rn = phase_runner(args.seed, tr["train_step_ms_median"])
@@ -1988,6 +2273,7 @@ def main() -> int:
     rm = phase_remat(args.seed)
     br = phase_breadth(args.seed)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
+                 "http_serving": http["launches"],
                  "anil_train": st["launches_with_eval"]["fused_sgd"],
                  "anil_remat": st["remat_full"]["launches"]["fused_sgd"], "strategies_serving": st["launches"],
                  "runner": rn["launches"]["fused_sgd"], "resnet": rs["launches"]["fused_sgd"],

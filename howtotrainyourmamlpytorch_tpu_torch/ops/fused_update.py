@@ -46,6 +46,7 @@ layer's backward gives its weight) is copied first and counted in
 ``contiguous_copies``.
 """
 
+import threading
 from typing import List, Tuple
 
 import torch
@@ -70,13 +71,22 @@ launch_counts = {"fused_sgd": 0, "fused_sgd_bwd": 0}
 #: non-contiguous leaves the CUDA wrappers copied before a launch, since the
 #: last :func:`reset_launch_counts`
 contiguous_copies = 0
+# both counts are updated under this lock: a server's batcher workers
+# launch from several threads
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
     global contiguous_copies
-    for name in launch_counts:
-        launch_counts[name] = 0
-    contiguous_copies = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+        contiguous_copies = 0
+
+
+def _count_launch(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def dlr_rounding_chain(chunks: int, element_size: int) -> int:
@@ -147,7 +157,8 @@ def _contiguous(t: torch.Tensor) -> torch.Tensor:
     global contiguous_copies
     if t.is_contiguous():
         return t
-    contiguous_copies += 1
+    with _count_lock:
+        contiguous_copies += 1
     return t.contiguous()
 
 
@@ -189,7 +200,7 @@ def _launch_forward(ps, gs, lrs) -> List[torch.Tensor]:
         )
     if err != 0:
         raise RuntimeError(f"fused_sgd_forward failed: cudaError_t {err}")
-    launch_counts["fused_sgd"] += 1
+    _count_launch("fused_sgd")
     return outs
 
 
@@ -213,7 +224,7 @@ def _launch_backward(cts, gs, lrs):
         )
     if err != 0:
         raise RuntimeError(f"fused_sgd_backward failed: cudaError_t {err}")
-    launch_counts["fused_sgd_bwd"] += 1
+    _count_launch("fused_sgd_bwd")
     return dgs, dlr
 
 

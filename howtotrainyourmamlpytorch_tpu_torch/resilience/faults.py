@@ -19,7 +19,7 @@ Spec grammar (one string per fault)::
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 KINDS = ("raise", "corrupt-bytes", "nan-loss", "delay", "sigterm")
 
@@ -62,6 +62,10 @@ class NullInjector:
 
     def fire(self, site: str) -> Optional[str]:
         return None
+
+    def stats(self) -> Dict[str, int]:
+        """Faults fired per site: none (``/metrics`` ``injected_faults``)."""
+        return {}
 
 
 #: Shared inert instance for default arguments.

@@ -25,9 +25,10 @@ A flush never mixes strategies. Each dispatch is a span of ``tracer``
 seconds and their trace flows end there.
 
 PyTorch runs eagerly and compiles nothing, so the buckets here only bound
-the set of shapes the card sees. Left out of this slice: the fault
-injector, compile ledger, strict guard, tenant pager, refine sessions and
-``clone_for_device`` (ROADMAP.md A8, A9, A10).
+the set of shapes the card sees. Left out: the fault drills (the injector
+is inert, ROADMAP.md A9), the compile ledger and strict guard (A10), the
+tenant pager and ``clone_for_device`` (A8.4). Refine sessions (the guard,
+lineage and spill) live in the frontend (``serving/server.py``).
 """
 
 import os
@@ -45,6 +46,7 @@ from ..experiment import checkpoint as ckpt
 from ..observability.context import flow_end
 from ..observability.trace import NULL_TRACER
 from ..ops import fused_update
+from ..resilience.faults import injector_from
 from ..utils.interop import state_from_jax
 from ..utils.trees import tree_map
 
@@ -101,14 +103,11 @@ class AdaptationEngine:
         self.strategies = tuple(self.serving.strategies)
         # span tracer of the dispatches (observability/trace.py)
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        if self.serving.refine_enabled:
-            raise NotImplementedError(
-                "refine sessions (serving.refine_enabled) are not ported to PyTorch yet "
-                "(ROADMAP.md A8); refine_batch serves without them"
-            )
+        # the fault seams' injector: inert, and a named drill raises (A9)
+        self.injector = injector_from(self.cfg.resilience)
         if self.serving.tenant_registry:
             raise NotImplementedError(
-                "multi-tenant serving is not ported to PyTorch yet (ROADMAP.md A8)"
+                "multi-tenant serving is not ported to PyTorch yet (ROADMAP.md A8.4)"
             )
         if isinstance(state, ckpt.InferenceState):
             fingerprint = fingerprint or state.fingerprint
@@ -126,9 +125,11 @@ class AdaptationEngine:
         self.state: TrainState = state
         self.fingerprint = fingerprint or "live"
         self.num_steps = self.serving.adapt_steps or self.cfg.number_of_evaluation_steps_per_iter
+        self.num_classes = self.cfg.num_classes_per_set
         # (strategy, padded size, task-batch bucket) shapes served so far
         self._adapt_shapes = set()
         self._predict_shapes = set()
+        self._refine_shapes = set()
 
     @classmethod
     def from_run_dir(
@@ -147,7 +148,7 @@ class AdaptationEngine:
             cfg = load_config(os.path.join(run_dir, "config.yaml"))
         if cfg.serving.tenant_registry or os.path.exists(os.path.join(run_dir, "tenants.yaml")):
             raise NotImplementedError(
-                "multi-tenant serving is not ported to PyTorch yet (ROADMAP.md A8)"
+                "multi-tenant serving is not ported to PyTorch yet (ROADMAP.md A8.4)"
             )
         # the device is settled before the checkpoint is read
         system = system or MAMLSystem(cfg, device=device)
@@ -155,19 +156,27 @@ class AdaptationEngine:
         if checkpoint_idx == "best" and not ckpt.checkpoint_exists(save_dir, "best"):
             checkpoint_idx = "latest"
         state, _ = ckpt.load_for_inference(save_dir, checkpoint_idx)
-        return cls(system, state, serving_cfg=cfg.serving)
+        engine = cls(system, state, serving_cfg=cfg.serving)
+        # the frontend spills and rehydrates sessions under it
+        engine.save_dir = save_dir
+        return engine
 
     def compile_counts(self) -> Dict[str, Any]:
         """The shape grid served so far, the precision policy, the strategy
         menu, and the fused-update kernel's launch count (process-wide, since
-        the last ``ops.fused_update.reset_launch_counts()``)."""
-        return {
+        the last ``ops.fused_update.reset_launch_counts()``). The refine
+        shapes only under ``serving.refine_enabled``, as the JAX package
+        reports its refine programs."""
+        out = {
             "adapt_shapes": len(self._adapt_shapes),
             "predict_shapes": len(self._predict_shapes),
             "precision": self.system.precision.name,
             "strategies": list(self.strategies),
             "fused_sgd_launches": fused_update.launch_counts["fused_sgd"],
         }
+        if self.serving.refine_enabled:
+            out["refine_programs"] = len(self._refine_shapes)
+        return out
 
     def support_bucket(self, size: int) -> int:
         return _bucket_for(size, self.serving.support_buckets)
@@ -177,9 +186,10 @@ class AdaptationEngine:
 
     @staticmethod
     def _flatten_support(x_support, y_support) -> Tuple[np.ndarray, np.ndarray]:
-        """Accept [n_way, k, H, W, C] or already-flat [S, H, W, C]."""
+        """Accept [n_way, k, H, W, C] or already-flat [S, H, W, C]. Labels
+        are int32, as in the JAX package: ``support_digest`` hashes them."""
         x = np.asarray(x_support, np.float32)
-        y = np.asarray(y_support, np.int64)
+        y = np.asarray(y_support, np.int32)
         if y.ndim == 2:
             x = x.reshape((-1,) + x.shape[2:])
             y = y.reshape(-1)
@@ -190,7 +200,7 @@ class AdaptationEngine:
         if tenant is not None:
             raise NotImplementedError(
                 f"request names tenant {tenant!r}: multi-tenant serving is not "
-                "ported to PyTorch yet (ROADMAP.md A8)"
+                "ported to PyTorch yet (ROADMAP.md A8.4)"
             )
         return strategy
 
@@ -239,6 +249,14 @@ class AdaptationEngine:
         trees = list(trees) + [trees[-1]] * (b - len(trees))
         return tree_map(lambda *leaves: torch.stack(leaves), *trees)
 
+    @staticmethod
+    def _split(stacked, n: int):
+        """A flush's stacked tree -> one tree per request, each leaf a copy
+        that owns its memory (as JAX's ``a[i]`` does): a view would keep the
+        whole flush alive in the adapted-weight cache, past its byte
+        budget."""
+        return [tree_map(lambda a, i=i: a[i].clone(), stacked) for i in range(n)]
+
     def adapt_batch(self, items: List[Tuple[Any, Any]], ctxs=None, strategy: Optional[str] = None,
                     tenant: Optional[str] = None):
         """Adapt a group of support sets ``(x_support, y_support)`` in one
@@ -255,7 +273,7 @@ class AdaptationEngine:
             call = lambda: self.system.adapt_fast_weights(  # noqa: E731
                 self.state, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
         stacked = self._dispatch("serve.adapt_dispatch", ctxs, strategy, n, bucket, call)
-        return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
+        return self._split(stacked, n)
 
     def adapt(self, x_support, y_support, strategy: Optional[str] = None,
               tenant: Optional[str] = None):
@@ -275,10 +293,11 @@ class AdaptationEngine:
         xs, ys, ws, bucket, b = self._support_flush([(x, y) for _, x, y in items])
         stacked_fw = self._stack_trees([fw for fw, _, _ in items], b)
         n = len(items)
+        self._refine_shapes.add((strategy, bucket, b))
         call = lambda: self.system.refine_fast_weights(  # noqa: E731
             self.state, stacked_fw, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
         stacked = self._dispatch("serve.refine_dispatch", ctxs, strategy, n, bucket, call)
-        return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
+        return self._split(stacked, n)
 
     def refine(self, fast_weights, x_support, y_support, strategy: Optional[str] = None,
                tenant: Optional[str] = None):

@@ -393,3 +393,57 @@ def test_every_strategy_serves_on_the_card_as_on_the_cpu(cuda):
                 assert fu.launch_counts["fused_sgd"] == (0 if strategy == "protonet" else 2 * steps), strategy
         for a, b in zip(probs["gpu"], probs["cpu"]):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_serving_frontend_on_the_card_matches_the_cpu(cuda):
+    """``ServingFrontend`` on the card against the same frontend on the
+    CPU, at a small size with 5 inner steps: 3 adapts sent at once from 3
+    threads (the batcher's worker threads launch B1 on the card), a cache
+    hit, predictions within 1e-5, one refine; B1 launched 5 times per adapt
+    and refine flush, none for the cache hit."""
+    import threading
+
+    from howtotrainyourmamlpytorch_tpu_torch.serving import ServingFrontend
+
+    cfg = Config(
+        num_classes_per_set=3, num_samples_per_class=2, number_of_evaluation_steps_per_iter=5,
+        use_pallas_inner_update=True,
+        serving=ServingConfig(support_buckets=[8], query_buckets=[8], max_batch_size=4, refine_enabled=True,
+                              refine_regress_tol=100.0),
+    )
+    model = build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8)
+    gpu = MAMLSystem(cfg, model=model, device=cuda)
+    state = gpu.init_train_state()
+    cpu = MAMLSystem(cfg, model=model, device="cpu")
+    cpu_state = TrainState(*(tree_map(lambda t: t.cpu(), s) for s in state[:3]), None, state.step.cpu())
+    rng = np.random.RandomState(3)
+    supports = [(rng.rand(6, 8, 8, 1).astype(np.float32), np.arange(6) % 3) for _ in range(3)]
+    queries = [rng.rand(5, 8, 8, 1).astype(np.float32) for _ in range(3)]
+    probs, ids = {}, {}
+    for name, system, st in (("gpu", gpu, state), ("cpu", cpu, cpu_state)):
+        frontend = ServingFrontend(AdaptationEngine(system, st))
+        try:
+            fu.reset_launch_counts()
+            out = [None] * 3
+            threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, frontend.adapt(*supports[i])))
+                       for i in range(3)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            ids[name] = [o["adaptation_id"] for o in out]
+            before = fu.launch_counts["fused_sgd"]
+            assert frontend.adapt(*supports[0])["cached"]
+            assert fu.launch_counts["fused_sgd"] == before
+            frontend.refine(ids[name][0], *supports[0])
+            probs[name] = [frontend.predict(i, q) for i, q in zip(ids[name], queries)]
+            metrics = frontend.metrics()
+            flushes = metrics["adapt_batcher"]["flushes"] + metrics["refine_batcher"]["flushes"]
+            launches = metrics["compiled"]["fused_sgd_launches"]
+            assert launches == (5 * flushes if name == "gpu" else 0), (launches, flushes)
+            assert frontend.healthz()["platform"] == ("cuda" if name == "gpu" else "cpu")
+        finally:
+            frontend.close()
+    assert ids["gpu"] == ids["cpu"]
+    for a, b in zip(probs["gpu"], probs["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)

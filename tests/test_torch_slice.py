@@ -179,10 +179,10 @@ def test_unported_paths_raise(reference):
     assert not torch.equal(anil[0]["fc"]["w"], engine.state.params["fc"]["w"])
     with pytest.raises(NotImplementedError, match="A8"):
         engine.adapt_batch(supports, tenant="t1")
+    # refine sessions serve since ROADMAP.md A8.3: the engine constructs
     refine = _cfg(tcfg)
     refine.serving.refine_enabled = True
-    with pytest.raises(NotImplementedError, match="A8"):
-        AdaptationEngine(system, engine.state, serving_cfg=refine.serving)
+    assert "refine_programs" in AdaptationEngine(system, engine.state, serving_cfg=refine.serving).compile_counts()
     # inner Adam and the ResNet backbone (ROADMAP.md A6) construct
     assert MAMLSystem(tcfg.load_config(None, ["inner_optim=adam"]), device="cpu").inner_opt.name == "adam"
     assert MAMLSystem(tcfg.load_config(None, ["net=resnet-4"]), device="cpu").model.name == "resnet"
