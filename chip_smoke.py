@@ -69,7 +69,22 @@ Run from the repository root. Phases, one JSON line each:
    exceed. It reports client and server
    p50/p99 of /adapt and /predict, the median ``timing`` breakdown, and
    flushes per /adapt.
-9. ``strategies``: the strategy registry at the fleet row
+9. ``tenancy``: multi-tenant serving at the same config: the trained state
+   and 4 tenants (``synthetic_registry``: perturbed copies written as
+   format-2 checkpoints) in a run directory with a ``tenants.yaml``, served
+   by the same CLI with ``serving.tenant_budget_bytes`` = 2 masters and a
+   resident-bytes quota; 3 rounds of /adapt and /predict over the default
+   tenant and the 4 tenants in turn (every tenant access pages a master
+   in), a quota breach (429 + Retry-After) beside another tenant's 200, a
+   cross-tenant 404, an unknown tenant's 400, SIGTERM. Checks: page-ins,
+   evictions and the resident set against the LRU arithmetic (/metrics and
+   events.jsonl), each answer within phase ``http``'s noise floor of a
+   single-tenant engine on that tenant's checkpoint (the exact ones
+   counted), B1 launched 5 times per adapt flush. Then in this process:
+   page-ins timed (cold against resident adapts), an eviction freeing the
+   master's allocator blocks, an eviction through the memory watermark,
+   ``clone_for_device(cuda:0)`` against the engine.
+10. ``strategies``: the strategy registry at the fleet row
    ``omniglot.20.5.vgg.gd.anil`` (the default config with
    ``strategy=anil``): 10 anil train steps and an eval step, B1 and B2 over
    the head's 2 leaves, K launches each per step; the anil step faster
@@ -83,11 +98,11 @@ Run from the repository root. Phases, one JSON line each:
    8 x 40 queries (finite probabilities whose rows sum to 1); maml++ and
    fomaml bit-equal; protonet's adapt flush faster than maml++'s; one
    refine flush each for maml++ and anil, K launches of B1.
-10. ``precision``: the default config's train step under
+11. ``precision``: the default config's train step under
    ``matmul_precision`` ``highest`` (IEEE float32) and ``high`` (TF32
    matmuls and convolutions): the flags read back, the first step's loss
    and the median step of each.
-11. ``runner``: the experiment layer at the same config, on a generated
+12. ``runner``: the experiment layer at the same config, on a generated
    image folder of Omniglot's layout and size (1,623 classes of 20 105x105
    1-bit PNGs in 50 alphabet folders, read and resized to 28x28 by the
    loader): ``ExperimentRunner`` in this process for 2 epochs of 10 steps
@@ -107,26 +122,27 @@ Run from the repository root. Phases, one JSON line each:
    reports epoch times, the runner's step period beside phase ``train``'s
    bare step, the share of each telemetry phase, the loader's episodes per
    second alone and a ``torch.profiler`` breakdown of one runner step.
-12. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
+13. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
    ``omniglot.20.1.resnet-12.gd`` (28x28x1, 20-way 1-shot, meta-batch 8,
    K=5, second order, MSL on, fused, remat off): 10 train steps, an eval
    step and the engine serving the trained state, B1 and B2 over the
    86-leaf tree on every inner step; the first step against the CPU and
    float64 as in ``train``; then one bf16_inner train step (B1 and B2 in
    bfloat16).
-13. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
+14. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
     ``net=resnet-12`` (84x84x3, 5-way 5-shot) under the remat policies
     none, full and dots_saveable: the first step's loss and meta-gradient
     equal across them, peak memory and step times each; the default
     config's VGG at none and full, peak memory.
-14. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
+15. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
     inner Adam with learnable betas and the warm start, inner Rprop, and
     ``lslr_per_step`` (fused; its per-step lr meta-gradient against the
     CPU).
-15. ``kernels``: every kernel the run launched, with its launches on the
+16. ``kernels``: every kernel the run launched, with its launches on the
     paths, its error against the twin and its times beside its bound.
 
-Then the card's ``nvidia-smi`` name and power limit, and last
+A ``timing`` line before the ``kernels`` line gives each phase's wall
+seconds. Then the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Matmuls and convolutions run in IEEE float32 (no TF32)
 throughout but in phase ``precision``: ``MAMLSystem`` applies the config's
@@ -261,6 +277,11 @@ PRECISION_STEPS = 6
 # answer /healthz, and for one HTTP call
 HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_QUERIES = 8, 8, 40
 HTTP_READY_S, HTTP_CALL_S = 240, 120
+# phase tenancy: the tenants, the round-robin rounds over them and the
+# default tenant, and the in-process page-ins per tenant
+TENANT_IDS = ("acme", "bravo", "charlie", "delta")
+TENANT_ROUNDS = 3
+PAGE_IN_REPS = 10
 
 
 class CheckFailed(RuntimeError):
@@ -1165,9 +1186,10 @@ def phase_serve_trained(seed: int, system, trained):
     return launches
 
 
-def _http(base: str, path: str, body=None):
-    """One HTTP call -> (status, decoded JSON body, wall ms). ``body`` is
-    the request's bytes (POST) or None (GET)."""
+def _http(base: str, path: str, body=None, headers: bool = False):
+    """One HTTP call -> (status, decoded JSON body, wall ms), and the
+    response headers with ``headers``. ``body`` is the request's bytes
+    (POST) or None (GET)."""
     import urllib.error
     import urllib.request
 
@@ -1175,10 +1197,11 @@ def _http(base: str, path: str, body=None):
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=HTTP_CALL_S) as resp:
-            status, raw = resp.status, resp.read()
+            status, raw, head = resp.status, resp.read(), resp.headers
     except urllib.error.HTTPError as exc:
-        status, raw = exc.code, exc.read()
-    return status, json.loads(raw), (time.perf_counter() - t0) * 1e3
+        status, raw, head = exc.code, exc.read(), exc.headers
+    out = (status, json.loads(raw), (time.perf_counter() - t0) * 1e3)
+    return out + (head,) if headers else out
 
 
 def _free_port() -> int:
@@ -1189,16 +1212,17 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def start_server(run_dir: str, log_path: str):
+def start_server(run_dir: str, log_path: str, overrides=("serving.refine_enabled=true",), phase: str = "http"):
     """``python -m howtotrainyourmamlpytorch_tpu_torch.serve RUN_DIR`` (on
-    the card: no ``--device``) with refinement on, on a free port; returns
-    (process, base URL) once /healthz answers 200."""
+    the card: no ``--device``) with the config ``overrides``, on a free
+    port; returns (process, base URL, /healthz body) once /healthz answers
+    200."""
     port = _free_port()
     root = os.path.dirname(os.path.abspath(__file__))
     log = open(log_path, "a")
     proc = subprocess.Popen(
         [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve", run_dir, "--port", str(port),
-         "serving.refine_enabled=true"],
+         *overrides],
         cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=log, stderr=subprocess.STDOUT,
     )
     log.close()
@@ -1214,7 +1238,7 @@ def start_server(run_dir: str, log_path: str):
         if proc.poll() is not None or time.monotonic() > deadline:
             stop_server(proc)
             with open(log_path) as f:
-                check(False, "http", "the server did not come up", rc=proc.returncode, log=f.read()[-4000:])
+                check(False, phase, "the server did not come up", rc=proc.returncode, log=f.read()[-4000:])
         time.sleep(0.25)
 
 
@@ -1426,6 +1450,289 @@ def phase_http(seed: int, system, trained):
     })
     emit(out)
     return out
+
+
+def lru_paging(dispatches, capacity: int):
+    """(page-ins, evictions, resident tenants in LRU order) of an LRU set of
+    ``capacity`` masters over the tenants of a dispatch sequence (None: the
+    default tenant, never paged) — what the pager must report."""
+    resident = []
+    page_ins = evictions = 0
+    for tenant in dispatches:
+        if tenant is None:
+            continue
+        if tenant in resident:
+            resident.remove(tenant)
+            resident.append(tenant)
+            continue
+        resident.append(tenant)
+        page_ins += 1
+        while len(resident) > capacity:
+            resident.pop(0)
+            evictions += 1
+    return page_ins, evictions, resident
+
+
+def _cuda_block_bytes(state) -> int:
+    """The caching allocator's bytes of a master's served trees: each
+    tensor rounded up to its 512-byte blocks."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    return sum(-(-leaf.numel() * leaf.element_size() // 512) * 512
+               for tree in (state.params, state.bn_state, state.inner_hparams) for leaf in tree_leaves(tree))
+
+
+def phase_tenancy(seed: int, system, trained, http_bound: float):
+    """Multi-tenant serving on the card at the default config. The trained
+    state and 4 tenants (``synthetic_registry``: perturbed copies, real
+    format-2 checkpoints) in a run directory with a ``tenants.yaml``,
+    served by ``python -m howtotrainyourmamlpytorch_tpu_torch.serve`` in a
+    subprocess with a budget of 2 masters and a resident-bytes quota of
+    TENANT_ROUNDS adapted trees per tenant: TENANT_ROUNDS rounds of /adapt
+    and /predict over the default tenant and the 4 tenants in turn (every
+    tenant access pages in), then a quota breach (429 + Retry-After) beside
+    another tenant's 200, a cross-tenant 404, an unknown tenant's 400, and
+    SIGTERM. Checks: page-ins, evictions and the resident set against the
+    LRU arithmetic (/metrics and events.jsonl), adaptation ids against
+    ``support_digest``, each answer against a single-tenant engine on that
+    tenant's checkpoint in this process (within the float32 noise floor:
+    phase ``http``'s, or the largest move of a control answer under a
+    NOISE_SCALE image change, where that is larger; cuDNN's atomics make
+    two processes differ; the exact ones counted), B1 launched 5 times per
+    adapt flush (the server's count). Then in this process: a tenant's
+    answer against its control with cuDNN deterministic (within 1e-6),
+    page-ins timed (cold adapt against resident adapt), an eviction's drop
+    in ``memory_allocated``, an eviction through the watermark
+    (``min_headroom_frac`` 1.0), and ``clone_for_device`` on ``cuda:0``
+    against the engine."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import save_config
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.experiment.checkpoint import save_checkpoint
+    from howtotrainyourmamlpytorch_tpu_torch.serving.cache import support_digest, tree_bytes
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+    from howtotrainyourmamlpytorch_tpu_torch.serving.registry import synthetic_registry
+    from howtotrainyourmamlpytorch_tpu_torch.serving.tenancy import master_bytes
+
+    cfg = system.cfg
+    n_way, img = cfg.num_classes_per_set, cfg.image_shape
+    tenants = (None,) + TENANT_IDS
+    # one support set per round and 3 for the quota leg
+    data = learnable_synthetic_batch(TENANT_ROUNDS + 3, n_way, 5, 2, img, seed=seed + 11)
+    supports = [(data["x_support"][i], data["y_support"][i]) for i in range(TENANT_ROUNDS + 3)]
+    queries = [data["x_target"][i].reshape(-1, *img)[:HTTP_QUERIES] for i in range(TENANT_ROUNDS + 3)]
+    out = {"phase": "tenancy", "tenants": len(TENANT_IDS), "rounds": TENANT_ROUNDS, "support": 100,
+           "queries": HTTP_QUERIES}
+
+    def body(tenant, **fields):
+        return json.dumps({**fields, **({"tenant": tenant} if tenant else {})}).encode()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tenancy_") as run_dir:
+        save_config(cfg, os.path.join(run_dir, "config.yaml"))
+        save_checkpoint(os.path.join(run_dir, "saved_models"), trained, {"epoch": 0}, epoch=0,
+                        feature_shape=system.model.feature_shape)
+        registry = synthetic_registry(TENANT_IDS, trained, os.path.join(run_dir, "tenants"), seed=seed,
+                                      feature_shape=system.model.feature_shape)
+        with open(os.path.join(run_dir, "tenants.yaml"), "w") as f:
+            f.write("tenants:\n" + "".join(f"  {t}: {{run_dir: tenants/{t}, checkpoint: latest}}\n"
+                                           for t in TENANT_IDS))
+        one = master_bytes(registry.host_state(TENANT_IDS[0])[0])
+        adapted = tree_bytes(trained.params)
+        budget, quota = 2 * one, TENANT_ROUNDS * adapted
+        # the single-tenant controls: one engine per checkpoint, in this
+        # process, and each answer's float32 noise floor (how far it moves
+        # when the support images move by NOISE_SCALE), as in phase http
+        controls, control_ms, floors = {}, [], []
+        for tenant in tenants:
+            ctrl = AdaptationEngine(system, trained) if tenant is None else AdaptationEngine.from_run_dir(
+                os.path.join(run_dir, "tenants", tenant), "latest", cfg=cfg, system=system)
+            check(ctrl.registry is None, "tenancy", "a control engine found a registry")
+            for r in range(TENANT_ROUNDS):
+                (x, y), q = supports[r], queries[r]
+                t0 = time.perf_counter()
+                controls[tenant, r] = ctrl.predict(ctrl.adapt(x, y), q)
+                control_ms.append((time.perf_counter() - t0) * 1e3)
+                moved = (x + NOISE_SCALE * np.random.RandomState(seed + r).randn(*x.shape)).astype(np.float32)
+                floors.append(float(abs(controls[tenant, r] - ctrl.predict(ctrl.adapt(moved, y), q)).max()))
+        bound = max(http_bound, max(floors))
+        log_path = os.path.join(run_dir, "serve.log")
+        proc, base, health = start_server(
+            run_dir, log_path, (f"serving.tenant_budget_bytes={budget}", f"serving.tenant_max_resident_bytes={quota}"),
+            phase="tenancy")
+        dispatches, devs, wrong, cold_ms, resident_ms = [], [], [], [], []
+        try:
+            check(health["platform"] == "cuda", "tenancy", "healthz", health=health)
+            for r in range(TENANT_ROUNDS):
+                x, y = supports[r]
+                for tenant in tenants:
+                    status, got, ms = _http(base, "/adapt", body(tenant, x_support=x.tolist(), y_support=y.tolist()))
+                    want_id = support_digest(*AdaptationEngine._flatten_support(x, y), cfg.number_of_evaluation_steps_per_iter,
+                                             "maml++", tenant=tenant)
+                    check(status == 200 and got["adaptation_id"] == want_id and not got["cached"]
+                          and got.get("tenant") == tenant, "tenancy", "an /adapt", tenant=tenant, body=got)
+                    (resident_ms if tenant is None else cold_ms).append(ms)
+                    status, pred, _ = _http(base, "/predict", body(tenant, adaptation_id=got["adaptation_id"],
+                                                                   x_query=queries[r].tolist()))
+                    check(status == 200, "tenancy", "a /predict", tenant=tenant, body=pred)
+                    dispatches += [tenant, tenant]
+                    probs = np.asarray(pred["probs"], np.float32)
+                    devs.append(float(abs(probs - controls[tenant, r]).max()))
+                    wrong.append(min(float(abs(probs - controls[other, r]).max()) for other in tenants if other != tenant))
+                    if tenant == TENANT_IDS[0]:
+                        first_id = got["adaptation_id"]
+            # the quota: a tenant holding more than TENANT_ROUNDS adapted
+            # trees is refused before any dispatch; another tenant is not
+            breach = TENANT_IDS[-1]
+            statuses = []
+            for i in (TENANT_ROUNDS, TENANT_ROUNDS + 1):
+                x, y = supports[i]
+                statuses.append(_http(base, "/adapt", body(breach, x_support=x.tolist(), y_support=y.tolist()),
+                                      headers=True))
+            dispatches.append(breach)
+            x, y = supports[TENANT_ROUNDS + 2]
+            other = _http(base, "/adapt", body(TENANT_IDS[0], x_support=x.tolist(), y_support=y.tolist()))
+            dispatches.append(TENANT_IDS[0])
+            (ok_status, _, _, _), (shed_status, shed, _, shed_headers) = statuses
+            check(ok_status == 200 and shed_status == 429 and int(shed_headers["Retry-After"]) >= 1
+                  and other[0] == 200, "tenancy", "the resident-bytes quota", statuses=[ok_status, shed_status],
+                  shed=shed, other=other[0])
+            cross = _http(base, "/predict", body(TENANT_IDS[1], adaptation_id=first_id,
+                                                 x_query=queries[0].tolist()))[0]
+            unknown = _http(base, "/adapt", body("nobody", x_support=x.tolist(), y_support=y.tolist()))[0]
+            check((cross, unknown) == (404, 400), "tenancy", "cross-tenant id and unknown tenant", cross=cross,
+                  unknown=unknown)
+            metrics = _http(base, "/metrics")[1]
+            rc = stop_server(proc)
+            check(rc == 0, "tenancy", "SIGTERM drain", rc=rc)
+        finally:
+            stop_server(proc)
+        with open(os.path.join(run_dir, "logs", "events.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        pager = metrics["tenants"]["pager"]
+        page_ins, evictions, resident = lru_paging(dispatches, 2)
+        paged = [e for e in events if e.get("event") == "tenant_paged_in"]
+        evicted = [e for e in events if e.get("event") == "tenant_evicted"]
+        check((pager["page_ins"], pager["evictions"], pager["resident_tenants"]) == (page_ins, evictions,
+                                                                                     sorted(resident))
+              and pager["resident_bytes"] == len(resident) * one and pager["budget_bytes"] == budget
+              and (len(paged), len(evicted)) == (page_ins, evictions)
+              and all(e["tenant"] in TENANT_IDS and e["reason"] == "byte_budget" for e in evicted),
+              "tenancy", "page-ins and evictions differ from the LRU arithmetic", pager=pager,
+              want={"page_ins": page_ins, "evictions": evictions, "resident": resident},
+              events={"paged_in": len(paged), "evicted": len(evicted)})
+        adapt_flushes = metrics["adapt_batcher"]["flushes"]
+        launches = metrics["compiled"]["fused_sgd_launches"]
+        check(launches == cfg.number_of_evaluation_steps_per_iter * adapt_flushes, "tenancy",
+              "B1 launches != 5 x adapt flushes", launches=launches, adapt_flushes=adapt_flushes)
+        worst = max(devs)
+        check(worst <= bound, "tenancy", "a tenant's answer differs from its single-tenant control", max_abs=worst,
+              bound=bound)
+        out.update({
+            "ok": True, "master_bytes": one, "budget_bytes": budget, "adapted_tree_bytes": adapted,
+            "quota_resident_bytes": quota, "launches": launches, "adapt_flushes": adapt_flushes,
+            "page_ins": page_ins, "evictions": evictions, "resident_bytes": pager["resident_bytes"],
+            "server_page_in_p50_ms": pager["page_in_p50_ms"], "answers": len(devs),
+            "answers_exact": sum(d == 0.0 for d in devs), "answers_max_abs": worst,
+            "answers_max_abs_median": statistics.median(devs), "answers_bound": bound, "http_bound": http_bound,
+            "noise_floor_max": max(floors), "noise_floor_median": statistics.median(floors),
+            "other_tenant_min_max_abs": min(wrong), "other_tenant_above_bound": min(wrong) > bound,
+            "client_adapt_cold_tenant": _percentiles(cold_ms), "client_adapt_default_tenant": _percentiles(resident_ms),
+            "control_adapt_predict_ms_median": statistics.median(control_ms),
+            "retry_after_s": shed["retry_after_s"],
+            "memory_block": {k: metrics.get("memory", {}).get(k) for k in ("available_devices", "headroom_frac_min",
+                                                                           "peak_bytes_in_use_max")},
+        })
+        out.update(tenancy_in_process(system, trained, registry, supports, queries,
+                                      os.path.join(run_dir, "tenants", TENANT_IDS[3])))
+    emit(out)
+    return out
+
+
+def tenancy_in_process(system, trained, registry, supports, queries, control_dir: str) -> dict:
+    """The pager in this process on the card: the last tenant's answer
+    against its single-tenant control (``control_dir``) with cuDNN
+    deterministic; PAGE_IN_REPS x 2 tenants
+    evicted and adapted cold, then adapted again resident (host clock
+    around work that ends in a synchronize; the page-in's own time from
+    the pager), the first eviction's drop in ``memory_allocated``; an
+    eviction through the watermark; ``clone_for_device`` on ``cuda:0``."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.serving import ServingFrontend
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+
+    engine = AdaptationEngine(system, trained, registry=registry)
+    frontend = ServingFrontend(engine)
+    x, y = supports[0]
+    q = queries[0]
+    adapts = 0
+    fu.reset_launch_counts()
+    try:
+        cold, warm, drops = [], [], []
+        for rep in range(PAGE_IN_REPS):
+            for tenant in TENANT_IDS[:2]:
+                if engine.pager.is_resident(tenant):
+                    blocks = _cuda_block_bytes(engine.pager.resident(tenant))
+                    torch.cuda.synchronize()
+                    before = torch.cuda.memory_allocated()
+                    engine.pager.evict(tenant)
+                    drops.append((before - torch.cuda.memory_allocated(), blocks))
+                for times in (cold, warm):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    engine.adapt(x, y, tenant=tenant)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    adapts += 1
+        samples = engine.pager.page_in_ms()
+        check(all(drop == blocks for drop, blocks in drops) and drops, "tenancy",
+              "an eviction did not free the master's blocks", drops=drops[:4])
+        # the watermark: a floor above any headroom evicts the LRU tenant
+        # at the sweep after the next tenant dispatch
+        engine.pager.min_headroom_frac = 1.0
+        frontend.adapt(x, y, tenant=TENANT_IDS[1])
+        adapts += 1
+        engine.pager.min_headroom_frac = 0.0
+        metrics = frontend.metrics()
+        memory = metrics["memory"]
+        check(metrics["resilience"].get("tenant_watermark_evictions") == 1
+              and metrics["tenants"]["pager"]["resident_tenants"] == [TENANT_IDS[1]]
+              and memory["available_devices"] == 1 and memory["headroom_frac_min"] < 1.0,
+              "tenancy", "the watermark eviction", resilience=metrics["resilience"],
+              pager=metrics["tenants"]["pager"], memory=memory)
+        # with cuDNN deterministic: a tenant against its control, and a
+        # clone on the engine's own card against the engine
+        torch.backends.cudnn.deterministic = True
+        try:
+            ctrl = AdaptationEngine.from_run_dir(control_dir, "latest", cfg=system.cfg, system=system)
+            paged = engine.predict(engine.adapt(x, y, tenant=TENANT_IDS[3]), q, tenant=TENANT_IDS[3])
+            control_dev = float(abs(paged - ctrl.predict(ctrl.adapt(x, y), q)).max())
+            clone = engine.clone_for_device(torch.device("cuda:0"), 1)
+            mine = engine.predict(engine.adapt(x, y), q)
+            theirs = clone.predict(clone.adapt(x, y), q)
+            tmine = engine.predict(engine.adapt(x, y, tenant=TENANT_IDS[2]), q, tenant=TENANT_IDS[2])
+            ttheirs = clone.predict(clone.adapt(x, y, tenant=TENANT_IDS[2]), q, tenant=TENANT_IDS[2])
+            adapts += 6
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(control_dev <= ALONE_TOLERANCE["maml++"], "tenancy",
+              "a tenant's answer differs from its control under deterministic cuDNN", max_abs=control_dev)
+        clone_dev = max(float(abs(mine - theirs).max()), float(abs(tmine - ttheirs).max()))
+        check(clone_dev <= ALONE_TOLERANCE["maml++"] and clone.ledger_tag == "@r1" and clone.pager is not engine.pager
+              and clone.pager.stats()["page_ins"] == 1, "tenancy", "clone_for_device(cuda:0) differs from the engine",
+              max_abs=clone_dev)
+        launches = fu.launch_counts["fused_sgd"]
+        check(launches == system.cfg.number_of_evaluation_steps_per_iter * adapts, "tenancy",
+              "in-process B1 launches != 5 x adapts", launches=launches, adapts=adapts)
+    finally:
+        frontend.close()
+    p50, p99 = np.percentile(np.asarray(samples, np.float64), [50, 99])
+    return {
+        "page_in_ms": {"p50": float(p50), "p99": float(p99), "n": len(samples), "max": max(samples)},
+        "adapt_cold_ms": _percentiles(cold), "adapt_resident_ms": _percentiles(warm),
+        "eviction_freed_bytes": drops[0][0], "watermark_headroom_frac_min": memory["headroom_frac_min"],
+        "watermark_bytes_in_use": memory["devices"][0].get("bytes_in_use"), "clone_max_abs": clone_dev,
+        "clone_exact": clone_dev == 0.0, "deterministic_control_max_abs": control_dev,
+        "in_process_launches": launches, "in_process_adapts": adapts,
+    }
 
 
 def make_omniglot_folder(root: str, seed: int) -> str:
@@ -2258,22 +2565,33 @@ def main() -> int:
     apply_matmul_precision("highest")
     torch.cuda.set_device(0)
 
-    smi, parent = phase_device(args.parent_kernels)
-    kernel = phase_kernel(args.seed, parent)
-    kernel_bwd = phase_kernel_bwd(args.seed, parent)
-    phase_small(args.seed)
-    sl = phase_slice(args.seed)
-    tr, system, trained = phase_train(args.seed)
-    served = phase_serve_trained(args.seed, system, trained)
-    http = phase_http(args.seed, system, trained)
-    st = phase_strategies(args.seed, tr["train_step_ms_median"])
-    phase_precision(args.seed)
-    rn = phase_runner(args.seed, tr["train_step_ms_median"])
-    rs = phase_resnet(args.seed)
-    rm = phase_remat(args.seed)
-    br = phase_breadth(args.seed)
+    # each phase's wall seconds, for the run's time budget
+    seconds = {}
+
+    def timed(name, fn, *fn_args):
+        t0 = time.monotonic()
+        out = fn(*fn_args)
+        seconds[name] = round(time.monotonic() - t0, 1)
+        return out
+
+    smi, parent = timed("device", phase_device, args.parent_kernels)
+    kernel = timed("kernel", phase_kernel, args.seed, parent)
+    kernel_bwd = timed("kernel_bwd", phase_kernel_bwd, args.seed, parent)
+    timed("small", phase_small, args.seed)
+    sl = timed("slice", phase_slice, args.seed)
+    tr, system, trained = timed("train", phase_train, args.seed)
+    served = timed("serve_trained", phase_serve_trained, args.seed, system, trained)
+    http = timed("http", phase_http, args.seed, system, trained)
+    tn = timed("tenancy", phase_tenancy, args.seed, system, trained, http["alone_bound"])
+    st = timed("strategies", phase_strategies, args.seed, tr["train_step_ms_median"])
+    timed("precision", phase_precision, args.seed)
+    rn = timed("runner", phase_runner, args.seed, tr["train_step_ms_median"])
+    rs = timed("resnet", phase_resnet, args.seed)
+    rm = timed("remat", phase_remat, args.seed)
+    br = timed("breadth", phase_breadth, args.seed)
+    emit({"phase": "timing", "seconds": seconds, "total_s": round(sum(seconds.values()), 1)})
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
-                 "http_serving": http["launches"],
+                 "http_serving": http["launches"], "tenancy": tn["launches"],
                  "anil_train": st["launches_with_eval"]["fused_sgd"],
                  "anil_remat": st["remat_full"]["launches"]["fused_sgd"], "strategies_serving": st["launches"],
                  "runner": rn["launches"]["fused_sgd"], "resnet": rs["launches"]["fused_sgd"],

@@ -41,6 +41,7 @@ from ..core.maml import MAMLSystem
 from ..core.train_state import TrainState
 from ..data import MetaLearningDataLoader
 from ..observability import TelemetryHub
+from ..observability.memory import MemoryWatermarks
 from ..resilience.faults import injector_from
 from ..resilience.watchdog import HeartbeatWatchdog
 from ..utils.trees import tree_leaves
@@ -142,22 +143,20 @@ class ExperimentRunner:
         # span tracer + metrics registry + logs/telemetry.jsonl snapshots;
         # inert when observability.enabled is false
         self.hub = TelemetryHub.from_config(cfg.observability, logs_dir=self.logs_dir)
+        # the device memory watermarks: a provider of every telemetry
+        # snapshot, and one hbm_headroom_low event per card before an OOM
+        self._memory: Optional[MemoryWatermarks] = None
         if self.hub.enabled:
             kind = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
             self.hub.registry.set_gauge("device_kind", kind)
-            # the JAX runner's XLA compile ledger and HBM watermarks have no
-            # port yet: record that, so that no artifact claims them
-            missing = [
-                name
-                for name, on in (
-                    ("observability.compile_ledger", cfg.observability.compile_ledger),
-                    ("observability.memory_watermarks", cfg.observability.memory_watermarks),
-                )
-                if on
-            ]
-            if missing:
+            if cfg.observability.memory_watermarks:
+                self._memory = MemoryWatermarks(cfg.observability.hbm_headroom_warn_frac)
+            # the JAX runner's XLA compile ledger has no port yet: record
+            # that, so that no artifact claims it
+            if cfg.observability.compile_ledger:
                 self.events.append(
-                    {"ts": time.time(), "event": "not_ported", "modules": missing, "roadmap": "A10"}
+                    {"ts": time.time(), "event": "not_ported", "modules": ["observability.compile_ledger"],
+                     "roadmap": "A10"}
                 )
         # program variants already run once (second order x MSL): the first
         # step of each is tagged cold in the trace
@@ -269,6 +268,8 @@ class ExperimentRunner:
             if self._watchdog is not None:
                 self.hub.add_provider("watchdog_beat_age_s", lambda: round(self._watchdog.beat_age_s(), 3))
             self.hub.add_provider("loader", self.loader.stats)
+            if self._memory is not None:
+                self.hub.add_provider("memory", self._memory.snapshot)
 
     # ------------------------------------------------------------------
 
@@ -764,6 +765,9 @@ class ExperimentRunner:
             # after eval + checkpoint so the epoch snapshot's cumulative
             # phase sums include every phase of this epoch
             self.hub.snapshot("epoch", epoch=epoch, train_wall_s=round(float(stats["epoch_run_time"]), 3))
+            # the headroom check rides the epoch cadence (latched per card)
+            if self._memory is not None:
+                self._memory.maybe_warn(self.events)
             # a preemption signal that landed during eval/save: the epoch
             # checkpoint just written is complete, so exit restartable
             if self._preempt_signum is not None:

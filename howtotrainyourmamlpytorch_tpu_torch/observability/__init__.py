@@ -1,11 +1,13 @@
 """Run telemetry: span tracing (:mod:`trace`), the metrics registry
 (:mod:`metrics`), the hub that snapshots both to ``logs/telemetry.jsonl``
 (:mod:`telemetry`) and the serving request context (:mod:`context`),
-copies of the JAX package's stdlib and numpy modules.
+copies of the JAX package's stdlib and numpy modules, and the device
+memory watermarks (:mod:`memory`, over the CUDA caching allocator's
+counters).
 
 The XLA-specific modules of the JAX package's ``observability/`` (the
-compile ledger, ``costs``, ``memory`` and ``donation``) are not ported
-(ROADMAP.md A10).
+compile ledger, ``costs`` and ``donation``) are not ported (ROADMAP.md
+A10).
 """
 
 from .metrics import MetricsRegistry  # noqa: F401

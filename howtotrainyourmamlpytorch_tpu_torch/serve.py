@@ -21,6 +21,14 @@ back) and serves the JSON API:
     GET  /metrics        latency percentiles, cache, batchers, kernel launches
                          (?format=prom: OpenMetrics text)
 
+Every POST may carry ``"tenant": "<id>"``: with a ``tenants.yaml`` in
+``RUN_DIR`` (or ``serving.tenant_registry=PATH``) the server is multi-tenant
+(``serving/registry.py``) and the request runs against that tenant's
+checkpoint, paged onto the card under ``serving.tenant_budget_bytes``;
+``serving.tenant_max_inflight``, ``tenant_rate_rps`` and
+``tenant_max_resident_bytes`` are per-tenant quotas (429 + Retry-After),
+and ``/metrics`` gains a ``tenants`` block.
+
 ``key=value`` overrides patch the run's config (dotted paths, e.g.
 ``serving.refine_enabled=true``), before or after the flags. SIGTERM or
 SIGINT drains gracefully: in-flight requests finish, cached sessions spill

@@ -9,7 +9,12 @@ checkpoint as a request engine on the card.
 - :mod:`batcher` — ``MicroBatcher``: deadline/max-batch micro-batching —
   continuous under load — of concurrent requests into device dispatches;
 - :mod:`pool` — ``EnginePool``/``EngineReplica``: replicas, each with its
-  own batchers, breaker and cache, sharing the one engine on the card;
+  own batchers, breaker and cache, sharing one engine per card (a clone of
+  the engine on every card but its own);
+- :mod:`registry` — ``TenantRegistry``: tenant ids -> checkpoints, masters
+  loaded lazily into pinned host RAM;
+- :mod:`tenancy` — ``WeightPager`` (tenant masters paged onto the card
+  under a byte budget and the memory watermark) and ``TenantQuotas``;
 - :mod:`router` — ``Router``: cache-affinity routing (rendezvous hashing)
   + admission control shed;
 - :mod:`sessions` — ``SessionStore``: sessions spilled at a drain and

@@ -24,11 +24,18 @@ A flush never mixes strategies. Each dispatch is a span of ``tracer``
 ``serve.predict_dispatch``); the request contexts ``ctxs`` get the dispatch
 seconds and their trace flows end there.
 
+Multi-tenant mode (``serving/registry.py``, ``serving/tenancy.py``): with a
+``registry`` every dispatch names a tenant (``None``: the engine's own
+checkpoint) and runs against that tenant's master, which the engine's
+``WeightPager`` pages onto the card. A flush never mixes tenants.
+``clone_for_device`` makes a replica of the engine on another card
+(``serving/pool.py``).
+
 PyTorch runs eagerly and compiles nothing, so the buckets here only bound
 the set of shapes the card sees. Left out: the fault drills (the injector
-is inert, ROADMAP.md A9), the compile ledger and strict guard (A10), the
-tenant pager and ``clone_for_device`` (A8.4). Refine sessions (the guard,
-lineage and spill) live in the frontend (``serving/server.py``).
+is inert, ROADMAP.md A9), the compile ledger and strict guard (A10).
+Refine sessions (the guard, lineage and spill) live in the frontend
+(``serving/server.py``).
 """
 
 import os
@@ -49,6 +56,8 @@ from ..ops import fused_update
 from ..resilience.faults import injector_from
 from ..utils.interop import state_from_jax
 from ..utils.trees import tree_map
+from .registry import TenantRegistry
+from .tenancy import WeightPager
 
 
 def _bucket_for(size: int, buckets: Sequence[int]) -> int:
@@ -94,6 +103,9 @@ class AdaptationEngine:
         serving_cfg: Optional[ServingConfig] = None,
         fingerprint: Optional[str] = None,
         tracer=None,
+        injector=None,
+        ledger_tag: str = "",
+        registry: Optional[TenantRegistry] = None,
     ):
         self.system = system
         self.cfg = system.cfg
@@ -104,11 +116,9 @@ class AdaptationEngine:
         # span tracer of the dispatches (observability/trace.py)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         # the fault seams' injector: inert, and a named drill raises (A9)
-        self.injector = injector_from(self.cfg.resilience)
-        if self.serving.tenant_registry:
-            raise NotImplementedError(
-                "multi-tenant serving is not ported to PyTorch yet (ROADMAP.md A8.4)"
-            )
+        self.injector = injector if injector is not None else injector_from(self.cfg.resilience)
+        # a fleet replica's tag ("@r1", serving/pool.py)
+        self.ledger_tag = str(ledger_tag)
         if isinstance(state, ckpt.InferenceState):
             fingerprint = fingerprint or state.fingerprint
             params, bn_state, hparams = state_from_jax(
@@ -124,6 +134,21 @@ class AdaptationEngine:
             )
         self.state: TrainState = state
         self.fingerprint = fingerprint or "live"
+        # multi-tenant mode: the pager is per engine, so each fleet replica
+        # owns its card's tenant residency; the engine's own state is the
+        # pager's template (never paged, never counted)
+        self.registry = registry
+        self.pager: Optional[WeightPager] = None
+        if registry is not None:
+            registry.template = self.state
+            registry.feature_shape = system.model.feature_shape
+            self.pager = WeightPager(
+                registry,
+                self.state,
+                device=self.device,
+                budget_bytes=self.serving.tenant_budget_bytes,
+                min_headroom_frac=self.serving.tenant_min_headroom_frac,
+            )
         self.num_steps = self.serving.adapt_steps or self.cfg.number_of_evaluation_steps_per_iter
         self.num_classes = self.cfg.num_classes_per_set
         # (strategy, padded size, task-batch bucket) shapes served so far
@@ -143,23 +168,46 @@ class AdaptationEngine:
         """An engine over a run directory the JAX package wrote:
         ``config.yaml`` + ``saved_models/train_model_{idx}``.
         ``checkpoint_idx='best'`` falls back to 'latest' when no best-val
-        checkpoint exists. ``device`` is used only when ``system`` is None."""
+        checkpoint exists. ``device`` is used only when ``system`` is None.
+        A tenant registry (``serving.tenant_registry``, or ``tenants.yaml``
+        in the run directory) puts the engine in multi-tenant mode."""
         if cfg is None:
             cfg = load_config(os.path.join(run_dir, "config.yaml"))
-        if cfg.serving.tenant_registry or os.path.exists(os.path.join(run_dir, "tenants.yaml")):
-            raise NotImplementedError(
-                "multi-tenant serving is not ported to PyTorch yet (ROADMAP.md A8.4)"
-            )
         # the device is settled before the checkpoint is read
         system = system or MAMLSystem(cfg, device=device)
         save_dir = os.path.join(run_dir, "saved_models")
         if checkpoint_idx == "best" and not ckpt.checkpoint_exists(save_dir, "best"):
             checkpoint_idx = "latest"
         state, _ = ckpt.load_for_inference(save_dir, checkpoint_idx)
-        engine = cls(system, state, serving_cfg=cfg.serving)
+        registry = TenantRegistry.discover(cfg.serving, run_dir=run_dir)
+        engine = cls(system, state, serving_cfg=cfg.serving, registry=registry)
         # the frontend spills and rehydrates sessions under it
         engine.save_dir = save_dir
         return engine
+
+    def clone_for_device(self, device, index: int) -> "AdaptationEngine":
+        """A replica of this engine on ``device`` (``serving/pool.py``): a
+        ``MAMLSystem`` over the same config and model functions bound to
+        that card, the state copied there, and the same fingerprint,
+        injector, tracer and registry. The clone's tag is ``@r<index>`` and
+        it has a pager of its own (each card owns its tenant residency)."""
+        system = MAMLSystem(self.cfg, model=self.system.model, device=device)
+        move = lambda t: t.to(system.device)  # noqa: E731
+        state = TrainState(
+            params=tree_map(move, self.state.params),
+            bn_state=tree_map(move, self.state.bn_state),
+            inner_hparams=tree_map(move, self.state.inner_hparams),
+            opt_state=None,
+            step=self.state.step,
+        )
+        clone = AdaptationEngine(
+            system, state, serving_cfg=self.serving, fingerprint=self.fingerprint, tracer=self.tracer,
+            injector=self.injector, ledger_tag=f"@r{index}", registry=self.registry,
+        )
+        # replicas of a run-dir engine spill and rehydrate sessions alike
+        if getattr(self, "save_dir", None):
+            clone.save_dir = self.save_dir
+        return clone
 
     def compile_counts(self) -> Dict[str, Any]:
         """The shape grid served so far, the precision policy, the strategy
@@ -176,6 +224,9 @@ class AdaptationEngine:
         }
         if self.serving.refine_enabled:
             out["refine_programs"] = len(self._refine_shapes)
+        if self.registry is not None:
+            # tenant mode: the same shapes serve every tenant's master
+            out["tenants"] = list(self.registry.tenants())
         return out
 
     def support_bucket(self, size: int) -> int:
@@ -195,14 +246,17 @@ class AdaptationEngine:
             y = y.reshape(-1)
         return x, y
 
-    def _strategy(self, strategy: Optional[str], tenant: Optional[str]) -> str:
-        strategy = validate_request_strategy(strategy, self.strategies)
-        if tenant is not None:
-            raise NotImplementedError(
-                f"request names tenant {tenant!r}: multi-tenant serving is not "
-                "ported to PyTorch yet (ROADMAP.md A8.4)"
-            )
-        return strategy
+    def _tenant_state(self, tenant: Optional[str]) -> TrainState:
+        """The master a dispatch runs against: the engine's own state, or
+        the tenant's, paged onto the card by the pager."""
+        if self.pager is None:
+            if tenant is not None:
+                raise ValueError(
+                    f"request names tenant {tenant!r} but this engine has no "
+                    "tenant registry (serving.tenant_registry)"
+                )
+            return self.state
+        return self.pager.resident(tenant)
 
     @staticmethod
     def _dispatch_flows(ctxs):
@@ -218,12 +272,15 @@ class AdaptationEngine:
             if c is not None:
                 c.dispatch_s = seconds
 
-    def _dispatch(self, name: str, ctxs, strategy: str, n: int, bucket: int, call):
+    def _dispatch(self, name: str, ctxs, strategy: str, n: int, bucket: int, call, tenant: Optional[str] = None):
         """``call()`` under the dispatch span ``name``; the span and the
         request contexts get its wall seconds (up to the first
         synchronisation: predict copies to the host inside ``call``)."""
+        span_kw = dict(batch=n, bucket=bucket, strategy=strategy)
+        if tenant is not None:
+            span_kw["tenant"] = tenant
         t0 = time.monotonic()
-        with self.tracer.span(name, flows=self._dispatch_flows(ctxs), batch=n, bucket=bucket, strategy=strategy):
+        with self.tracer.span(name, flows=self._dispatch_flows(ctxs), **span_kw):
             out = call()
         self._stamp_dispatch(ctxs, time.monotonic() - t0)
         return out
@@ -262,17 +319,19 @@ class AdaptationEngine:
         """Adapt a group of support sets ``(x_support, y_support)`` in one
         task-batched call; returns one adapted tree per item (tensors on
         the engine's device): fast weights, or under ``protonet`` a
-        prototype table."""
-        strategy = self._strategy(strategy, tenant)
+        prototype table. ``tenant`` names the master the whole group adapts
+        against (None: the engine's own)."""
+        strategy = validate_request_strategy(strategy, self.strategies)
+        state = self._tenant_state(tenant)
         xs, ys, ws, bucket, b = self._support_flush(items)
         n = len(items)
         self._adapt_shapes.add((strategy, bucket, b))
         if strategy == "protonet":
-            call = lambda: self.system.protonet_adapt(self.state, xs, ys, support_weight=ws)  # noqa: E731
+            call = lambda: self.system.protonet_adapt(state, xs, ys, support_weight=ws)  # noqa: E731
         else:
             call = lambda: self.system.adapt_fast_weights(  # noqa: E731
-                self.state, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
-        stacked = self._dispatch("serve.adapt_dispatch", ctxs, strategy, n, bucket, call)
+                state, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+        stacked = self._dispatch("serve.adapt_dispatch", ctxs, strategy, n, bucket, call, tenant)
         return self._split(stacked, n)
 
     def adapt(self, x_support, y_support, strategy: Optional[str] = None,
@@ -287,16 +346,17 @@ class AdaptationEngine:
         ``(fast_weights, x_support, y_support)``; returns one refined tree
         per item. ``protonet`` raises: a prototype table is recomputed by
         :meth:`adapt_batch`."""
-        strategy = self._strategy(strategy, tenant)
+        strategy = validate_request_strategy(strategy, self.strategies)
         if strategy == "protonet":
             raise ValueError("protonet has no refine rollout: recompute the prototypes with adapt_batch")
+        state = self._tenant_state(tenant)
         xs, ys, ws, bucket, b = self._support_flush([(x, y) for _, x, y in items])
         stacked_fw = self._stack_trees([fw for fw, _, _ in items], b)
         n = len(items)
         self._refine_shapes.add((strategy, bucket, b))
         call = lambda: self.system.refine_fast_weights(  # noqa: E731
-            self.state, stacked_fw, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
-        stacked = self._dispatch("serve.refine_dispatch", ctxs, strategy, n, bucket, call)
+            state, stacked_fw, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+        stacked = self._dispatch("serve.refine_dispatch", ctxs, strategy, n, bucket, call, tenant)
         return self._split(stacked, n)
 
     def refine(self, fast_weights, x_support, y_support, strategy: Optional[str] = None,
@@ -312,7 +372,8 @@ class AdaptationEngine:
         softmax probabilities ``[Q_i, num_classes]`` as host arrays, padding
         sliced off. Under ``protonet`` the queries embed through the master
         params and are scored against each item's prototype table."""
-        strategy = self._strategy(strategy, tenant)
+        strategy = validate_request_strategy(strategy, self.strategies)
+        state = self._tenant_state(tenant)
         queries = [np.asarray(x, np.float32) for _, x in items]
         sizes = [q.shape[0] for q in queries]
         bucket = self.query_bucket(max(sizes))
@@ -325,7 +386,7 @@ class AdaptationEngine:
         xs, ws = np.stack(xs), np.stack(ws)
         self._predict_shapes.add((strategy, bucket, b))
         stacked = self._stack_trees([fw for fw, _ in items], b)
-        system, state = self.system, self.state
+        system = self.system
 
         def call():
             if strategy == "protonet":
@@ -335,7 +396,7 @@ class AdaptationEngine:
             # the flush's one device-to-host copy: predictions go back to clients
             return torch.softmax(logits, dim=-1).cpu().numpy()
 
-        probs = self._dispatch("serve.predict_dispatch", ctxs, strategy, n, bucket, call)
+        probs = self._dispatch("serve.predict_dispatch", ctxs, strategy, n, bucket, call, tenant)
         return [probs[i, : sizes[i]] for i in range(n)]
 
     def predict(self, fast_weights, x_query, strategy: Optional[str] = None,

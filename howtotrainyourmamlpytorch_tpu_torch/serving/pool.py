@@ -7,11 +7,11 @@ the engine, its adapt/predict (and, under ``serving.refine_enabled``,
 refine) micro-batchers (continuous batching — ``serving/batcher.py``), its
 circuit breaker, its adapted-weight cache (the affinity target the router
 keeps sessions sticky to), and its outcome counters. :class:`EnginePool`
-spawns the replicas; every replica on the engine's device SHARES the one
-engine object — separate batchers, breakers, and caches over one state on
-the card. A replica that would land on a second card needs
-``AdaptationEngine.clone_for_device``, which is not ported yet (ROADMAP.md
-A8.4): :meth:`EnginePool.build` raises for it.
+spawns the replicas, replica k on card ``k % n``: every replica on the
+engine's card SHARES the one engine object — separate batchers, breakers,
+and caches over one state on the card — and every other card gets one
+clone of the engine (``AdaptationEngine.clone_for_device``), shared by the
+replicas landing there.
 
 Dispatch guarding (breaker + queue shed + per-request deadline + timeout
 attribution) lives on the replica; the router (``serving/router.py``)
@@ -36,11 +36,42 @@ from ..utils.locks import note_blocking, san_lock
 
 def _key_strategy(key) -> "str | None":
     """Strategy component of a batcher group key: ``(strategy, bucket)``
-    from the frontend; a bare bucket means the engine default (None).
-    (The JAX package's tenant keys come with tenancy, ROADMAP.md A8.4.)"""
+    and ``(tenant, strategy, bucket)`` tuples carry one; bare buckets
+    (tests) mean the engine default (None)."""
+    if isinstance(key, tuple) and len(key) == 3:
+        return key[1]
     if isinstance(key, tuple) and len(key) == 2 and isinstance(key[0], str):
         return key[0]
     return None
+
+
+def _key_tenant(key) -> "str | None":
+    """Tenant component of a batcher group key: only the 3-tuple
+    ``(tenant, strategy, bucket)`` form carries one — default-tenant
+    traffic keeps the 2-tuple keys, so a flush never mixes tenants."""
+    if isinstance(key, tuple) and len(key) == 3:
+        return key[0]
+    return None
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: ``torch.device("cuda")`` (what
+    ``resolve_device`` returns) is the current card, and is not equal to
+    ``cuda:0`` until the index is filled in."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _visible_devices(device) -> List[torch.device]:
+    """The cards a pool over an engine on ``device`` spreads across: every
+    visible CUDA card, or the one CPU (replicas on the CPU share one
+    device, as the JAX package's do)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 class EngineReplica:
@@ -83,7 +114,7 @@ class EngineReplica:
         # requests of different adaptation strategies never share a flush
         self.adapt_batcher = MicroBatcher(
             lambda key, payloads, ctxs: self.engine.adapt_batch(
-                payloads, ctxs=ctxs, strategy=_key_strategy(key)
+                payloads, ctxs=ctxs, strategy=_key_strategy(key), tenant=_key_tenant(key)
             ),
             max_batch=serving_cfg.max_batch_size,
             deadline_ms=serving_cfg.batch_deadline_ms,
@@ -95,7 +126,7 @@ class EngineReplica:
         )
         self.predict_batcher = MicroBatcher(
             lambda key, payloads, ctxs: self.engine.predict_batch(
-                payloads, ctxs=ctxs, strategy=_key_strategy(key)
+                payloads, ctxs=ctxs, strategy=_key_strategy(key), tenant=_key_tenant(key)
             ),
             max_batch=serving_cfg.max_batch_size,
             deadline_ms=serving_cfg.batch_deadline_ms,
@@ -112,7 +143,7 @@ class EngineReplica:
         if getattr(serving_cfg, "refine_enabled", False):
             self.refine_batcher = MicroBatcher(
                 lambda key, payloads, ctxs: self.engine.refine_batch(
-                    payloads, ctxs=ctxs, strategy=_key_strategy(key)
+                    payloads, ctxs=ctxs, strategy=_key_strategy(key), tenant=_key_tenant(key)
                 ),
                 max_batch=serving_cfg.max_batch_size,
                 deadline_ms=serving_cfg.batch_deadline_ms,
@@ -275,9 +306,10 @@ class EngineReplica:
 class EnginePool:
     """The replica set one frontend serves through.
 
-    ``n_replicas=0`` means one per visible device. Every replica on the
-    engine's device shares its engine object (and so its state on the
-    card)."""
+    ``n_replicas=0`` means one per visible device. Replicas on the
+    engine's card share its engine object (and so its state on the card);
+    replicas on OTHER cards share one clone per card
+    (``AdaptationEngine.clone_for_device``)."""
 
     def __init__(self, replicas: List[EngineReplica]):
         if not replicas:
@@ -294,38 +326,48 @@ class EnginePool:
         counters,
         tracer=None,
         clock=time.monotonic,
+        devices: Optional[List[Any]] = None,
     ) -> "EnginePool":
-        device = torch.device(engine.device)
-        # on the CPU the replicas share one device, as the JAX package's do
-        n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-        n = int(n_replicas) if n_replicas else n_devices
+        """Replica k on ``devices[k % len(devices)]`` (default:
+        :func:`_visible_devices`): the engine's own card reuses the engine,
+        every other card gets ONE clone, never one per replica."""
+        devices = [_indexed(d) for d in (devices if devices is not None else _visible_devices(engine.device))]
+        n = int(n_replicas) if n_replicas else len(devices)
         if n < 1:
             raise ValueError(f"n_replicas must be >= 1 (or 0 = per device), got {n_replicas}")
-        if n_devices > 1 and n > 1:
-            # replica k lands on device k % n_devices, as in the JAX package;
-            # any but the engine's own needs a clone of the engine there
-            raise NotImplementedError(
-                f"{n} serving replicas over {n_devices} devices need "
-                "AdaptationEngine.clone_for_device, which is not ported to "
-                "PyTorch yet (ROADMAP.md A8.4); serve with serving.replicas=1"
+        engine_by_device: Dict[torch.device, Any] = {_indexed(engine.device): engine}
+        replicas: List[EngineReplica] = []
+        for k in range(n):
+            target = devices[k % len(devices)]
+            rep_engine = engine_by_device.get(target)
+            if rep_engine is None:
+                rep_engine = engine.clone_for_device(target, k)
+                engine_by_device[target] = rep_engine
+            replicas.append(
+                EngineReplica(
+                    k,
+                    rep_engine,
+                    serving_cfg,
+                    resilience_cfg,
+                    counters,
+                    tracer=tracer,
+                    clock=clock,
+                    solo=(n == 1),
+                )
             )
-        replicas = [
-            EngineReplica(
-                k,
-                engine,
-                serving_cfg,
-                resilience_cfg,
-                counters,
-                tracer=tracer,
-                clock=clock,
-                solo=(n == 1),
-            )
-            for k in range(n)
-        ]
         return cls(replicas)
 
     def __len__(self) -> int:
         return len(self.replicas)
+
+    def engines(self) -> List[Any]:
+        """The distinct engines behind the replicas (shared-engine replicas
+        dedup to one entry)."""
+        seen: List[Any] = []
+        for r in self.replicas:
+            if not any(r.engine is e for e in seen):
+                seen.append(r.engine)
+        return seen
 
     def batcher_stats(self, kind: str) -> Dict[str, Any]:
         """Fleet-aggregate batcher stats under the single-batcher schema
@@ -366,6 +408,24 @@ class EnginePool:
         }
         total = out["hits"] + out["misses"]
         out["hit_rate"] = (out["hits"] / total) if total else 0.0
+        return out
+
+    def pager_stats(self) -> Optional[Dict[str, Any]]:
+        """Fleet-aggregate weight-pager stats (serving/tenancy.py), or None
+        when the fleet is single-tenant: counts summed across the distinct
+        engines' pagers, resident tenants the union (each card owns its
+        own resident set)."""
+        pagers = [e.pager for e in self.engines() if getattr(e, "pager", None) is not None]
+        if not pagers:
+            return None
+        rows = [p.stats() for p in pagers]
+        out: Dict[str, Any] = {
+            key: sum(row[key] for row in rows) for key in ("resident", "resident_bytes", "page_ins", "evictions")
+        }
+        out["budget_bytes"] = rows[0]["budget_bytes"]
+        out["resident_tenants"] = sorted({t for row in rows for t in row["resident_tenants"]})
+        p50s = [row["page_in_p50_ms"] for row in rows if row["page_in_p50_ms"] is not None]
+        out["page_in_p50_ms"] = round(sorted(p50s)[len(p50s) // 2], 3) if p50s else None
         return out
 
     def stats(self) -> List[Dict[str, Any]]:

@@ -16,6 +16,15 @@ predict on the card), adapted-weight cache, micro-batchers, latency metrics
 - ``adapt_predict(...)``: both in one call, for one-shot clients.
 - ``metrics() / healthz()``: the observability surface.
 
+Every request may name a tenant (``serving/registry.py``): with a tenant
+registry the engine pages that tenant's master onto the card
+(``serving/tenancy.py::WeightPager``), per-tenant quotas shed 429 +
+``Retry-After`` at admission, the cache key carries the tenant's checkpoint
+fingerprint (so one tenant never resolves another's adaptation id), and
+``/metrics`` gains a ``tenants`` block. With observability on, the device
+memory watermarks (``observability/memory.py``) are the ``memory`` block
+and the pagers' eviction signal.
+
 The HTTP layer (``ThreadingHTTPServer`` + JSON bodies) is stdlib-only and
 thin: every handler parses JSON, calls the frontend, serializes the result.
 Concurrency comes from the threaded server (one thread per in-flight
@@ -24,10 +33,9 @@ the engine names its device on every tensor and kernel launch, so a worker
 thread needs no current-device state of its own.
 
 Not ported yet, and refused where a config asks for them: the AOT prewarm
-(``aot.enabled``, ROADMAP.md A10), the lock-discipline sanitizer
-(``resilience.sanitizer``, ``HTYMP_GRAFTSAN=1``; A9) and tenancy (A8.4).
-The compile-ledger and memory-watermark hub providers are A10: ``/metrics``
-has no ``memory`` block.
+(``aot.enabled``, ROADMAP.md A10) and the lock-discipline sanitizer
+(``resilience.sanitizer``, ``HTYMP_GRAFTSAN=1``; A9). The compile-ledger
+hub provider is A10.
 """
 
 import contextlib
@@ -56,6 +64,7 @@ from ..observability.context import (
     new_request_context,
     parse_traceparent,
 )
+from ..observability.memory import MemoryWatermarks
 from ..observability.metrics import prometheus_text
 from ..observability.trace import NULL_TRACER
 from ..resilience.retry import DeadlineExceededError
@@ -71,9 +80,28 @@ from .metrics import EventCounters, LatencyStats
 from .pool import EnginePool
 from .router import Router, rendezvous_score
 from .sessions import SessionStore, decode_lineage, encode_lineage
-from .tenancy import validate_request_tenant
+from .tenancy import QuotaExceededError, TenantQuotas, validate_request_tenant
 
 from ..utils.locks import san_condition, san_lock
+
+
+class _LazyTenantFingerprints:
+    """Mapping view the session rehydrator hands ``SessionStore.load_all``:
+    ``get(tenant)`` resolves a REGISTERED tenant's checkpoint fingerprint on
+    demand (loading its master into host RAM only then), so rehydrating a
+    run dir with zero spilled tenant sessions never touches a tenant
+    checkpoint — the registry stays lazy."""
+
+    def __init__(self, registry):
+        self._registry = registry
+
+    def get(self, tenant, default=None):
+        if tenant not in self._registry:
+            return default
+        try:
+            return self._registry.fingerprint(tenant)
+        except Exception:  # noqa: BLE001 — an unloadable tenant is foreign
+            return default
 
 
 class ServingFrontend:
@@ -112,6 +140,7 @@ class ServingFrontend:
         self.hub = hub if hub is not None else TelemetryHub.from_config(engine.cfg.observability)
         self.latency = LatencyStats(self.serving.latency_window, registry=self.hub.registry)
         self.counters = EventCounters(registry=self.hub.registry)
+        self._memory: Optional[MemoryWatermarks] = None
         # structured access log (observability/context.py): one JSON line
         # per request in <access_log_dir>/access.jsonl, and serving events
         # (drain milestones, session spill/rehydrate) in events.jsonl — only
@@ -132,6 +161,10 @@ class ServingFrontend:
             if self.engine.tracer is NULL_TRACER:
                 self.engine.tracer = self.hub.tracer
             self.hub.add_provider("breaker", lambda: self.breaker.snapshot())
+            obs_cfg = engine.cfg.observability
+            if obs_cfg.memory_watermarks:
+                self._memory = MemoryWatermarks(obs_cfg.hbm_headroom_warn_frac)
+                self.hub.add_provider("memory", self._memory.snapshot)
         # --- the fleet: pool + router (serving/pool.py, serving/router.py)
         # One EngineReplica per requested replica, each with its own
         # batchers (continuous batching), circuit breaker, and adapted-
@@ -151,6 +184,21 @@ class ServingFrontend:
             max_queued_per_replica=self.serving.router_max_queued_per_replica,
             shed_retry_after_s=self.resilience.shed_retry_after_s,
         )
+        # --- multi-tenant serving (serving/registry.py + tenancy.py) ------
+        # quotas and the watermark eviction signal only exist when the
+        # engine carries a registry; single-tenant frontends pay nothing
+        self.quotas: Optional[TenantQuotas] = None
+        if engine.registry is not None:
+            self.quotas = TenantQuotas(
+                max_inflight=self.serving.tenant_max_inflight,
+                rate_rps=self.serving.tenant_rate_rps,
+                max_resident_bytes=self.serving.tenant_max_resident_bytes,
+            )
+            if self._memory is not None:
+                # real per-card memory pressure preempts the static budget
+                for e in self.pool.engines():
+                    if e.pager is not None:
+                        e.pager.watermarks = self._memory
         # single-replica views (tests, operator tools): the primary's objects
         primary = self.pool.replicas[0]
         self.breaker = primary.breaker
@@ -249,13 +297,17 @@ class ServingFrontend:
 
     # ------------------------------------------------------------------
 
-    def _cache_key(self, digest: str, strategy: str) -> Tuple[str, str, str]:
+    def _cache_key(self, digest: str, strategy: str, tenant: Optional[str] = None) -> Tuple[str, str, str]:
         """Adapted-session cache key: (checkpoint fingerprint, strategy,
         adaptation id). The strategy is an explicit component — a ProtoNet
         prototype table and a MAML fast-weight tree for the same support
         set must never collide — on top of being folded into the digest
-        itself (serving/cache.py::support_digest)."""
-        return (self.engine.fingerprint, strategy, digest)
+        itself (serving/cache.py::support_digest). A non-default tenant's
+        key carries THAT tenant's checkpoint fingerprint, so a cross-tenant
+        predict (tenant B naming tenant A's adaptation id) misses into the
+        honest 404 — it can never resolve to another tenant's weights."""
+        fp = self.engine.registry.fingerprint(tenant) if tenant is not None else self.engine.fingerprint
+        return (fp, strategy, digest)
 
     # -- refinement lineage (serving/cache.py::SessionLineage) ----------
 
@@ -287,6 +339,60 @@ class ServingFrontend:
         one increment per request, keyed
         ``serving.strategy.<name>.<verb>.<outcome>``."""
         self.hub.registry.inc(f"serving.strategy.{strategy}.{verb}.{outcome}")
+
+    def _count_tenant(self, tenant: Optional[str], verb: str, outcome: str) -> None:
+        """Per-tenant outcome tally, keyed
+        ``serving.tenant.<id>.<verb>.<outcome>`` — only in tenant mode, so
+        a single-tenant deployment's counter namespace is unchanged."""
+        if self.engine.registry is None:
+            return
+        self.hub.registry.inc(f"serving.tenant.{tenant or 'default'}.{verb}.{outcome}")
+
+    def _acquire_quota(self, tenant: Optional[str]) -> Optional[str]:
+        """Per-tenant admission (rate + inflight token): returns the quota
+        label to release, or None when quotas are off. A breach becomes the
+        shed contract — 429 + honest ``Retry-After`` — and is per-tenant by
+        construction: other tenants' admission never sees it."""
+        if self.quotas is None or not self.quotas.enabled:
+            return None
+        label = tenant or "default"
+        try:
+            self.quotas.acquire(label)
+        except QuotaExceededError as exc:
+            self.counters.inc("tenant_quota_rejected")
+            raise ServiceUnavailableError(str(exc), retry_after_s=exc.retry_after_s, status=429) from exc
+        return label
+
+    def _check_resident_quota(self, tenant: Optional[str], fingerprint: str) -> None:
+        """Before an adapt inserts NEW bytes: the tenant's live adapted-
+        session bytes (summed over every replica cache, from the entries,
+        not counters) must fit its quota."""
+        if self.quotas is None or not self.quotas.max_resident_bytes:
+            return
+        resident = sum(r.cache.bytes_for_fingerprint(fingerprint) for r in self.pool.replicas)
+        try:
+            self.quotas.check_resident_bytes(tenant or "default", resident)
+        except QuotaExceededError as exc:
+            self.counters.inc("tenant_quota_rejected")
+            raise ServiceUnavailableError(str(exc), retry_after_s=exc.retry_after_s, status=429) from exc
+
+    def _sweep_pagers(self) -> None:
+        """Watermark eviction sweep: ask each engine's pager to evict its
+        LRU tenant while the tightest per-card headroom sits below the
+        configured floor (free when the knob is off), then forward the
+        pagers' page-in/eviction records to events.jsonl. Called after
+        tenant-mode dispatches."""
+        for e in self.pool.engines():
+            pager = e.pager
+            if pager is None:
+                continue
+            pager.check_watermark()
+            for rec in pager.drain_events():
+                if rec["event"] == "tenant_evicted":
+                    self.counters.inc("tenant_evictions")
+                    if rec.get("reason") == "hbm_watermark":
+                        self.counters.inc("tenant_watermark_evictions")
+                self._event(rec.pop("event"), **rec)
 
     def _request_ctx(self, ctx: Optional[RequestContext]) -> Optional[RequestContext]:
         """The per-request trace identity: adopt the caller's, mint one when
@@ -406,6 +512,18 @@ class ServingFrontend:
             row["requests"] += value
         return out
 
+    def tenant_stats(self) -> Dict[str, Any]:
+        """Per-tenant request/outcome tallies (same schema as
+        :meth:`strategy_stats`, keyed ``serving.tenant.<id>.<verb>.<outcome>``)
+        — the ``by_tenant`` half of the /metrics ``tenants`` block."""
+        out: Dict[str, Any] = {}
+        for name, value in self.hub.registry.counters("serving.tenant.").items():
+            t, _, rest = name.partition(".")  # rest = "<verb>.<outcome>"
+            row = out.setdefault(t, {"requests": 0})
+            row[rest] = row.get(rest, 0) + value
+            row["requests"] += value
+        return out
+
     # ------------------------------------------------------------------
     # graceful drain + session spill/rehydrate
     # ------------------------------------------------------------------
@@ -518,16 +636,27 @@ class ServingFrontend:
         count = 0
         ttl_s = float(self.serving.cache_ttl_s)
         feature_shape = self.session_store.feature_shape
+        # reverse fingerprint -> tenant map: only a LOADED tenant master can
+        # have adapted sessions in any cache, so hosted_fingerprints covers
+        # every spillable tenant entry without touching cold checkpoints
+        tenant_by_fp: Dict[str, str] = {}
+        if self.engine.registry is not None:
+            tenant_by_fp = {fp: t for t, fp in self.engine.registry.hosted_fingerprints().items()}
         for replica in self.pool.replicas:
             for key, tree, age_s in replica.cache.snapshot_entries():
                 fingerprint, strategy, digest = key
-                if fingerprint != self.engine.fingerprint or strategy == "protonet":
+                tenant = None
+                if fingerprint != self.engine.fingerprint:
+                    tenant = tenant_by_fp.get(fingerprint)
+                    if tenant is None:
+                        continue
+                if strategy == "protonet":
                     # a prototype table is one forward pass to recompute —
                     # not worth a spill file (and not a parameter tree)
                     continue
                 lineage = self._lineage_for(key)
                 self.session_store.spill(
-                    digest, tree, fingerprint, age_s=age_s, ttl_s=ttl_s, strategy=strategy,
+                    digest, tree, fingerprint, age_s=age_s, ttl_s=ttl_s, strategy=strategy, tenant=tenant,
                     lineage=encode_lineage(lineage, feature_shape) if lineage is not None else None,
                 )
                 count += 1
@@ -542,12 +671,15 @@ class ServingFrontend:
         the honest 404 + re-adapt, never a stale answer."""
         lineage_raw: Dict[str, Dict[str, Any]] = {}
         template = self.engine.state.params
+        registry = self.engine.registry
         entries, stats = self.session_store.load_all(
-            fingerprint=self.engine.fingerprint, template=template, lineage_sink=lineage_raw
+            fingerprint=self.engine.fingerprint, template=template,
+            tenant_fingerprints=_LazyTenantFingerprints(registry) if registry is not None else None,
+            lineage_sink=lineage_raw,
         )
-        for digest, tree, lived_s, strategy, _tenant in entries:
+        for digest, tree, lived_s, strategy, tenant in entries:
             replica = max(self.pool.replicas, key=lambda r: rendezvous_score(digest, r.index))
-            key = self._cache_key(digest, strategy)
+            key = self._cache_key(digest, strategy, tenant)
             # back-date by the TTL budget already consumed: a restart must
             # never extend a session's original expiry
             replica.cache.put(key, tree, age_s=lived_s)
@@ -569,16 +701,23 @@ class ServingFrontend:
 
     def _resolve(self, strategy: Optional[str], tenant: Optional[str], ctx):
         """Request strategy and tenant, resolved BEFORE the logged/gated
-        section: an unknown strategy or any non-default tenant (no tenant
-        registry: ROADMAP.md A8.4) raises ValueError, which the HTTP layer
-        maps to 400."""
+        section: an unknown strategy or tenant raises ValueError, which the
+        HTTP layer maps to 400 (a tenant is unknown without a registry
+        naming it)."""
         strategy = validate_request_strategy(strategy, self.engine.strategies)
-        validate_request_tenant(tenant, None)
+        tenant = validate_request_tenant(tenant, self.engine.registry)
         ctx = self._request_ctx(ctx)
         if ctx is not None:
             ctx.strategy = strategy
-            ctx.tenant = None
-        return strategy, ctx
+            ctx.tenant = tenant
+        return strategy, tenant, ctx
+
+    @staticmethod
+    def _group(strategy: str, bucket, tenant: Optional[str]):
+        """A dispatch's batcher group key: the strategy and bucket, and for
+        a non-default tenant the tenant first — requests of different
+        strategies or tenants never share a flush."""
+        return (tenant, strategy, bucket) if tenant is not None else (strategy, bucket)
 
     def adapt(
         self,
@@ -588,20 +727,24 @@ class ServingFrontend:
         strategy: Optional[str] = None,
         tenant: Optional[str] = None,
     ) -> Dict[str, Any]:
-        strategy, ctx = self._resolve(strategy, tenant, ctx)
+        strategy, tenant, ctx = self._resolve(strategy, tenant, ctx)
         t0 = time.monotonic()
         entered = False
+        quota_label = None
         try:
             # drain gate + in-flight accounting: a request that passes here
             # completes (or fails honestly) before a drain lets the process exit
             self._enter_request()
             entered = True
+            # per-tenant admission: a tenant over its rate or inflight quota
+            # sheds 429 here, before any queue or dispatch
+            quota_label = self._acquire_quota(tenant)
             # the request's flow starts here; the batcher flush steps it and
             # the engine dispatch finishes it
             with self.hub.span("serve.adapt", flows=flow_start(ctx), trace=ctx.trace_id if ctx else None):
                 x, y = self.engine._flatten_support(x_support, y_support)
-                digest = support_digest(x, y, self.engine.num_steps, strategy)
-                key = self._cache_key(digest, strategy)
+                digest = support_digest(x, y, self.engine.num_steps, strategy, tenant=tenant)
+                key = self._cache_key(digest, strategy, tenant)
                 # affinity on the cache key: this session's fast weights
                 # live (or will live) on exactly this replica's cache
                 replica = self.router.route(digest, ctx=ctx)
@@ -620,24 +763,30 @@ class ServingFrontend:
                     # shed at the router BEFORE the request queues at the
                     # replica (a cache hit costs nothing)
                     self.router.admit(replica)
+                    self._check_resident_quota(tenant, key[0])
                     bucket = self.engine.support_bucket(x.shape[0])
                     if ctx is not None:
                         ctx.bucket = bucket
                         ctx.true_size = int(x.shape[0])
-                    # the batcher group key carries the strategy: requests of
-                    # different strategies never share a flush
-                    fast_weights = replica.dispatch(replica.adapt_batcher, (strategy, bucket), (x, y), ctx)
+                    fast_weights = replica.dispatch(
+                        replica.adapt_batcher, self._group(strategy, bucket, tenant), (x, y), ctx
+                    )
                     self._note_padding("adapt", x.shape[0], bucket, strategy)
                     replica.cache.put(key, fast_weights)
                     # a fresh adapt is version zero: no earlier lineage of
                     # this key guards the new weights
                     self._pop_lineage(key)
+                    if tenant is not None:
+                        self._sweep_pagers()
         except BaseException as exc:
             outcome, status = self._failure_of(exc)
             self._count_strategy(strategy, "adapt", outcome)
+            self._count_tenant(tenant, "adapt", outcome)
             self._record_access(ctx, "adapt", outcome, status, time.monotonic() - t0)
             raise
         finally:
+            if quota_label is not None:
+                self.quotas.release(quota_label)
             if entered:
                 self._exit_request()
         elapsed = time.monotonic() - t0
@@ -647,6 +796,7 @@ class ServingFrontend:
             # the aggregate
             self.latency.record(f"adapt@{strategy}", elapsed)
         self._count_strategy(strategy, "adapt", "ok")
+        self._count_tenant(tenant, "adapt", "ok")
         self._record_access(ctx, "adapt", "ok", 200, elapsed)
         out = {
             "adaptation_id": digest,
@@ -655,18 +805,22 @@ class ServingFrontend:
             "support_size": int(x.shape[0]),
             "latency_ms": round(elapsed * 1e3, 3),
         }
+        if tenant is not None:
+            out["tenant"] = tenant
         if ctx is not None:
             out["trace_id"] = ctx.trace_id
             out["timing"] = ctx.timing_ms(elapsed)
         return out
 
-    def _probe_score(self, replica, fast_weights, x_probe, y_probe, strategy, ctx) -> float:
+    def _probe_score(self, replica, fast_weights, x_probe, y_probe, strategy, tenant, ctx) -> float:
         """Held-out cross-entropy of ``fast_weights`` on the session's
         probe — the refinement guard's yardstick, scored through the
         ordinary predict batcher. Non-finite weights score non-finite:
         numpy propagates NaN, so a poisoned tree never looks like a pass."""
         bucket = self.engine.query_bucket(x_probe.shape[0])
-        probs = replica.dispatch(replica.predict_batcher, (strategy, bucket), (fast_weights, x_probe), ctx)
+        probs = replica.dispatch(
+            replica.predict_batcher, self._group(strategy, bucket, tenant), (fast_weights, x_probe), ctx
+        )
         p = np.asarray(probs, np.float64)
         idx = np.asarray(y_probe, np.int64)
         picked = p[np.arange(idx.shape[0]), idx]
@@ -713,16 +867,18 @@ class ServingFrontend:
         if not self.serving.refine_enabled:
             # -> the HTTP 400 branch: refinement must be configured on
             raise ValueError("refinement is disabled (serving.refine_enabled=false)")
-        strategy, ctx = self._resolve(strategy, tenant, ctx)
+        strategy, tenant, ctx = self._resolve(strategy, tenant, ctx)
         t0 = time.monotonic()
         entered = False
+        quota_label = None
         rolled_back = False
         score: Optional[float] = None
         try:
             self._enter_request()
             entered = True
+            quota_label = self._acquire_quota(tenant)
             with self.hub.span("serve.refine", flows=flow_start(ctx), trace=ctx.trace_id if ctx else None):
-                key = self._cache_key(session_id, strategy)
+                key = self._cache_key(session_id, strategy, tenant)
                 # same affinity key as the adapt that cached the session
                 replica = self.router.route(session_id, ctx=ctx)
                 fast_weights = replica.cache.get(key, ctx=ctx)
@@ -746,7 +902,7 @@ class ServingFrontend:
                 if lineage.last_good_score is None:
                     # baseline: what the CURRENT weights score — the first
                     # guard comparison needs a last-good to regress against
-                    base = self._probe_score(replica, fast_weights, probe_x, probe_y, strategy, ctx)
+                    base = self._probe_score(replica, fast_weights, probe_x, probe_y, strategy, tenant, ctx)
                     if np.isfinite(base):
                         with self._lineage_lock:
                             lineage.set_baseline(base)
@@ -754,14 +910,13 @@ class ServingFrontend:
                 if ctx is not None:
                     ctx.bucket = bucket
                     ctx.true_size = int(x_train.shape[0])
+                group = self._group(strategy, bucket, tenant)
                 if strategy == "protonet":
-                    refined = replica.dispatch(replica.adapt_batcher, (strategy, bucket), (x_train, y_train), ctx)
+                    refined = replica.dispatch(replica.adapt_batcher, group, (x_train, y_train), ctx)
                 else:
-                    refined = replica.dispatch(
-                        replica.refine_batcher, (strategy, bucket), (fast_weights, x_train, y_train), ctx
-                    )
+                    refined = replica.dispatch(replica.refine_batcher, group, (fast_weights, x_train, y_train), ctx)
                 self._note_padding("refine", x_train.shape[0], bucket, strategy)
-                score = self._probe_score(replica, refined, probe_x, probe_y, strategy, ctx)
+                score = self._probe_score(replica, refined, probe_x, probe_y, strategy, tenant, ctx)
                 tol = float(self.serving.refine_regress_tol)
                 last_good = lineage.last_good_score
                 regressed = (not np.isfinite(score)) or (last_good is not None and score > last_good + tol)
@@ -773,6 +928,7 @@ class ServingFrontend:
                     self._event(
                         "refine_rollback", session=session_id, strategy=strategy,
                         score=float(score) if np.isfinite(score) else None, last_good=last_good, streak=streak,
+                        **({"tenant": tenant} if tenant else {}),
                     )
                     if streak >= int(self.serving.refine_quarantine_after):
                         with self._lineage_lock:
@@ -791,14 +947,19 @@ class ServingFrontend:
                     self.counters.inc("refines")
                     self._event(
                         "refine_commit", session=session_id, strategy=strategy, score=float(score),
-                        refine_count=lineage.refine_count,
+                        refine_count=lineage.refine_count, **({"tenant": tenant} if tenant else {}),
                     )
+                if tenant is not None:
+                    self._sweep_pagers()
         except BaseException as exc:
             outcome, status = self._failure_of(exc)
             self._count_strategy(strategy, "refine", outcome)
+            self._count_tenant(tenant, "refine", outcome)
             self._record_access(ctx, "refine", outcome, status, time.monotonic() - t0)
             raise
         finally:
+            if quota_label is not None:
+                self.quotas.release(quota_label)
             if entered:
                 self._exit_request()
         elapsed = time.monotonic() - t0
@@ -806,6 +967,7 @@ class ServingFrontend:
         if strategy != self.engine.strategies[0]:
             self.latency.record(f"refine@{strategy}", elapsed)
         self._count_strategy(strategy, "refine", "ok")
+        self._count_tenant(tenant, "refine", "ok")
         self._record_access(ctx, "refine", "ok", 200, elapsed)
         out = {
             "adaptation_id": session_id,
@@ -820,6 +982,8 @@ class ServingFrontend:
             "support_size": int(x_train.shape[0]),
             "latency_ms": round(elapsed * 1e3, 3),
         }
+        if tenant is not None:
+            out["tenant"] = tenant
         if ctx is not None:
             out["trace_id"] = ctx.trace_id
             out["timing"] = ctx.timing_ms(elapsed)
@@ -833,18 +997,22 @@ class ServingFrontend:
         strategy: Optional[str] = None,
         tenant: Optional[str] = None,
     ) -> np.ndarray:
-        strategy, ctx = self._resolve(strategy, tenant, ctx)
+        strategy, tenant, ctx = self._resolve(strategy, tenant, ctx)
         t0 = time.monotonic()
         entered = False
+        quota_label = None
         try:
             self._enter_request()
             entered = True
+            quota_label = self._acquire_quota(tenant)
             with self.hub.span("serve.predict", flows=flow_start(ctx), trace=ctx.trace_id if ctx else None):
                 # same affinity key as the adapt that cached these weights
                 # (the adaptation id IS the support digest). A predict naming
-                # the wrong strategy for its id misses the key the honest way.
+                # the wrong strategy — or the wrong tenant (the key carries
+                # the tenant's checkpoint fingerprint) — for its id misses
+                # the key the honest way.
                 replica = self.router.route(adaptation_id, ctx=ctx)
-                key = self._cache_key(adaptation_id, strategy)
+                key = self._cache_key(adaptation_id, strategy, tenant)
                 fast_weights = replica.cache.get(key, ctx=ctx)
                 if fast_weights is None:
                     raise UnknownAdaptationError(
@@ -863,14 +1031,21 @@ class ServingFrontend:
                 if ctx is not None:
                     ctx.bucket = bucket
                     ctx.true_size = int(x.shape[0])
-                probs = replica.dispatch(replica.predict_batcher, (strategy, bucket), (fast_weights, x), ctx)
+                probs = replica.dispatch(
+                    replica.predict_batcher, self._group(strategy, bucket, tenant), (fast_weights, x), ctx
+                )
                 self._note_padding("predict", x.shape[0], bucket, strategy)
+                if tenant is not None:
+                    self._sweep_pagers()
         except BaseException as exc:
             outcome, status = self._failure_of(exc)
             self._count_strategy(strategy, "predict", outcome)
+            self._count_tenant(tenant, "predict", outcome)
             self._record_access(ctx, "predict", outcome, status, time.monotonic() - t0)
             raise
         finally:
+            if quota_label is not None:
+                self.quotas.release(quota_label)
             if entered:
                 self._exit_request()
         elapsed = time.monotonic() - t0
@@ -878,6 +1053,7 @@ class ServingFrontend:
         if strategy != self.engine.strategies[0]:
             self.latency.record(f"predict@{strategy}", elapsed)
         self._count_strategy(strategy, "predict", "ok")
+        self._count_tenant(tenant, "predict", "ok")
         self._record_access(ctx, "predict", "ok", 200, elapsed)
         return probs
 
@@ -959,6 +1135,19 @@ class ServingFrontend:
             },
             "uptime_s": round(time.monotonic() - self._started, 1),
         }
+        if self.engine.registry is not None:
+            # the multi-tenant surface: registry, pager, quotas and the
+            # per-tenant tallies under one block
+            tenants_block: Dict[str, Any] = {
+                "registry": self.engine.registry.stats(),
+                "by_tenant": self.tenant_stats(),
+            }
+            pager = self.pool.pager_stats()
+            if pager is not None:
+                tenants_block["pager"] = pager
+            if self.quotas is not None and self.quotas.enabled:
+                tenants_block["quotas"] = self.quotas.stats()
+            out["tenants"] = tenants_block
         with self._drain_lock:
             out["drain"] = {"draining": self._draining, "inflight": self._inflight, **self._drain_info}
         if self.session_store is not None:
@@ -980,6 +1169,10 @@ class ServingFrontend:
             out["refine_batcher"] = self.pool.batcher_stats("refine")
         if self.access_log is not None:
             out["access_log"] = self.access_log.stats()
+        if self._memory is not None:
+            # the device memory watermarks on the scrape surface too, not
+            # only inside hub snapshots
+            out["memory"] = self._memory.snapshot()
         return out
 
     def metrics_prometheus(self) -> str:

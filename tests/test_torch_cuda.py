@@ -447,3 +447,55 @@ def test_serving_frontend_on_the_card_matches_the_cpu(cuda):
     assert ids["gpu"] == ids["cpu"]
     for a, b in zip(probs["gpu"], probs["cpu"]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_tenant_page_in_from_pinned_memory_and_eviction_frees_it(cuda, tmp_path):
+    """Multi-tenant serving on the card: the registry's host masters are
+    pinned, a page-in lands on the card (B1 launched over the tenant's
+    paged parameters, the answer within 1e-5 of the same tenant on the
+    CPU), and an eviction lowers ``memory_allocated`` by the master's
+    bytes as the caching allocator rounds them (512-byte blocks), so the
+    watermark's headroom recovers."""
+    from howtotrainyourmamlpytorch_tpu_torch.observability.memory import MemoryWatermarks
+    from howtotrainyourmamlpytorch_tpu_torch.serving.registry import synthetic_registry
+    from howtotrainyourmamlpytorch_tpu_torch.serving.tenancy import master_bytes
+
+    cfg = Config(num_classes_per_set=3, num_samples_per_class=2, number_of_evaluation_steps_per_iter=5,
+                 use_pallas_inner_update=True,
+                 serving=ServingConfig(support_buckets=[8], query_buckets=[8], max_batch_size=4))
+    model = build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8)
+    gpu = MAMLSystem(cfg, model=model, device=cuda)
+    state = gpu.init_train_state()
+    registry = synthetic_registry(["acme"], state, str(tmp_path), feature_shape=model.feature_shape)
+    engine = AdaptationEngine(gpu, state, registry=registry)
+    host, _ = registry.host_state("acme")
+    assert all(leaf.is_pinned() for leaf in tree_leaves(host.params))
+    rng = np.random.RandomState(4)
+    x, y = rng.rand(6, 8, 8, 1).astype(np.float32), np.arange(6) % 3
+    q = rng.rand(5, 8, 8, 1).astype(np.float32)
+    fu.reset_launch_counts()
+    probs = engine.predict(engine.adapt(x, y, tenant="acme"), q, tenant="acme")
+    assert fu.launch_counts["fused_sgd"] == 5
+    paged = engine.pager.resident("acme")
+    assert all(leaf.device.type == "cuda" for leaf in tree_leaves(paged.params))
+    cpu = AdaptationEngine(MAMLSystem(cfg, model=model, device="cpu"), ckpt_state(tmp_path / "acme"))
+    np.testing.assert_allclose(probs, cpu.predict(cpu.adapt(x, y), q), rtol=0, atol=1e-5)
+    stats = engine.pager.stats()
+    assert stats["page_ins"] == 1 and stats["resident_bytes"] == master_bytes(paged) and stats["page_in_p50_ms"] > 0
+    rounded = sum(-(-leaf.numel() * leaf.element_size() // 512) * 512
+                  for tree in (paged.params, paged.bn_state, paged.inner_hparams) for leaf in tree_leaves(tree))
+    del paged
+    torch.cuda.synchronize()
+    watermarks = MemoryWatermarks()
+    before, headroom = torch.cuda.memory_allocated(), watermarks.snapshot()["headroom_frac_min"]
+    assert engine.pager.evict("acme")
+    drop = before - torch.cuda.memory_allocated()
+    assert master_bytes(host) <= drop == rounded
+    assert watermarks.snapshot()["headroom_frac_min"] > headroom
+
+
+def ckpt_state(run_dir):
+    """The tenant checkpoint under ``run_dir`` as the engine reads it."""
+    from howtotrainyourmamlpytorch_tpu_torch.experiment.checkpoint import load_for_inference
+
+    return load_for_inference(str(run_dir / "saved_models"), "latest")[0]

@@ -63,12 +63,13 @@ def test_importing_the_port_loads_no_jax():
         "from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner, storage\n"
         "from howtotrainyourmamlpytorch_tpu_torch.resilience import faults, retry, watchdog\n"
         "from howtotrainyourmamlpytorch_tpu_torch.core import strategies\n"
-        "from howtotrainyourmamlpytorch_tpu_torch.observability import context\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.observability import context, memory\n"
         "from howtotrainyourmamlpytorch_tpu_torch import analysis\n"
         "from howtotrainyourmamlpytorch_tpu_torch.utils import results_archive\n"
         "from howtotrainyourmamlpytorch_tpu_torch import serve, serving\n"
         "from howtotrainyourmamlpytorch_tpu_torch.serving import (batcher, buckets, cache, errors, metrics,\n"
-        "    pool, router, server, sessions, tenancy)\n"
+        "    pool, registry, router, server, sessions, tenancy)\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.serving.tenancy import TenantQuotas, WeightPager\n"
         "from howtotrainyourmamlpytorch_tpu_torch.resilience import breaker\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'howtotrainyourmamlpytorch_tpu'))\n"

@@ -9,14 +9,16 @@
   filters on 14x14x1 images, 5-way 2-shot, K=2; the JAX weights carried
   into the port): the same adaptation ids and cache flags, predictions
   within atol 1e-5 (float32 on both sides, sums in other orders, as in
-  ``test_torch_slice.py``), the same ``/metrics`` top-level keys but the
-  ones of unported modules, and the same refine guard decisions (commit,
+  ``test_torch_slice.py``), the same ``/metrics`` top-level keys, and the
+  same refine guard decisions (commit,
   rollback, quarantine, re-adapt; ``tests/test_sessions_refine.py``).
 - The HTTP server end to end on a run directory the port's runner wrote
   (``tests/test_serving.py::test_serve_end_to_end_http``), and the serve
   CLI in a subprocess: adapt, refine, SIGTERM drain, restart, rehydrate.
-- The fused update's launch count under concurrent launches, and the pool's
-  refusal of a second card.
+- The fused update's launch count under concurrent launches; the pool's
+  placement over two cards (one clone per card, never per replica) and
+  ``clone_for_device`` (``tests/test_serving_fleet.py``), against JAX's
+  clone on a second host device.
 """
 
 import contextlib
@@ -29,6 +31,7 @@ import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -77,9 +80,6 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
 IMG = (14, 14, 1)
 N_WAY = 5
-#: /metrics keys of modules the port has not ported (ROADMAP.md A10: the
-#: memory watermarks)
-UNPORTED_METRICS = {"memory"}
 
 torch.set_num_threads(2)
 
@@ -616,7 +616,7 @@ def test_frontend_matches_jax(weights):
                 f.adapt(x_s, y_s, tenant="t1")
             assert f.adapt(x_s, y_s, tenant="default")["cached"]
         metrics, jmetrics = front.metrics(), jfront.metrics()
-        assert set(metrics) == set(jmetrics) - UNPORTED_METRICS
+        assert set(metrics) == set(jmetrics)
         for key in ("cache", "adapt_batcher", "predict_batcher", "padding"):
             assert metrics[key] == jmetrics[key], key
         assert metrics["compiled"]["fused_sgd_launches"] == 0  # the CPU runs the twin
@@ -678,7 +678,7 @@ def test_refine_guard_decisions_match_jax(weights):
         refine, jrefine = front.metrics()["sessions"]["refine"], jfront.metrics()["sessions"]["refine"]
         assert refine == jrefine
         assert (refine["refines"], refine["rollbacks"], refine["quarantines"], refine["readapts"]) == (2, 2, 1, 1)
-        assert set(front.metrics()) == set(jfront.metrics()) - UNPORTED_METRICS
+        assert set(front.metrics()) == set(jfront.metrics())
         assert "refine_programs" in front.metrics()["compiled"]
     finally:
         front.close()
@@ -867,7 +867,7 @@ def _status_or_none(base):
 
 
 # ---------------------------------------------------------------------------
-# the kernel's launch count under threads; the pool on a second card
+# the kernel's launch count under threads; the pool over two cards
 # ---------------------------------------------------------------------------
 
 
@@ -899,13 +899,31 @@ def test_launch_counts_are_exact_under_concurrent_launches(monkeypatch):
     assert fused_update.launch_counts == {"fused_sgd": 0, "fused_sgd_bwd": 0}
 
 
+class _StubEngine(types.SimpleNamespace):
+    """An engine of the pool tests: records its clones instead of building
+    a system on a card."""
+
+    def clone_for_device(self, device, index):
+        clone = _StubEngine(device=device, pager=None, clones=[])
+        self.clones.append((device, index, clone))
+        return clone
+
+
 def test_pool_refuses_a_replica_on_a_second_card(monkeypatch):
+    """A replica on a second card is no longer refused: it gets a clone of
+    the engine there (the visible cards are the default device list)."""
     cfg = tcfg.Config()
-    engine = types.SimpleNamespace(device=torch.device("cuda", 0))
+    engine = _StubEngine(device=torch.device("cuda", 0), pager=None, clones=[])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     args = dict(serving_cfg=cfg.serving, resilience_cfg=cfg.resilience, counters=EventCounters())
-    with pytest.raises(NotImplementedError, match="A8.4"):
-        EnginePool.build(engine, 2, **args)
+    pool = EnginePool.build(engine, 2, **args)
+    try:
+        (device, index, clone), = engine.clones
+        assert (device, index) == (torch.device("cuda", 1), 1)
+        assert [r.engine for r in pool.replicas] == [engine, clone]
+        assert pool.engines() == [engine, clone] and pool.pager_stats() is None
+    finally:
+        pool.close()
     pool = EnginePool.build(engine, 1, **args)  # one replica on the engine's card
     try:
         assert len(pool) == 1 and pool.replicas[0].engine is engine
@@ -914,9 +932,67 @@ def test_pool_refuses_a_replica_on_a_second_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     pool = EnginePool.build(engine, 2, **args)  # two replicas share the one card's engine
     try:
-        assert [r.engine for r in pool.replicas] == [engine, engine]
+        assert [r.engine for r in pool.replicas] == [engine, engine] and len(engine.clones) == 1
     finally:
         pool.close()
+
+
+def test_pool_shares_one_engine_per_device(monkeypatch):
+    """More replicas than cards: every replica landing on an already-engined
+    card reuses its engine — one clone per card, never one per replica
+    (``tests/test_serving_fleet.py``). The engine's device without an index
+    (what ``resolve_device`` returns) is the current card, not a second
+    one."""
+    cfg = tcfg.Config()
+    args = dict(serving_cfg=cfg.serving, resilience_cfg=cfg.resilience, counters=EventCounters())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    engine = _StubEngine(device=torch.device("cuda"), pager=None, clones=[])
+    pool = EnginePool.build(engine, 5, devices=devices, **args)
+    try:
+        (device, index, clone), = engine.clones
+        assert (device, index) == (torch.device("cuda", 1), 1)
+        assert [r.engine for r in pool.replicas] == [engine, clone, engine, clone, engine]
+        assert len(pool.engines()) == 2
+    finally:
+        pool.close()
+    pool = EnginePool.build(engine, 0, devices=devices, **args)  # 0 = one replica per card
+    try:
+        assert len(pool) == 2 and pool.replicas[0].engine is engine
+    finally:
+        pool.close()
+
+
+def test_clone_for_device_parity(weights):
+    """A clone of the engine on another device serves the same predictions
+    as the engine, through its own system, with the engine's fingerprint,
+    injector, tracer and registry and a pager of its own; JAX's clone on a
+    second host device answers alike (atol 1e-5)."""
+    from howtotrainyourmamlpytorch_tpu_torch.serving.registry import synthetic_registry
+
+    jsystem, jstate, state = weights
+    system = port_system()
+    full = system.init_train_state()._replace(params=state.params, bn_state=state.bn_state,
+                                              inner_hparams=state.inner_hparams)
+    x_s, y_s, x_q = episode(2)
+    with tempfile.TemporaryDirectory() as root:
+        registry = synthetic_registry(["acme"], full, root, feature_shape=system.model.feature_shape)
+        engine = AdaptationEngine(system, state, registry=registry)
+        clone = engine.clone_for_device(torch.device("cpu"), 1)
+        assert clone.ledger_tag == "@r1" and clone.system is not engine.system
+        assert (clone.fingerprint, clone.injector, clone.tracer, clone.registry) == (
+            engine.fingerprint, engine.injector, engine.tracer, engine.registry)
+        assert clone.pager is not engine.pager and clone.pager.template is clone.state
+        assert all(leaf.device == clone.device for leaf in tree_leaves(clone.state.params))
+        fw = engine.adapt(x_s, y_s)
+        probs = engine.predict(fw, x_q)
+        np.testing.assert_array_equal(clone.predict(fw, x_q), probs)
+        np.testing.assert_array_equal(clone.predict(clone.adapt(x_s, y_s, tenant="acme"), x_q, tenant="acme"),
+                                      engine.predict(engine.adapt(x_s, y_s, tenant="acme"), x_q, tenant="acme"))
+        assert clone.pager.stats()["page_ins"] == engine.pager.stats()["page_ins"] == 1
+    jengine = JaxEngine(jsystem, jstate, serving_cfg=_cfg(jcfg).serving)
+    jclone = jengine.clone_for_device(jax.local_devices()[1], 1)
+    np.testing.assert_allclose(np.asarray(jclone.predict(jclone.adapt(x_s, y_s), x_q)), probs, rtol=0, atol=ATOL)
 
 
 def test_frontend_refuses_unported_options(weights):

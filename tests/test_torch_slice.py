@@ -177,7 +177,9 @@ def test_unported_paths_raise(reference):
     assert len(anil) == len(supports)
     assert all(torch.equal(fw["stage_0"]["conv"]["w"], engine.state.params["stage_0"]["conv"]["w"]) for fw in anil)
     assert not torch.equal(anil[0]["fc"]["w"], engine.state.params["fc"]["w"])
-    with pytest.raises(NotImplementedError, match="A8"):
+    # tenants serve since ROADMAP.md A8.4, through a registry: an engine
+    # without one refuses a tenant as the JAX package's does
+    with pytest.raises(ValueError, match="no tenant registry"):
         engine.adapt_batch(supports, tenant="t1")
     # refine sessions serve since ROADMAP.md A8.3: the engine constructs
     refine = _cfg(tcfg)
