@@ -84,7 +84,27 @@ Run from the repository root. Phases, one JSON line each:
    page-ins timed (cold against resident adapts), an eviction freeing the
    master's allocator blocks, an eviction through the memory watermark,
    ``clone_for_device(cuda:0)`` against the engine.
-10. ``strategies``: the strategy registry at the fleet row
+10. ``fleet``: the serving fleet at the same config and trained state,
+   through the port's import-light CLIs (``scripts/gateway.py``,
+   ``scripts/fleet_serve.py``, ``scripts/rolling_restart.py`` of the
+   package, run by path) and the serve CLI: two backends in their own
+   processes on the card behind the gateway, the supervisor (min 2, max 3
+   backends over 3 slots), ``python -m
+   howtotrainyourmamlpytorch_tpu_torch.loadgen --url`` through the gateway
+   (4 stairs of 4 req/s, a quarter of them /adapt) with a kill -9 of one
+   backend 6 s in. Checks: the gateway marks it OUT within its hysteresis
+   window, the supervisor respawns its slot, every stair answers, the
+   displaced session answers 404 and re-adapts within phase ``http``'s
+   noise floor; then with no load, each backend's B1 launches equal 5 x
+   its flushes (its /metrics); the supervisor's SIGTERM (rc 0), a rolling
+   restart from its journal under load (both drains clean, sessions
+   rehydrated, a cache hit after it, the rehydrated answer within the
+   floor), the rolled backends' B1 counts, a clean stop of backends and
+   gateway, no process left. It reports the load's stairs, kill to OUT,
+   respawn to ``ok``, the respawned backend's first /adapt, the gateway hop
+   (the same /predict through the gateway and direct) and the phase's
+   seconds.
+11. ``strategies``: the strategy registry at the fleet row
    ``omniglot.20.5.vgg.gd.anil`` (the default config with
    ``strategy=anil``): 10 anil train steps and an eval step, B1 and B2 over
    the head's 2 leaves, K launches each per step; the anil step faster
@@ -98,19 +118,20 @@ Run from the repository root. Phases, one JSON line each:
    8 x 40 queries (finite probabilities whose rows sum to 1); maml++ and
    fomaml bit-equal; protonet's adapt flush faster than maml++'s; one
    refine flush each for maml++ and anil, K launches of B1.
-11. ``precision``: the default config's train step under
+12. ``precision``: the default config's train step under
    ``matmul_precision`` ``highest`` (IEEE float32) and ``high`` (TF32
    matmuls and convolutions): the flags read back, the first step's loss
    and the median step of each.
-12. ``runner``: the experiment layer at the same config, on a generated
+13. ``runner``: the experiment layer at the same config, on a generated
    image folder of Omniglot's layout and size (1,623 classes of 20 105x105
    1-bit PNGs in 50 alphabet folders, read and resized to 28x28 by the
    loader): ``ExperimentRunner`` in this process for 2 epochs of 10 steps
    with validation (5 batches) and the best checkpoint's test, then the CLI
    (``python -m howtotrainyourmamlpytorch_tpu_torch.train``) in a
    subprocess resuming it to 3 epochs, then the CLI training ResNet-12 at
-   the fleet row ``omniglot.20.1.resnet-12.gd`` for one epoch of 3 steps on
-   the same folder, then the CLI with ``strategy=anil`` likewise, then the
+   the fleet row ``omniglot.20.1.resnet-12.gd`` for one epoch of one step on
+   the same folder, then the CLI with ``strategy=anil`` likewise (the CLI
+   legs evaluate one batch of 8 tasks and read the images from disk), then the
    port's run analysis (``python -m howtotrainyourmamlpytorch_tpu_torch.analysis``;
    the tables alone, with a line saying so, where matplotlib does not
    import) over the three runs. Every CLI leg runs at the config's
@@ -122,23 +143,23 @@ Run from the repository root. Phases, one JSON line each:
    reports epoch times, the runner's step period beside phase ``train``'s
    bare step, the share of each telemetry phase, the loader's episodes per
    second alone and a ``torch.profiler`` breakdown of one runner step.
-13. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
+14. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
    ``omniglot.20.1.resnet-12.gd`` (28x28x1, 20-way 1-shot, meta-batch 8,
    K=5, second order, MSL on, fused, remat off): 10 train steps, an eval
    step and the engine serving the trained state, B1 and B2 over the
    86-leaf tree on every inner step; the first step against the CPU and
    float64 as in ``train``; then one bf16_inner train step (B1 and B2 in
    bfloat16).
-14. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
+15. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
     ``net=resnet-12`` (84x84x3, 5-way 5-shot) under the remat policies
     none, full and dots_saveable: the first step's loss and meta-gradient
     equal across them, peak memory and step times each; the default
     config's VGG at none and full, peak memory.
-15. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
+16. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
     inner Adam with learnable betas and the warm start, inner Rprop, and
     ``lslr_per_step`` (fused; its per-step lr meta-gradient against the
     CPU).
-16. ``kernels``: every kernel the run launched, with its launches on the
+17. ``kernels``: every kernel the run launched, with its launches on the
     paths, its error against the twin and its times beside its bound.
 
 A ``timing`` line before the ``kernels`` line gives each phase's wall
@@ -212,6 +233,11 @@ RAGGED = (1, 3, 20, 129, 4097)
 # the runner phase: Omniglot's layout and sizes, the run's length
 OMNIGLOT = {"classes": 1623, "per_class": 20, "alphabets": 50, "side": 105}
 RUNNER_EPOCHS, RESUMED_EPOCHS, RUNNER_ITERS, RUNNER_EVAL_TASKS = 2, 3, 10, 40
+# the runner phase's CLI legs, cut to make room for phase fleet: one batch
+# of evaluation tasks each, one step for the fresh ResNet-12 and anil runs
+# (the resume keeps RUNNER_ITERS: its loader cursor depends on it), and the
+# resume reads images from disk (the in-process run tests the RAM cache)
+CLI_ITERS, CLI_EVAL_TASKS = 1, 8
 RUNNER_PROFILED_CALL = 5  # one train step of epoch 0 runs under the profiler
 LOADER_BATCHES = 50
 # the JAX package's summary_statistics.csv columns (tests/test_torch_runner.py
@@ -282,6 +308,14 @@ HTTP_READY_S, HTTP_CALL_S = 240, 120
 TENANT_IDS = ("acme", "bravo", "charlie", "delta")
 TENANT_ROUNDS = 3
 PAGE_IN_REPS = 10
+# phase fleet: where the backends run; loadgen's offered load through the
+# gateway (req/s per stair, stairs, seconds in all) and when, after its
+# clock starts, one backend is killed; /predict pairs timed through the
+# gateway and direct
+FLEET_DEVICE = "cuda"
+FLEET_RPS, FLEET_STAIRS, FLEET_LOAD_S, FLEET_KILL_AT_S = 4.0, 4, 20.0, 6.0
+FLEET_HOP_REPS = 6
+FLEET_BUDGET_S = 150.0  # the phase's share of the run's time limit
 
 
 class CheckFailed(RuntimeError):
@@ -1735,6 +1769,409 @@ def tenancy_in_process(system, trained, registry, supports, queries, control_dir
     }
 
 
+def _subreaper(on: bool) -> bool:
+    """Make this process the reaper of its orphaned descendants, or stop
+    (Linux ``PR_SET_CHILD_SUBREAPER``): a backend the supervisor spawned
+    outlives the supervisor's SIGTERM, and when a rolling restart drains it,
+    only its parent can reap it. Unreaped, it stays a zombie that
+    ``kill(pid, 0)`` still finds, and the drain would wait for its whole
+    timeout."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL(None, use_errno=True).prctl(36, int(on), 0, 0, 0) == 0
+    except (AttributeError, OSError):
+        return False
+
+
+class _Reaper:
+    """Exit codes of fleet processes this one did not start: one thread per
+    pid blocks in ``waitpid`` once the pid is our child (an orphan
+    reparented to this subreaper); ``None`` where it never was."""
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.Lock()
+        self.rcs = {}
+        self._threads = {}
+
+    def watch(self, pid: int) -> None:
+        import threading
+
+        if pid in self._threads:
+            return
+
+        def wait():
+            try:
+                _, status = os.waitpid(pid, 0)
+                rc = os.waitstatus_to_exitcode(status)
+            except ChildProcessError:
+                rc = None
+            with self._lock:
+                self.rcs[pid] = rc
+
+        self._threads[pid] = threading.Thread(target=wait, name=f"reap-{pid}", daemon=True)
+        self._threads[pid].start()
+
+    def rc(self, pid: int, timeout_s: float = 30.0):
+        thread = self._threads.get(pid)
+        if thread is not None:
+            thread.join(timeout_s)
+        with self._lock:
+            return self.rcs.get(pid)
+
+
+def _wait_for(fn, timeout_s: float, phase: str, what: str, poll_s: float = 0.05):
+    """Poll ``fn`` until it returns a truthy value; fail the phase after
+    ``timeout_s``."""
+    end = time.monotonic() + timeout_s
+    while time.monotonic() < end:
+        value = fn()
+        if value:
+            return value
+        time.sleep(poll_s)
+    check(False, phase, f"timed out waiting for {what}", timeout_s=timeout_s)
+
+
+def _b1_per_flush(metrics: dict, steps: int) -> dict:
+    """One backend's B1 launches beside ``steps`` x its adapt and refine
+    flushes, from its /metrics."""
+    flushes = metrics["adapt_batcher"]["flushes"] + metrics.get("refine_batcher", {}).get("flushes", 0)
+    launches = metrics["compiled"]["fused_sgd_launches"]
+    return {"launches": launches, "flushes": flushes, "equal": launches == steps * flushes}
+
+
+def phase_fleet(seed: int, system, trained, http_bound: float):
+    """The serving fleet on the card through the port's import-light CLIs
+    (``scripts/gateway.py``, ``scripts/fleet_serve.py``,
+    ``scripts/rolling_restart.py``) and the serve CLI: the trained state in
+    a run directory per slot (3 pre-provisioned slots), two backends started
+    together and handed to the supervisor (min 2, max 3) in its slots file,
+    the gateway over the 3 slot URLs. Then loadgen through the gateway (FLEET_STAIRS stairs
+    of FLEET_RPS req/s, adapt fraction 0.25) with a kill -9 of the backend
+    that holds a warm session mid-load: the gateway marks it OUT within its
+    hysteresis window, the supervisor respawns the slot, the displaced
+    session answers 404 and re-adapts within phase ``http``'s noise floor,
+    every stair answers. Then the gateway hop (the same /predict through the
+    gateway and direct), B1 launches per backend against 5 x its flushes
+    (read with no load running), the supervisor stopped (its journal
+    drives the roll), a rolling restart under load (drains clean, sessions
+    rehydrated, a cache hit after it), the rolled backends' B1 counts, and
+    the backends and the gateway stopped, no process left."""
+    import signal
+
+    from howtotrainyourmamlpytorch_tpu_torch.config import save_config
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.experiment.checkpoint import save_checkpoint
+    from howtotrainyourmamlpytorch_tpu_torch.resilience.campaign import _read_jsonl, spawn_gateway
+    from howtotrainyourmamlpytorch_tpu_torch.serving.fleetctl import pid_alive
+
+    t_phase = time.monotonic()
+    cfg = system.cfg
+    n_way, k_shot, img = cfg.num_classes_per_set, cfg.num_samples_per_class, cfg.image_shape
+    steps = cfg.number_of_evaluation_steps_per_iter
+    root = os.path.dirname(os.path.abspath(__file__))
+    scripts = os.path.join(root, "howtotrainyourmamlpytorch_tpu_torch", "scripts")
+    env = dict(os.environ, PYTHONPATH=root)
+    data = learnable_synthetic_batch(FLEET_HOP_REPS + 6, n_way, k_shot, 2, img, seed=seed + 13)
+    supports = [json.dumps({"x_support": data["x_support"][i].tolist(),
+                            "y_support": data["y_support"][i].tolist()}).encode() for i in range(FLEET_HOP_REPS + 6)]
+    queries = [data["x_target"][i].reshape(-1, *img)[:HTTP_QUERIES].tolist() for i in range(FLEET_HOP_REPS + 6)]
+    subreaper = _subreaper(True)
+    reaper = _Reaper()
+    procs, pids = [], set()  # everything this phase started, to stop in the end
+    out = {"phase": "fleet", "slots": 3, "min_backends": 2, "max_backends": 3, "rps": FLEET_RPS,
+           "stairs": FLEET_STAIRS, "load_s": FLEET_LOAD_S, "adapt_frac": 0.25, "subreaper": subreaper}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        template = os.path.join(tmp, "template")
+        os.makedirs(template)
+        save_config(cfg, os.path.join(template, "config.yaml"))
+        save_checkpoint(os.path.join(template, "saved_models"), trained, {"epoch": 0}, epoch=0,
+                        feature_shape=system.model.feature_shape)
+        slots = []
+        for i in range(3):
+            run_dir = os.path.join(tmp, f"b{i}")
+            shutil.copytree(template, run_dir)
+            port = _free_port()
+            slots.append({
+                "url": f"http://127.0.0.1:{port}", "port": port, "run_dir": run_dir, "cwd": root,
+                "log": os.path.join(run_dir, "serve.log"),
+                "respawn": [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve", run_dir,
+                            "--port", str(port), "--device", FLEET_DEVICE, "--checkpoint", "latest"],
+            })
+        urls = [s["url"] for s in slots]
+
+        def http(url, path, body=None):
+            try:
+                return _http(url, path, body, headers=True)
+            except OSError:
+                return None, {}, None, {}
+
+        # the gateway over every slot; the third stays OUT until spawned
+        gw_proc, gw = spawn_gateway(urls, os.path.join(tmp, "gateway"))
+        procs.append(gw_proc)
+        # two backends started together, handed to the supervisor below
+        for slot in slots[:2]:
+            log = open(slot["log"], "ab")
+            proc = subprocess.Popen(slot["respawn"], cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+            log.close()
+            procs.append(proc)
+            slot["pid"] = proc.pid
+            pids.add(proc.pid)
+        t0 = time.monotonic()
+        for slot, proc in zip(slots[:2], procs[1:]):
+            _wait_for(lambda: http(slot["url"], "/healthz")[0] == 200 or proc.poll() is not None, HTTP_READY_S,
+                      "fleet", "a backend's /healthz")
+            check(proc.poll() is None, "fleet", "a backend died starting", rc=proc.returncode,
+                  log=open(slot["log"]).read()[-3000:])
+        out["start_two_backends_s"] = time.monotonic() - t0
+        for proc in procs[1:3]:  # reap at exit, so a drain sees the pid go
+            reaper.watch(proc.pid)
+        slots_path, state_path = os.path.join(tmp, "slots.json"), os.path.join(tmp, "fleet_state.json")
+        events_path = os.path.join(tmp, "supervisor_events.jsonl")
+        with open(slots_path, "w") as f:
+            json.dump(slots, f)
+        sup_port_file = os.path.join(tmp, "supervisor_port")
+        sup_log = open(os.path.join(tmp, "supervisor.log"), "ab")
+        sup = subprocess.Popen(
+            [sys.executable, os.path.join(scripts, "fleet_serve.py"), "--state", state_path, "--gateway-url", gw,
+             "--slots", slots_path, "--events", events_path, "--metrics-port", "0", "--port-file", sup_port_file,
+             "--min-backends", "2", "--max-backends", "3", "--poll-interval-s", "0.25", "--warm-poll-s", "0.25",
+             "--warm-timeout-s", str(HTTP_READY_S), "--drain-timeout-s", "60"],
+            cwd=root, env=env, stdout=sup_log, stderr=subprocess.STDOUT)
+        sup_log.close()
+        procs.append(sup)
+        start = _wait_for(lambda: next((e for e in _read_jsonl(events_path) if e.get("event") == "supervisor_start"),
+                                       None), 60, "fleet", "the supervisor's start")
+        check(start["target"] == 2, "fleet", "the supervisor's target", event=start)
+        _wait_for(lambda: http(gw, "/metrics")[1].get("backends_in") == 2, 30, "fleet",
+                  "the gateway admitting both backends")
+        out["fleet_up_s"] = time.monotonic() - t_phase
+
+        # each backend's first /adapt (its cold start), together
+        cold = _in_threads([lambda u=s["url"], b=supports[i]: http(u, "/adapt", b) for i, s in enumerate(slots[:2])],
+                           2)
+        check(all(c[0] == 200 for c in cold), "fleet", "a backend's first /adapt", statuses=[c[0] for c in cold])
+        out["first_adapt_ms"] = [c[2] for c in cold]
+        # the session the kill displaces: adapted and predicted through the gateway
+        status, warm, _, head = http(gw, "/adapt", supports[2])
+        check(status == 200, "fleet", "the warm /adapt through the gateway", body=warm)
+        aid, owner = warm["adaptation_id"], head.get("X-Gateway-Backend")
+        predict_body = json.dumps({"adaptation_id": aid, "x_query": queries[2]}).encode()
+        status, before, _, _ = http(gw, "/predict", predict_body)
+        check(status == 200, "fleet", "the warm /predict through the gateway", body=before)
+        victim = slots[int(owner[1:])]
+
+        # load through the gateway; kill -9 the session's backend mid-load
+        load_err = os.path.join(tmp, "loadgen.err")
+        load = subprocess.Popen(
+            [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.loadgen", "--url", gw, "--seed", str(seed),
+             "--duration-s", str(FLEET_LOAD_S), "--stairs", ",".join([str(FLEET_RPS)] * FLEET_STAIRS),
+             "--adapt-frac", "0.25", "--n-way", str(n_way), "--k-shot", str(k_shot), "--max-workers", "16",
+             "--slo-p99-ms", "30000"],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=open(load_err, "w"), text=True)
+        procs.append(load)
+        _wait_for(lambda: "loadgen: warm" in open(load_err).read() or load.poll() is not None, 120, "fleet",
+                  "loadgen's warm-up")
+        check(load.poll() is None, "fleet", "loadgen exited before its load", err=open(load_err).read()[-3000:])
+        time.sleep(FLEET_KILL_AT_S)
+        kill_wall = time.time()
+        os.kill(victim["pid"], signal.SIGKILL)
+        out_event = _wait_for(lambda: next((e for e in _read_jsonl(os.path.join(tmp, "gateway", "events.jsonl"))
+                                            if e.get("event") == "backend_out" and e.get("backend") == owner
+                                            and e["ts"] >= kill_wall), None), 30, "fleet", "the gateway's OUT")
+        kill_to_out_ms = (out_event["ts"] - kill_wall) * 1e3
+        # the gateway's hysteresis window: fail_threshold probes, one poll
+        # round apart, each probe bounded by its timeout
+        window_ms = (2 * 0.25 + 3.0) * 1e3
+        check(kill_to_out_ms <= window_ms, "fleet", "OUT later than the hysteresis window",
+              kill_to_out_ms=kill_to_out_ms, window_ms=window_ms)
+        status_404 = http(gw, "/predict", predict_body)[0]
+        check(status_404 == 404, "fleet", "the displaced session did not answer 404", status=status_404)
+        status, readapt, _, head = http(gw, "/adapt", supports[2])
+        status_p, after, _, _ = http(gw, "/predict", predict_body)
+        check(status == status_p == 200 and readapt["adaptation_id"] == aid and not readapt["cached"], "fleet",
+              "the displaced session's re-adapt", status=status, predict_status=status_p)
+        readapt_dev = float(np.abs(np.asarray(after["probs"], np.float32)
+                                   - np.asarray(before["probs"], np.float32)).max())
+        check(readapt_dev <= http_bound, "fleet", "the re-adapted session differs beyond the noise floor",
+              max_abs=readapt_dev, bound=http_bound)
+        report_line, _ = load.communicate(timeout=FLEET_LOAD_S + 180)
+        check(load.returncode == 0, "fleet", "loadgen failed", rc=load.returncode, err=open(load_err).read()[-3000:])
+        report = json.loads(report_line.strip().splitlines()[-1])
+        stairs = [{k: s[k] for k in ("offered_rps", "n_offered", "ok", "shed", "deadline", "error", "unresolved",
+                                     "p50_ms", "p99_ms")} for s in report["stairs"]]
+        check(all(s["ok"] > 0 for s in stairs) and report["unresolved"] == 0 and report["shed"] == 0
+              and report["deadline"] == 0, "fleet", "availability through the kill", stairs=stairs)
+
+        # the supervisor's replacement: the same slot, a new pid, admitted
+        replaced = _wait_for(lambda: next((e for e in _read_jsonl(events_path) if e.get("event") == "scale_up"
+                                           and e.get("slot") == slots.index(victim)), None), HTTP_READY_S, "fleet",
+                             "the supervisor's replacement")
+        died = [e for e in _read_jsonl(events_path) if e.get("event") == "backend_died"]
+        check(len(died) == 1 and died[0]["slot"] == slots.index(victim), "fleet", "backend_died events", died=died)
+        _wait_for(lambda: http(gw, "/metrics")[1].get("backends_in") == 2, 30, "fleet",
+                  "the gateway admitting the replacement")
+        victim["pid"] = replaced["pid"]
+        pids.add(replaced["pid"])
+        spawned_wall = replaced["ts"] - replaced["settle_s"]
+        first = next((r for r in _read_jsonl(os.path.join(victim["run_dir"], "logs", "access.jsonl"))
+                      if r["ts"] >= spawned_wall and r["verb"] == "adapt" and r["outcome"] == "ok"), None)
+        if first is not None:
+            respawned_first = {"ms": first["total_ms"], "source": "the backend's access log (server side)"}
+        else:
+            status, _, ms, _ = http(victim["url"], "/adapt", supports[3])
+            check(status == 200, "fleet", "the respawned backend's first /adapt", status=status)
+            respawned_first = {"ms": ms, "source": "a direct /adapt (client side)"}
+
+        # the gateway hop: the same /predict through the gateway and direct
+        survivor = slots[1 - slots.index(victim)] if slots.index(victim) < 2 else slots[0]
+        status, hop, _, head = http(gw, "/adapt", supports[4])
+        hop_owner = slots[int(head["X-Gateway-Backend"][1:])]
+        hop_body = json.dumps({"adaptation_id": hop["adaptation_id"], "x_query": queries[4]}).encode()
+        via, direct = [], []
+        for _ in range(FLEET_HOP_REPS):
+            via.append(http(gw, "/predict", hop_body)[2])
+            direct.append(http(hop_owner["url"], "/predict", hop_body)[2])
+        # fresh /adapt with two co-resident backends: through the gateway, direct
+        adapt_via, adapt_direct = [], []
+        for i in range(FLEET_HOP_REPS // 2):
+            adapt_via.append(http(gw, "/adapt", supports[5 + 2 * i])[2])
+            adapt_direct.append(http(hop_owner["url"], "/adapt", supports[6 + 2 * i])[2])
+        check(None not in via + direct + adapt_via + adapt_direct, "fleet", "a hop request failed")
+
+        # B1 per backend, no load running: 5 x its adapt and refine flushes
+        live = [survivor, victim]
+        b1 = {}
+        for slot in live:
+            b1[slot["url"]] = _b1_per_flush(http(slot["url"], "/metrics")[1], steps)
+        check(all(v["equal"] for v in b1.values()), "fleet", "B1 launches != 5 x flushes", per_backend=b1)
+
+        # the supervisor stops (its control loop only); its journal drives the roll
+        sup.send_signal(signal.SIGTERM)
+        sup_rc = sup.wait(timeout=60)
+        check(sup_rc == 0, "fleet", "the supervisor's SIGTERM", rc=sup_rc)
+        for slot in live:
+            reaper.watch(slot["pid"])  # the orphaned replacement is ours now
+        state = json.load(open(state_path))
+        check(sorted(s["slot"] for s in state["slots"] if s["state"] == "up") == [0, 1] and state["intent"] is None,
+              "fleet", "the supervisor's journal", slots=state["slots"])
+
+        # a session to find again after the roll
+        status, kept, _, head = http(gw, "/adapt", supports[1])
+        kept_body = json.dumps({"adaptation_id": kept["adaptation_id"], "x_query": queries[1]}).encode()
+        status_p, kept_before, _, _ = http(gw, "/predict", kept_body)
+        check(status == status_p == 200, "fleet", "the session kept across the roll")
+
+        # a rolling restart under load: a client thread through the gateway
+        import threading
+
+        stop, seen = threading.Event(), []
+
+        def drive():
+            k = 0
+            while not stop.is_set():
+                if k % 3 == 0:
+                    seen.append(http(gw, "/adapt", supports[k % len(supports)])[0])
+                else:
+                    seen.append(http(gw, "/predict", kept_body)[0])
+                k += 1
+                stop.wait(0.15)
+
+        client = threading.Thread(target=drive, daemon=True)
+        client.start()
+        t0 = time.monotonic()
+        roll = subprocess.run(
+            [sys.executable, os.path.join(scripts, "rolling_restart.py"), "--fleet", state_path,
+             "--drain-timeout-s", "60", "--warm-timeout-s", str(HTTP_READY_S)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        roll_s = time.monotonic() - t0
+        time.sleep(1.0)
+        stop.set()
+        client.join(timeout=120)
+        verdict = json.loads(roll.stdout.strip().splitlines()[-1]) if roll.stdout.strip() else {}
+        for row in verdict.get("rows", []):
+            if row.get("new_pid"):
+                pids.add(row["new_pid"])
+        check(roll.returncode == 0 and verdict.get("ok") and verdict.get("restarted") == 2, "fleet",
+              "the rolling restart", rc=roll.returncode, verdict=verdict, err=roll.stderr[-3000:])
+        drain_rcs = [reaper.rc(slot["pid"]) for slot in live]
+        check(all(rc in (0, None) for rc in drain_rcs) and all(row["drain"] == "sigterm_sent"
+                                                               for row in verdict["rows"]),
+              "fleet", "a drain of the roll", rcs=drain_rcs, rows=verdict["rows"])
+        check(all(code in (200, 404) for code in seen) and seen.count(200) >= 5, "fleet",
+              "the fleet through the roll", outcomes=seen)
+        new_pid = {row["url"]: row["new_pid"] for row in verdict["rows"]}
+        for slot in live:
+            slot["pid"] = new_pid[slot["url"]]
+            reaper.watch(slot["pid"])  # orphaned when rolling_restart exited
+        rehydrated = [http(slot["url"], "/metrics")[1].get("sessions", {}).get("rehydrated", 0) for slot in live]
+        check(all(n >= 1 for n in rehydrated), "fleet", "sessions rehydrated after the roll", rehydrated=rehydrated)
+        status_p, kept_after, _, _ = http(gw, "/predict", kept_body)
+        status, hit, _, _ = http(gw, "/adapt", supports[1])
+        check(status == status_p == 200 and hit["cached"], "fleet", "a cache hit after the roll",
+              status=status, predict_status=status_p, hit=hit)
+        kept_dev = float(np.abs(np.asarray(kept_after["probs"], np.float32)
+                                - np.asarray(kept_before["probs"], np.float32)).max())
+        check(kept_dev <= http_bound, "fleet", "a rehydrated session's answer moved", max_abs=kept_dev,
+              bound=http_bound)
+
+        # the rolled backends' B1, then everything stops: backends, gateway
+        rolled = {}
+        for slot in live:
+            rolled[slot["url"]] = _b1_per_flush(http(slot["url"], "/metrics")[1], steps)
+        check(all(v["equal"] for v in rolled.values()), "fleet", "B1 launches != 5 x flushes after the roll",
+              per_backend=rolled)
+        for slot in live:
+            os.kill(slot["pid"], signal.SIGTERM)
+        final_rcs = [reaper.rc(slot["pid"], timeout_s=90) for slot in live]
+        gw_proc.send_signal(signal.SIGTERM)
+        gw_rc = gw_proc.wait(timeout=30)
+        clean = [open(slot["log"]).read().count("serving drain: clean") for slot in live]
+        check(all(rc in (0, None) for rc in final_rcs) and gw_rc == 0 and clean == [2, 2], "fleet",
+              "the final stop", backend_rcs=final_rcs, gateway_rc=gw_rc, clean_drains_per_slot=clean)
+        left = sorted(pid for pid in pids if pid_alive(pid))
+        check(not left, "fleet", "processes left running", pids=left)
+
+        events = _read_jsonl(events_path)
+        phase_s = time.monotonic() - t_phase
+        check(phase_s <= FLEET_BUDGET_S, "fleet", "the phase outran its budget", phase_s=phase_s)
+        out.update({
+            "ok": True, "phase_s": phase_s, "load": {
+                "stairs": stairs, "value": report["value"], "requests": report["requests"],
+                "per_backend": report.get("per_backend"), "errors": report["error"]},
+            "kill_to_out_ms": kill_to_out_ms, "hysteresis_window_ms": window_ms,
+            "respawn_to_ok_s": replaced["settle_s"], "respawned_first_adapt": respawned_first,
+            "readapt_max_abs": readapt_dev, "readapt_bit_equal": readapt_dev == 0.0, "noise_floor": http_bound,
+            "gateway_hop": {"predict_via_p50_ms": statistics.median(via),
+                            "predict_direct_p50_ms": statistics.median(direct),
+                            "hop_p50_ms": statistics.median(via) - statistics.median(direct),
+                            "adapt_via_p50_ms": statistics.median(adapt_via),
+                            "adapt_direct_p50_ms": statistics.median(adapt_direct)},
+            "b1_before_roll": b1, "b1_after_roll": rolled,
+            "launches": sum(v["launches"] for v in list(b1.values()) + list(rolled.values())),
+            "roll_s": roll_s, "roll_rows": verdict["rows"], "roll_outcomes": {str(c): seen.count(c) for c in set(seen)},
+            "drain_rcs": {"roll": drain_rcs, "final": final_rcs, "gateway": gw_rc, "supervisor": sup_rc},
+            "rehydrated": rehydrated, "rehydrated_max_abs": kept_dev, "rehydrated_bit_equal": kept_dev == 0.0,
+            "supervisor_events": {name: sum(e.get("event") == name for e in events)
+                                  for name in ("backend_died", "scale_up", "scale_down", "spawn_crash")},
+        })
+        emit(out)
+        return out
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for pid in pids:
+            if pid_alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        _subreaper(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def make_omniglot_folder(root: str, seed: int) -> str:
     """An image folder of Omniglot's layout and size: OMNIGLOT["classes"]
     classes of OMNIGLOT["per_class"] 105x105 1-bit PNGs in
@@ -1878,8 +2315,9 @@ def phase_runner(seed: int, bare_step_ms: float):
         cursor = RUNNER_EPOCHS * RUNNER_ITERS * cfg.batch_size
         check(book["train_episodes_produced"] == cursor, "runner", "checkpoint cursor", bookkeeping=book)
         env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        cli_overrides = [*overrides, f"num_evaluation_tasks={CLI_EVAL_TASKS}", "load_into_memory=false"]
         cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
-               *overrides, f"total_epochs={RESUMED_EPOCHS}"]
+               *cli_overrides, f"total_epochs={RESUMED_EPOCHS}"]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
                               cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -1902,8 +2340,8 @@ def phase_runner(seed: int, bare_step_ms: float):
         # the CLI trains the slice's full-width model (ResNet-12 at the fleet
         # row's shape) on the same folder and index cache, reading the
         # images from disk (no second RAM cache)
-        resnet_overrides = [*overrides, *RESNET_OVERRIDES, "total_epochs=1", "total_iter_per_epoch=3",
-                            "load_into_memory=false", "experiment_name=resnet12_cli"]
+        resnet_overrides = [*cli_overrides, *RESNET_OVERRIDES, "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
+                            "experiment_name=resnet12_cli"]
         resnet_cfg = load_config(DEFAULT_CONFIG, resnet_overrides)
         cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
                *resnet_overrides]
@@ -1920,8 +2358,8 @@ def phase_runner(seed: int, bare_step_ms: float):
 
         # the CLI trains strategy=anil (the fleet row omniglot.20.5.vgg.gd.anil)
         # on the same folder, at the config's matmul precision like every leg
-        anil_overrides = [*overrides, "strategy=anil", "total_epochs=1", "total_iter_per_epoch=3",
-                          "load_into_memory=false", "experiment_name=anil_cli"]
+        anil_overrides = [*cli_overrides, "strategy=anil", "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
+                          "experiment_name=anil_cli"]
         anil_cfg = load_config(DEFAULT_CONFIG, anil_overrides)
         cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
                *anil_overrides]
@@ -1954,10 +2392,11 @@ def phase_runner(seed: int, bare_step_ms: float):
             "losses": {"train": [float(r["train_loss_mean"]) for r in rows],
                        "val": [float(r["val_loss_mean"]) for r in rows], "test": result["test_loss_mean"]},
             "test_accuracy": result["test_accuracy_mean"], "cli_resume_s": cli_s,
-            "resnet_cli": {"overrides": RESNET_OVERRIDES + ["total_epochs=1", "total_iter_per_epoch=3"],
+            "cli_legs": {"num_evaluation_tasks": CLI_EVAL_TASKS, "load_into_memory": False},
+            "resnet_cli": {"overrides": RESNET_OVERRIDES + ["total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}"],
                            "s": resnet_cli_s, "train_loss": float(resnet_rows[0]["train_loss_mean"]),
                            "val_loss": float(resnet_rows[0]["val_loss_mean"])},
-            "anil_cli": {"overrides": ["strategy=anil", "total_epochs=1", "total_iter_per_epoch=3"],
+            "anil_cli": {"overrides": ["strategy=anil", "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}"],
                          "s": anil_cli_s, "train_loss": float(anil_rows[0]["train_loss_mean"]),
                          "val_loss": float(anil_rows[0]["val_loss_mean"])},
             "analysis": report,
@@ -2583,6 +3022,7 @@ def main() -> int:
     served = timed("serve_trained", phase_serve_trained, args.seed, system, trained)
     http = timed("http", phase_http, args.seed, system, trained)
     tn = timed("tenancy", phase_tenancy, args.seed, system, trained, http["alone_bound"])
+    fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"])
     st = timed("strategies", phase_strategies, args.seed, tr["train_step_ms_median"])
     timed("precision", phase_precision, args.seed)
     rn = timed("runner", phase_runner, args.seed, tr["train_step_ms_median"])
@@ -2591,7 +3031,7 @@ def main() -> int:
     br = timed("breadth", phase_breadth, args.seed)
     emit({"phase": "timing", "seconds": seconds, "total_s": round(sum(seconds.values()), 1)})
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
-                 "http_serving": http["launches"], "tenancy": tn["launches"],
+                 "http_serving": http["launches"], "tenancy": tn["launches"], "fleet": fl["launches"],
                  "anil_train": st["launches_with_eval"]["fused_sgd"],
                  "anil_remat": st["remat_full"]["launches"]["fused_sgd"], "strategies_serving": st["launches"],
                  "runner": rn["launches"]["fused_sgd"], "resnet": rs["launches"]["fused_sgd"],

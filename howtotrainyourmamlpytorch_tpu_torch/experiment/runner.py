@@ -110,7 +110,7 @@ def _refuse_unported(cfg: Config, n_devices: int) -> None:
                 f"{what} is not ported to PyTorch yet (ROADMAP.md {item}); the "
                 "port's runner trains one step per dispatch on one device"
             )
-    injector_from(cfg.resilience)  # raises, naming A9, for a named drill; else inert
+    injector_from(cfg.resilience)  # raises, naming A9, for a drill at an unwired training seam
 
 
 class ExperimentRunner:
@@ -231,6 +231,8 @@ class ExperimentRunner:
             # mid-epoch resume: the stream restarts on the exact next iteration
             current_iter=self.start_epoch * cfg.total_iter_per_epoch + self._resume_mid_iter,
             data_root=data_root,
+            # the loader.episode seam (a serving spec never fires here)
+            injector=injector_from(cfg.resilience),
         )
         # rollback anchor: the state as it is now (resumed or init),
         # refreshed on every epoch save

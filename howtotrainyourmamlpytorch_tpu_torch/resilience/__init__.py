@@ -1,4 +1,6 @@
-"""The resilience layer's single-card part: the fault-spec grammar and the
-inert injector, transient-I/O retries, the wedge watchdog and the serving
-circuit breaker (copies of the JAX package's modules). The drills and the
-fleet are ROADMAP.md A9."""
+"""The resilience layer's single-card part: fault injection at the
+loader and serving seams, transient-I/O retries, the wedge watchdog and the
+serving circuit breaker (copies of the JAX package's modules), and the
+gateway half of the chaos campaign (``campaign.py``: the cross-process
+fleet drills). The training drills and the multi-device resilience are
+ROADMAP.md A9."""

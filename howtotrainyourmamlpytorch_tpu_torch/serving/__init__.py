@@ -24,13 +24,20 @@ checkpoint as a request engine on the card.
   ``ThreadingHTTPServer`` JSON front-end (``python -m
   howtotrainyourmamlpytorch_tpu_torch.serve``).
 
-The multi-host gateway is ROADMAP.md A8.5.
+- :mod:`gateway` — ``Gateway``: the multi-host load balancer in front of
+  N serve processes (membership hysteresis, session affinity, retry with
+  exclusion, admission), stdlib only;
+- :mod:`fleetctl` and :mod:`autoscaler` — the fleet-state journal,
+  spawn/drain primitives and the autoscaling ``Supervisor``, stdlib only
+  and loaded by file path (``scripts/fleet_serve.py``,
+  ``scripts/rolling_restart.py``), never by this package's import.
 """
 
 from .batcher import MicroBatcher, QueueFullError  # noqa: F401
 from .cache import AdaptedWeightCache, support_digest, tree_bytes  # noqa: F401
 from .engine import AdaptationEngine  # noqa: F401
 from .errors import ServiceUnavailableError, UnknownAdaptationError  # noqa: F401
+from .gateway import Gateway, make_gateway_server  # noqa: F401
 from .metrics import EventCounters, LatencyStats  # noqa: F401
 from .pool import EnginePool, EngineReplica  # noqa: F401
 from .router import NoRoutableReplicaError, Router, rendezvous_score  # noqa: F401

@@ -31,9 +31,13 @@ checkpoint) and runs against that tenant's master, which the engine's
 ``clone_for_device`` makes a replica of the engine on another card
 (``serving/pool.py``).
 
+Fault seams (``resilience/faults.py``): ``serving.dispatch`` fires at the
+top of every adapt and predict flush, ``serving.refine`` at every refine
+flush (``nan-loss`` there hands the frontend's guard non-finite weights).
+
 PyTorch runs eagerly and compiles nothing, so the buckets here only bound
-the set of shapes the card sees. Left out: the fault drills (the injector
-is inert, ROADMAP.md A9), the compile ledger and strict guard (A10).
+the set of shapes the card sees. Left out: the compile ledger and strict
+guard (ROADMAP.md A10).
 Refine sessions (the guard, lineage and spill) live in the frontend
 (``serving/server.py``).
 """
@@ -115,7 +119,7 @@ class AdaptationEngine:
         self.strategies = tuple(self.serving.strategies)
         # span tracer of the dispatches (observability/trace.py)
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        # the fault seams' injector: inert, and a named drill raises (A9)
+        # the fault seams' injector: inert unless a drill is named
         self.injector = injector if injector is not None else injector_from(self.cfg.resilience)
         # a fleet replica's tag ("@r1", serving/pool.py)
         self.ledger_tag = str(ledger_tag)
@@ -323,6 +327,7 @@ class AdaptationEngine:
         against (None: the engine's own)."""
         strategy = validate_request_strategy(strategy, self.strategies)
         state = self._tenant_state(tenant)
+        self.injector.fire("serving.dispatch")
         xs, ys, ws, bucket, b = self._support_flush(items)
         n = len(items)
         self._adapt_shapes.add((strategy, bucket, b))
@@ -345,11 +350,14 @@ class AdaptationEngine:
         starts from its own earlier fast weights. ``items`` is a list of
         ``(fast_weights, x_support, y_support)``; returns one refined tree
         per item. ``protonet`` raises: a prototype table is recomputed by
-        :meth:`adapt_batch`."""
+        :meth:`adapt_batch`. Fires the ``serving.refine`` seam: ``nan-loss``
+        returns non-finite refined weights, the poisoned-refinement drill
+        the frontend's rollback guard must catch."""
         strategy = validate_request_strategy(strategy, self.strategies)
         if strategy == "protonet":
             raise ValueError("protonet has no refine rollout: recompute the prototypes with adapt_batch")
         state = self._tenant_state(tenant)
+        fault = self.injector.fire("serving.refine")
         xs, ys, ws, bucket, b = self._support_flush([(x, y) for _, x, y in items])
         stacked_fw = self._stack_trees([fw for fw, _, _ in items], b)
         n = len(items)
@@ -357,7 +365,11 @@ class AdaptationEngine:
         call = lambda: self.system.refine_fast_weights(  # noqa: E731
             state, stacked_fw, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
         stacked = self._dispatch("serve.refine_dispatch", ctxs, strategy, n, bucket, call, tenant)
-        return self._split(stacked, n)
+        out = self._split(stacked, n)
+        if fault == "nan-loss":
+            # poisoned-refinement drill: hand the guard non-finite weights
+            out = [tree_map(lambda a: torch.full_like(a, float("nan")), t) for t in out]
+        return out
 
     def refine(self, fast_weights, x_support, y_support, strategy: Optional[str] = None,
                tenant: Optional[str] = None):
@@ -374,6 +386,7 @@ class AdaptationEngine:
         params and are scored against each item's prototype table."""
         strategy = validate_request_strategy(strategy, self.strategies)
         state = self._tenant_state(tenant)
+        self.injector.fire("serving.dispatch")
         queries = [np.asarray(x, np.float32) for _, x in items]
         sizes = [q.shape[0] for q in queries]
         bucket = self.query_bucket(max(sizes))

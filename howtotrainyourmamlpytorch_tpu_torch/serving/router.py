@@ -24,23 +24,16 @@ routed-around/shed counters) is guarded by one lock. Scoring itself is
 pure (hashlib over immutable fields) and runs outside it.
 """
 
-import hashlib
 from typing import Any, Dict, List, Optional
 
 from ..exit_codes import HTTP_TOO_MANY_REQUESTS
 from .errors import ServiceUnavailableError
+# the single rendezvous implementation: the gateway owns it, so the
+# in-process router and every gateway of a fleet agree where a session lives
+from .gateway import rendezvous_score
 from .pool import EngineReplica
 
 from ..utils.locks import san_lock
-
-
-def rendezvous_score(key: str, replica_index: int) -> int:
-    """Deterministic (key, replica) weight: leading 64 bits of
-    blake2b(key | replica). Stable across processes and runs, and the same
-    function as the JAX package's gateway (``serving/gateway.py``), so both
-    packages agree where a session lives."""
-    h = hashlib.blake2b(f"{key}|{replica_index}".encode(), digest_size=8)
-    return int.from_bytes(h.digest(), "big")
 
 
 class NoRoutableReplicaError(ServiceUnavailableError):

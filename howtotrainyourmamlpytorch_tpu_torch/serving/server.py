@@ -1307,6 +1307,10 @@ class _Handler(BaseHTTPRequestHandler):
             # inside the drain gate
             with frontend.http_scope():
                 req = self._read_json()
+                # fault seam for handler-level drills (raise -> 500, delay),
+                # fired AFTER the body is read so an injected 500 on a
+                # keep-alive connection leaves no unread body bytes behind
+                frontend.engine.injector.fire("serving.http")
                 # optional per-request strategy and tenant: absent = the
                 # deployment default; an unknown name => ValueError => 400
                 strategy = req.get("strategy")

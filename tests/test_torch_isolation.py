@@ -71,6 +71,10 @@ def test_importing_the_port_loads_no_jax():
         "    pool, registry, router, server, sessions, tenancy)\n"
         "from howtotrainyourmamlpytorch_tpu_torch.serving.tenancy import TenantQuotas, WeightPager\n"
         "from howtotrainyourmamlpytorch_tpu_torch.resilience import breaker\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.resilience import campaign\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.serving import gateway\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.observability import slo\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import loadgen\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'howtotrainyourmamlpytorch_tpu'))\n"
         "assert not bad, bad\n"

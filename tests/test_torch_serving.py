@@ -631,9 +631,10 @@ def test_frontend_matches_jax(weights):
 
 def test_refine_guard_decisions_match_jax(weights):
     """The JAX ladder (``tests/test_sessions_refine.py``) with a poisoned
-    refinement made by NaN support images instead of the fault injector
-    (its drills are not ported): commit, rollback with the cache untouched,
-    quarantine (409 on refine and predict), re-adapt, commit."""
+    refinement made by NaN support images (the injector's ``nan-loss`` at
+    ``serving.refine`` is ``tests/test_torch_faults.py``'s): commit,
+    rollback with the cache untouched, quarantine (409 on refine and
+    predict), re-adapt, commit."""
     jfront, front = frontends(weights, refine_enabled=True, refine_quarantine_after=2, refine_regress_tol=100.0)
     x_s, y_s, x_q = episode(1)
     poisoned = np.full_like(x_s, np.nan)
