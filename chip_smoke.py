@@ -143,23 +143,44 @@ Run from the repository root. Phases, one JSON line each:
    reports epoch times, the runner's step period beside phase ``train``'s
    bare step, the share of each telemetry phase, the loader's episodes per
    second alone and a ``torch.profiler`` breakdown of one runner step.
-14. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
+14. ``elastic``: data-parallel training at the same config (the mesh
+   names cuda:0 several times: the dp=2 and dp=4 code paths on the one
+   card), on phase ``runner``'s image folder and index cache. The sharded
+   step at dp=1, 2 and 4 on one start state and one class-structured batch:
+   the loss and the meta-gradient's cosine to dp=1 within twice the card's
+   float32 floor (the larger of the same dp=1 step twice and the move under
+   a 1e-6 change of the support images), B1 and B2 launched dp x K times
+   per step, the median step of each width. Then an ``ExperimentRunner``
+   at ``parallel.dp=2`` on ``[cuda:0, cuda:0]`` writes a format-3 ``latest``
+   (2 shards and a manifest, async); the same checkpoint evaluated on dp=2
+   and on a degraded one-device runner agree within the floor; the CLI
+   resumes it on the one visible card (``degraded_mesh`` {requested [2, 1],
+   granted [1, 1], visible 1}, an epoch trained, rc 0); a runner whose
+   device probe walks 1 then 2 grows back at the epoch boundary
+   (``mesh_grown``, the next steps at 2 x K launches); the CLI with
+   ``HTYMP_FAULTS=checkpoint.write=sigterm:nth=2`` (SIGTERM on the writer
+   thread during an async 2-shard save) exits 75, and a clean CLI resume
+   from its ``latest`` exits 0. It reports the per-width loss, cosine and
+   step times with their ratios, the floor, the launches, the shard files'
+   bytes, the events, the rcs and the phase's seconds (under 90 s, the run
+   under 800 s: both checked after the ``timing`` line).
+15. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
    ``omniglot.20.1.resnet-12.gd`` (28x28x1, 20-way 1-shot, meta-batch 8,
    K=5, second order, MSL on, fused, remat off): 10 train steps, an eval
    step and the engine serving the trained state, B1 and B2 over the
    86-leaf tree on every inner step; the first step against the CPU and
    float64 as in ``train``; then one bf16_inner train step (B1 and B2 in
    bfloat16).
-15. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
+16. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
     ``net=resnet-12`` (84x84x3, 5-way 5-shot) under the remat policies
     none, full and dots_saveable: the first step's loss and meta-gradient
     equal across them, peak memory and step times each; the default
     config's VGG at none and full, peak memory.
-16. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
+17. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
     inner Adam with learnable betas and the warm start, inner Rprop, and
     ``lslr_per_step`` (fused; its per-step lr meta-gradient against the
     CPU).
-17. ``kernels``: every kernel the run launched, with its launches on the
+18. ``kernels``: every kernel the run launched, with its launches on the
     paths, its error against the twin and its times beside its bound.
 
 A ``timing`` line before the ``kernels`` line gives each phase's wall
@@ -316,6 +337,19 @@ FLEET_DEVICE = "cuda"
 FLEET_RPS, FLEET_STAIRS, FLEET_LOAD_S, FLEET_KILL_AT_S = 4.0, 4, 20.0, 6.0
 FLEET_HOP_REPS = 6
 FLEET_BUDGET_S = 150.0  # the phase's share of the run's time limit
+# phase elastic: the data-parallel widths on the one card (dp=1 is the
+# plain single-device step), timed steps per width after one untimed, the
+# runner legs' steps per epoch, and the gate of the sharded step against
+# dp=1: ELASTIC_FLOOR_FACTOR times the card's float32 floor, at least
+# ELASTIC_MIN_RTOL; the fault drill of the SIGTERM-during-save leg
+ELASTIC_DEVICE = "cuda"
+ELASTIC_DPS = (1, 2, 4)
+ELASTIC_STEPS = 5
+ELASTIC_ITERS = 2
+ELASTIC_FLOOR_FACTOR = 2.0
+ELASTIC_MIN_RTOL = 1e-6
+ELASTIC_FAULT = "checkpoint.write=sigterm:nth=2"
+ELASTIC_BUDGET_S, RUN_BUDGET_S = 90.0, 800.0
 
 
 class CheckFailed(RuntimeError):
@@ -1065,8 +1099,8 @@ def float64_plain(cfg, state):
         def _apply_forward(self, params, bn_state, x, sample_weight=None):
             return self.model.apply(params, bn_state, x, use_batch_stats=True)[0]
 
-        def _batch(self, b):
-            out = super()._batch(b)
+        def _batch(self, b, device=None):
+            out = super()._batch(b, device)
             return dict(out, x_support=out["x_support"].double(), x_target=out["x_target"].double())
 
     cfg = copy.deepcopy(cfg)
@@ -2229,10 +2263,11 @@ def check_run_dir(run_dir: str, epochs: int, n_lrs: int) -> list:
     return rows
 
 
-def phase_runner(seed: int, bare_step_ms: float):
+def phase_runner(seed: int, bare_step_ms: float, tmp: str):
     """The experiment layer on the card at the default config: the runner
     in this process for RUNNER_EPOCHS epochs, then the CLI resuming the run
-    in a subprocess; see the module docstring."""
+    in a subprocess; see the module docstring. The generated image folder
+    and its index cache stay in ``tmp`` for phase ``elastic``."""
     from howtotrainyourmamlpytorch_tpu_torch.config import load_config
     from howtotrainyourmamlpytorch_tpu_torch.data import MetaLearningDataLoader
     from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
@@ -2240,171 +2275,374 @@ def phase_runner(seed: int, bare_step_ms: float):
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_runner_")
-    try:
-        t0 = time.perf_counter()
-        data = make_omniglot_folder(os.path.join(tmp, "omniglot_dataset"), seed)
-        generate_s = time.perf_counter() - t0
-        overrides = [
-            "use_pallas_inner_update=true", "remat_inner_steps=false", f"dataset.path={data}",
-            f"index_cache_dir={os.path.join(tmp, 'index')}",
-            f"experiment_root={os.path.join(tmp, 'exps')}", f"total_iter_per_epoch={RUNNER_ITERS}",
-            f"num_evaluation_tasks={RUNNER_EVAL_TASKS}", f"seed={seed}",
-        ]
-        cfg = load_config(DEFAULT_CONFIG, overrides + [f"total_epochs={RUNNER_EPOCHS}"])
-        t0 = time.perf_counter()
-        runner = ExperimentRunner(cfg)  # builds the index and the RAM cache
-        init_s = time.perf_counter() - t0
-        check(runner.start_epoch == 0, "runner", "the run directory was not fresh")
-        real, calls, box = runner.system.train_step, [], {}
+    t0 = time.perf_counter()
+    data = make_omniglot_folder(os.path.join(tmp, "omniglot_dataset"), seed)
+    generate_s = time.perf_counter() - t0
+    overrides = [
+        "use_pallas_inner_update=true", "remat_inner_steps=false", f"dataset.path={data}",
+        f"index_cache_dir={os.path.join(tmp, 'index')}",
+        f"experiment_root={os.path.join(tmp, 'exps')}", f"total_iter_per_epoch={RUNNER_ITERS}",
+        f"num_evaluation_tasks={RUNNER_EVAL_TASKS}", f"seed={seed}",
+    ]
+    cfg = load_config(DEFAULT_CONFIG, overrides + [f"total_epochs={RUNNER_EPOCHS}"])
+    t0 = time.perf_counter()
+    runner = ExperimentRunner(cfg)  # builds the index and the RAM cache
+    init_s = time.perf_counter() - t0
+    check(runner.start_epoch == 0, "runner", "the run directory was not fresh")
+    real, calls, box = runner.system.train_step, [], {}
 
-        def step(state, batch, epoch=None):
-            calls.append(time.perf_counter())
-            if len(calls) != RUNNER_PROFILED_CALL:
-                return real(state, batch, epoch=epoch)
-            box["profile"] = profile_device(lambda: box.setdefault("out", real(state, batch, epoch=epoch)))
-            return box["out"]
+    def step(state, batch, epoch=None):
+        calls.append(time.perf_counter())
+        if len(calls) != RUNNER_PROFILED_CALL:
+            return real(state, batch, epoch=epoch)
+        box["profile"] = profile_device(lambda: box.setdefault("out", real(state, batch, epoch=epoch)))
+        return box["out"]
 
-        runner.system.train_step = step
-        fu.reset_launch_counts()  # the runner's path starts here
-        t0 = time.perf_counter()
-        result = runner.run_experiment()
-        run_s = time.perf_counter() - t0
-        launches = dict(fu.launch_counts)  # and ends here
-        copies = fu.contiguous_copies
-        phases = runner.hub.registry.summaries("phase.")
-        loader_stats = runner.loader.stats()
-        K, K_eval = cfg.number_of_training_steps_per_iter, cfg.number_of_evaluation_steps_per_iter
-        train_steps = RUNNER_EPOCHS * RUNNER_ITERS
-        eval_batches = RUNNER_EVAL_TASKS // cfg.batch_size
-        eval_steps = (RUNNER_EPOCHS + 1) * eval_batches  # val every epoch, then the test
-        n_lrs = len(tree_leaves(runner.state.inner_hparams["lr"]))
-        rows = check_run_dir(runner.run_dir, RUNNER_EPOCHS, n_lrs)
-        check(n_lrs == 18, "runner", "the default model has 18 learned lrs", n_lrs=n_lrs)
-        check(len(calls) == train_steps, "runner", "train steps", calls=len(calls), want=train_steps)
-        want = {"fused_sgd": K * train_steps + K_eval * eval_steps, "fused_sgd_bwd": K * train_steps}
-        check(launches == want, "runner", "kernel launches through the runner", launches=launches, want=want)
-        check(copies == K * train_steps, "runner", "leaf copies other than the head cotangent per B2 launch",
-              contiguous_copies=copies, want=K * train_steps)
-        batches = train_steps + eval_steps
-        check(loader_stats["numpy_batches"] == 0 and loader_stats["native_batches"] == batches, "runner",
-              "the native episode engine did not assemble every batch", stats=loader_stats, want=batches)
-        check(_finite(result["test_loss_mean"]), "runner", "non-finite test loss", result=result)
+    runner.system.train_step = step
+    fu.reset_launch_counts()  # the runner's path starts here
+    t0 = time.perf_counter()
+    result = runner.run_experiment()
+    run_s = time.perf_counter() - t0
+    launches = dict(fu.launch_counts)  # and ends here
+    copies = fu.contiguous_copies
+    phases = runner.hub.registry.summaries("phase.")
+    loader_stats = runner.loader.stats()
+    K, K_eval = cfg.number_of_training_steps_per_iter, cfg.number_of_evaluation_steps_per_iter
+    train_steps = RUNNER_EPOCHS * RUNNER_ITERS
+    eval_batches = RUNNER_EVAL_TASKS // cfg.batch_size
+    eval_steps = (RUNNER_EPOCHS + 1) * eval_batches  # val every epoch, then the test
+    n_lrs = len(tree_leaves(runner.state.inner_hparams["lr"]))
+    rows = check_run_dir(runner.run_dir, RUNNER_EPOCHS, n_lrs)
+    check(n_lrs == 18, "runner", "the default model has 18 learned lrs", n_lrs=n_lrs)
+    check(len(calls) == train_steps, "runner", "train steps", calls=len(calls), want=train_steps)
+    want = {"fused_sgd": K * train_steps + K_eval * eval_steps, "fused_sgd_bwd": K * train_steps}
+    check(launches == want, "runner", "kernel launches through the runner", launches=launches, want=want)
+    check(copies == K * train_steps, "runner", "leaf copies other than the head cotangent per B2 launch",
+          contiguous_copies=copies, want=K * train_steps)
+    batches = train_steps + eval_steps
+    check(loader_stats["numpy_batches"] == 0 and loader_stats["native_batches"] == batches, "runner",
+          "the native episode engine did not assemble every batch", stats=loader_stats, want=batches)
+    check(_finite(result["test_loss_mean"]), "runner", "non-finite test loss", result=result)
 
-        # the step period in epoch 1 (steady state, no profiler): from one
-        # train_step call to the next, data wait and lagged settle included
-        epoch1 = calls[RUNNER_ITERS:]
-        period_ms = [(b - a) * 1e3 for a, b in zip(epoch1, epoch1[1:])]
-        epoch_s = [float(r["epoch_run_time"]) for r in rows]
-        share = {name: phases[name]["sum_ms"] / (run_s * 1e3) for name in
-                 ("data_wait", "dispatch", "settle", "eval", "checkpoint") if name in phases}
+    # the step period in epoch 1 (steady state, no profiler): from one
+    # train_step call to the next, data wait and lagged settle included
+    epoch1 = calls[RUNNER_ITERS:]
+    period_ms = [(b - a) * 1e3 for a, b in zip(epoch1, epoch1[1:])]
+    epoch_s = [float(r["epoch_run_time"]) for r in rows]
+    share = {name: phases[name]["sum_ms"] / (run_s * 1e3) for name in
+             ("data_wait", "dispatch", "settle", "eval", "checkpoint") if name in phases}
 
-        # the loader alone on the same RAM cache: native path, meta-batch 8
-        loader = MetaLearningDataLoader(cfg, dataset=runner.loader.dataset)
-        list(loader.train_batches(2))
-        t0 = time.perf_counter()
-        for _ in loader.train_batches(LOADER_BATCHES):
-            pass
-        loader_s = time.perf_counter() - t0
-        alone = loader.stats()
-        loader.close()
-        check(alone["numpy_batches"] == 0, "runner", "the loader fell back to numpy", stats=alone)
+    # the loader alone on the same RAM cache: native path, meta-batch 8
+    loader = MetaLearningDataLoader(cfg, dataset=runner.loader.dataset)
+    list(loader.train_batches(2))
+    t0 = time.perf_counter()
+    for _ in loader.train_batches(LOADER_BATCHES):
+        pass
+    loader_s = time.perf_counter() - t0
+    alone = loader.stats()
+    loader.close()
+    check(alone["numpy_batches"] == 0, "runner", "the loader fell back to numpy", stats=alone)
 
-        # the CLI resumes the run in a subprocess
-        _, book = ckpt.load_for_inference(runner.saved_models_dir, "latest")
-        cursor = RUNNER_EPOCHS * RUNNER_ITERS * cfg.batch_size
-        check(book["train_episodes_produced"] == cursor, "runner", "checkpoint cursor", bookkeeping=book)
-        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-        cli_overrides = [*overrides, f"num_evaluation_tasks={CLI_EVAL_TASKS}", "load_into_memory=false"]
-        cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
-               *cli_overrides, f"total_epochs={RESUMED_EPOCHS}"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        cli_s = time.perf_counter() - t0
-        tail = (proc.stdout[-3000:], proc.stderr[-3000:])
-        check(proc.returncode == 0, "runner", "the CLI resume failed", rc=proc.returncode, tail=tail)
-        printed = [line.split(":")[0] for line in proc.stdout.splitlines() if line.startswith("epoch ")]
-        check(printed == [f"epoch {RUNNER_EPOCHS}"], "runner", "the resumed CLI trained other epochs",
-              printed=printed)
-        check(f"resumed: epoch {RUNNER_EPOCHS}, train episodes {cursor}" in proc.stdout, "runner",
-              "the resumed CLI's loader cursor", tail=tail)
-        check_run_dir(runner.run_dir, RESUMED_EPOCHS, n_lrs)
-        saved = sorted(os.listdir(runner.saved_models_dir))
-        want_saved = [f"train_model_{i}" for i in (0, 1, 2, "best", "latest")]
-        check(all(name in saved for name in want_saved), "runner", "checkpoints missing", saved=saved)
-        _, book = ckpt.load_for_inference(runner.saved_models_dir, "latest")
-        check(book["epoch"] == RUNNER_EPOCHS and book["train_episodes_produced"] == cursor + RUNNER_ITERS * cfg.batch_size,
-              "runner", "resumed checkpoint bookkeeping", bookkeeping=book)
+    # the CLI resumes the run in a subprocess
+    _, book = ckpt.load_for_inference(runner.saved_models_dir, "latest")
+    cursor = RUNNER_EPOCHS * RUNNER_ITERS * cfg.batch_size
+    check(book["train_episodes_produced"] == cursor, "runner", "checkpoint cursor", bookkeeping=book)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    cli_overrides = [*overrides, f"num_evaluation_tasks={CLI_EVAL_TASKS}", "load_into_memory=false"]
+    cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
+           *cli_overrides, f"total_epochs={RESUMED_EPOCHS}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    tail = (proc.stdout[-3000:], proc.stderr[-3000:])
+    check(proc.returncode == 0, "runner", "the CLI resume failed", rc=proc.returncode, tail=tail)
+    printed = [line.split(":")[0] for line in proc.stdout.splitlines() if line.startswith("epoch ")]
+    check(printed == [f"epoch {RUNNER_EPOCHS}"], "runner", "the resumed CLI trained other epochs",
+          printed=printed)
+    check(f"resumed: epoch {RUNNER_EPOCHS}, train episodes {cursor}" in proc.stdout, "runner",
+          "the resumed CLI's loader cursor", tail=tail)
+    check_run_dir(runner.run_dir, RESUMED_EPOCHS, n_lrs)
+    saved = sorted(os.listdir(runner.saved_models_dir))
+    want_saved = [f"train_model_{i}" for i in (0, 1, 2, "best", "latest")]
+    check(all(name in saved for name in want_saved), "runner", "checkpoints missing", saved=saved)
+    _, book = ckpt.load_for_inference(runner.saved_models_dir, "latest")
+    check(book["epoch"] == RUNNER_EPOCHS and book["train_episodes_produced"] == cursor + RUNNER_ITERS * cfg.batch_size,
+          "runner", "resumed checkpoint bookkeeping", bookkeeping=book)
 
-        # the CLI trains the slice's full-width model (ResNet-12 at the fleet
-        # row's shape) on the same folder and index cache, reading the
-        # images from disk (no second RAM cache)
-        resnet_overrides = [*cli_overrides, *RESNET_OVERRIDES, "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
-                            "experiment_name=resnet12_cli"]
-        resnet_cfg = load_config(DEFAULT_CONFIG, resnet_overrides)
-        cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
-               *resnet_overrides]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        resnet_cli_s = time.perf_counter() - t0
-        tail = (proc.stdout[-3000:], proc.stderr[-3000:])
-        check(proc.returncode == 0, "runner", "the ResNet-12 CLI run failed", rc=proc.returncode, tail=tail)
-        resnet_rows = check_run_dir(resnet_cfg.run_dir(), 1, RESNET_LEAVES)
-        resnet_saved = sorted(os.listdir(os.path.join(resnet_cfg.run_dir(), "saved_models")))
-        check(all(name in resnet_saved for name in ("train_model_0", "train_model_best", "train_model_latest")),
-              "runner", "ResNet-12 checkpoints missing", saved=resnet_saved)
+    # the CLI trains the slice's full-width model (ResNet-12 at the fleet
+    # row's shape) on the same folder and index cache, reading the
+    # images from disk (no second RAM cache)
+    resnet_overrides = [*cli_overrides, *RESNET_OVERRIDES, "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
+                        "experiment_name=resnet12_cli"]
+    resnet_cfg = load_config(DEFAULT_CONFIG, resnet_overrides)
+    cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
+           *resnet_overrides]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    resnet_cli_s = time.perf_counter() - t0
+    tail = (proc.stdout[-3000:], proc.stderr[-3000:])
+    check(proc.returncode == 0, "runner", "the ResNet-12 CLI run failed", rc=proc.returncode, tail=tail)
+    resnet_rows = check_run_dir(resnet_cfg.run_dir(), 1, RESNET_LEAVES)
+    resnet_saved = sorted(os.listdir(os.path.join(resnet_cfg.run_dir(), "saved_models")))
+    check(all(name in resnet_saved for name in ("train_model_0", "train_model_best", "train_model_latest")),
+          "runner", "ResNet-12 checkpoints missing", saved=resnet_saved)
 
-        # the CLI trains strategy=anil (the fleet row omniglot.20.5.vgg.gd.anil)
-        # on the same folder, at the config's matmul precision like every leg
-        anil_overrides = [*cli_overrides, "strategy=anil", "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
-                          "experiment_name=anil_cli"]
-        anil_cfg = load_config(DEFAULT_CONFIG, anil_overrides)
-        cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
-               *anil_overrides]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        anil_cli_s = time.perf_counter() - t0
-        tail = (proc.stdout[-3000:], proc.stderr[-3000:])
-        check(proc.returncode == 0, "runner", "the anil CLI run failed", rc=proc.returncode, tail=tail)
-        anil_rows = check_run_dir(anil_cfg.run_dir(), 1, n_lrs)
-        check(load_config(os.path.join(anil_cfg.run_dir(), "config.yaml")).strategy == "anil", "runner",
-              "the anil run's config.yaml")
-        report = analysis_report(os.path.join(tmp, "exps"), os.path.join(tmp, "analysis"), env,
-                                 [runner.run_dir, resnet_cfg.run_dir(), anil_cfg.run_dir()])
-        out = {
-            "phase": "runner", "ok": True,
-            "config": "configs/default.yaml + use_pallas_inner_update=true, total_iter_per_epoch=10, "
-                      "num_evaluation_tasks=40",
-            "data": {**OMNIGLOT, "generate_s": generate_s, "runner_init_s": init_s},
-            "epochs": RUNNER_EPOCHS, "resumed_to": RESUMED_EPOCHS, "train_steps": train_steps,
-            "eval_steps": eval_steps, "launches": launches, "contiguous_copies": copies, "loader": loader_stats,
-            "run_s": run_s, "epoch_train_s": epoch_s,
-            "train_steps_per_s": RUNNER_ITERS / epoch_s[-1],
-            "runner_step_period_ms_median": statistics.median(period_ms), "runner_step_period_ms": period_ms,
-            "bare_step_ms_median": bare_step_ms,
-            "phase_share_of_run": share, "phases": phases,
-            "loader_episodes_per_s": LOADER_BATCHES * cfg.batch_size / loader_s,
-            "loader_batches_per_s": LOADER_BATCHES / loader_s,
-            "runner_step_profile": box.get("profile"),
-            "losses": {"train": [float(r["train_loss_mean"]) for r in rows],
-                       "val": [float(r["val_loss_mean"]) for r in rows], "test": result["test_loss_mean"]},
-            "test_accuracy": result["test_accuracy_mean"], "cli_resume_s": cli_s,
-            "cli_legs": {"num_evaluation_tasks": CLI_EVAL_TASKS, "load_into_memory": False},
-            "resnet_cli": {"overrides": RESNET_OVERRIDES + ["total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}"],
-                           "s": resnet_cli_s, "train_loss": float(resnet_rows[0]["train_loss_mean"]),
-                           "val_loss": float(resnet_rows[0]["val_loss_mean"])},
-            "anil_cli": {"overrides": ["strategy=anil", "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}"],
-                         "s": anil_cli_s, "train_loss": float(anil_rows[0]["train_loss_mean"]),
-                         "val_loss": float(anil_rows[0]["val_loss_mean"])},
-            "analysis": report,
-        }
-        emit(out)
-        return out
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # the CLI trains strategy=anil (the fleet row omniglot.20.5.vgg.gd.anil)
+    # on the same folder, at the config's matmul precision like every leg
+    anil_overrides = [*cli_overrides, "strategy=anil", "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
+                      "experiment_name=anil_cli"]
+    anil_cfg = load_config(DEFAULT_CONFIG, anil_overrides)
+    cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
+           *anil_overrides]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    anil_cli_s = time.perf_counter() - t0
+    tail = (proc.stdout[-3000:], proc.stderr[-3000:])
+    check(proc.returncode == 0, "runner", "the anil CLI run failed", rc=proc.returncode, tail=tail)
+    anil_rows = check_run_dir(anil_cfg.run_dir(), 1, n_lrs)
+    check(load_config(os.path.join(anil_cfg.run_dir(), "config.yaml")).strategy == "anil", "runner",
+          "the anil run's config.yaml")
+    report = analysis_report(os.path.join(tmp, "exps"), os.path.join(tmp, "analysis"), env,
+                             [runner.run_dir, resnet_cfg.run_dir(), anil_cfg.run_dir()])
+    out = {
+        "phase": "runner", "ok": True,
+        "config": "configs/default.yaml + use_pallas_inner_update=true, total_iter_per_epoch=10, "
+                  "num_evaluation_tasks=40",
+        "data": {**OMNIGLOT, "generate_s": generate_s, "runner_init_s": init_s},
+        "epochs": RUNNER_EPOCHS, "resumed_to": RESUMED_EPOCHS, "train_steps": train_steps,
+        "eval_steps": eval_steps, "launches": launches, "contiguous_copies": copies, "loader": loader_stats,
+        "run_s": run_s, "epoch_train_s": epoch_s,
+        "train_steps_per_s": RUNNER_ITERS / epoch_s[-1],
+        "runner_step_period_ms_median": statistics.median(period_ms), "runner_step_period_ms": period_ms,
+        "bare_step_ms_median": bare_step_ms,
+        "phase_share_of_run": share, "phases": phases,
+        "loader_episodes_per_s": LOADER_BATCHES * cfg.batch_size / loader_s,
+        "loader_batches_per_s": LOADER_BATCHES / loader_s,
+        "runner_step_profile": box.get("profile"),
+        "losses": {"train": [float(r["train_loss_mean"]) for r in rows],
+                   "val": [float(r["val_loss_mean"]) for r in rows], "test": result["test_loss_mean"]},
+        "test_accuracy": result["test_accuracy_mean"], "cli_resume_s": cli_s,
+        "cli_legs": {"num_evaluation_tasks": CLI_EVAL_TASKS, "load_into_memory": False},
+        "resnet_cli": {"overrides": RESNET_OVERRIDES + ["total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}"],
+                       "s": resnet_cli_s, "train_loss": float(resnet_rows[0]["train_loss_mean"]),
+                       "val_loss": float(resnet_rows[0]["val_loss_mean"])},
+        "anil_cli": {"overrides": ["strategy=anil", "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}"],
+                     "s": anil_cli_s, "train_loss": float(anil_rows[0]["train_loss_mean"]),
+                     "val_loss": float(anil_rows[0]["val_loss_mean"])},
+        "analysis": report,
+    }
+    emit(out)
+    return out
+
+
+def _perturbed(batch, scale: float):
+    """``batch`` with its support images moved by ``scale``."""
+    return dict(batch, x_support=batch["x_support"] + np.float32(scale))
+
+
+def _elastic_cli(args, env):
+    """One training CLI leg of phase ``elastic`` on the card -> (rc,
+    seconds, stdout, the ends of stdout and stderr)."""
+    cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
+           "--device", ELASTIC_DEVICE, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc.returncode, time.perf_counter() - t0, proc.stdout, (proc.stdout[-2000:], proc.stderr[-2000:])
+
+
+def _run_events(run_dir: str):
+    with open(os.path.join(run_dir, "logs", "events.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _last_cold_start(run_dir: str):
+    """The newest ``cold_start`` event's seconds (a runner's init to its
+    first settled step)."""
+    starts = [e["cold_start_s"] for e in _run_events(run_dir) if e.get("event") == "cold_start"]
+    return starts[-1] if starts else None
+
+
+def phase_elastic(seed: int, tmp: str):
+    """Elastic data-parallel training on the card at configs/default.yaml
+    (fused update, remat off), on phase ``runner``'s image folder and index
+    cache; see the module docstring. The mesh names cuda:0 several times:
+    the dp=2 and dp=4 code paths on the one card."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import ParallelConfig, load_config
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint as ckpt
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import make_mesh, replicate, shard_batch
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0) if ELASTIC_DEVICE == "cuda" else torch.device(ELASTIC_DEVICE)
+    cfg, system, start = full_width_system(seed)
+    K, K_eval = cfg.number_of_training_steps_per_iter, cfg.number_of_evaluation_steps_per_iter
+    batch = learnable_synthetic_batch(cfg.batch_size, cfg.num_classes_per_set, cfg.num_samples_per_class,
+                                      cfg.num_target_samples, cfg.image_shape, seed=seed + 5)
+    launches = {"fused_sgd": 0, "fused_sgd_bwd": 0}
+
+    def add(counts):
+        for key in launches:
+            launches[key] += counts.get(key, 0)
+
+    # 1. the sharded step against dp=1, beside the card's float32 floor
+    fu.reset_launch_counts()
+    loss1, _, g1 = system.meta_gradients(start, batch, epoch=0)
+    loss1b, _, g1b = system.meta_gradients(start, batch, epoch=0)
+    floor_loss, floor_cos = abs(float(loss1b) - float(loss1)), 1.0 - _cosine(_flat(g1), _flat(g1b))
+    moved = []
+    for sign in (1.0, -1.0):
+        lp, _, gp = system.meta_gradients(start, _perturbed(batch, sign * NOISE_SCALE), epoch=0)
+        moved.append((abs(float(lp) - float(loss1)), 1.0 - _cosine(_flat(g1), _flat(gp))))
+    floor = {"loss": max([floor_loss] + [m[0] for m in moved]), "one_minus_cosine": max([floor_cos] + [m[1] for m in moved]),
+             "same_step_twice": {"loss": floor_loss, "one_minus_cosine": floor_cos},
+             "noise_scale": NOISE_SCALE}
+    gate = {"loss": max(ELASTIC_FLOOR_FACTOR * floor["loss"], ELASTIC_MIN_RTOL * abs(float(loss1))),
+            "one_minus_cosine": max(ELASTIC_FLOOR_FACTOR * floor["one_minus_cosine"], ELASTIC_MIN_RTOL)}
+    add(fu.launch_counts)
+    per_dp = {}
+    for dp in ELASTIC_DPS:
+        mesh = make_mesh(ParallelConfig(dp=dp), [card] * dp) if dp > 1 else None
+        state = replicate(start, mesh) if mesh else start
+        feed = (lambda b: shard_batch(b, mesh)) if mesh else (lambda b: b)
+        entry = {}
+        if mesh:
+            fu.reset_launch_counts()
+            loss, _, g = system.meta_gradients(state, feed(batch), epoch=0)
+            add(fu.launch_counts)
+            entry.update(loss=float(loss), loss_diff=abs(float(loss) - float(loss1)),
+                         cosine=_cosine(_flat(g1), _flat(g)))
+            check(entry["loss_diff"] <= gate["loss"] and 1.0 - entry["cosine"] <= gate["one_minus_cosine"],
+                  "elastic", f"dp={dp} step off dp=1 beyond the floor", entry=entry, floor=floor, gate=gate)
+        else:
+            entry.update(loss=float(loss1), loss_diff=0.0, cosine=1.0)
+        fu.reset_launch_counts()
+        s, _, ms = _steps(system, state, feed(batch), ELASTIC_STEPS + 1)
+        step_launches = dict(fu.launch_counts)
+        add(step_launches)
+        want = {"fused_sgd": dp * K * (ELASTIC_STEPS + 1), "fused_sgd_bwd": dp * K * (ELASTIC_STEPS + 1)}
+        check(step_launches == want, "elastic", f"dp={dp}: B1 and B2 not dp x K per step",
+              launches=step_launches, want=want)
+        entry.update(step_ms_median=statistics.median(ms[1:]), step_ms=ms[1:], launches_per_step=dp * K)
+        per_dp[dp] = entry
+    base_ms = per_dp[1]["step_ms_median"]
+    ratios = {f"dp{dp}/dp1": per_dp[dp]["step_ms_median"] / base_ms for dp in ELASTIC_DPS if dp > 1}
+    steps_s = time.perf_counter() - t_phase
+
+    # 2. write under dp=2 in this process (async, one shard per mesh entry)
+    data = os.path.join(tmp, "omniglot_dataset")
+    overrides = [
+        "use_pallas_inner_update=true", "remat_inner_steps=false", f"dataset.path={data}",
+        f"index_cache_dir={os.path.join(tmp, 'index')}", f"experiment_root={os.path.join(tmp, 'elastic')}",
+        "experiment_name=elastic", f"total_iter_per_epoch={ELASTIC_ITERS}", f"num_evaluation_tasks={cfg.batch_size}",
+        "load_into_memory=false", f"seed={seed}", "parallel.dp=2", "checkpoint_async=true", "checkpoint_shards=0",
+    ]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("HTYMP_FAULTS", None)
+    eval_launch = lambda dp, evals: dp * K_eval * evals  # noqa: E731
+    run_cfg = load_config(DEFAULT_CONFIG, overrides + ["total_epochs=1"])
+    fu.reset_launch_counts()
+    runner = ExperimentRunner(run_cfg, devices=[card, card])
+    check(runner.mesh is not None and runner.mesh.shape == {"dp": 2, "mp": 1}, "elastic", "no dp=2 mesh",
+          mesh=repr(runner.mesh))
+    runner.run_experiment()
+    got = dict(fu.launch_counts)
+    add(got)
+    want = {"fused_sgd": 2 * K * ELASTIC_ITERS + eval_launch(2, 2), "fused_sgd_bwd": 2 * K * ELASTIC_ITERS}
+    check(got == want, "elastic", "dp=2 runner launches", launches=got, want=want)
+    save_dir = runner.saved_models_dir
+    files = sorted(os.listdir(save_dir))
+    shard_bytes = {name: os.path.getsize(os.path.join(save_dir, name)) for name in files
+                   if name.startswith("train_model_latest")}
+    check(set(shard_bytes) >= {"train_model_latest", "train_model_latest.shard0", "train_model_latest.shard1"}
+          and "train_model_latest.shard2" not in shard_bytes, "elastic", "format-3 latest with 2 shards",
+          files=files)
+    with open(os.path.join(save_dir, "train_model_latest"), "rb") as f:
+        manifest_format = ckpt._restore(f.read())["format"]
+    check(manifest_format == ckpt.SHARDED_FORMAT, "elastic", "latest is not format 3", format=manifest_format)
+    _, book = ckpt.load_for_inference(save_dir, "latest")
+    check(book["mesh"] == [2, 1] and book["epoch"] == 0, "elastic", "dp=2 bookkeeping", bookkeeping=book)
+
+    # the same checkpoint (the run's only epoch is its best, which the test
+    # left in place) evaluated on dp=2 and on a runner shrunk to one device
+    fu.reset_launch_counts()
+    evals = {"dp2": runner._eval_split("val")}
+    runner.loader.close()
+    shrunk = ExperimentRunner(run_cfg, devices=[card], device_probe=lambda: 1)
+    evals["one_device"], evals["one_device_degraded"] = shrunk._eval_split("val"), shrunk.degraded_mesh
+    shrunk.loader.close()
+    shrunk.events.close()
+    add(fu.launch_counts)
+    val_gate = max(ELASTIC_FLOOR_FACTOR * floor["loss"] / max(abs(float(loss1)), 1e-12), ELASTIC_MIN_RTOL)
+    val_diff = abs(evals["one_device"]["val_loss_mean"] - evals["dp2"]["val_loss_mean"]) / abs(evals["dp2"]["val_loss_mean"])
+    check(evals["one_device_degraded"] == {"requested": [2, 1], "granted": [1, 1], "visible_devices": 1}
+          and val_diff <= val_gate, "elastic", "the degraded eval of the dp=2 checkpoint", evals=evals,
+          val_loss_rel_diff=val_diff, gate=val_gate)
+
+    # 3. shrink: the CLI resumes on the one visible card
+    is_degraded = lambda e: e.get("event") == "degraded_mesh"  # noqa: E731
+    n_degraded = len([e for e in _run_events(runner.run_dir) if is_degraded(e)])
+    rc_shrink, shrink_s, stdout, tail = _elastic_cli(overrides + ["total_epochs=2"], env)
+    check(rc_shrink == 0, "elastic", "the shrink CLI resume failed", rc=rc_shrink, tail=tail)
+    cold = {"shrink_cli": _last_cold_start(runner.run_dir)}
+    degraded = [e for e in _run_events(runner.run_dir) if is_degraded(e)][n_degraded:]
+    check(len(degraded) == 1 and "DEGRADED MESH" in stdout
+          and {k: degraded[0][k] for k in ("requested", "granted", "visible_devices")}
+          == {"requested": [2, 1], "granted": [1, 1], "visible_devices": 1}, "elastic",
+          "the CLI logged no degraded_mesh event", degraded=degraded, tail=tail)
+    check("resumed: epoch 1" in stdout and "epoch 1:" in stdout, "elastic", "the shrink CLI did not train epoch 1",
+          tail=tail)
+
+    # 4. grow back in this process: the probe sees 1, then 2 at the epoch boundary
+    probes = iter([1])
+    fu.reset_launch_counts()
+    grow = ExperimentRunner(load_config(DEFAULT_CONFIG, overrides + ["total_epochs=3"]), devices=[card, card],
+                            device_probe=lambda: next(probes, 2))
+    check(grow.start_epoch == 2 and grow.mesh is None, "elastic", "the grow run did not start degraded",
+          start_epoch=grow.start_epoch, mesh=repr(grow.mesh))
+    grow.run_experiment()
+    got = dict(fu.launch_counts)
+    add(got)
+    grown = [e for e in _run_events(grow.run_dir) if e.get("event") == "mesh_grown"]
+    check(bool(grown) and grown[-1]["previous"] == [1, 1] and grown[-1]["granted"] == [2, 1]
+          and grow.mesh is not None and grow.mesh.shape["dp"] == 2, "elastic", "no mesh_grown", grown=grown)
+    want = {"fused_sgd": 2 * K * ELASTIC_ITERS + eval_launch(2, 2), "fused_sgd_bwd": 2 * K * ELASTIC_ITERS}
+    check(got == want, "elastic", "the grown mesh's launches are not 2 x K per step", launches=got, want=want)
+
+    # 5. SIGTERM on the writer thread during an async 2-shard save, then a clean resume
+    fault_args = overrides + ["total_epochs=5", "checkpoint_shards=2"]
+    rc_fault, fault_s, _, tail = _elastic_cli(fault_args, dict(env, HTYMP_FAULTS=ELASTIC_FAULT))
+    check(rc_fault == 75, "elastic", "the SIGTERM-during-save leg did not exit 75", rc=rc_fault, tail=tail)
+    cold["fault_cli"] = _last_cold_start(runner.run_dir)
+    _, book = ckpt.load_for_inference(save_dir, "latest")
+    rc_resume, resume_s, stdout, tail = _elastic_cli(fault_args, env)
+    check(rc_resume == 0 and f"resumed: epoch {book['epoch'] + 1}" in stdout, "elastic",
+          "the clean resume after the fault failed", rc=rc_resume, bookkeeping=book, tail=tail)
+    cold["resume_cli"] = _last_cold_start(runner.run_dir)
+    _, final = ckpt.load_for_inference(save_dir, "latest")
+    check(final["epoch"] == 4, "elastic", "the resumed run did not finish epoch 4", bookkeeping=final)
+
+    out = {
+        "phase": "elastic", "ok": True,
+        "config": "configs/default.yaml + use_pallas_inner_update=true, remat off; mesh entries cuda:0",
+        "per_dp": per_dp, "step_ratios": ratios, "floor": floor, "gate": gate,
+        "gate_rule": f"|loss - dp1| and 1 - cosine within {ELASTIC_FLOOR_FACTOR}x the floor (the larger of the "
+                     f"same dp=1 step twice and a {NOISE_SCALE} move of the support images), at least "
+                     f"{ELASTIC_MIN_RTOL} relative",
+        "launches": launches, "shard_bytes": shard_bytes, "evals": evals, "val_loss_rel_diff": val_diff,
+        "degraded_event": degraded[0], "grown_event": grown[-1], "fault": ELASTIC_FAULT,
+        "rcs": {"shrink": rc_shrink, "fault": rc_fault, "resume": rc_resume},
+        "seconds": {"steps": steps_s, "shrink_cli": shrink_s, "fault_cli": fault_s, "resume_cli": resume_s,
+                    "phase": time.perf_counter() - t_phase},
+        "cli_cold_start_s": cold,
+    }
+    emit(out)
+    return out
 
 
 def analysis_report(exps_root: str, out_dir: str, env, run_dirs) -> dict:
@@ -3025,21 +3263,33 @@ def main() -> int:
     fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"])
     st = timed("strategies", phase_strategies, args.seed, tr["train_step_ms_median"])
     timed("precision", phase_precision, args.seed)
-    rn = timed("runner", phase_runner, args.seed, tr["train_step_ms_median"])
+    # phase runner's image folder and index cache serve phase elastic too
+    data_tmp = tempfile.mkdtemp(prefix="chip_smoke_runner_")
+    try:
+        rn = timed("runner", phase_runner, args.seed, tr["train_step_ms_median"], data_tmp)
+        el = timed("elastic", phase_elastic, args.seed, data_tmp)
+    finally:
+        shutil.rmtree(data_tmp, ignore_errors=True)
     rs = timed("resnet", phase_resnet, args.seed)
     rm = timed("remat", phase_remat, args.seed)
     br = timed("breadth", phase_breadth, args.seed)
-    emit({"phase": "timing", "seconds": seconds, "total_s": round(sum(seconds.values()), 1)})
+    total_s = round(sum(seconds.values()), 1)
+    emit({"phase": "timing", "seconds": seconds, "total_s": total_s,
+          "budget_s": {"elastic": ELASTIC_BUDGET_S, "run": RUN_BUDGET_S}})
+    check(seconds["elastic"] < ELASTIC_BUDGET_S and total_s < RUN_BUDGET_S, "timing",
+          "phase elastic or the run over its budget", seconds=seconds, total_s=total_s)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
                  "http_serving": http["launches"], "tenancy": tn["launches"], "fleet": fl["launches"],
                  "anil_train": st["launches_with_eval"]["fused_sgd"],
                  "anil_remat": st["remat_full"]["launches"]["fused_sgd"], "strategies_serving": st["launches"],
-                 "runner": rn["launches"]["fused_sgd"], "resnet": rs["launches"]["fused_sgd"],
+                 "runner": rn["launches"]["fused_sgd"], "elastic": el["launches"]["fused_sgd"],
+                 "resnet": rs["launches"]["fused_sgd"],
                  "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd"], "remat": rm["launches"]["fused_sgd"],
                  "breadth": br["launches"]["fused_sgd"]}
     bwd_paths = {"train": tr["launches"]["fused_sgd_bwd"], "anil_train": st["train_launches"]["fused_sgd_bwd"],
                  "anil_remat": st["remat_full"]["launches"]["fused_sgd_bwd"],
-                 "runner": rn["launches"]["fused_sgd_bwd"], "resnet": rs["launches"]["fused_sgd_bwd"],
+                 "runner": rn["launches"]["fused_sgd_bwd"], "elastic": el["launches"]["fused_sgd_bwd"],
+                 "resnet": rs["launches"]["fused_sgd_bwd"],
                  "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd_bwd"],
                  "remat": rm["launches"]["fused_sgd_bwd"], "breadth": br["launches"]["fused_sgd_bwd"]}
     for paths in (fwd_paths, bwd_paths):

@@ -42,6 +42,17 @@ order at every epoch) or ``anil`` (the head-only inner loop).
 already carry the task axis, with the hparams and inner state of the
 masters.
 
+Data parallelism (``parallel/mesh.py``): ``train_step``, ``eval_step``,
+``meta_gradients`` and ``meta_objective`` also take a batch from
+``shard_batch`` with a state from ``replicate``. Each shard's tasks roll out
+on its device (B1, and B2 in the backward, launched there), its objective is
+the sum of its task losses over the global task count, and the shards'
+gradients are summed in mesh order on the mesh's first device, then over
+the hosts' processes: the gradient of the mean over every task. The outer
+update runs once and its result is replicated. No statistic crosses a
+shard: batch norm uses each task's own statistics and ``bn_state`` is left
+as it is.
+
 ``scale_meta_lr`` rebuilds the outer schedule at scaled rates (the NaN
 rollback's backoff, ``experiment/runner.py``). Not here (ROADMAP.md): the
 multi-step chunk programs, strict guard, compile ledger and donation (A10).
@@ -56,6 +67,8 @@ change of a value that something else had already set is warned.
 out the same math, so they have no counterpart here.
 """
 
+import contextlib
+import functools
 import math
 import warnings
 from typing import Any, NamedTuple, Optional, Tuple
@@ -71,6 +84,7 @@ from ..ops.losses import cross_entropy
 from ..ops.msl import final_step_only, per_step_loss_importance
 from ..ops.outer_adam import adam_init, adam_update
 from ..ops.precision import as_f32, policy_from_config
+from ..parallel.mesh import Replicated, ShardedBatch, all_reduce_sum, replicate, unreplicate
 from ..utils import seeding
 from ..utils.trees import tree_flatten, tree_map
 from . import strategies
@@ -427,21 +441,20 @@ class MAMLSystem:
             and epoch < self.cfg.multi_step_loss_num_epochs
         )
 
-    def _loss_weights(self, epoch, num_steps, msl_active: bool):
+    def _loss_weights(self, epoch, num_steps, msl_active: bool, device):
         if msl_active:
-            return per_step_loss_importance(
-                epoch, num_steps, self.cfg.multi_step_loss_num_epochs, device=self.device
-            )
-        return final_step_only(num_steps, device=self.device)
+            return per_step_loss_importance(epoch, num_steps, self.cfg.multi_step_loss_num_epochs, device=device)
+        return final_step_only(num_steps, device=device)
 
-    def _batch(self, batch):
-        """A meta-batch dict (numpy or tensors) on the device, with the task
-        axis made explicit: ``[B, n_way, k, ...]`` -> ``[B, n_way * k, ...]``."""
+    def _batch(self, batch, device=None):
+        """A meta-batch dict (numpy or tensors) on ``device`` (default the
+        system's), with the task axis made explicit: ``[B, n_way, k, ...]``
+        -> ``[B, n_way * k, ...]``."""
         return {
-            "x_support": _flatten_task(self._tensor(batch["x_support"], torch.float32)),
-            "y_support": _flatten_task(self._tensor(batch["y_support"], torch.int64)),
-            "x_target": _flatten_task(self._tensor(batch["x_target"], torch.float32)),
-            "y_target": _flatten_task(self._tensor(batch["y_target"], torch.int64)),
+            "x_support": _flatten_task(self._tensor(batch["x_support"], torch.float32, device)),
+            "y_support": _flatten_task(self._tensor(batch["y_support"], torch.int64, device)),
+            "x_target": _flatten_task(self._tensor(batch["x_target"], torch.float32, device)),
+            "y_target": _flatten_task(self._tensor(batch["y_target"], torch.int64, device)),
         }
 
     def _meta_objective(self, trainables, bn_state, opt_state, batch, epoch, second_order, num_steps, msl_active):
@@ -451,7 +464,7 @@ class MAMLSystem:
         params = trainables["params"]
         hparams = self._inner_hparams_for_rollout(trainables["hparams"], params)
         inner_state0 = self._initial_inner_state(params, hparams, opt_state)
-        loss_weights = self._loss_weights(epoch, num_steps, msl_active)
+        loss_weights = self._loss_weights(epoch, num_steps, msl_active, batch["x_support"].device)
         task_losses, target_logits = self._rollout(
             params, bn_state, hparams, inner_state0, batch["x_support"], batch["y_support"],
             batch["x_target"], batch["y_target"], loss_weights, second_order, num_steps,
@@ -485,21 +498,31 @@ class MAMLSystem:
     def _step_epoch(self, state: TrainState):
         return torch.div(state.step, self.cfg.total_iter_per_epoch, rounding_mode="floor")
 
-    def _train_objective(self, state: TrainState, trainables, batch, epoch: Optional[int]):
+    def _train_objective(self, state: TrainState, trainables, batch, epoch: Optional[int], device=None):
         """The train step's objective at ``trainables``. ``epoch`` (host int)
         selects second/first order and the MSL branch; the MSL weights
-        themselves follow ``state.step``."""
+        themselves follow ``state.step``. ``device``: where the batch goes
+        (default the system's)."""
         cfg = self.cfg
         if epoch is None:
             epoch = int(state.step) // cfg.total_iter_per_epoch
         return self._meta_objective(
-            trainables, state.bn_state, state.opt_state, self._batch(batch), self._step_epoch(state),
+            trainables, state.bn_state, state.opt_state, self._batch(batch, device), self._step_epoch(state),
             self.use_second_order(epoch), cfg.number_of_training_steps_per_iter, self.msl_active(epoch),
         )
 
+    @staticmethod
+    def _grads_of(loss, trainables):
+        """``d loss / d trainables`` over the trainables' own structure (an
+        empty subtree stays in place; an unused leaf gets zeros)."""
+        grads = iter(torch.autograd.grad(loss, tree_flatten(trainables)[0], allow_unused=True))
+        return tree_map(lambda t: _zeros_if_none(next(grads), t), trainables)
+
     def meta_objective(self, state: TrainState, batch, epoch: Optional[int] = None):
         """The train step's objective and aux outputs at ``state``, without
-        gradients -> ``(loss, aux)``."""
+        gradients -> ``(loss, aux)``. Takes a sharded batch too."""
+        if isinstance(batch, ShardedBatch):
+            return self._sharded_objective(state, batch, epoch, with_grads=False)[:2]
         with torch.no_grad():
             return self._train_objective(
                 state, {"params": state.params, "hparams": state.inner_hparams}, batch, epoch
@@ -507,26 +530,33 @@ class MAMLSystem:
 
     def meta_gradients(self, state: TrainState, batch, epoch: Optional[int] = None):
         """The train step's objective and its gradient over
-        ``{"params", "hparams"}`` -> ``(loss, aux, grads)``."""
+        ``{"params", "hparams"}`` -> ``(loss, aux, grads)``. Given a
+        :class:`~..parallel.mesh.ShardedBatch` (and a state from
+        ``replicate``, or one to replicate), the gradient is the sum of the
+        shards' gradients on the mesh's first device."""
+        if isinstance(batch, ShardedBatch):
+            return self._sharded_objective(state, batch, epoch, with_grads=True)
         trainables = tree_map(
             lambda t: t.detach().requires_grad_(True),
             {"params": state.params, "hparams": state.inner_hparams},
         )
         loss, aux = self._train_objective(state, trainables, batch, epoch)
-        leaves = tree_flatten(trainables)[0]
-        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-        # rebuilt over the trainables' own structure, so an empty subtree
-        # (no learnable hparams) stays in place
-        grads = tree_map(lambda t: _zeros_if_none(next(grads), t), trainables)
-        return loss.detach(), aux, grads
+        return loss.detach(), aux, self._grads_of(loss, trainables)
 
     def train_step(self, state: TrainState, batch, epoch: Optional[int] = None) -> Tuple[TrainState, StepOutput]:
         """One outer update: the meta-gradient, the ImageNet +-10 clamp of
         the classifier grads, outer Adam on the cosine schedule, the lr
         projection, ``step + 1``. ``epoch`` (host int) selects the variant;
-        when omitted it is read from ``state.step``."""
+        when omitted it is read from ``state.step``. Data-parallel: given
+        ``replicate(state, mesh)`` and ``shard_batch(batch, mesh)`` the
+        update runs once, on the mesh's first device, and the new state is
+        replicated again."""
         cfg = self.cfg
+        sharded = isinstance(batch, ShardedBatch)
+        if sharded:
+            state = self._replicated(state, batch.mesh)
         loss, aux, grads = self.meta_gradients(state, batch, epoch)
+        base = unreplicate(state)
         with torch.no_grad():
             if cfg.is_imagenet:
                 # element-wise clamp of classifier grads only (reference
@@ -535,19 +565,21 @@ class MAMLSystem:
                     "params": tree_map(lambda g: torch.clamp(g, -10.0, 10.0), grads["params"]),
                     "hparams": grads["hparams"],
                 }
-            trainables = {"params": state.params, "hparams": state.inner_hparams}
-            new_trainables, new_opt_state = adam_update(grads, state.opt_state, trainables, self.schedule)
+            trainables = {"params": base.params, "hparams": base.inner_hparams}
+            new_trainables, new_opt_state = adam_update(grads, base.opt_state, trainables, self.schedule)
             new_hparams = new_trainables["hparams"]
             if cfg.learnable_inner_opt_params:
                 new_hparams = self.inner_opt.project_hparams(new_hparams)
             new_state = TrainState(
                 params=new_trainables["params"],
-                bn_state=state.bn_state,
+                bn_state=base.bn_state,
                 inner_hparams=new_hparams,
                 opt_state=new_opt_state,
-                step=state.step + 1,
+                step=base.step + 1,
             )
-            out = self._step_output(loss, aux, state)
+            out = self._step_output(loss, aux, base)
+        if sharded:
+            new_state = replicate(new_state, batch.mesh)
         return new_state, out
 
     def _step_output(self, loss, aux, state: TrainState) -> StepOutput:
@@ -563,8 +595,18 @@ class MAMLSystem:
 
     def eval_step(self, state: TrainState, batch) -> StepOutput:
         """First-order, ``number_of_evaluation_steps_per_iter`` inner steps,
-        final-step target loss only (reference :239-251); no gradients."""
+        final-step target loss only (reference :239-251); no gradients.
+        Takes a sharded batch too."""
         cfg = self.cfg
+        if isinstance(batch, ShardedBatch):
+            state = self._replicated(state, batch.mesh)
+            with torch.no_grad():
+                loss, aux = self._per_shard(state, batch, lambda replica, shard, device: self._meta_objective(
+                    {"params": replica.params, "hparams": replica.inner_hparams}, replica.bn_state,
+                    replica.opt_state, self._batch(shard, device), self._step_epoch(replica), False,
+                    cfg.number_of_evaluation_steps_per_iter, False,
+                ))[:2]
+            return self._step_output(loss, aux, unreplicate(state))
         with torch.no_grad():
             loss, aux = self._meta_objective(
                 {"params": state.params, "hparams": state.inner_hparams}, state.bn_state, state.opt_state,
@@ -574,11 +616,77 @@ class MAMLSystem:
             return self._step_output(loss, aux, state)
 
     # ------------------------------------------------------------------
+    # data parallelism over a mesh (parallel/mesh.py)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _replicated(state, mesh) -> Replicated:
+        if isinstance(state, Replicated) and state.mesh is mesh:
+            return state
+        return replicate(state, mesh)
+
+    def _sharded_objective(self, state, batch: ShardedBatch, epoch: Optional[int], with_grads: bool):
+        """The train objective of every shard on its device -> ``(loss, aux,
+        grads)``. A shard's objective is the sum of its tasks' losses over
+        the global task count, so the shards' gradients, summed in mesh
+        order on the first device (then over the processes), are the
+        gradient of the global mean."""
+        state = self._replicated(state, batch.mesh)
+        total = batch.global_tasks
+
+        def shard_objective(replica, shard, device):
+            trainables = {"params": replica.params, "hparams": replica.inner_hparams}
+            if not with_grads:
+                with torch.no_grad():
+                    return self._train_objective(replica, trainables, shard, epoch, device)
+            trainables = tree_map(lambda t: t.detach().requires_grad_(True), trainables)
+            loss, aux = self._train_objective(replica, trainables, shard, epoch, device)
+            return loss, aux, self._grads_of(aux["per_task_losses"].sum() / total, trainables)
+
+        loss, aux, shard_grads = self._per_shard(state, batch, shard_objective)
+        if not with_grads:
+            return loss, aux, None
+        first = batch.mesh.devices[0]
+        grads = tree_map(lambda *gs: functools.reduce(lambda acc, g: acc + g.to(first), gs[1:], gs[0]),
+                         *shard_grads)
+        if batch.mesh.processes > 1:
+            all_reduce_sum(tree_flatten(grads)[0])
+        return loss, aux, grads
+
+    def _per_shard(self, state: Replicated, batch: ShardedBatch, fn):
+        """``fn(replica, shard, device)`` for every shard, each under its
+        card's device guard -> (global mean loss, merged aux, [the third
+        outputs of ``fn``]). The per-task outputs are concatenated in task
+        order on the mesh's first device; the loss and accuracy are means
+        over every process's tasks."""
+        mesh = batch.mesh
+        first = mesh.devices[0]
+        results = []
+        for i, (device, shard) in enumerate(zip(mesh.devices, batch.shards)):
+            with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+                results.append(fn(state.replicas[i], shard, device))
+        auxes = [r[1] for r in results]
+        cat = lambda key: torch.cat([a[key].detach().to(first) for a in auxes])  # noqa: E731
+        per_task_losses, per_task_acc = cat("per_task_losses"), cat("per_task_accuracies")
+        sums = torch.stack([per_task_losses.sum(), per_task_acc.sum()])
+        if mesh.processes > 1:
+            all_reduce_sum([sums])
+        loss, accuracy = sums / batch.global_tasks
+        aux = {
+            "accuracy": accuracy,
+            "per_task_losses": per_task_losses,
+            "per_task_accuracies": per_task_acc,
+            "target_logits": cat("target_logits"),
+            "loss_weights": auxes[0]["loss_weights"].to(first),
+        }
+        return loss, aux, [r[2] for r in results] if len(results[0]) > 2 else None
+
+    # ------------------------------------------------------------------
     # serving entry points
     # ------------------------------------------------------------------
 
-    def _tensor(self, x, dtype=None):
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+    def _tensor(self, x, dtype=None, device=None):
+        return torch.as_tensor(x, dtype=dtype, device=self.device if device is None else device)
 
     def _serving_rollout(self, state: TrainState, start, x_support, y_support, num_steps, support_weight,
                          strategy, stacked: bool):

@@ -19,10 +19,10 @@ DataLoader over a length-capped dataset (SURVEY.md §2.4), which would replay
 nearly-identical episode streams across epochs. We advance the cursor per
 *batch*, giving a non-repeating deterministic stream and exact resume.
 
-A copy of the JAX package's loader without its multi-host slicing (one
-process on one card here; ROADMAP.md A9). ``stats()`` also counts which
-path assembled each batch: ``native_batches`` (the C++ engine) and
-``numpy_batches`` (the per-episode fallback).
+A copy of the JAX package's loader, multi-host slicing included
+(``host_shard``). ``stats()`` also counts which path assembled each batch:
+``native_batches`` (the C++ engine) and ``numpy_batches`` (the per-episode
+fallback).
 """
 
 import concurrent.futures
@@ -55,11 +55,23 @@ class MetaLearningDataLoader:
         dataset: Optional[FewShotDataset] = None,
         current_iter: int = 0,
         data_root: Optional[str] = None,
+        host_shard: Optional[tuple] = None,
         injector=NULL_INJECTOR,
     ):
+        """``host_shard=(process_index, process_count)`` makes this loader
+        materialize only its host's contiguous slice of each *global*
+        meta-batch (``parallel.host_shard_bounds``). Episode seeds stay a
+        pure function of the global stream position, so every host agrees
+        on the episode assignment and resume cursors remain global."""
         self.cfg = cfg
         self.dataset = dataset or FewShotDataset(cfg, data_root=data_root)
         self.batch_size = cfg.batch_size * cfg.samples_per_iter
+        if host_shard is not None:
+            from ..parallel.mesh import host_shard_bounds
+
+            self._local_lo, self._local_hi = host_shard_bounds(self.batch_size, host_shard[0], host_shard[1])
+        else:
+            self._local_lo, self._local_hi = 0, self.batch_size
         self.num_workers = max(cfg.num_dataprovider_workers, 1)
         self._injector = injector
         # transient episode-I/O retries (observability). Retry callbacks run
@@ -142,7 +154,8 @@ class MetaLearningDataLoader:
         def attempt() -> Dict[str, np.ndarray]:
             self._injector.fire("loader.episode")
             ds = self.dataset
-            seeds = [ds.episode_seed(split, base + j) for j in range(self.batch_size)]
+            # this host's slice of the global batch (the whole batch by default)
+            seeds = [ds.episode_seed(split, base + j) for j in range(self._local_lo, self._local_hi)]
             # fast path: whole batch assembled by one native C++ call
             # (gather+rot90+normalize+pack in native threads; ctypes releases
             # the GIL, so prefetch still overlaps the device step)

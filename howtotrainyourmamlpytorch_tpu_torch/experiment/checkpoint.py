@@ -17,16 +17,23 @@ int32 step), with the outer Adam state as optax's
   atomic (a unique temp file, then ``os.replace``), and
   ``max_models_to_save`` rotates the per-epoch files.
 - Pre-format-2 files (the bare payload) load unverified.
-- Format 3 (read only): a digest-wrapped manifest naming per-shard files and
-  their sha256; the shards hold flat ``"params/fc/w"``-keyed leaves, and an
-  empty subtree is one ``__empty_dict__`` key. Writing it needs a sharded
-  mesh and comes with multi-device (ROADMAP.md A9).
+- Format 3 (written and read): a digest-wrapped manifest naming per-shard
+  files and their sha256; the shards hold flat ``"params/fc/w"``-keyed
+  leaves, split byte-balanced (largest leaf first into the lightest
+  shard), and an empty subtree is one ``__empty_dict__`` key.
+  ``save_checkpoint(..., num_shards>=2)`` writes the shards first, each
+  atomically, and renames the manifest in last: the manifest is the commit
+  point, so a kill between shard files leaves stray shards and the
+  previous checkpoint, never a torn one that loads. ``latest`` hard-links
+  the epoch's shards under its own names.
 
 A file that fails a digest or does not decode raises
 :class:`CheckpointCorruptError`; :func:`quarantine` moves it aside and
 :func:`load_latest_with_fallback` resumes from the newest valid file.
 :class:`AsyncCheckpointWriter` runs a save on a writer thread with a
-one-save lag. The fault injector's checkpoint seams are not ported (A9).
+one-save lag. The fault injector fires ``checkpoint.read`` on every file
+read (the blob, each shard) and ``checkpoint.write`` on every blob before
+its atomic write, as the JAX package's does.
 """
 
 import hashlib
@@ -40,11 +47,13 @@ import numpy as np
 import torch
 
 from ..core.train_state import TrainState
+from ..resilience.faults import NULL_INJECTOR
 from ..utils.interop import opt_state_from_jax, opt_state_to_jax, params_from_jax, params_to_jax
 from ..utils.trees import tree_flatten
 
 MODEL_NAME = "train_model"
 CHECKPOINT_FORMAT = 2  # 1 (implicit): bare payload; 2: sha256-wrapped body
+SHARDED_FORMAT = 3  # per-shard leaf files + digest-wrapped manifest
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -100,8 +109,23 @@ def _ext_pack(obj):
     return obj
 
 
-def _packb(tree) -> bytes:
-    return msgpack.packb(tree, default=_ext_pack, strict_types=True)
+def _sorted_keys(tree):
+    """Every dict with its keys in sorted order, as flax's
+    ``msgpack_serialize`` lays a tree out (it rebuilds it through
+    ``jax.tree_util``)."""
+    if isinstance(tree, dict):
+        return {k: _sorted_keys(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        items = [_sorted_keys(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return tree
+
+
+def _packb(tree, sort_keys: bool = True) -> bytes:
+    """Flax's ``msgpack_serialize`` of ``tree`` byte for byte: sorted keys,
+    or (``sort_keys=False``) the tree's own order, as its ``to_bytes`` packs
+    a state dict."""
+    return msgpack.packb(_sorted_keys(tree) if sort_keys else tree, default=_ext_pack, strict_types=True)
 
 
 def _ndarray(data: bytes):
@@ -136,11 +160,15 @@ def _to_state_dict(state: TrainState, feature_shape) -> Dict[str, Any]:
     if state.opt_state is None:
         raise ValueError("a training checkpoint needs the outer optimizer state (opt_state is None)")
     adam, sched = opt_state_to_jax(state.opt_state, feature_shape)
+    # flax's key order: the TrainState's fields in order, the optax states'
+    # fields in order, every dict of the trees sorted (as jax.tree rebuilds
+    # it), so the blobs are the JAX package's bytes for the same state
     return {
-        "params": params_to_jax(state.params, feature_shape),
-        "bn_state": params_to_jax(state.bn_state, feature_shape),
-        "inner_hparams": params_to_jax(state.inner_hparams, feature_shape),
-        "opt_state": {"0": {"count": adam.count, "mu": adam.mu, "nu": adam.nu}, "1": {"count": sched.count}},
+        "params": _sorted_keys(params_to_jax(state.params, feature_shape)),
+        "bn_state": _sorted_keys(params_to_jax(state.bn_state, feature_shape)),
+        "inner_hparams": _sorted_keys(params_to_jax(state.inner_hparams, feature_shape)),
+        "opt_state": {"0": {"count": adam.count, "mu": _sorted_keys(adam.mu), "nu": _sorted_keys(adam.nu)},
+                      "1": {"count": sched.count}},
         "step": np.asarray(int(state.step), dtype=np.int32),
     }
 
@@ -201,10 +229,11 @@ def _like(value, template, device):
 # ---------------------------------------------------------------------------
 
 
-def _read_payload(path: str) -> Tuple[Dict[str, Any], bytes]:
+def _read_payload(path: str, injector=NULL_INJECTOR) -> Tuple[Dict[str, Any], bytes]:
     """Read and digest-verify one checkpoint file -> (payload, raw blob)."""
     with open(path, "rb") as f:
         blob = f.read()
+    blob = injector.fire_bytes("checkpoint.read", blob)
     try:
         outer = _restore(blob)
     except Exception as exc:  # any decode failure of untrusted bytes is corruption
@@ -228,7 +257,7 @@ def _read_payload(path: str) -> Tuple[Dict[str, Any], bytes]:
     return payload, blob
 
 
-def _read_shards(path: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+def _read_shards(path: str, payload: Dict[str, Any], injector=NULL_INJECTOR) -> Dict[str, Any]:
     """Read and digest-verify every shard a format-3 manifest names -> the
     merged flat leaf dict. A missing or corrupt shard fails the whole
     checkpoint."""
@@ -241,6 +270,7 @@ def _read_shards(path: str, payload: Dict[str, Any]) -> Dict[str, Any]:
                 blob = f.read()
         except OSError as exc:
             raise CheckpointCorruptError(f"{path}: missing shard {entry['file']} ({exc!r})") from exc
+        blob = injector.fire_bytes("checkpoint.read", blob)
         digest = hashlib.sha256(blob).hexdigest()
         if digest != entry["sha256"]:
             raise CheckpointCorruptError(
@@ -272,17 +302,19 @@ def _unflatten_state_dict(flat: Dict[str, Any]) -> Dict[str, Any]:
     return nested
 
 
-def _network(path: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+def _network(path: str, payload: Dict[str, Any], injector=NULL_INJECTOR) -> Dict[str, Any]:
     """The JAX ``TrainState`` state dict of a payload, any format."""
     if "shards" in payload:
-        return _unflatten_state_dict(_read_shards(path, payload))
+        return _unflatten_state_dict(_read_shards(path, payload, injector))
     try:
         return _restore(payload["network"])
     except Exception as exc:
         raise CheckpointCorruptError(f"{path}: undecodable network ({exc!r})") from exc
 
 
-def load_checkpoint(save_dir: str, idx, template: TrainState, *, feature_shape) -> Tuple[TrainState, Dict[str, Any]]:
+def load_checkpoint(
+    save_dir: str, idx, template: TrainState, injector=NULL_INJECTOR, *, feature_shape
+) -> Tuple[TrainState, Dict[str, Any]]:
     """Resume checkpoint ``idx`` (an epoch, ``'latest'`` or ``'best'``),
     written by either package in format 1, 2 or 3, as a port ``TrainState``
     with ``template``'s structure and device (an ``init_train_state()``
@@ -290,12 +322,12 @@ def load_checkpoint(save_dir: str, idx, template: TrainState, *, feature_shape) 
     model's ``(C, H, W)`` before the head (``Model.feature_shape``).
     Returns ``(state, bookkeeping)``."""
     path = _path(save_dir, idx)
-    payload, _ = _read_payload(path)
-    return _from_state_dict(_network(path, payload), feature_shape, template), payload["bookkeeping"]
+    payload, _ = _read_payload(path, injector)
+    return _from_state_dict(_network(path, payload, injector), feature_shape, template), payload["bookkeeping"]
 
 
 def load_latest_with_fallback(
-    save_dir: str, template: TrainState, *, feature_shape
+    save_dir: str, template: TrainState, injector=NULL_INJECTOR, *, feature_shape
 ) -> Tuple[TrainState, Dict[str, Any], Any]:
     """Resume chain: ``latest`` first, then per-epoch files newest-first.
     Every corrupt candidate is quarantined (``*.corrupt``) and the chain
@@ -307,7 +339,7 @@ def load_latest_with_fallback(
         if not checkpoint_exists(save_dir, idx):
             continue
         try:
-            state, bookkeeping = load_checkpoint(save_dir, idx, template, feature_shape=feature_shape)
+            state, bookkeeping = load_checkpoint(save_dir, idx, template, injector, feature_shape=feature_shape)
             return state, bookkeeping, idx
         except CheckpointCorruptError as exc:
             quarantined = quarantine(save_dir, idx)
@@ -320,13 +352,13 @@ def load_latest_with_fallback(
     raise CheckpointCorruptError(f"no valid checkpoint under {save_dir}: " + "; ".join(errors))
 
 
-def load_for_inference(save_dir: str, idx) -> Tuple[InferenceState, Dict[str, Any]]:
+def load_for_inference(save_dir: str, idx, injector=NULL_INJECTOR) -> Tuple[InferenceState, Dict[str, Any]]:
     """Params / BN state / inner hyperparams / step of checkpoint ``idx`` in
     the JAX layout, any format. A format-3 fingerprint hashes the manifest,
     which names every shard's digest."""
     path = _path(save_dir, idx)
-    payload, blob = _read_payload(path)
-    net = _network(path, payload)
+    payload, blob = _read_payload(path, injector)
+    net = _network(path, payload, injector)
     try:
         state = InferenceState(
             params=net["params"],
@@ -341,17 +373,19 @@ def load_for_inference(save_dir: str, idx) -> Tuple[InferenceState, Dict[str, An
 
 
 # ---------------------------------------------------------------------------
-# writing (format 2)
+# writing (formats 2 and 3)
 # ---------------------------------------------------------------------------
 
 
 def _serialize(state: TrainState, bookkeeping: Dict[str, Any], feature_shape) -> bytes:
-    body = _packb({"network": _packb(_to_state_dict(state, feature_shape)), "bookkeeping": bookkeeping})
+    network = _packb(_to_state_dict(state, feature_shape), sort_keys=False)
+    body = _packb({"network": network, "bookkeeping": bookkeeping})
     # format 2: the body's digest rides inside the file
     return _packb({"format": CHECKPOINT_FORMAT, "sha256": hashlib.sha256(body).hexdigest(), "body": body})
 
 
-def _write_atomic(target: str, blob: bytes) -> None:
+def _write_atomic(target: str, blob: bytes, injector=NULL_INJECTOR) -> None:
+    blob = injector.fire_bytes("checkpoint.write", blob)
     # a unique temp per (process, thread): two writers of one target each
     # rename a COMPLETE file into place
     tmp = f"{target}.tmp-{os.getpid()}-{threading.get_ident()}"
@@ -384,12 +418,107 @@ def quarantine(save_dir: str, idx) -> Optional[str]:
     return target
 
 
-def save_named(save_dir: str, state: TrainState, bookkeeping: Dict[str, Any], idx, *, feature_shape) -> str:
+def save_named(
+    save_dir: str, state: TrainState, bookkeeping: Dict[str, Any], idx, injector=NULL_INJECTOR, *, feature_shape
+) -> str:
     """Write a single format-2 checkpoint file under any idx (``'best'``,
     an emergency ``'latest'``)."""
     os.makedirs(save_dir, exist_ok=True)
     path = _path(save_dir, idx)
-    _write_atomic(path, _serialize(state, bookkeeping, feature_shape))
+    _write_atomic(path, _serialize(state, bookkeeping, feature_shape), injector)
+    return path
+
+
+def _flatten_state_dict(nested, prefix: str = "") -> Dict[str, Any]:
+    """A nested state dict -> flat ``{"params/fc/w": leaf}``; an empty
+    subtree becomes one ``__empty_dict__`` leaf (a zero-length uint8 array),
+    so the restore keeps it."""
+    flat: Dict[str, Any] = {}
+    for key, value in nested.items():
+        name = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, dict):
+            if value:
+                flat.update(_flatten_state_dict(value, name))
+            else:
+                flat[f"{name}/{_EMPTY_MARK}"] = np.zeros(0, np.uint8)
+        else:
+            flat[name] = value
+    return flat
+
+
+def _partition_keys(flat: Dict[str, Any], num_shards: int) -> List[List[str]]:
+    """Greedy byte-balanced partition of the leaf keys into ``num_shards``
+    groups (largest leaf first into the lightest bin; ties on key order),
+    as the JAX package partitions them."""
+    sized = sorted(flat.items(), key=lambda kv: (-int(getattr(kv[1], "nbytes", 0) or 0), kv[0]))
+    bins: List[List[str]] = [[] for _ in range(num_shards)]
+    weights = [0] * num_shards
+    for key, value in sized:
+        i = weights.index(min(weights))
+        bins[i].append(key)
+        weights[i] += int(getattr(value, "nbytes", 0) or 0) + 1
+    return bins
+
+
+def _shard_path(path: str, k: int) -> str:
+    return f"{path}.shard{k}"
+
+
+def _sharded_serialize(state: TrainState, num_shards: int, feature_shape) -> Tuple[List[bytes], int]:
+    """-> (shard blobs, leaf count): each shard a msgpack map of flat key ->
+    ndarray, in the JAX layout. The partition orders the keys itself, so the
+    shards hold the JAX package's bytes for the same state."""
+    flat = _flatten_state_dict(_to_state_dict(state, feature_shape))
+    blobs = [_packb({key: flat[key] for key in keys}) for keys in _partition_keys(flat, num_shards)]
+    return blobs, len(flat)
+
+
+def _manifest_blob(shard_entries: List[Dict[str, Any]], bookkeeping: Dict[str, Any], num_leaves: int) -> bytes:
+    body = _packb({"shards": shard_entries, "num_leaves": num_leaves, "bookkeeping": bookkeeping})
+    return _packb({"format": SHARDED_FORMAT, "sha256": hashlib.sha256(body).hexdigest(), "body": body})
+
+
+def _save_sharded(
+    save_dir: str, state: TrainState, bookkeeping: Dict[str, Any], epoch: int, num_shards: int,
+    feature_shape, injector=NULL_INJECTOR,
+) -> str:
+    """Format-3 save (JAX package ``_save_sharded``): every shard written
+    atomically, then the manifests, the epoch's and ``latest``'s: a rename
+    of a manifest is the commit point. ``latest``'s shards are hard links
+    of the epoch's (a copy where the filesystem has none), under its own
+    names, so rotating the epoch away never strands it. The injector's
+    ``checkpoint.write`` fires on each file, between the shards."""
+    path = _path(save_dir, epoch)
+    latest = _path(save_dir, "latest")
+    blobs, num_leaves = _sharded_serialize(state, num_shards, feature_shape)
+    entries, latest_entries = [], []
+    for k, blob in enumerate(blobs):
+        shard = _shard_path(path, k)
+        _write_atomic(shard, blob, injector)
+        # the digest of the bytes as written (the injector's included): an
+        # injected torn write is detected at load, like rot
+        with open(shard, "rb") as f:
+            written = f.read()
+        digest = hashlib.sha256(written).hexdigest()
+        entries.append({"file": os.path.basename(shard), "sha256": digest})
+        link = _shard_path(latest, k)
+        tmp = f"{link}.tmp-{os.getpid()}-{threading.get_ident()}"
+        try:
+            os.link(shard, tmp)
+        except OSError:  # no hard links on this filesystem: a plain copy
+            with open(tmp, "wb") as f:
+                f.write(written)
+        os.replace(tmp, link)
+        latest_entries.append({"file": os.path.basename(link), "sha256": digest})
+    _write_atomic(path, _manifest_blob(entries, bookkeeping, num_leaves), injector)
+    _write_atomic(latest, _manifest_blob(latest_entries, bookkeeping, num_leaves), injector)
+    # a previous save under the same name with more shards leaves files the
+    # new manifests do not name: sweep them once both manifests committed
+    named = {os.path.basename(_shard_path(p, k)) for p in (path, latest) for k in range(len(blobs))}
+    for target in (path, latest):
+        for stale in _shard_files(target):
+            if os.path.basename(stale) not in named:
+                os.remove(stale)
     return path
 
 
@@ -419,21 +548,22 @@ def save_checkpoint(
     feature_shape,
     max_models_to_save: int = 5,
     val_acc_by_epoch: Optional[Dict[int, float]] = None,
+    injector=NULL_INJECTOR,
     num_shards: int = 1,
 ) -> str:
-    """Write ``train_model_{epoch}`` and ``train_model_latest`` (format 2,
-    JAX layout) and rotate. ``num_shards >= 2`` (format 3) raises: only a
-    sharded mesh writes it (ROADMAP.md A9)."""
-    if num_shards >= 2:
-        raise NotImplementedError(
-            "writing sharded checkpoints (format 3) is not ported to PyTorch yet "
-            "(ROADMAP.md A9: it comes with multi-device); reading them is"
-        )
+    """Write ``train_model_{epoch}`` and ``train_model_latest`` (JAX
+    layout) and rotate: format 2, or with ``num_shards >= 2`` format 3
+    (:func:`_save_sharded`). Rotation keeps ``max_models_to_save``
+    per-epoch files, the most recent, or the best by validation accuracy
+    when ``val_acc_by_epoch`` is given."""
     os.makedirs(save_dir, exist_ok=True)
-    blob = _serialize(state, bookkeeping, feature_shape)
-    path = _path(save_dir, epoch)
-    for target in (path, _path(save_dir, "latest")):
-        _write_atomic(target, blob)
+    if num_shards >= 2:
+        path = _save_sharded(save_dir, state, bookkeeping, epoch, num_shards, feature_shape, injector)
+    else:
+        blob = _serialize(state, bookkeeping, feature_shape)
+        path = _path(save_dir, epoch)
+        for target in (path, _path(save_dir, "latest")):
+            _write_atomic(target, blob, injector)
     _rotate(save_dir, max_models_to_save, val_acc_by_epoch)
     return path
 

@@ -17,15 +17,30 @@ The state lives on the system's device (the card unless ``device="cpu"``).
 Host copies of it (the rollback anchor, checkpoint snapshots) are taken on
 the main thread: the writer and watchdog threads make no CUDA call.
 
+Data parallelism (``parallel/mesh.py``): the runner builds a mesh of
+``parallel.dp`` entries of ``devices`` (default: every visible card, or the
+CPU on request), replicates the state on it and shards every batch. A
+config that demands more devices than ``device_probe()`` sees shrinks onto
+the largest feasible mesh (the ``degraded_mesh`` event; ``[1, 1]`` means
+one device and no mesh), and while degraded each epoch boundary probes
+again and grows the mesh back (``mesh_grown``). A resume onto a bigger mesh
+than the checkpoint's ``mesh`` bookkeeping is a grow too. Checkpoints are
+format 3 with ``checkpoint_shards`` files (0: one per mesh device), format 2
+for one. Across hosts (a ``torch.distributed`` group of more than one
+process) each process loads its slice of every batch (the loader's
+``host_shard``), the meta-gradient is all-reduced, and evaluation gathers
+the per-task values in process order. The fault injector fires at the
+``runner.step``, ``checkpoint.read``/``checkpoint.write`` and
+``loader.episode`` seams.
+
 Not here, each refused at construction with the ROADMAP.md item that ports
 it: multi-step dispatch, fused eval, AOT prewarm, state donation and the
-profiler window (A10); fault drills, the lock sanitizer, more than one
-device and sharded checkpoints (A9). The JAX runner's mesh, degraded-mesh
-and grow-back logic, multi-host gathers and sharded placement have no
-single-card counterpart: here they are plain single-device code (A9).
+profiler window (A10); the lock sanitizer (A9.7); tensor parallelism,
+``mp > 1`` or ``tp_convs`` (A12).
 """
 
 import contextlib
+import dataclasses
 import os
 import signal
 import threading
@@ -42,6 +57,22 @@ from ..core.train_state import TrainState
 from ..data import MetaLearningDataLoader
 from ..observability import TelemetryHub
 from ..observability.memory import MemoryWatermarks
+from ..parallel.mesh import (
+    all_gather_host,
+    all_gather_tasks,
+    degraded_mesh_plan,
+    grow_mesh_plan,
+    make_mesh,
+    move_tree,
+    process_count,
+    process_index,
+    refuse_tensor_parallel,
+    requested_mesh_shape,
+    shard_batch,
+    shard_train_state,
+    unreplicate,
+    visible_devices,
+)
 from ..resilience.faults import injector_from
 from ..resilience.watchdog import HeartbeatWatchdog
 from ..utils.trees import tree_leaves
@@ -77,40 +108,24 @@ def _host(x) -> np.ndarray:
     return np.atleast_1d(x.detach().cpu().numpy())
 
 
-def _move(tree, device):
-    """A ``TrainState`` (NamedTuples, tuples and dicts over tensors) with
-    every tensor on ``device``."""
-    if isinstance(tree, tuple):
-        items = [_move(v, device) for v in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
-    if isinstance(tree, dict):
-        return {k: _move(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
-def _refuse_unported(cfg: Config, n_devices: int) -> None:
+def _refuse_unported(cfg: Config) -> None:
     """``NotImplementedError`` naming the ROADMAP.md item for every option
     the port does not run, so that none is quietly ignored."""
-    parallel = cfg.parallel
-    mp = max(parallel.mp, 1)
-    dp = parallel.dp if parallel.dp and parallel.dp > 0 else max(n_devices // mp, 1)
+    refuse_tensor_parallel(cfg.parallel)
     refused = [
         (cfg.train_steps_per_dispatch > 1, f"train_steps_per_dispatch={cfg.train_steps_per_dispatch}", "A10"),
         (cfg.eval_fused_dispatch, "eval_fused_dispatch", "A10"),
         (cfg.aot.enabled, "aot.enabled", "A10"),
         (cfg.donate_train_state, "donate_train_state", "A10"),
         (bool(cfg.profile_dir), "profile_dir", "A10"),
-        (cfg.resilience.sanitizer or os.environ.get("HTYMP_GRAFTSAN") == "1", "resilience.sanitizer", "A9"),
-        (parallel.shard_meta_batch and dp * mp > 1, f"parallel dp={dp} x mp={mp}", "A9"),
-        (cfg.checkpoint_shards >= 2, f"checkpoint_shards={cfg.checkpoint_shards}", "A9"),
+        (cfg.resilience.sanitizer or os.environ.get("HTYMP_GRAFTSAN") == "1", "resilience.sanitizer", "A9.7"),
     ]
     for hit, what, item in refused:
         if hit:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet (ROADMAP.md {item}); the "
-                "port's runner trains one step per dispatch on one device"
+                "port's runner trains one step per dispatch"
             )
-    injector_from(cfg.resilience)  # raises, naming A9, for a drill at an unwired training seam
 
 
 class ExperimentRunner:
@@ -121,16 +136,25 @@ class ExperimentRunner:
         loader: Optional[MetaLearningDataLoader] = None,
         data_root: Optional[str] = None,
         device=None,
+        devices=None,
+        device_probe=None,
     ):
         """``device``: where the system runs when none is given (default the
-        card; ``"cpu"`` on request). Refused options raise before anything
-        is written."""
+        card; ``"cpu"`` on request). ``devices``: the list the mesh draws
+        from (default every visible card, or the CPU where the system runs
+        there; an entry may repeat). ``device_probe``: the visible-device
+        count, read at init and at each epoch boundary while degraded
+        (default ``len(devices)`` times the processes), injectable so a
+        drill can walk it up and down. Refused options raise before
+        anything is written."""
         self.cfg = cfg
         self._t_init = time.perf_counter()
         self._cold_start_s: Optional[float] = None
         self.system = system or MAMLSystem(cfg, device=device)
         device = self.system.device
-        _refuse_unported(cfg, torch.cuda.device_count() if device.type == "cuda" else 1)
+        _refuse_unported(cfg)
+        self._devices = list(devices) if devices is not None else visible_devices(device)
+        self._device_probe = device_probe or (lambda: len(self._devices) * process_count())
         self._feature_shape = self.system.model.feature_shape
         self.run_dir = cfg.run_dir()
         self.saved_models_dir, self.logs_dir, self.visual_dir = storage.build_experiment_folder(self.run_dir)
@@ -162,7 +186,9 @@ class ExperimentRunner:
         # step of each is tagged cold in the trace
         self._variants_seen: set = set()
 
-        # NaN-ladder counters, preemption flag
+        # fault injector (inert unless cfg.resilience.faults / HTYMP_FAULTS
+        # name a drill), NaN-ladder counters, preemption flag
+        self._injector = injector_from(cfg.resilience)
         self._bad_steps = 0  # consecutive non-finite steps discarded
         self._rollbacks = 0  # rollbacks spent (rc=3 after max_rollbacks more)
         self._last_good = None  # host-side TrainState copy for rollback
@@ -177,6 +203,9 @@ class ExperimentRunner:
         # epoch -> val accuracy, for best_val checkpoint rotation and top-K
         # test ensembling (persisted in checkpoint bookkeeping)
         self.val_acc_by_epoch: Dict[int, float] = {}
+        # the (dp, mp) the resumed checkpoint was written under (bookkeeping
+        # "mesh"): growing past it on resume is a mesh_grown event
+        self._resume_prev_mesh = None
         idx = cfg.continue_from_epoch
         resumable = idx not in ("", "scratch", None)
         if resumable and not ckpt.checkpoint_exists(self.saved_models_dir, idx):
@@ -194,11 +223,11 @@ class ExperimentRunner:
                 # a corrupt 'latest' is quarantined and the newest valid
                 # epoch file resumes instead
                 self.state, bookkeeping, used_idx = ckpt.load_latest_with_fallback(
-                    self.saved_models_dir, self.state, feature_shape=self._feature_shape
+                    self.saved_models_dir, self.state, self._injector, feature_shape=self._feature_shape
                 )
             else:
                 self.state, bookkeeping = ckpt.load_checkpoint(
-                    self.saved_models_dir, idx, self.state, feature_shape=self._feature_shape
+                    self.saved_models_dir, idx, self.state, self._injector, feature_shape=self._feature_shape
                 )
                 used_idx = idx
             self.start_epoch = int(bookkeeping.get("epoch", -1)) + 1
@@ -211,18 +240,85 @@ class ExperimentRunner:
             self.val_acc_by_epoch = {
                 int(k): float(v) for k, v in (bookkeeping.get("val_acc_by_epoch") or {}).items()
             }
+            prev_mesh = bookkeeping.get("mesh")
+            if prev_mesh is not None:
+                self._resume_prev_mesh = [int(x) for x in prev_mesh]
             storage.change_json_log_experiment_status(
                 self.logs_dir, self.experiment_name,
                 f"resumed at epoch {self.start_epoch}"
                 + (f" iter {self._resume_mid_iter}" if self._resume_mid_iter else "")
                 + (f" (from {used_idx})" if used_idx != idx else ""),
             )
-        print(f"device={device} devices=1", flush=True)
+
+        # --- mesh (none on one device) ---
+        print(f"device={device} devices={len(self._devices)} processes={process_count()}", flush=True)
+        global_batch_size = cfg.batch_size * cfg.samples_per_iter
+        self._global_batch_size = global_batch_size
+        self.mesh = None
+        # elastic degraded resume: fewer visible devices than the config
+        # demands shrink the mesh to the largest feasible one instead of
+        # failing; a lost device costs throughput, not the run
+        self.degraded_mesh: Optional[Dict[str, Any]] = None
+        parallel = cfg.parallel
+        n_visible = int(self._device_probe())
+        if parallel.shard_meta_batch:
+            plan = degraded_mesh_plan(parallel, n_visible, global_batch_size)
+            if plan is not None:
+                dp_req, mp_req = requested_mesh_shape(parallel, n_visible)
+                dp, mp = plan
+                parallel = dataclasses.replace(parallel, dp=dp, mp=mp)
+                self.degraded_mesh = {"requested": [dp_req, mp_req], "granted": [dp, mp],
+                                      "visible_devices": n_visible}
+                msg = (
+                    f"DEGRADED MESH: config demands dp={dp_req} x mp={mp_req} "
+                    f"but only {n_visible} device(s) are visible — continuing "
+                    + (f"on a shrunken dp={dp} x mp={mp} mesh" if dp * mp > 1 else "on a single device")
+                    + " at reduced throughput"
+                )
+                print(msg, flush=True)
+                self.events.append({"ts": time.time(), "event": "degraded_mesh", **self.degraded_mesh})
+                storage.change_json_log_experiment_status(self.logs_dir, self.experiment_name, msg)
+        if parallel.shard_meta_batch and n_visible > 1 and (
+            self.degraded_mesh is None or self.degraded_mesh["granted"] != [1, 1]
+        ):
+            mesh = make_mesh(parallel, self._devices)
+            if global_batch_size % mesh.shape["dp"] != 0:
+                # a silent fall-back to one device would hide a misconfigured
+                # mesh; a degraded plan always picks a dp dividing the batch
+                raise ValueError(
+                    f"meta-batch ({global_batch_size}) not divisible by dp="
+                    f"{mesh.shape['dp']}: adjust batch_size/samples_per_iter "
+                    "or parallel.dp, or set parallel.shard_meta_batch=false "
+                    "to deliberately train on a single device"
+                )
+            self.mesh = mesh
+            # one replica of the state per mesh device (a degraded resume
+            # re-places the restored state onto the shrunken mesh here)
+            self.state = shard_train_state(self.state, self.mesh)
+
+        # resume-side grow-back: the checkpoint was written under a smaller
+        # mesh than this process just built
+        granted_now = self._mesh_shape()
+        if (
+            self._resume_prev_mesh is not None
+            and granted_now[0] * granted_now[1] > self._resume_prev_mesh[0] * self._resume_prev_mesh[1]
+        ):
+            self._note_mesh_grown(previous=self._resume_prev_mesh, granted=granted_now, n_visible=n_visible)
 
         # one-save-lag checkpoint writer: serialization off the step path
         self._ckpt_writer: Optional[ckpt.AsyncCheckpointWriter] = (
             ckpt.AsyncCheckpointWriter() if cfg.checkpoint_async else None
         )
+        # multi-host: each process loads only its slice of the global
+        # meta-batch. Host slicing without a mesh would leave every process
+        # training alone on a fraction of the batch: refuse instead
+        self._multihost = process_count() > 1
+        if self._multihost and self.mesh is None:
+            raise RuntimeError(
+                "multi-host run but no usable device mesh: enable "
+                "parallel.shard_meta_batch and make batch_size divisible by dp"
+            )
+        host_shard = (process_index(), process_count()) if self._multihost else None
         # the runner shuts an owned loader down when run_experiment exits; a
         # caller-supplied loader is the caller's to close
         self._owns_loader = loader is None
@@ -231,8 +327,8 @@ class ExperimentRunner:
             # mid-epoch resume: the stream restarts on the exact next iteration
             current_iter=self.start_epoch * cfg.total_iter_per_epoch + self._resume_mid_iter,
             data_root=data_root,
-            # the loader.episode seam (a serving spec never fires here)
-            injector=injector_from(cfg.resilience),
+            host_shard=host_shard,
+            injector=self._injector,
         )
         # rollback anchor: the state as it is now (resumed or init),
         # refreshed on every epoch save
@@ -245,7 +341,7 @@ class ExperimentRunner:
             {
                 "epoch": self.start_epoch - 1,
                 "mid_epoch_iter": self._resume_mid_iter,
-                "mesh": [1, 1],
+                "mesh": self._mesh_shape(),
                 "train_episodes_produced": self.loader.train_episodes_produced,
                 "best_val_accuracy": self.best_val_accuracy,
                 "best_val_epoch": self.best_val_epoch,
@@ -272,6 +368,8 @@ class ExperimentRunner:
             self.hub.add_provider("loader", self.loader.stats)
             if self._memory is not None:
                 self.hub.add_provider("memory", self._memory.snapshot)
+            if self.degraded_mesh is not None:
+                self.hub.registry.set_gauge("degraded_mesh", self.degraded_mesh)
 
     # ------------------------------------------------------------------
 
@@ -313,19 +411,19 @@ class ExperimentRunner:
         # on past the bad batch. train_step never writes into the tensors of
         # the state it was given, so the captured state is intact.
         guard = cfg.resilience.nan_guard
-        pending = None  # (state_before, out, cold)
+        pending = None  # (state_before, out, forced_nan, cold)
 
         def settle() -> bool:
             """Judge the pending step; True = good (stats recorded)."""
             nonlocal pending
-            state_before, out, cold = pending
+            state_before, out, forced, cold = pending
             pending = None
             # the lagged fetch of step i-1 while step i is queued: the
             # pipeline's real device wait
             with self.hub.phase("settle", epoch=epoch, cold=cold):
                 loss_host = _host(out.loss)
             self._beat(f"settle epoch {epoch}")
-            if not np.all(np.isfinite(loss_host)):
+            if forced or not np.all(np.isfinite(loss_host)):
                 self.state = state_before
                 return False
             losses.append(loss_host)
@@ -342,12 +440,16 @@ class ExperimentRunner:
             if self._preempt_signum is not None:
                 preempted = True
                 break
+            # the runner.step seam: nan-loss marks this step poisoned for the
+            # sentinel, sigterm reaches the preemption handler, delay hangs
+            # the step for the wedge watchdog
+            forced = self._injector.fire("runner.step") == "nan-loss"
             cold = self._note_variant((self.system.use_second_order(epoch), self.system.msl_active(epoch)))
             before = self.state
             # the dispatch phase is host work: the batch's copy to the
-            # device and the step's kernel launches
+            # device(s) and the step's kernel launches
             with self.hub.phase("dispatch", epoch=epoch, cold=cold):
-                self.state, out = self.system.train_step(self.state, batch, epoch=epoch)
+                self.state, out = self.system.train_step(self.state, self._put(batch), epoch=epoch)
             self._beat(f"dispatch epoch {epoch}")
             lr = out.learning_rate
             if not guard:
@@ -361,7 +463,7 @@ class ExperimentRunner:
                 # discards the step just issued on top of it
                 self._note_bad_step(epoch)
                 continue
-            pending = (before, out, cold)
+            pending = (before, out, forced, cold)
         # drain the lagged check (also before an emergency save: the saved
         # state must be a settled-good one)
         if pending is not None and not settle():
@@ -447,7 +549,7 @@ class ExperimentRunner:
         # renames keep both writes whole, and the last rename wins
         try:
             anchor_state, anchor_book = self._wedge_anchor  # one atomic read
-            ckpt.save_named(self.saved_models_dir, anchor_state, dict(anchor_book), "latest",
+            ckpt.save_named(self.saved_models_dir, anchor_state, dict(anchor_book), "latest", self._injector,
                             feature_shape=self._feature_shape)
             self.events.append(
                 {"ts": time.time(), "event": "wedge_checkpoint", "epoch": anchor_book.get("epoch"),
@@ -469,12 +571,84 @@ class ExperimentRunner:
             pass
         self.events.close()
 
+    def _put(self, batch):
+        """A loader batch as the step takes it: sharded over the mesh, or
+        as it is (the system copies it to its device)."""
+        return shard_batch(batch, self.mesh) if self.mesh is not None else batch
+
     def _host_state(self) -> TrainState:
-        """The state copied to the host (on the main thread)."""
-        return _move(self.state, "cpu")
+        """The state (its first replica on a mesh) copied to the host, on
+        the main thread."""
+        return move_tree(unreplicate(self.state), "cpu")
 
     def _place_state(self, host_state: TrainState) -> TrainState:
-        return _move(host_state, self.system.device)
+        """A host state placed as the run places its state."""
+        if self.mesh is not None:
+            return shard_train_state(host_state, self.mesh)
+        return move_tree(host_state, self.system.device)
+
+    # ------------------------------------------------------------------
+    # elastic mesh grow-back (parallel/mesh.py::grow_mesh_plan)
+    # ------------------------------------------------------------------
+
+    def _mesh_shape(self):
+        """The (dp, mp) in use, [1, 1] without a mesh."""
+        if self.mesh is None:
+            return [1, 1]
+        return [int(self.mesh.shape["dp"]), int(self.mesh.shape["mp"])]
+
+    def _checkpoint_shards(self) -> int:
+        """Format-3 shard count: the config's, or (0) one per mesh device."""
+        n = self.cfg.checkpoint_shards
+        if n == 0:
+            n = int(self.mesh.size) if self.mesh is not None else 1
+        return max(n, 1)
+
+    def _note_mesh_grown(self, previous, granted, n_visible: int) -> None:
+        dp_req, mp_req = requested_mesh_shape(self.cfg.parallel, n_visible)
+        full = granted == [dp_req, mp_req]
+        info = {"previous": list(previous), "granted": list(granted), "requested": [dp_req, mp_req],
+                "visible_devices": n_visible}
+        msg = (
+            f"MESH GROWN: dp={previous[0]} x mp={previous[1]} -> dp={granted[0]} x mp={granted[1]} "
+            f"({n_visible} device(s) visible" + ("" if full else f"; config demands dp={dp_req} x mp={mp_req}")
+            + ") — recovered capacity, training continues"
+        )
+        print(msg, flush=True)
+        self.events.append({"ts": time.time(), "event": "mesh_grown", **info})
+        storage.change_json_log_experiment_status(self.logs_dir, self.experiment_name, msg)
+        self.degraded_mesh = None if full else {"requested": [dp_req, mp_req], "granted": list(granted),
+                                                "visible_devices": n_visible}
+        if self.hub.enabled:
+            self.hub.registry.set_gauge("degraded_mesh", self.degraded_mesh)
+            self.hub.registry.set_gauge("mesh_grown", info)
+
+    def _maybe_grow_mesh(self) -> bool:
+        """Epoch-boundary grow-back: while degraded, one device-count probe
+        decides whether more devices are visible than the mesh uses; if the
+        grow plan improves on it, the settled state is re-placed onto the
+        bigger mesh. Nothing runs when the mesh is healthy. True on a grow."""
+        if (
+            self.degraded_mesh is None
+            or not self.cfg.elastic_grow
+            or self._multihost
+            or not self.cfg.parallel.shard_meta_batch
+        ):
+            return False
+        n_visible = int(self._device_probe())
+        current = tuple(self.degraded_mesh["granted"])
+        plan = grow_mesh_plan(self.cfg.parallel, n_visible, self._global_batch_size, current)
+        if plan is None:
+            return False
+        dp, mp = plan
+        # one host round trip per grow (rare), the path a degraded resume
+        # takes without the process restart
+        host_state = self._host_state()
+        self.mesh = make_mesh(dataclasses.replace(self.cfg.parallel, dp=dp, mp=mp), self._devices)
+        self.state = shard_train_state(host_state, self.mesh)
+        self._variants_seen.clear()
+        self._note_mesh_grown(previous=list(current), granted=[dp, mp], n_visible=n_visible)
+        return True
 
     def _capture_last_good(self) -> None:
         self._last_good = self._host_state()
@@ -559,9 +733,9 @@ class ExperimentRunner:
             "best_val_accuracy": self.best_val_accuracy,
             "best_val_epoch": self.best_val_epoch,
             "val_acc_by_epoch": {str(k): v for k, v in self.val_acc_by_epoch.items()},
-            "mesh": [1, 1],
+            "mesh": self._mesh_shape(),
         }
-        ckpt.save_named(self.saved_models_dir, self._host_state(), bookkeeping, "latest",
+        ckpt.save_named(self.saved_models_dir, self._host_state(), bookkeeping, "latest", self._injector,
                         feature_shape=self._feature_shape)
         signame = signal.Signals(self._preempt_signum).name
         msg = (
@@ -587,10 +761,10 @@ class ExperimentRunner:
         ep_losses, ep_accs = [], []
         for batch in self._eval_batches(split):
             with self.hub.phase("eval", split=split, cold=self._note_variant(("eval",))):
-                out = self.system.eval_step(self.state, batch)
+                out = self.system.eval_step(self.state, self._put(batch))
             self._beat(f"eval {split}")
-            ep_losses.append(out.per_task_losses)
-            ep_accs.append(out.per_task_accuracies)
+            ep_losses.append(self._gather_array(out.per_task_losses))
+            ep_accs.append(self._gather_array(out.per_task_accuracies))
         # one fetch per list, after the last batch is queued
         return _episode_stats(split, _host(torch.cat(ep_losses)), _host(torch.cat(ep_accs)))
 
@@ -620,8 +794,9 @@ class ExperimentRunner:
             "best_val_epoch": self.best_val_epoch,
             "train_episodes_produced": self.loader.train_episodes_produced,
             "val_acc_by_epoch": {str(k): v for k, v in self.val_acc_by_epoch.items()},
-            "mesh": [1, 1],
+            "mesh": self._mesh_shape(),
         }
+        num_shards = self._checkpoint_shards()
         # val_acc_by_epoch mutates across epochs; the writer needs this
         # epoch's snapshot
         rotation_accs = dict(self.val_acc_by_epoch) if self.cfg.checkpoint_rotation == "best_val" else None
@@ -636,6 +811,8 @@ class ExperimentRunner:
                     feature_shape=self._feature_shape,
                     max_models_to_save=self.cfg.max_models_to_save,
                     val_acc_by_epoch=rotation_accs,
+                    injector=self._injector,
+                    num_shards=num_shards,
                 )
                 # this durable state is the new NaN-rollback anchor and the
                 # wedge watchdog's anchor: single-reference rebinds
@@ -659,8 +836,24 @@ class ExperimentRunner:
 
     def load_best(self) -> None:
         if ckpt.checkpoint_exists(self.saved_models_dir, "best"):
-            self.state, _ = ckpt.load_checkpoint(self.saved_models_dir, "best", self.state,
-                                                 feature_shape=self._feature_shape)
+            state, _ = ckpt.load_checkpoint(self.saved_models_dir, "best", unreplicate(self.state),
+                                            feature_shape=self._feature_shape)
+            self.state = self._place_state(state)
+
+    def _gather_array(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-task values of this process -> every process's, in process
+        order (the order of the host slices of the global batch). As it is
+        on one process."""
+        if self._multihost:
+            return all_gather_tasks(x)
+        return x
+
+    def _gather_host_local(self, x: np.ndarray) -> np.ndarray:
+        """A host-local numpy slice -> the global array, concatenated in
+        process order along axis 0."""
+        if self._multihost:
+            return all_gather_host(x)
+        return np.asarray(x)
 
     def _collect_test_probs(self, state: TrainState, batches):
         """Per-batch softmax target probabilities for pre-assembled test
@@ -668,9 +861,9 @@ class ExperimentRunner:
         probs = []
         for batch in batches:
             with self.hub.phase("eval", split="test-ensemble", cold=self._note_variant(("eval",))):
-                out = self.system.eval_step(state, batch)
+                out = self.system.eval_step(state, self._put(batch))
             self._beat("eval test-ensemble")
-            probs.append(torch.softmax(out.per_task_target_logits, dim=-1).cpu().numpy())
+            probs.append(self._gather_array(torch.softmax(out.per_task_target_logits, dim=-1)).cpu().numpy())
         return probs
 
     def evaluate_test(self) -> Dict[str, Any]:
@@ -693,10 +886,12 @@ class ExperimentRunner:
             )
         if len(ranked) > 1:
             batches = list(self._eval_batches("test"))  # assembled once
-            labels = [b["y_target"].reshape(b["y_target"].shape[0], -1) for b in batches]
+            # on a multi-host run each loader yields only this host's slice
+            # of the global batch: tile the label slices into global order
+            labels = [self._gather_host_local(b["y_target"].reshape(b["y_target"].shape[0], -1)) for b in batches]
             member_probs = []
             for epoch in ranked:
-                state, _ = ckpt.load_checkpoint(self.saved_models_dir, epoch, self.state,
+                state, _ = ckpt.load_checkpoint(self.saved_models_dir, epoch, unreplicate(self.state),
                                                 feature_shape=self._feature_shape)
                 member_probs.append(self._collect_test_probs(state, batches))
             ep_accs, ep_losses = [], []
@@ -751,6 +946,9 @@ class ExperimentRunner:
 
         end_epoch = min(cfg.total_epochs, self.start_epoch + cfg.total_epochs_before_pause)
         for epoch in range(self.start_epoch, end_epoch):
+            # elastic grow-back: one device-count probe per epoch boundary
+            # while degraded (nothing when healthy)
+            self._maybe_grow_mesh()
             stats: Dict[str, Any] = {"epoch": epoch}
             stats.update(self._train_epoch(epoch))
             stats.update(self._eval_split("val"))

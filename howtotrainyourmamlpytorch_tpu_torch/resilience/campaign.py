@@ -1,4 +1,4 @@
-"""The gateway half of the JAX package's chaos campaign
+"""The JAX package's chaos campaign
 (``resilience/campaign.py``): the cross-process fleet drills, each a REAL
 gateway subprocess (``scripts/gateway.py`` of this package) fronting REAL
 serve-backend subprocesses (:func:`child_serve_main`, the real
@@ -25,18 +25,30 @@ autoscaling supervisor (``scripts/fleet_serve.py``) and the rolling restart
 
 Every backend runs on the ``device`` the caller names, and every respawn
 command carries it (``--device``-style: ``cpu`` in the CPU tests, ``cuda``
-on the card). The training episodes and :func:`run_campaign` are ROADMAP.md
-A9: they raise ``NotImplementedError``.
+on the card).
+
+The training half: :func:`episode_menu` and :func:`sample_episodes` (the
+JAX package's 21 episodes in the same order for every seed), the
+invariant checks, and :func:`_run_train_episode`, which runs one of the
+nine training-mode episodes (``nan-isolated``, ``nan-persistent``,
+``sigterm-preempt``, ``loader-transient-io``, ``corrupt-latest-read``,
+``wedge-hung-step``, ``device-shrink-resume``, ``device-grow-resume``,
+``sigterm-during-async-save``) as the JAX ``run_campaign``'s training
+branch does: in this process, or through :func:`child_train_main` in a
+fresh interpreter with an explicit device and device count.
+:func:`run_campaign`, the in-process serve episodes and the sanitizer are
+ROADMAP.md A9.6: they raise ``NotImplementedError``.
 """
 
 import dataclasses
+import glob
 import json
 import os
 import subprocess
 import sys
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -50,13 +62,410 @@ _REPO_ROOT = os.path.dirname(_PACKAGE)
 # the import-light CLIs, run by path (the package's __init__ imports torch)
 _SCRIPTS = os.path.join(_PACKAGE, "scripts")
 
+#: Exit codes with documented semantics: the rc-discipline invariant checks
+#: against the central registry.
+DOCUMENTED_RCS = exit_codes.DOCUMENTED_RCS
+#: the ROADMAP.md item that ports run_campaign, its in-process serve
+#: episodes and the sanitizer
+CAMPAIGN_ITEM = "A9.6"
+#: the wedge drill's watchdog deadline: a hung step must stall longer than
+#: this, and a healthy cold start of the port must not (no compile on the
+#: CPU; on the card the kernels' first nvcc build where build/ is empty).
+#: The JAX drill uses 25 s to clear a cold XLA compile.
+WEDGE_DEADLINE_S = 15.0
+
+
+# ---------------------------------------------------------------------------
+# toy workload (self-contained: no pytest fixtures)
+# ---------------------------------------------------------------------------
+
+
+def make_toy_dataset(root: str, seed: int = 0) -> str:
+    """A 20-class on-disk toy Omniglot (4 alphabets x 5 chars x 6 images),
+    the JAX package's: small enough that an episode is seconds, real enough
+    to exercise the full loader."""
+    from PIL import Image
+
+    if os.path.isdir(root) and os.listdir(root):
+        return root
+    rng = np.random.RandomState(seed)
+    for a in range(4):
+        for c in range(5):
+            d = os.path.join(root, f"alpha{a}", f"char{c}")
+            os.makedirs(d, exist_ok=True)
+            base = (rng.rand(28, 28) > 0.5).astype(np.uint8) * 255
+            for i in range(6):
+                noisy = base ^ (rng.rand(28, 28) > 0.95).astype(np.uint8) * 255
+                Image.fromarray(noisy, mode="L").convert("1").save(os.path.join(d, f"{i}.png"))
+    return root
+
+
+def campaign_config(data_root: str, exp_root: str, name: str, **overrides):
+    """The JAX package's miniature training config (dp=2, 2 epochs of 3
+    steps, 3-way 2-shot)."""
+    from ..config import Config, DatasetConfig, ParallelConfig
+
+    base: Dict[str, Any] = dict(
+        dataset=DatasetConfig(name="omniglot_toy", path=data_root),
+        num_classes_per_set=3,
+        num_samples_per_class=2,
+        num_target_samples=2,
+        batch_size=2,
+        parallel=ParallelConfig(dp=2),
+        total_epochs=2,
+        total_iter_per_epoch=3,
+        num_evaluation_tasks=4,
+        number_of_training_steps_per_iter=2,
+        number_of_evaluation_steps_per_iter=2,
+        experiment_root=exp_root,
+        experiment_name=name,
+        load_into_memory=True,
+        num_dataprovider_workers=2,
+        train_val_test_split=(0.6, 0.2, 0.2),
+        conv_via_patches=True,  # the JAX config's; no effect on the port's convs
+    )
+    base.update(overrides)
+    return Config(**base)
+
+
+def tiny_system(cfg, device=None):
+    """The shrunken 2-stage/4-filter backbone every campaign episode trains,
+    on ``device`` (default the card)."""
+    from ..core.maml import MAMLSystem
+    from ..models.vgg import build_vgg
+
+    return MAMLSystem(
+        cfg, model=build_vgg((28, 28, 1), cfg.num_classes_per_set, num_stages=2, cnn_num_filters=4), device=device
+    )
+
+
+# ---------------------------------------------------------------------------
+# episode menu
+# ---------------------------------------------------------------------------
+
+
 @dataclass
 class Episode:
-    """One chaos episode: its kind and its mode (the JAX package's record,
-    cut to what the port runs: the ``gateway`` mode)."""
+    """One sampled chaos episode: a mode, the fault specs to arm, config
+    knobs, and the rc set this fault family is documented to produce
+    (checked against the faulted leg; clean resume legs must exit 0)."""
 
     kind: str
     mode: str  # train | resume | shrink | grow | serve | gateway
+    faults: List[str] = field(default_factory=list)
+    resilience_overrides: Dict[str, Any] = field(default_factory=dict)
+    config_overrides: Dict[str, Any] = field(default_factory=dict)
+    expected_rcs: tuple = (0,)
+    subprocess: bool = False  # faulted leg needs a fresh interpreter (os._exit)
+    resume_after: bool = False  # run a clean resume leg after the faulted one
+    resume_devices: int = 8  # visible devices for a subprocess resume leg
+    required_events: tuple = ()  # event names that must appear in events.jsonl
+
+
+#: the episode modes :func:`_run_train_episode` runs
+TRAIN_MODES = ("train", "resume", "shrink", "grow")
+
+
+def episode_menu(rng: np.random.RandomState) -> List[Episode]:
+    """The JAX package's seam-coverage menu, trigger indices jittered by
+    ``rng`` (the same draws, so the same episodes for every seed)."""
+    nth = lambda lo, hi: int(rng.randint(lo, hi + 1))  # noqa: E731
+    menu = [
+        Episode(
+            kind="nan-isolated", mode="train",
+            faults=[f"runner.step=nan-loss:nth={nth(1, 4)}", "checkpoint.write=delay:delay_s=0.01,nth=1"],
+            resilience_overrides=dict(max_consecutive_bad_steps=3), expected_rcs=(0,),
+            required_events=("nan_step_skipped",),
+        ),
+        Episode(
+            kind="nan-persistent", mode="train", faults=["runner.step=nan-loss:p=1.0"],
+            resilience_overrides=dict(max_consecutive_bad_steps=1, max_rollbacks=1),
+            expected_rcs=(exit_codes.DIVERGED,), required_events=("nan_rollback", "nan_abort"),
+        ),
+        Episode(
+            kind="sigterm-preempt", mode="train", faults=[f"runner.step=sigterm:nth={nth(2, 4)}"],
+            expected_rcs=(exit_codes.PREEMPTED,), resume_after=True, required_events=("preempted",),
+        ),
+        Episode(
+            kind="loader-transient-io", mode="train", faults=[f"loader.episode=raise:nth={nth(1, 3)}"],
+            resilience_overrides=dict(loader_io_backoff_s=0.0), expected_rcs=(0,),
+        ),
+        Episode(kind="corrupt-latest-read", mode="resume", faults=["checkpoint.read=corrupt-bytes:nth=1"],
+                expected_rcs=(0,)),
+        Episode(
+            kind="wedge-hung-step", mode="train", faults=[f"runner.step=delay:delay_s=60,nth={nth(2, 5)}"],
+            expected_rcs=(exit_codes.WEDGED,), subprocess=True, resume_after=True,
+            required_events=("wedged", "wedge_checkpoint"),
+        ),
+        Episode(kind="device-shrink-resume", mode="shrink", expected_rcs=(0,), subprocess=True, resume_devices=1,
+                required_events=("degraded_mesh",)),
+        # shrink then grow back: full-mesh train, resume on 1 device, resume
+        # again with every device visible (mesh_grown)
+        Episode(kind="device-grow-resume", mode="grow", expected_rcs=(0,), subprocess=True, resume_devices=1,
+                required_events=("degraded_mesh", "mesh_grown")),
+        # SIGTERM while an async sharded epoch save is in flight (the
+        # checkpoint.write seam fires between shard files, on the writer
+        # thread): exit 75 with a resumable latest, never a torn one
+        Episode(
+            kind="sigterm-during-async-save", mode="train", faults=[f"checkpoint.write=sigterm:nth={nth(2, 3)}"],
+            config_overrides=dict(checkpoint_async=True, checkpoint_shards=2),
+            expected_rcs=(exit_codes.PREEMPTED,), resume_after=True, required_events=("preempted",),
+        ),
+        Episode(kind="serve-dispatch-raise", mode="serve"),
+        Episode(kind="serve-dispatch-hang", mode="serve"),
+        Episode(kind="serve-replica-death", mode="serve"),
+        Episode(kind="serve-strategy-mix", mode="serve"),
+        Episode(kind="serve-refine-rollback", mode="serve"),
+        Episode(kind="serve-tenant-thrash", mode="serve"),
+        Episode(kind="gateway-kill9-backend", mode="gateway", subprocess=True),
+        Episode(kind="gateway-drain-rehydrate", mode="gateway", subprocess=True),
+        Episode(kind="gateway-rolling-restart", mode="gateway", subprocess=True),
+        Episode(kind="serve-refine-across-drain", mode="gateway", subprocess=True),
+        Episode(kind="fleet-surge", mode="gateway", subprocess=True),
+        Episode(kind="fleet-crashloop", mode="gateway", subprocess=True),
+    ]
+    order = rng.permutation(len(menu))
+    return [menu[i] for i in order]
+
+
+def sample_episodes(seed: int, n: int, include_subprocess: bool = True) -> List[Episode]:
+    rng = np.random.RandomState(seed)
+    episodes: List[Episode] = []
+    while len(episodes) < n:
+        for ep in episode_menu(rng):
+            if len(episodes) >= n:
+                break
+            if ep.subprocess and not include_subprocess:
+                continue
+            episodes.append(ep)
+    return episodes
+
+
+# ---------------------------------------------------------------------------
+# invariants
+# ---------------------------------------------------------------------------
+
+
+def _events_in(run_dir: str) -> List[str]:
+    path = os.path.join(run_dir, "logs", "events.jsonl")
+    if not os.path.exists(path):
+        return []
+    names = []
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                try:
+                    names.append(json.loads(line).get("event", ""))
+                except json.JSONDecodeError:
+                    pass
+    return names
+
+
+def _check_events_jsonl(run_dir: str) -> Optional[str]:
+    path = os.path.join(run_dir, "logs", "events.jsonl")
+    if not os.path.exists(path):
+        return None  # an episode may die before its first event
+    with open(path) as f:
+        for i, line in enumerate(f):
+            if not line.strip():
+                continue
+            try:
+                json.loads(line)
+            except json.JSONDecodeError as exc:
+                return f"events.jsonl line {i + 1} unparseable: {exc}"
+    return None
+
+
+def _check_telemetry(run_dir: str) -> List[str]:
+    """telemetry.jsonl is well-formed JSON lines and every exported Chrome
+    trace passes the schema and balanced-spans validator; either may be
+    absent (a death before the first snapshot or the export)."""
+    from ..observability.trace import load_and_validate_trace
+
+    problems: List[str] = []
+    tel_path = os.path.join(run_dir, "logs", "telemetry.jsonl")
+    if os.path.exists(tel_path):
+        with open(tel_path) as f:
+            for i, line in enumerate(f):
+                if not line.strip():
+                    continue
+                try:
+                    json.loads(line)
+                except json.JSONDecodeError as exc:
+                    problems.append(f"telemetry.jsonl line {i + 1} unparseable: {exc}")
+    for trace_path in sorted(glob.glob(os.path.join(run_dir, "logs", "trace*.json"))):
+        problems.extend(f"{os.path.basename(trace_path)}: {p}" for p in load_and_validate_trace(trace_path))
+    return problems
+
+
+def _check_checkpoints(run_dir: str, template_state, *, feature_shape) -> Optional[str]:
+    """If any checkpoint exists, the fallback chain loads one."""
+    from ..experiment import checkpoint as ckpt
+
+    save_dir = os.path.join(run_dir, "saved_models")
+    has_any = os.path.isdir(save_dir) and any(
+        name.startswith(ckpt.MODEL_NAME)
+        and not name.endswith(".corrupt")
+        # stray shards without their manifest and write temps (a kill
+        # before the commit point) are invisible garbage, not a checkpoint
+        and ".shard" not in name
+        and ".tmp" not in name
+        for name in os.listdir(save_dir)
+    )
+    if not has_any:
+        return None
+    try:
+        ckpt.load_latest_with_fallback(save_dir, template_state, feature_shape=feature_shape)
+    except Exception as exc:  # noqa: BLE001 — any load failure is the finding
+        return f"no loadable checkpoint despite files present: {exc!r}"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# training episodes
+# ---------------------------------------------------------------------------
+
+
+def _train_devices(device: str, n_devices: Optional[int]) -> list:
+    """``n_devices`` CPU entries, or the visible cards (at most
+    ``n_devices`` of them)."""
+    from ..parallel.mesh import visible_devices
+
+    if device == "cpu":
+        return ["cpu"] * (n_devices or 1)
+    return visible_devices()[:n_devices] if n_devices else visible_devices()
+
+
+def _run_train_inprocess(cfg, device: str = "cuda", devices=None) -> int:
+    """One training run in this process -> its exit code."""
+    from ..experiment import ExperimentRunner
+
+    runner = ExperimentRunner(cfg, system=tiny_system(cfg, device), devices=devices)
+    try:
+        runner.run_experiment()
+        return 0
+    except SystemExit as exc:
+        return int(exc.code or 0)
+
+
+_CHILD_TRAIN = (
+    "import sys;"
+    "from howtotrainyourmamlpytorch_tpu_torch.resilience.campaign import child_train_main;"
+    "sys.exit(child_train_main(sys.argv[1], sys.argv[2], int(sys.argv[3])))"
+)
+
+
+def _run_train_subprocess(cfg_yaml: str, n_devices: int, device: str = "cuda", timeout_s: float = 420.0) -> int:
+    """A fresh interpreter for episodes whose verdict is the exit code of an
+    ``os._exit`` path, or that need another device count."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_TRAIN, cfg_yaml, device, str(n_devices)],
+        cwd=_REPO_ROOT, env=_child_env(), capture_output=True, text=True, timeout=timeout_s,
+    )
+    return proc.returncode
+
+
+def child_train_main(cfg_yaml: str, device: str = "cuda", n_devices: int = 0) -> int:
+    """Subprocess entry: one campaign training run from its saved config,
+    on ``n_devices`` CPU entries or the visible cards. The device count is
+    explicit where the JAX child reads it from ``XLA_FLAGS``."""
+    from ..config import load_config
+
+    return _run_train_inprocess(load_config(cfg_yaml), device, _train_devices(device, n_devices))
+
+
+def _run_train_episode(
+    ep: Episode, work_dir: str, name: str, data_root: Optional[str] = None, device: str = "cuda",
+    n_devices: int = 8,
+) -> Dict[str, Any]:
+    """One training-mode episode, the JAX ``run_campaign``'s training
+    branch: the faulted leg, then the clean resume leg(s), the rc checks,
+    the required events, event-log and telemetry integrity and a loadable
+    checkpoint. In-process legs see ``n_devices`` devices (CPU entries, or
+    the visible cards), as the JAX campaign's see its 8 virtual ones; a
+    subprocess leg sees ``ep.resume_devices`` (or ``n_devices``). Returns
+    ``{"kind", "mode", "rcs", "violations"}``."""
+    from ..config import save_config
+
+    if ep.mode not in TRAIN_MODES:
+        raise ValueError(f"episode {ep.kind!r} has mode {ep.mode!r}, not a training mode {TRAIN_MODES}")
+    data_root = data_root or make_toy_dataset(os.path.join(work_dir, "toy_data"))
+    exp_root = os.path.join(work_dir, "exps")
+    run_dir = os.path.join(exp_root, name)
+    violations: List[str] = []
+    rcs: List[int] = []
+    if any("sigterm" in f for f in ep.faults) and threading.current_thread() is not threading.main_thread():
+        # SIGTERM drills need the runner's main-thread handler
+        return {"kind": ep.kind, "skipped": True}
+    base = campaign_config(data_root, exp_root, name, **ep.config_overrides)
+    faulted = dataclasses.replace(
+        base, resilience=dataclasses.replace(base.resilience, faults=list(ep.faults), **ep.resilience_overrides)
+    )
+    if ep.subprocess and ep.mode == "train":
+        # a watchdog deadline a healthy cold start clears, so that the drill
+        # fires on the injected hang; the clean legs keep the default
+        faulted = dataclasses.replace(
+            faulted,
+            resilience=dataclasses.replace(
+                faulted.resilience,
+                watchdog=dataclasses.replace(faulted.resilience.watchdog, deadline_s=WEDGE_DEADLINE_S, poll_s=0.5),
+            ),
+        )
+
+    def run(cfg, in_subprocess: bool, devices: int = n_devices) -> int:
+        if not in_subprocess:
+            return _run_train_inprocess(cfg, device, _train_devices(device, devices))
+        os.makedirs(run_dir, exist_ok=True)
+        cfg_yaml = os.path.join(run_dir, f"chaos_leg{len(rcs)}.yaml")
+        save_config(cfg, cfg_yaml)
+        return _run_train_subprocess(cfg_yaml, devices, device)
+
+    fault_rc: Optional[int] = None
+    if ep.mode == "train":
+        fault_rc = run(faulted, ep.subprocess)
+        rcs.append(fault_rc)
+        if ep.resume_after or fault_rc in exit_codes.RESTARTABLE_RCS:
+            rcs.append(run(base, False))  # the clean resume leg
+    elif ep.mode == "resume":
+        rcs.append(run(base, False))  # produce the checkpoints
+        fault_rc = run(faulted, False)  # resume under the fault
+        rcs.append(fault_rc)
+    elif ep.mode == "shrink":
+        # train on the full mesh, then resume with fewer visible devices
+        rcs.append(run(base, False))
+        fault_rc = run(dataclasses.replace(base, total_epochs=3), True, ep.resume_devices)
+        rcs.append(fault_rc)
+    else:  # grow: the shrink legs, then a resume with every device back
+        rcs.append(run(base, False))
+        rcs.append(run(dataclasses.replace(base, total_epochs=3), True, ep.resume_devices))
+        fault_rc = run(dataclasses.replace(base, total_epochs=4), True, n_devices)
+        rcs.append(fault_rc)
+    for rc in rcs:
+        if rc not in DOCUMENTED_RCS:
+            violations.append(f"undocumented rc {rc}")
+    if fault_rc is not None and fault_rc not in ep.expected_rcs:
+        violations.append(f"rc {fault_rc} not in expected {ep.expected_rcs} for {ep.kind}")
+    if (ep.resume_after or ep.mode in ("resume", "shrink", "grow")) and rcs[-1] != 0:
+        violations.append(f"resume leg exited rc {rcs[-1]}")
+    err = _check_events_jsonl(run_dir)
+    if err:
+        violations.append(err)
+    violations.extend(_check_telemetry(run_dir))
+    seen_events = _events_in(run_dir)
+    for required in ep.required_events:
+        if required not in seen_events:
+            violations.append(f"missing required event {required!r}")
+    template_system = tiny_system(campaign_config(data_root, exp_root, "_tmpl"), "cpu")
+    err = _check_checkpoints(run_dir, template_system.init_train_state(),
+                             feature_shape=template_system.model.feature_shape)
+    if err:
+        violations.append(err)
+    return {"kind": ep.kind, "mode": ep.mode, "rcs": rcs, "violations": violations}
+
+
+# ---------------------------------------------------------------------------
+# the gateway drills
+# ---------------------------------------------------------------------------
 
 
 def tiny_serving_system(cfg, device=None):
@@ -366,15 +775,18 @@ def _run_gateway_episode(
     """One cross-process fleet drill: a REAL gateway subprocess fronting
     REAL serve-backend subprocesses on ``device``, driven over the wire.
     Returns violations (empty = green). ``template_run`` (a previously
-    built run dir) lets the tests share one checkpoint across drills. An
-    episode of another mode (a training or in-process serve episode) is
-    ROADMAP.md A9 and raises."""
+    built run dir) lets the tests share one checkpoint across drills. A
+    training episode raises ``ValueError`` (:func:`_run_train_episode` runs
+    it), an in-process serve episode ``NotImplementedError`` (ROADMAP.md
+    A9.6)."""
     import tempfile
 
+    if ep.mode in TRAIN_MODES:
+        raise ValueError(f"chaos episode {ep.kind!r} is a training episode: run it with _run_train_episode")
     if ep.mode != "gateway":
         raise NotImplementedError(
             f"chaos episode {ep.kind!r} (mode {ep.mode!r}) is not ported to PyTorch yet "
-            "(ROADMAP.md A9); the port runs the gateway drills only"
+            f"(ROADMAP.md {CAMPAIGN_ITEM}: the in-process serve episodes)"
         )
     violations: List[str] = []
     root = tempfile.mkdtemp(prefix=f"chaos_{ep.kind.replace('-', '_')}_",
@@ -1458,10 +1870,13 @@ class _FakeProc:
 
 
 def run_campaign(work_dir: str, episodes: int = 8, seed: int = 0, **kwargs) -> Dict[str, Any]:
-    """The seeded campaign over train / resume / serve episodes: not ported
-    (ROADMAP.md A9: it needs the training fault seams). The gateway drills
-    run one at a time through :func:`_run_gateway_episode`."""
+    """The seeded campaign over train / resume / serve episodes, with the
+    sanitizer: not ported (ROADMAP.md A9.6; the JAX chaos smoke samples the
+    in-process serve episodes first). The training episodes run one at a
+    time through :func:`_run_train_episode`, the gateway drills through
+    :func:`_run_gateway_episode`."""
     raise NotImplementedError(
-        "the chaos campaign's training episodes and run_campaign are not ported to "
-        "PyTorch yet (ROADMAP.md A9); run the gateway drills with _run_gateway_episode"
+        f"run_campaign is not ported to PyTorch yet (ROADMAP.md {CAMPAIGN_ITEM}: with the in-process serve "
+        "episodes and the sanitizer); run training episodes with _run_train_episode and the gateway drills "
+        "with _run_gateway_episode"
     )

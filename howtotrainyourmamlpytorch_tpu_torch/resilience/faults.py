@@ -6,11 +6,22 @@ production code already passes through), a fault kind, and a deterministic
 trigger, and the seam fires the injector on every call. With no specs the
 injector is inert — one attribute check per seam, no RNG draws.
 
-Sites wired in the port (grep for ``fire(``):
+Sites wired in the port (grep for ``fire(`` / ``fire_bytes(``):
 
 ==================  ========================================================
+``checkpoint.write``  ``experiment/checkpoint.py`` — the serialized blob
+                      before the atomic write, each shard file of a format-3
+                      save included (corrupt-bytes = torn write, raise =
+                      disk full, delay = slow storage, sigterm = a
+                      preemption landing mid-save, on the writer thread)
+``checkpoint.read``   ``experiment/checkpoint.py`` — the blob (or a shard)
+                      after read, before decode (corrupt-bytes = bit rot)
 ``loader.episode``    ``data/loader.py`` — episode-batch assembly (raise =
                       transient I/O; retried by the loader's retry wrapper)
+``runner.step``       ``experiment/runner.py`` — per outer step, before the
+                      step is issued (nan-loss = poisoned step observed by
+                      the NaN sentinel, sigterm = preemption drill, delay =
+                      a hung step for the wedge watchdog, raise)
 ``serving.dispatch``  ``serving/engine.py`` — device dispatch of a batched
                       adapt/predict flush (raise trips the circuit breaker,
                       delay = a slow card)
@@ -21,11 +32,6 @@ Sites wired in the port (grep for ``fire(``):
                       poisoned refinement observed by the rollback guard,
                       raise = dispatch failure, delay = slow refine)
 ==================  ========================================================
-
-The training seams ``runner.step``, ``checkpoint.read`` and
-``checkpoint.write`` are not wired yet (ROADMAP.md A9): :func:`injector_from`
-raises ``NotImplementedError`` for a spec naming one, so a drill is never
-silently skipped.
 
 Spec grammar (one string per fault; ``;``-separated when packed into the
 ``HTYMP_FAULTS`` environment variable)::
@@ -55,8 +61,17 @@ from ..utils.locks import san_lock
 
 KINDS = ("raise", "corrupt-bytes", "nan-loss", "delay", "sigterm")
 
-#: The seams the port does not fire yet (ROADMAP.md A9).
-UNWIRED_SEAMS = ("runner.step", "checkpoint.read", "checkpoint.write")
+#: The registered seam names, the JAX package's: every ``fire("...")``
+#: site of the port names one of them.
+SEAMS = (
+    "checkpoint.write",
+    "checkpoint.read",
+    "loader.episode",
+    "runner.step",
+    "serving.dispatch",
+    "serving.http",
+    "serving.refine",
+)
 
 # env var merged into every config-built injector: drills on a live run
 # without editing its config
@@ -231,19 +246,9 @@ NULL_INJECTOR = FaultInjector()
 
 def injector_from(resilience_cfg, **kwargs) -> FaultInjector:
     """Build an injector from a ``ResilienceConfig``-shaped object (duck-typed
-    ``faults`` list + ``fault_seed``), merging ``HTYMP_FAULTS``. A spec that
-    names a training seam the port does not fire yet raises
-    ``NotImplementedError`` (ROADMAP.md A9) instead of never firing."""
-    injector = FaultInjector.from_specs(
+    ``faults`` list + ``fault_seed``), merging ``HTYMP_FAULTS``."""
+    return FaultInjector.from_specs(
         getattr(resilience_cfg, "faults", ()) or (),
         seed=getattr(resilience_cfg, "fault_seed", 0),
         **kwargs,
     )
-    unwired = sorted(site for site in injector._by_site if site in UNWIRED_SEAMS)
-    if unwired:
-        raise NotImplementedError(
-            f"fault drills at {unwired} are not ported to PyTorch yet (ROADMAP.md A9: "
-            "the training seams); the port fires faults at loader.episode and the "
-            "serving seams only"
-        )
-    return injector

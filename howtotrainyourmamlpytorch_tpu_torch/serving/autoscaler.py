@@ -56,7 +56,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
 # Locks are plain threading.Lock: the lock-discipline sanitizer (tools/graftsan)
-# is not ported (ROADMAP.md A9), and this module must stay stdlib-only.
+# is not ported (ROADMAP.md A9.7), and this module must stay stdlib-only.
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 

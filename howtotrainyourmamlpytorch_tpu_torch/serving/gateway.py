@@ -53,7 +53,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
 # Locks are plain threading.Lock: the lock-discipline sanitizer (tools/graftsan)
-# is not ported (ROADMAP.md A9), and this module must stay stdlib-only.
+# is not ported (ROADMAP.md A9.7), and this module must stay stdlib-only.
 
 #: healthz body ``status`` values that mean "alive but do not route NEW
 #: work here" — the drain/warm half of the membership state machine

@@ -34,7 +34,7 @@ thread needs no current-device state of its own.
 
 Not ported yet, and refused where a config asks for them: the AOT prewarm
 (``aot.enabled``, ROADMAP.md A10) and the lock-discipline sanitizer
-(``resilience.sanitizer``, ``HTYMP_GRAFTSAN=1``; A9). The compile-ledger
+(``resilience.sanitizer``, ``HTYMP_GRAFTSAN=1``; A9.7). The compile-ledger
 hub provider is A10.
 """
 
@@ -127,7 +127,7 @@ class ServingFrontend:
         if self.resilience.sanitizer or os.environ.get("HTYMP_GRAFTSAN") == "1":
             raise NotImplementedError(
                 "the lock-discipline sanitizer (resilience.sanitizer, HTYMP_GRAFTSAN=1) is not "
-                "ported to PyTorch yet (ROADMAP.md A9)"
+                "ported to PyTorch yet (ROADMAP.md A9.7)"
             )
         if engine.cfg.aot.enabled:
             raise NotImplementedError(

@@ -10,6 +10,14 @@ writes the same run directory (``{experiment_root}/{dataset}.{n_way}.{k_shot}``)
 and a second call with a larger ``total_epochs`` resumes from ``latest``.
 ``--device`` defaults to the CUDA card; without one the run raises rather
 than falling back to the CPU.
+
+The runner's mesh draws from every visible card (``--device cpu``: the one
+CPU), so ``parallel.dp=2`` on a machine with one card degrades to a single
+device and logs the ``degraded_mesh`` event; a run resumed from a
+checkpoint written under a bigger mesh shrinks onto this one, and a run on
+more cards than its checkpoint's mesh grows (``mesh_grown``). A drill
+named in ``HTYMP_FAULTS`` (``runner.step=sigterm:nth=3``,
+``checkpoint.write=sigterm:nth=2``, ...) fires at the runner's seams.
 """
 
 import argparse

@@ -5,13 +5,14 @@ probabilities (atol 1e-5, the slice tolerance of test_torch_slice), and a
 damaged file raises ``CheckpointCorruptError``. Training resumes across
 them in both directions, formats 2 and 3 (linear model of
 test_torch_train: the next step agrees at atol 1e-5); the port writes
-format 2 only. ``save_named`` files load in the JAX package, a corrupt
+both formats. ``save_named`` files load in the JAX package, a corrupt
 ``latest`` is quarantined and the newest valid epoch resumes, and the async
 writer keeps one save in flight."""
 
 import os
 import threading
 
+import jax
 import msgpack
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from howtotrainyourmamlpytorch_tpu.experiment import checkpoint as jax_ckpt
 from howtotrainyourmamlpytorch_tpu.serving.engine import AdaptationEngine as JaxEngine
 from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint as ckpt
 from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_flatten
 
 from .test_torch_slice import jax_serve, jax_system_and_state, port_serve, port_system, requests
 from .test_torch_train import _jnp, _outputs_close, _state_close, batch, pair
@@ -87,11 +89,30 @@ def test_damaged_checkpoint_raises(run_dir, tmp_path, damage):
 
 
 def test_format_3_writing_is_refused_naming_a9(tmp_path):
-    _, _, tsys, tstate = pair("linear")
-    with pytest.raises(NotImplementedError, match="A9"):
-        ckpt.save_checkpoint(str(tmp_path), tstate, {"epoch": 1}, epoch=1,
-                             feature_shape=tsys.model.feature_shape, num_shards=2)
-    assert not os.listdir(tmp_path)
+    """Format 3, refused (naming ROADMAP A9) before the port wrote it, is
+    written: two shard files and a manifest per name, which the JAX package
+    loads to the same state and the port loads back bit for bit."""
+    jsys, jstate, tsys, tstate = pair("linear")
+    ckpt.save_checkpoint(str(tmp_path), tstate, {"epoch": 1}, epoch=1,
+                         feature_shape=tsys.model.feature_shape, num_shards=2)
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        f"train_model_{i}{s}" for i in (1, "latest") for s in ("", ".shard0", ".shard1"))
+    restored, book = jax_ckpt.load_checkpoint(str(tmp_path), "latest", jstate)
+    assert book == {"epoch": 1}
+    for a, b in zip(jax.tree.leaves(restored), jax.tree.leaves(jstate)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    back, _ = ckpt.load_checkpoint(str(tmp_path), 1, tstate, feature_shape=tsys.model.feature_shape)
+    for a, b in zip(tree_flatten(_as_dict(back))[0], tree_flatten(_as_dict(tstate))[0]):
+        assert torch.equal(a, b)
+
+
+def _as_dict(tree):
+    """A NamedTuple/tuple state as a dict tree, for ``tree_flatten``."""
+    if isinstance(tree, tuple):
+        return {str(i): _as_dict(v) for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        return {k: _as_dict(v) for k, v in tree.items()}
+    return tree
 
 
 def _train(system, state, seeds, jax_side=False):

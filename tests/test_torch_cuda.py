@@ -274,6 +274,43 @@ def test_train_step_with_kernels_matches_cpu(cuda):
     np.testing.assert_allclose(float(out.loss), float(cpu_out.loss), rtol=1e-5)
 
 
+def test_sharded_train_step_on_one_card_matches_dp1(cuda):
+    """A dp=2 mesh of ``[cuda:0, cuda:0]`` (the data-parallel code path on
+    one card): the meta-gradient against dp=1 on the same card (one scale,
+    1e-4 of the largest element, as against the CPU above; cuDNN
+    deterministic), B1 and B2 launched 2 x K times per step, and the step's
+    new state replicated on both entries."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import ParallelConfig
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import make_mesh, replicate, shard_batch
+
+    cfg = Config(
+        num_classes_per_set=3, num_samples_per_class=2, num_target_samples=2, batch_size=4,
+        number_of_training_steps_per_iter=2, use_pallas_inner_update=True, remat_inner_steps=False,
+    )
+    system = MAMLSystem(cfg, model=build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8), device=cuda)
+    state = system.init_train_state()
+    batch = learnable_synthetic_batch(4, 3, 2, 2, (8, 8, 1), seed=0)
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(ParallelConfig(dp=2), [card, card])
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss1, _, g1 = system.meta_gradients(state, batch, epoch=0)
+        fu.reset_launch_counts()
+        loss2, _, g2 = system.meta_gradients(replicate(state, mesh), shard_batch(batch, mesh), epoch=0)
+        new, out = system.train_step(replicate(state, mesh), shard_batch(batch, mesh), epoch=0)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    K = cfg.number_of_training_steps_per_iter
+    assert fu.launch_counts == {"fused_sgd": 2 * 2 * K, "fused_sgd_bwd": 2 * 2 * K}
+    assert abs(float(loss2) - float(loss1)) <= 1e-5 * abs(float(loss1))
+    scale = max(float(g.abs().max()) for g in tree_leaves(g1))
+    for a, b in zip(tree_leaves(g2), tree_leaves(g1)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0, atol=1e-4 * scale)
+    assert len(new.replicas) == 2 and new.replicas[0] is new.replicas[1] and int(new.step) == 1
+    assert out.per_task_losses.shape == (4,)
+
+
 def test_wrapper_refuses_more_leaves_than_the_largest_table(cuda):
     """Above MAX_LEAVES the wrapper raises before any launch; at it, one
     launch of the large table."""

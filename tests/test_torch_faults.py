@@ -8,10 +8,11 @@
   in ``/metrics`` as ``injected_faults`` with the counts JAX's frontend
   reports for the same requests, and the poisoned refinement is rolled
   back as JAX's guard rolls it back.
-- ``injector_from``: a spec at a training seam the port does not fire yet
-  (``runner.step``, ``checkpoint.read``, ``checkpoint.write``) raises
-  ``NotImplementedError`` naming ROADMAP A9, from the config and from
-  ``HTYMP_FAULTS``; the loader seam fires in the runner's loader.
+- ``injector_from``: a spec at a training seam (``runner.step``,
+  ``checkpoint.read``, ``checkpoint.write``), from the config or from
+  ``HTYMP_FAULTS``, builds the injector JAX's ``injector_from`` builds, and
+  it fires there as JAX's does; the loader seam fires in the runner's
+  loader.
 """
 
 import json
@@ -81,7 +82,7 @@ def test_spec_grammar_matches_jax():
         with pytest.raises(ValueError):
             jfaults.FaultSpec.parse(bad)
     assert faults.KINDS == jfaults.KINDS
-    assert set(faults.UNWIRED_SEAMS) < set(jfaults.SEAMS)
+    assert faults.SEAMS == jfaults.SEAMS
 
 
 def test_null_injector_is_inert():
@@ -95,15 +96,30 @@ def test_injected_fault_is_an_os_error():
     assert issubclass(faults.InjectedFault, OSError)
 
 
+def _fire_trace(inj, module, site, calls=6):
+    out = []
+    for _ in range(calls):
+        try:
+            out.append(inj.fire_bytes(site, bytes(range(48))) if site.startswith("checkpoint.") else inj.fire(site))
+        except module.InjectedFault as exc:
+            out.append(f"raised: {exc}")
+    return out, inj.stats()
+
+
 @pytest.mark.parametrize("site", ["runner.step", "checkpoint.read", "checkpoint.write"])
 def test_training_seams_raise_naming_a9(site, monkeypatch):
+    """A drill at a training seam (refused, naming ROADMAP A9, before the
+    seams were wired) builds a real injector, from the config and from
+    ``HTYMP_FAULTS``, whose decisions at the seam equal JAX's."""
     monkeypatch.delenv(faults.ENV_VAR, raising=False)
-    spec = f"{site}=raise:nth=1"
-    with pytest.raises(NotImplementedError, match="A9"):
-        faults.injector_from(tcfg.ResilienceConfig(faults=[spec]))
-    monkeypatch.setenv(faults.ENV_VAR, f"serving.dispatch=delay:nth=1;{spec}")
-    with pytest.raises(NotImplementedError, match="A9"):
-        faults.injector_from(tcfg.ResilienceConfig())
+    specs = [f"{site}=raise:nth=2", f"{site}=corrupt-bytes:nth=4", f"{site}=nan-loss:after=4,times=1"]
+    got = _fire_trace(faults.injector_from(tcfg.ResilienceConfig(faults=specs, fault_seed=5)), faults, site)
+    want = _fire_trace(jfaults.injector_from(jcfg.ResilienceConfig(faults=specs, fault_seed=5)), jfaults, site)
+    assert got == want and got[1]
+    monkeypatch.setenv(faults.ENV_VAR, ";".join(specs))
+    got = _fire_trace(faults.injector_from(tcfg.ResilienceConfig()), faults, site)
+    want = _fire_trace(jfaults.injector_from(jcfg.ResilienceConfig()), jfaults, site)
+    assert got == want and got[1]
 
 
 def test_wired_seams_build_a_real_injector(monkeypatch):

@@ -93,9 +93,16 @@ def test_cross_process_rolling_restart_under_load(tmp_path, fleet_template):
 
 
 def test_training_episodes_and_the_campaign_raise_naming_a9(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
+    """The in-process serve episodes and ``run_campaign`` raise naming their
+    ROADMAP item (A9.6); a training episode, runnable since the training
+    seams were wired, is refused by the gateway runner with a pointer to
+    ``_run_train_episode``."""
+    with pytest.raises(NotImplementedError, match="A9.6"):
+        _run_gateway_episode(Episode(kind="serve-dispatch-raise", mode="serve"), work_dir=str(tmp_path),
+                             device="cpu")
+    with pytest.raises(ValueError, match="_run_train_episode"):
         _run_gateway_episode(Episode(kind="nan-step", mode="train"), work_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A9.6"):
         run_campaign(str(tmp_path))
 
 

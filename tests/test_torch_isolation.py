@@ -75,6 +75,8 @@ def test_importing_the_port_loads_no_jax():
         "from howtotrainyourmamlpytorch_tpu_torch.serving import gateway\n"
         "from howtotrainyourmamlpytorch_tpu_torch.observability import slo\n"
         "from howtotrainyourmamlpytorch_tpu_torch import loadgen\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import parallel\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.parallel import mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'howtotrainyourmamlpytorch_tpu'))\n"
         "assert not bad, bad\n"

@@ -4,8 +4,9 @@ folder of ``tests/test_runner.py``. It mirrors that file's tests (artifact
 contract and resume, test-only evaluation, named and integer epochs,
 per-episode eval statistics, the early abort) and adds: the artifact files
 and CSV columns against a JAX runner's run; the NaN sentinel and its
-rollback; SIGTERM in a subprocess (rc 75, then an exact mid-epoch resume);
-the refused options; the CLI in a subprocess; and a run directory resumed
+rollback, and SIGTERM in a subprocess (rc 75, then an exact mid-epoch
+resume), each drilled through the ``runner.step`` fault seam; the refused
+options and those ROADMAP A9 made run; the CLI in a subprocess; and a run directory resumed
 across the packages in both directions (the next step's loss within atol
 1e-5, the same loader cursor)."""
 
@@ -298,9 +299,15 @@ def _equal(state, snapshot):
     return all(torch.equal(a, b) for a, b in zip(_snapshot(state), snapshot))
 
 
-def _poison(runner, nan_calls):
-    """Wrap ``train_step``: the loss of the calls in ``nan_calls`` (1-based)
-    turns NaN; every call's input state is checked unchanged by the step."""
+def _nan_drill(*specs, **resilience):
+    """A ``ResilienceConfig`` arming ``runner.step=nan-loss`` drills: the
+    seam marks those steps poisoned for the NaN sentinel."""
+    return tcfg.ResilienceConfig(faults=[f"runner.step=nan-loss:{spec}" for spec in specs], **resilience)
+
+
+def _watch(runner):
+    """Record every ``train_step`` call's input state, checked unchanged by
+    the step."""
     real = runner.system.train_step
     inputs = []
 
@@ -309,8 +316,6 @@ def _poison(runner, nan_calls):
         new, out = real(state, batch, epoch=epoch)
         assert _equal(state, before), "train_step wrote into its input state"
         inputs.append((state, before))
-        if len(inputs) in nan_calls:
-            out = out._replace(loss=torch.tensor(float("nan")))
         return new, out
 
     runner.system.train_step = step
@@ -318,9 +323,9 @@ def _poison(runner, nan_calls):
 
 
 def test_nan_step_is_discarded_and_the_state_restored(toy_dataset, tmp_path):
-    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_nan")
+    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_nan", resilience=_nan_drill("nth=2"))
     runner = ExperimentRunner(cfg, system=small_system(cfg))
-    inputs = _poison(runner, nan_calls={2})
+    inputs = _watch(runner)
     stats = runner._train_epoch(0)
     # step 2 is judged while step 3 runs on top of it: both are discarded,
     # and the state is the one step 2 was given, bit for bit
@@ -333,14 +338,16 @@ def test_nan_step_is_discarded_and_the_state_restored(toy_dataset, tmp_path):
 
 
 def test_consecutive_nans_roll_back_to_the_checkpoint_and_scale_the_outer_lr(toy_dataset, tmp_path):
-    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_rollback", total_iter_per_epoch=8)
+    # the seam poisons every step from the 10th on: the 2nd of epoch 1
+    cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_rollback", total_iter_per_epoch=8,
+                        resilience=_nan_drill("after=9"))
     runner = ExperimentRunner(cfg, system=small_system(cfg))
     runner._train_epoch(0)
     runner._save(0)
     runner._drain_ckpt_writer()
     saved, _ = ckpt.load_checkpoint(runner.saved_models_dir, 0, runner.state,
                                     feature_shape=runner.system.model.feature_shape)
-    inputs = _poison(runner, nan_calls=set(range(2, 100)))
+    inputs = _watch(runner)
     runner._train_epoch(1)
     events = _events(runner.run_dir)
     # discards at calls 3, 5, 7 (K=3) roll back; the drain's discard starts a new streak
@@ -363,10 +370,9 @@ def test_consecutive_nans_roll_back_to_the_checkpoint_and_scale_the_outer_lr(toy
 
 
 def test_nan_abort_after_the_rollbacks_are_spent(toy_dataset, tmp_path):
-    res = dataclasses.replace(tcfg.ResilienceConfig(), max_consecutive_bad_steps=1, max_rollbacks=0)
+    res = _nan_drill("times=3", max_consecutive_bad_steps=1, max_rollbacks=0)
     cfg = runner_config(toy_dataset, tmp_path, experiment_name="toy_nan_abort", resilience=res)
     runner = ExperimentRunner(cfg, system=small_system(cfg))
-    _poison(runner, nan_calls={1, 2, 3})
     with pytest.raises(SystemExit) as exc:
         runner.run_experiment()
     assert exc.value.code == 3
@@ -378,7 +384,7 @@ def test_nan_abort_after_the_rollbacks_are_spent(toy_dataset, tmp_path):
 # ---------------------------------------------------------------------------
 
 _PREEMPT_SCRIPT = r"""
-import json, os, signal
+import json
 from howtotrainyourmamlpytorch_tpu_torch import config
 from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
 from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
@@ -386,6 +392,8 @@ from howtotrainyourmamlpytorch_tpu_torch.models.vgg import build_vgg
 
 kwargs = json.loads({kwargs!r})
 kwargs["dataset"] = config.DatasetConfig(**kwargs["dataset"])
+# a preemption at the runner.step seam of the {nth}th step
+kwargs["resilience"] = config.ResilienceConfig(faults=["runner.step=sigterm:nth={nth}"])
 cfg = config.Config(**kwargs)
 model = build_vgg((28, 28, 1), cfg.num_classes_per_set, num_stages=2, cnn_num_filters=4)
 runner = ExperimentRunner(cfg, system=MAMLSystem(cfg, model=model, device="cpu"))
@@ -394,8 +402,6 @@ calls = []
 
 def step(state, batch, epoch=None):
     calls.append(epoch)
-    if len(calls) == {nth}:
-        os.kill(os.getpid(), signal.SIGTERM)  # a preemption during the step
     return real(state, batch, epoch=epoch)
 
 runner.system.train_step = step
@@ -444,10 +450,8 @@ REFUSED = {
     "donation": (dict(donate_train_state=True), "A10"),
     "profile": (dict(profile_dir="prof"), "A10"),
     "sanitizer": (dict(resilience=tcfg.ResilienceConfig(sanitizer=True)), "A9"),
-    "fault_drill": (dict(resilience=tcfg.ResilienceConfig(faults=["runner.step=nan-loss:nth=2"])), "A9"),
-    "dp2": (dict(parallel=tcfg.ParallelConfig(dp=2)), "A9"),
-    "mp2": (dict(parallel=tcfg.ParallelConfig(mp=2)), "A9"),
-    "sharded_checkpoints": (dict(checkpoint_shards=2), "A9"),
+    "mp2": (dict(parallel=tcfg.ParallelConfig(mp=2)), "A12"),
+    "tp_convs": (dict(parallel=tcfg.ParallelConfig(dp=2, tp_convs=True)), "A12"),
 }
 
 
@@ -488,11 +492,45 @@ def test_a6_options_are_accepted(toy_dataset, tmp_path, name):
             assert [len(r) for r in csv.reader(f)] == [2 * n_leaves]
 
 
+A9_OPTIONS = {
+    "dp2": dict(parallel=tcfg.ParallelConfig(dp=2)),
+    "fault_drill": dict(resilience=tcfg.ResilienceConfig(faults=["runner.step=nan-loss:nth=2"])),
+    "sharded_checkpoints": dict(checkpoint_shards=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(A9_OPTIONS))
+def test_a9_options_are_accepted(toy_dataset, tmp_path, name):
+    """The options refused before ROADMAP.md A9 train an epoch on the CPU:
+    ``dp=2`` on a two-entry CPU mesh (2 shards written, the ``mesh``
+    bookkeeping [2, 1]), a ``runner.step`` drill (the poisoned step
+    discarded), ``checkpoint_shards=2`` on one device (format 3, mesh
+    [1, 1])."""
+    devices = ["cpu", "cpu"] if name == "dp2" else None
+    cfg = runner_config(toy_dataset, tmp_path, total_epochs=1, **A9_OPTIONS[name])
+    runner = ExperimentRunner(cfg, system=small_system(cfg), devices=devices)
+    assert (runner.mesh is not None) == (name == "dp2")
+    runner.run_experiment()
+    rows = load_statistics(os.path.join(cfg.run_dir(), "logs"))
+    assert len(rows) == 1 and np.isfinite(float(rows[0]["train_loss_mean"]))
+    saved = os.listdir(runner.saved_models_dir)
+    shards = sorted(n for n in saved if n.startswith("train_model_latest.shard"))
+    assert shards == ([] if name == "fault_drill" else ["train_model_latest.shard0", "train_model_latest.shard1"])
+    _, book = ckpt.load_for_inference(runner.saved_models_dir, "latest")
+    assert book["mesh"] == ([2, 1] if name == "dp2" else [1, 1])
+    skipped = [e for e in _events(runner.run_dir) if e.get("event") == "nan_step_skipped"]
+    assert len(skipped) == (1 if name == "fault_drill" else 0)
+
+
 def test_fault_drill_from_the_environment_is_refused(toy_dataset, tmp_path, monkeypatch):
-    monkeypatch.setenv("HTYMP_FAULTS", "runner.step=sigterm:nth=3")
-    cfg = runner_config(toy_dataset, tmp_path)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ExperimentRunner(cfg, system=small_system(cfg))
+    """A drill named in ``HTYMP_FAULTS`` reaches the runner's seam (it was
+    refused before ROADMAP.md A9); a malformed spec is still refused."""
+    monkeypatch.setenv("HTYMP_FAULTS", "runner.step=nan-loss:nth=2")
+    cfg = runner_config(toy_dataset, tmp_path, total_epochs=1)
+    runner = ExperimentRunner(cfg, system=small_system(cfg))
+    runner.run_experiment()
+    assert runner._injector.stats() == {"runner.step:nan-loss": 1}
+    assert [e["consecutive"] for e in _events(runner.run_dir) if e.get("event") == "nan_step_skipped"] == [1]
     monkeypatch.setenv("HTYMP_FAULTS", "runner.step=bogus")
     with pytest.raises(ValueError, match="bad fault spec"):
         ExperimentRunner(cfg, system=small_system(cfg))

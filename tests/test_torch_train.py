@@ -417,8 +417,8 @@ class _Float64System(MAMLSystem):
     def _apply_forward(self, params, bn_state, x, sample_weight=None):
         return self.model.apply(params, bn_state, x, use_batch_stats=True)[0]
 
-    def _batch(self, b):
-        out = super()._batch(b)
+    def _batch(self, b, device=None):
+        out = super()._batch(b, device)
         return dict(out, x_support=out["x_support"].double(), x_target=out["x_target"].double())
 
 
