@@ -55,7 +55,12 @@ as it is.
 
 ``scale_meta_lr`` rebuilds the outer schedule at scaled rates (the NaN
 rollback's backoff, ``experiment/runner.py``). Not here (ROADMAP.md): the
-multi-step chunk programs, strict guard, compile ledger and donation (A10).
+multi-step chunk programs, compile ledger and donation (A10).
+
+Strict mode (``Config.strict_recompile_guard``, ``utils/strictmode.py``):
+``recompile_guard`` holds every train variant ``(kind, second_order,
+msl_active)`` and the eval kind, noted where they are dispatched, to
+``train_planned_programs``. ``drop_compiled_programs`` re-plans the family.
 
 ``Config.matmul_precision`` is applied process-wide by the constructor, as
 the JAX package applies it (``jax_default_matmul_precision``): it sets the
@@ -76,7 +81,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 from torch.func import grad, vmap
 
-from ..config import SERVING_STRATEGIES, TRAIN_STRATEGIES, Config
+from ..config import SERVING_STRATEGIES, TRAIN_STRATEGIES, Config, strategy_kind
 from ..models.model import Model
 from ..models.registry import build_model
 from ..ops.inner_optim import build_inner_optimizer
@@ -225,6 +230,14 @@ class MAMLSystem:
                 )
             kwargs["fused"] = True
         self.inner_opt = build_inner_optimizer(io.kind, **kwargs)
+        # strict mode: every train/eval variant is noted against the
+        # declared family BEFORE it runs, so an unplanned variant raises
+        # instead of silently paying its first dispatch mid-run
+        self.recompile_guard = None
+        if cfg.strict_recompile_guard:
+            from ..utils.strictmode import RecompileGuard, train_planned_programs
+
+            self.recompile_guard = RecompileGuard(planned=train_planned_programs(cfg), name="maml-system")
         self.meta_lr_scale = 1.0
         self.scale_meta_lr(1.0)
         self.precision = policy_from_config(cfg)
@@ -244,6 +257,26 @@ class MAMLSystem:
             cfg.total_epochs,
             cfg.total_iter_per_epoch,
         )
+        self.drop_compiled_programs()
+
+    def drop_compiled_programs(self) -> None:
+        """Re-plan the program family: the JAX system drops its compiled
+        train/eval programs here (the rollback backoff, the mesh grow-back),
+        and the recompiles after a deliberate drop are not violations. An
+        eager system keeps no programs, so only the strict guard is reset,
+        and the eval kind noted again, as the JAX system re-jits it."""
+        if self.recompile_guard is not None:
+            self.recompile_guard.reset()
+        self._note_program((self._kind("eval"),))
+
+    def _kind(self, base: str) -> str:
+        """Program-key kind for this system's strategy (the default keeps
+        the bare spelling)."""
+        return strategy_kind(base, self.strategy)
+
+    def _note_program(self, key) -> None:
+        if self.recompile_guard is not None:
+            self.recompile_guard.note(key)
 
     # ------------------------------------------------------------------
     # state
@@ -552,6 +585,9 @@ class MAMLSystem:
         update runs once, on the mesh's first device, and the new state is
         replicated again."""
         cfg = self.cfg
+        if self.recompile_guard is not None:
+            ep = epoch if epoch is not None else int(unreplicate(state).step) // cfg.total_iter_per_epoch
+            self._note_program((self._kind("train"), self.use_second_order(ep), self.msl_active(ep)))
         sharded = isinstance(batch, ShardedBatch)
         if sharded:
             state = self._replicated(state, batch.mesh)
@@ -598,6 +634,7 @@ class MAMLSystem:
         final-step target loss only (reference :239-251); no gradients.
         Takes a sharded batch too."""
         cfg = self.cfg
+        self._note_program((self._kind("eval"),))
         if isinstance(batch, ShardedBatch):
             state = self._replicated(state, batch.mesh)
             with torch.no_grad():

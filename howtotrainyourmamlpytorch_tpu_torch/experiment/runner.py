@@ -33,10 +33,16 @@ the per-task values in process order. The fault injector fires at the
 ``runner.step``, ``checkpoint.read``/``checkpoint.write`` and
 ``loader.episode`` seams.
 
+The lock-discipline sanitizer (``resilience.sanitizer`` or
+``HTYMP_GRAFTSAN=1``, ``tools/graftsan``) is armed before the loader and the
+watchdog build their locks, and its findings are ``graftsan_violation``
+events. Under ``strict_recompile_guard`` the system's guard snapshot is a
+telemetry provider.
+
 Not here, each refused at construction with the ROADMAP.md item that ports
-it: multi-step dispatch, fused eval, AOT prewarm, state donation and the
-profiler window (A10); the lock sanitizer (A9.7); tensor parallelism,
-``mp > 1`` or ``tp_convs`` (A12).
+it: multi-step dispatch, fused eval, the training-side AOT prewarm, state
+donation and the profiler window (A10); tensor parallelism, ``mp > 1`` or
+``tp_convs`` (A12).
 """
 
 import contextlib
@@ -118,7 +124,6 @@ def _refuse_unported(cfg: Config) -> None:
         (cfg.aot.enabled, "aot.enabled", "A10"),
         (cfg.donate_train_state, "donate_train_state", "A10"),
         (bool(cfg.profile_dir), "profile_dir", "A10"),
-        (cfg.resilience.sanitizer or os.environ.get("HTYMP_GRAFTSAN") == "1", "resilience.sanitizer", "A9.7"),
     ]
     for hit, what, item in refused:
         if hit:
@@ -185,6 +190,19 @@ class ExperimentRunner:
         # program variants already run once (second order x MSL): the first
         # step of each is tagged cold in the trace
         self._variants_seen: set = set()
+
+        # graftsan lock-discipline sanitizer: armed here, before the loader
+        # pool and the watchdog build their locks, so that every lock built
+        # through the utils/locks.py factories is instrumented; violations
+        # land in this run's events.jsonl as graftsan_violation records
+        if cfg.resilience.sanitizer or os.environ.get("HTYMP_GRAFTSAN") == "1":
+            try:
+                from tools.graftsan import runtime as _graftsan_runtime
+
+                _graftsan_runtime.arm()
+                _graftsan_runtime.add_sink(self.events.append)
+            except ImportError:  # packaged without tools/: sanitizer off
+                pass
 
         # fault injector (inert unless cfg.resilience.faults / HTYMP_FAULTS
         # name a drill), NaN-ladder counters, preemption flag
@@ -363,6 +381,8 @@ class ExperimentRunner:
                 name="runner",
             )
         if self.hub.enabled:
+            if self.system.recompile_guard is not None:
+                self.hub.add_provider("recompile_guard", self.system.recompile_guard.snapshot)
             if self._watchdog is not None:
                 self.hub.add_provider("watchdog_beat_age_s", lambda: round(self._watchdog.beat_age_s(), 3))
             self.hub.add_provider("loader", self.loader.stats)
@@ -646,6 +666,9 @@ class ExperimentRunner:
         host_state = self._host_state()
         self.mesh = make_mesh(dataclasses.replace(self.cfg.parallel, dp=dp, mp=mp), self._devices)
         self.state = shard_train_state(host_state, self.mesh)
+        # the JAX runner drops the programs built for the degraded mesh here;
+        # strict mode re-plans the same family
+        self.system.drop_compiled_programs()
         self._variants_seen.clear()
         self._note_mesh_grown(previous=list(current), granted=[dp, mp], n_visible=n_visible)
         return True

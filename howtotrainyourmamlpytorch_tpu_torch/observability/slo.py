@@ -368,45 +368,40 @@ class _Results:
 
 
 def _warm_batch_buckets(frontend, schedule, make_support, make_query, log) -> None:
-    """Dispatch every (bucket x task-batch bucket) shape the batched
-    flushes will hit, once on each card's engine of the frontend, before the
-    clock starts. The port has no AOT prewarm (ROADMAP.md A10): the first
-    dispatch of a shape on the card pays cuDNN's algorithm choice and the
-    allocator's first blocks, and under concurrency the batchers dispatch
-    task batches of 2, 4, ... ``max_batch_size`` requests that the
-    single-request warmup never ran — a cold shape inside a measured stair
-    would bill that cost to its p99. Degrades to a logged skip on frontends
-    without an engine (``HttpFrontend``, test doubles) — the single-request
-    warmup already ran."""
+    """Dispatch the full (bucket x task-batch bucket) grid the batched
+    flushes will hit, before the clock starts, by delegating to
+    ``AdaptationEngine.prewarm()``: the same planned-set warm a serving
+    replica runs under ``aot.enabled``. Under concurrency the batchers
+    dispatch task batches of 2, 4, ... ``max_batch_size`` requests that the
+    single-request warmup never ran, and the first dispatch of a shape on
+    the card pays cuDNN's algorithm choice and the allocator's first blocks:
+    a cold shape inside a measured stair would bill that to its p99.
+    Degrades to a logged skip on frontends without a prewarm-capable engine
+    (``HttpFrontend``, test doubles): the single-request warmup already
+    ran."""
     engine = getattr(frontend, "engine", None)
-    if engine is None or not hasattr(engine, "adapt_batch"):
+    prewarm = getattr(engine, "prewarm", None)
+    # a fleet frontend warms EVERY replica's engine (pool.prewarm dedups
+    # shared-engine replicas); single-replica and engine-only paths keep
+    # the direct engine warm
+    pool = getattr(frontend, "pool", None)
+    if pool is not None and len(pool) > 1 and prewarm is not None:
+        prewarm = pool.prewarm
+    if engine is None or prewarm is None:
         log("loadgen: batch-bucket warmup skipped (frontend has no engine)")
         return
-    pool = getattr(frontend, "pool", None)
-    engines = pool.engines() if pool is not None else [engine]
-    max_batch = int(engine.serving.max_batch_size)
-    batches = sorted({min(2**i, max_batch) for i in range(max_batch.bit_length() + 1)})
-    query_sizes = sorted({r.n_query for r in schedule})
-    refine = any(r.kind == "refine" for r in schedule)
-    x_s, y_s = make_support(-1)
-    t0 = time.monotonic()
-    shapes = 0
     try:
-        for eng in engines:
-            for b in batches:
-                trees = eng.adapt_batch([(x_s, y_s)] * b)
-                shapes += 1
-                if refine:
-                    eng.refine_batch([(trees[0], x_s, y_s)] * b)
-                    shapes += 1
-                for n_query in query_sizes:
-                    eng.predict_batch([(trees[0], make_query(-1, n_query))] * b)
-                    shapes += 1
-        log(f"loadgen: warmed {shapes} serving shapes on {len(engines)} engine(s) "
-            f"in {time.monotonic() - t0:.1f}s")
+        summary = prewarm()
+        log(
+            f"loadgen: prewarmed {summary['programs']} serving programs in "
+            f"{summary['seconds']}s ({summary['cache_hits']} persistent-cache "
+            f"hits, {summary['errors']} errors)"
+        )
     except Exception as exc:  # noqa: BLE001 — warmup must not kill the test
-        log("loadgen: batch-bucket warmup failed (continuing): "
-            f"{type(exc).__name__}: {exc}")
+        log(
+            "loadgen: batch-bucket warmup failed (continuing): "
+            f"{type(exc).__name__}: {exc}"
+        )
 
 
 def run_load(

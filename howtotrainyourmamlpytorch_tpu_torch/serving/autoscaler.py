@@ -55,8 +55,12 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
-# Locks are plain threading.Lock: the lock-discipline sanitizer (tools/graftsan)
-# is not ported (ROADMAP.md A9.7), and this module must stay stdlib-only.
+try:  # graftsan lock factory — needs the repo root on sys.path
+    from tools.graftsan.runtime import san_lock
+except ImportError:  # gateway-only host: sanitizer off, stdlib primitive
+
+    def san_lock(site=None):
+        return threading.Lock()
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -228,8 +232,8 @@ class Supervisor:
         self.port_pid = port_pid
         self.log = log
 
-        self._lock = threading.Lock()
-        self._events_lock = threading.Lock()
+        self._lock = san_lock("Supervisor._lock")
+        self._events_lock = san_lock("Supervisor._events_lock")
         self.state: Dict[str, Any] = {"slots": [], "intent": None, "target": 0}
         self.counters = {
             "ticks": 0, "scale_ups": 0, "scale_downs": 0, "crashes": 0,

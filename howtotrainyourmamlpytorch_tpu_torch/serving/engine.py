@@ -35,21 +35,28 @@ Fault seams (``resilience/faults.py``): ``serving.dispatch`` fires at the
 top of every adapt and predict flush, ``serving.refine`` at every refine
 flush (``nan-loss`` there hands the frontend's guard non-finite weights).
 
-PyTorch runs eagerly and compiles nothing, so the buckets here only bound
-the set of shapes the card sees. Left out: the compile ledger and strict
-guard (ROADMAP.md A10).
+PyTorch runs eagerly and compiles nothing, so the buckets here bound the
+set of shapes the card sees: the first dispatch of a shape pays cuDNN's
+algorithm choice and the allocator's first blocks. Strict mode
+(``Config.strict_recompile_guard`` or ``strict=True``;
+``utils/strictmode.py``) notes every flush's ``(kind, bucket, batch)``
+before it dispatches and raises on a key outside
+``serving_planned_programs``. :meth:`AdaptationEngine.prewarm` dispatches
+the whole planned grid once, on zero inputs, and seals the guard, after
+which any first-seen key is a violation. Left out: the compile ledger
+(ROADMAP.md A10).
 Refine sessions (the guard, lineage and spill) live in the frontend
 (``serving/server.py``).
 """
 
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..config import Config, ServingConfig, load_config
+from ..config import Config, ServingConfig, kind_base, kind_strategy, load_config, strategy_kind
 from ..core.maml import MAMLSystem
 from ..core.strategies import validate_request_strategy
 from ..core.train_state import TrainState
@@ -110,6 +117,7 @@ class AdaptationEngine:
         injector=None,
         ledger_tag: str = "",
         registry: Optional[TenantRegistry] = None,
+        strict: Optional[bool] = None,
     ):
         self.system = system
         self.cfg = system.cfg
@@ -159,6 +167,17 @@ class AdaptationEngine:
         self._adapt_shapes = set()
         self._predict_shapes = set()
         self._refine_shapes = set()
+        # strict mode (Config.strict_recompile_guard / explicit ``strict=``):
+        # the bucket tables declare the whole program family up front; a
+        # request that would dispatch outside it (an oversize support/query
+        # set slipping past the buckets) raises instead of silently paying
+        # a first dispatch on the serving hot path
+        self.recompile_guard = None
+        strict = self.cfg.strict_recompile_guard if strict is None else strict
+        if strict:
+            from ..utils.strictmode import RecompileGuard, serving_planned_programs
+
+            self.recompile_guard = RecompileGuard(planned=serving_planned_programs(self.serving), name="serving-engine")
 
     @classmethod
     def from_run_dir(
@@ -207,6 +226,7 @@ class AdaptationEngine:
         clone = AdaptationEngine(
             system, state, serving_cfg=self.serving, fingerprint=self.fingerprint, tracer=self.tracer,
             injector=self.injector, ledger_tag=f"@r{index}", registry=self.registry,
+            strict=self.recompile_guard is not None,
         )
         # replicas of a run-dir engine spill and rehydrate sessions alike
         if getattr(self, "save_dir", None):
@@ -231,6 +251,8 @@ class AdaptationEngine:
         if self.registry is not None:
             # tenant mode: the same shapes serve every tenant's master
             out["tenants"] = list(self.registry.tenants())
+        if self.recompile_guard is not None:
+            out["recompile_guard"] = self.recompile_guard.snapshot()
         return out
 
     def support_bucket(self, size: int) -> int:
@@ -318,6 +340,42 @@ class AdaptationEngine:
         budget."""
         return [tree_map(lambda a, i=i: a[i].clone(), stacked) for i in range(n)]
 
+    def _note_program(self, base: str, strategy: str, bucket: int, b: int) -> None:
+        """Strict mode: the flush's program key, noted before it dispatches."""
+        if self.recompile_guard is not None:
+            self.recompile_guard.note((strategy_kind(base, strategy), bucket, b))
+
+    def _adapt_call(self, state, xs, ys, ws, strategy: str, bucket: int, b: int) -> Callable:
+        """One adapt flush as a call: noted, then counted among the shapes."""
+        self._note_program("adapt", strategy, bucket, b)
+        self._adapt_shapes.add((strategy, bucket, b))
+        if strategy == "protonet":
+            return lambda: self.system.protonet_adapt(state, xs, ys, support_weight=ws)
+        return lambda: self.system.adapt_fast_weights(
+            state, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+
+    def _refine_call(self, state, stacked_fw, xs, ys, ws, strategy: str, bucket: int, b: int) -> Callable:
+        self._note_program("refine", strategy, bucket, b)
+        self._refine_shapes.add((strategy, bucket, b))
+        return lambda: self.system.refine_fast_weights(
+            state, stacked_fw, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+
+    def _predict_call(self, state, stacked, xs, ws, strategy: str, bucket: int, b: int) -> Callable:
+        """One predict flush as a call; the call returns host probabilities
+        (the flush's one device-to-host copy)."""
+        self._note_program("predict", strategy, bucket, b)
+        self._predict_shapes.add((strategy, bucket, b))
+        system = self.system
+
+        def call():
+            if strategy == "protonet":
+                logits = system.protonet_predict_logits(state.params, state.bn_state, stacked, xs, ws)
+            else:
+                logits = system.predict_logits(stacked, state.bn_state, xs, ws)
+            return torch.softmax(logits, dim=-1).cpu().numpy()
+
+        return call
+
     def adapt_batch(self, items: List[Tuple[Any, Any]], ctxs=None, strategy: Optional[str] = None,
                     tenant: Optional[str] = None):
         """Adapt a group of support sets ``(x_support, y_support)`` in one
@@ -330,12 +388,7 @@ class AdaptationEngine:
         self.injector.fire("serving.dispatch")
         xs, ys, ws, bucket, b = self._support_flush(items)
         n = len(items)
-        self._adapt_shapes.add((strategy, bucket, b))
-        if strategy == "protonet":
-            call = lambda: self.system.protonet_adapt(state, xs, ys, support_weight=ws)  # noqa: E731
-        else:
-            call = lambda: self.system.adapt_fast_weights(  # noqa: E731
-                state, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+        call = self._adapt_call(state, xs, ys, ws, strategy, bucket, b)
         stacked = self._dispatch("serve.adapt_dispatch", ctxs, strategy, n, bucket, call, tenant)
         return self._split(stacked, n)
 
@@ -361,9 +414,7 @@ class AdaptationEngine:
         xs, ys, ws, bucket, b = self._support_flush([(x, y) for _, x, y in items])
         stacked_fw = self._stack_trees([fw for fw, _, _ in items], b)
         n = len(items)
-        self._refine_shapes.add((strategy, bucket, b))
-        call = lambda: self.system.refine_fast_weights(  # noqa: E731
-            state, stacked_fw, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+        call = self._refine_call(state, stacked_fw, xs, ys, ws, strategy, bucket, b)
         stacked = self._dispatch("serve.refine_dispatch", ctxs, strategy, n, bucket, call, tenant)
         out = self._split(stacked, n)
         if fault == "nan-loss":
@@ -397,18 +448,8 @@ class AdaptationEngine:
         while len(xs) < b:
             xs.append(xs[-1]); ws.append(ws[-1])
         xs, ws = np.stack(xs), np.stack(ws)
-        self._predict_shapes.add((strategy, bucket, b))
         stacked = self._stack_trees([fw for fw, _ in items], b)
-        system = self.system
-
-        def call():
-            if strategy == "protonet":
-                logits = system.protonet_predict_logits(state.params, state.bn_state, stacked, xs, ws)
-            else:
-                logits = system.predict_logits(stacked, state.bn_state, xs, ws)
-            # the flush's one device-to-host copy: predictions go back to clients
-            return torch.softmax(logits, dim=-1).cpu().numpy()
-
+        call = self._predict_call(state, stacked, xs, ws, strategy, bucket, b)
         probs = self._dispatch("serve.predict_dispatch", ctxs, strategy, n, bucket, call, tenant)
         return [probs[i, : sizes[i]] for i in range(n)]
 
@@ -416,3 +457,123 @@ class AdaptationEngine:
                 tenant: Optional[str] = None) -> np.ndarray:
         """Single-request convenience wrapper over :meth:`predict_batch`."""
         return self.predict_batch([(fast_weights, x_query)], strategy=strategy, tenant=tenant)[0]
+
+    # ------------------------------------------------------------------
+    # the serving prewarm
+    # ------------------------------------------------------------------
+
+    def _prewarm_jobs(self, image_shape) -> List[Tuple[str, Callable]]:
+        """One job per planned ``(kind, bucket, batch)``: the flush it
+        names, on zero inputs of its shapes, through the ``_adapt_call``,
+        ``_refine_call`` and ``_predict_call`` the request path uses (they
+        note the keys). Support
+        labels cycle through the classes and every sample is real (weight
+        1), so no flush sees an empty class; predict and refine start from
+        the engine's own params with the task axis, a prototype table of
+        zeros under protonet. Tenant mode warms against the template: the
+        one shape-keyed grid serves every tenant."""
+        from ..core.strategies import protonet_prototype_shape
+        from ..utils.strictmode import serving_planned_programs
+
+        h, w, c = image_shape or self.cfg.image_shape
+        state = self.state
+        jobs: List[Tuple[str, Callable]] = []
+        for key in sorted(serving_planned_programs(self.serving), key=repr):
+            kind, bucket, b = key
+            base, strategy = kind_base(kind), kind_strategy(kind)
+            xs = np.zeros((b, bucket, h, w, c), np.float32)
+            ws = np.ones((b, bucket), np.float32)
+            name = f"serve_{kind}{self.ledger_tag}/{bucket}/{b}"
+            if base == "predict":
+                if strategy == "protonet":
+                    fw = {"prototypes": torch.zeros((b,) + tuple(protonet_prototype_shape(self.num_classes)),
+                                                    device=self.device)}
+                else:
+                    fw = self._stack_trees([state.params], b)
+                job = (lambda fw=fw, xs=xs, ws=ws, st=strategy, bk=bucket, bb=b:
+                       self._predict_call(state, fw, xs, ws, st, bk, bb)())
+            else:
+                ys = np.tile(np.arange(bucket, dtype=np.int32) % self.num_classes, (b, 1))
+                if base == "adapt":
+                    job = (lambda xs=xs, ys=ys, ws=ws, st=strategy, bk=bucket, bb=b:
+                           self._adapt_call(state, xs, ys, ws, st, bk, bb)())
+                else:  # refine
+                    fw = self._stack_trees([state.params], b)
+                    job = (lambda fw=fw, xs=xs, ys=ys, ws=ws, st=strategy, bk=bucket, bb=b:
+                           self._refine_call(state, fw, xs, ys, ws, st, bk, bb)())
+            jobs.append((name, job))
+        return jobs
+
+    def _warm_one(self, job: Callable) -> None:
+        job()
+        if self.device.type == "cuda":
+            # the program's time is its work on the card, not its launch
+            torch.cuda.synchronize(self.device)
+
+    def prewarm(
+        self,
+        max_workers: Optional[int] = None,
+        compile_timeout_s: Optional[float] = None,
+        image_shape: Optional[Tuple[int, int, int]] = None,
+        on_program=None,
+    ) -> Dict[str, Any]:
+        """Dispatch the full serving grid once before the first request:
+        the exact ``serving_planned_programs`` set the strict guard pins,
+        (adapt | refine | predict) x shape bucket x task-batch bucket, each
+        on zero inputs of its planned shapes through the engine's own flush
+        functions. The eager counterpart of the JAX engine's AOT prewarm,
+        which compiles the grid and runs nothing: here the first dispatch of
+        each shape pays cuDNN's algorithm choice and the allocator's first
+        blocks, so that no request pays it. Nothing is kept: no result, no
+        cache or session entry, no change to the engine's state; the fault
+        seams do not fire and no dispatch span is recorded. Then the strict
+        guard is sealed (``mark_prewarmed``).
+
+        The jobs run inline, one after another. ``max_workers`` and
+        ``compile_timeout_s`` keep the JAX signature and are ignored: the
+        JAX engine compiles programs in parallel under a per-program
+        timeout, but an eager engine dispatches to one card, where dispatch
+        from several threads serializes and gains nothing, and a timed-out
+        dispatch would go on touching the engine after the guard is sealed.
+        ``image_shape`` overrides the config's dataset shape for engines
+        serving hand-built models. ``on_program(name)`` is called as each
+        program settles. The JAX
+        ``store`` (serialized executables) has no torch counterpart: an
+        eager program has nothing to serialize, so there is no such
+        parameter. Returns the JAX summary keys: ``programs``, ``seconds``,
+        ``errors``, the per-program table ``by_program`` (with each
+        program's dispatch seconds) and the cache counters, which stay 0."""
+        del max_workers, compile_timeout_s
+        jobs = self._prewarm_jobs(image_shape)
+        t0 = time.perf_counter()
+        seconds: Dict[str, float] = {}
+        errors: Dict[str, str] = {}
+        for name, job in jobs:
+            t = time.perf_counter()
+            try:
+                self._warm_one(job)
+            except Exception as exc:  # noqa: BLE001 — contained per program
+                errors[name] = f"{type(exc).__name__}: {exc}"
+            seconds[name] = time.perf_counter() - t
+            if on_program is not None:
+                on_program(name)
+        by_program: Dict[str, Dict[str, Any]] = {}
+        for name, _ in jobs:
+            by_program[name] = {"total_s": round(seconds[name], 6), "cache_hit": False,
+                                "loaded": False, "stored": False, "already_warm": False}
+            if name in errors:
+                by_program[name]["error"] = errors[name]
+        summary = {
+            "programs": len(jobs),
+            "seconds": round(time.perf_counter() - t0, 3),
+            "compile_s": None,
+            "cache_hits": 0,
+            "store_hits": 0,
+            "already_warm": 0,
+            "errors": len(errors),
+            "by_program": by_program,
+        }
+        if self.recompile_guard is not None:
+            # the contract flip: the planned family is now declared complete
+            self.recompile_guard.mark_prewarmed()
+        return summary

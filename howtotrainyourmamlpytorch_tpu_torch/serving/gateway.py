@@ -52,8 +52,12 @@ from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
-# Locks are plain threading.Lock: the lock-discipline sanitizer (tools/graftsan)
-# is not ported (ROADMAP.md A9.7), and this module must stay stdlib-only.
+try:  # graftsan lock factory — needs the repo root on sys.path
+    from tools.graftsan.runtime import san_lock
+except ImportError:  # gateway-only host: sanitizer off, stdlib primitive
+
+    def san_lock(site=None):
+        return threading.Lock()
 
 #: healthz body ``status`` values that mean "alive but do not route NEW
 #: work here" — the drain/warm half of the membership state machine
@@ -129,7 +133,7 @@ class _JsonlLog:
     def __init__(self, path: str):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         self.path = path
-        self._lock = threading.Lock()
+        self._lock = san_lock("_JsonlLog._lock")
         self._handle = None
         self._closed = False
         self.lines = 0
@@ -180,7 +184,7 @@ class Backend:
         self.name = f"b{index}"
         self._fail_threshold = max(1, int(fail_threshold))
         self._pass_threshold = max(1, int(pass_threshold))
-        self._lock = threading.Lock()
+        self._lock = san_lock("Backend._lock")
         self._in = False
         self._consec_fail = 0
         self._consec_pass = 0
@@ -287,7 +291,7 @@ class Gateway:
         self.request_timeout_s = float(request_timeout_s)
         self._wall = wall_clock
         self._started = time.monotonic()
-        self._lock = threading.Lock()
+        self._lock = san_lock("Gateway._lock")
         # adaptation_id -> backend index, learned from adapt responses;
         # bounded LRU so a long-lived gateway cannot grow without bound.
         # Rendezvous on the id is the cross-gateway-stable fallback (and the

@@ -32,10 +32,15 @@ request) feeding the batchers, whose worker threads dispatch to the card:
 the engine names its device on every tensor and kernel launch, so a worker
 thread needs no current-device state of its own.
 
-Not ported yet, and refused where a config asks for them: the AOT prewarm
-(``aot.enabled``, ROADMAP.md A10) and the lock-discipline sanitizer
-(``resilience.sanitizer``, ``HTYMP_GRAFTSAN=1``; A9.7). The compile-ledger
-hub provider is A10.
+Under ``aot.enabled`` the frontend runs the engine's serving prewarm
+(``AdaptationEngine.prewarm``: every planned shape dispatched once) at
+construction, in the background when ``aot.serving_background`` is set, and
+``/healthz`` answers 503 ``warming`` until it returns, so that a gateway
+holds traffic off a cold backend. The lock-discipline sanitizer
+(``resilience.sanitizer`` or ``HTYMP_GRAFTSAN=1``, ``tools/graftsan``) is
+armed before the frontend builds its locks; its findings go to the events
+log, and ``close()`` audits the threads the frontend started. Not ported:
+the compile-ledger hub provider (ROADMAP.md A10).
 """
 
 import contextlib
@@ -124,15 +129,23 @@ class ServingFrontend:
         # resilience knobs ride the run config like the serving knobs do;
         # clock is injectable so breaker tests walk cooldowns without waiting
         self.resilience = resilience_cfg or engine.cfg.resilience
+        # graftsan: arm the lock-discipline sanitizer BEFORE this frontend
+        # constructs its locks, pool and batchers, so they come out
+        # instrumented (locks built earlier stay plain unless
+        # HTYMP_GRAFTSAN=1 armed the whole process)
+        self._graftsan = None
         if self.resilience.sanitizer or os.environ.get("HTYMP_GRAFTSAN") == "1":
-            raise NotImplementedError(
-                "the lock-discipline sanitizer (resilience.sanitizer, HTYMP_GRAFTSAN=1) is not "
-                "ported to PyTorch yet (ROADMAP.md A9.7)"
-            )
-        if engine.cfg.aot.enabled:
-            raise NotImplementedError(
-                "the AOT serving prewarm (aot.enabled) is not ported to PyTorch yet (ROADMAP.md A10)"
-            )
+            try:
+                from tools.graftsan import runtime as _graftsan_runtime
+
+                _graftsan_runtime.arm()
+                self._graftsan = _graftsan_runtime
+            except ImportError:  # packaged without tools/: sanitizer off
+                self._graftsan = None
+        # close-audit baseline: threads alive before this frontend spawned
+        # any; a non-daemon thread that outlives close() beyond these is a
+        # leak this frontend owns
+        self._graftsan_thread_baseline = {t.ident for t in threading.enumerate()}
         # one TelemetryHub per frontend (no logs dir — a server owns no run
         # directory; tracer + registry only, snapshot on demand). The SAME
         # registry backs the LatencyStats/EventCounters adapters, so the
@@ -154,6 +167,10 @@ class ServingFrontend:
             from ..experiment.storage import EventLog
 
             self.events = EventLog(access_log_dir)
+        if self._graftsan is not None and self.events is not None:
+            # sanitizer findings land as graftsan_violation records next to
+            # the serving events they implicate
+            self._graftsan.add_sink(self.events.append)
         if self.hub.enabled:
             # trace the engine's device dispatches and the batchers' flushes
             # through the hub's tracer (engines built standalone keep their
@@ -238,6 +255,24 @@ class ServingFrontend:
                 os.path.join(engine.save_dir, "sessions"), engine.system.model.feature_shape
             )
             self._rehydrate_sessions()
+        # --- the serving prewarm (Config.aot; AdaptationEngine.prewarm) ---
+        # dispatch the full (bucket x batch-bucket) grid before (or, in the
+        # background, while) the frontend accepts work: /healthz answers 503
+        # "warming" until it returns, DISTINCT from the breaker's
+        # "degraded", so a gateway holds traffic off a replica whose first
+        # requests would pay every shape's first dispatch
+        self._prewarm_lock = san_lock("ServingFrontend._prewarm_lock")
+        self._prewarm: Dict[str, Any] = {"status": "disabled"}
+        self._prewarm_thread: Optional[threading.Thread] = None
+        aot_cfg = engine.cfg.aot
+        if aot_cfg.enabled:
+            with self._prewarm_lock:
+                self._prewarm = {"status": "warming"}
+            if aot_cfg.serving_background:
+                self._prewarm_thread = threading.Thread(target=self._run_prewarm, name="serving-prewarm", daemon=True)
+                self._prewarm_thread.start()
+            else:
+                self._run_prewarm()
         # wedge watchdogs over the batcher flush workers (poll mode): work
         # pending with zero completed flushes across the whole deadline
         # means that worker is parked in a hung device dispatch. The breaker
@@ -267,9 +302,55 @@ class ServingFrontend:
                 wd.arm(batcher.name)
                 self._watchdogs.append(wd)
 
+    def _run_prewarm(self) -> None:
+        """Dispatch the planned serving grid (``engine.prewarm``, or
+        ``pool.prewarm`` over every distinct engine of a fleet) and publish
+        the outcome. Runs on the background prewarm thread (or inline when
+        ``aot.serving_background=false``); a failure degrades to cold first
+        dispatches with the error visible in /metrics, never a dead
+        server."""
+        t0 = time.monotonic()
+        try:
+            summary = self.pool.prewarm() if len(self.pool) > 1 else self.engine.prewarm()
+            result = {
+                "status": "warm",
+                "programs": summary["programs"],
+                "seconds": summary["seconds"],
+                "cache_hits": summary["cache_hits"],
+                "store_hits": summary.get("store_hits", 0),
+                "compile_errors": summary["errors"],
+            }
+            if "replicas" in summary:
+                result["replicas"] = summary["replicas"]
+        except Exception as exc:  # noqa: BLE001 — prewarm must not kill serving
+            result = {
+                "status": "error",
+                "seconds": round(time.monotonic() - t0, 3),
+                "error": f"{type(exc).__name__}: {exc}",
+            }
+        with self._prewarm_lock:
+            self._prewarm = result
+        print(
+            f"serving prewarm: {result['status']} in {result['seconds']}s"
+            + (
+                f" ({result['programs']} programs, {result['cache_hits']} persistent-cache hits)"
+                if result["status"] == "warm"
+                else f" ({result.get('error')})"
+            ),
+            flush=True,
+        )
+
     def prewarm_status(self) -> Dict[str, Any]:
-        """The AOT prewarm's status: always ``disabled`` (ROADMAP.md A10)."""
-        return {"status": "disabled"}
+        with self._prewarm_lock:
+            return dict(self._prewarm)
+
+    def wait_prewarm(self, timeout_s: float = 600.0) -> Dict[str, Any]:
+        """Block until the background prewarm settles (bounded), then return
+        its status: the readiness hook for supervisors and tests."""
+        thread = self._prewarm_thread
+        if thread is not None:
+            thread.join(timeout=timeout_s)
+        return self.prewarm_status()
 
     def _on_wedge(self, info: Dict[str, Any]) -> None:
         """Serving wedge post-mortem: one structured JSON line + per-thread
@@ -523,6 +604,26 @@ class ServingFrontend:
             row[rest] = row.get(rest, 0) + value
             row["requests"] += value
         return out
+
+    def kill_replica(self, index: int, reason: str = "operator") -> None:
+        """Mark one replica dead (chaos drills, operator action): the
+        router stops routing to it from the next request on, the rest of
+        the fleet keeps serving, and the death lands in events.jsonl and in
+        the access log as a synthetic ``replica_death`` line, the
+        access-log-resolvable event the chaos invariant looks for."""
+        replica = self.pool.replicas[index]
+        replica.kill(reason)
+        self.counters.inc("replica_deaths")
+        self._event(
+            "replica_death",
+            replica=index,
+            reason=reason,
+            routable=sum(1 for r in self.pool.replicas if r.routable()),
+        )
+        if self.access_log is not None:
+            ctx = new_request_context()
+            ctx.replica = index
+            self.access_log.record(ctx, "replica_death", "dead", None, None, replica=index, reason=reason)
 
     # ------------------------------------------------------------------
     # graceful drain + session spill/rehydrate
@@ -1094,8 +1195,15 @@ class ServingFrontend:
             elif replica.breaker.state != "closed":
                 degraded.append(f"breaker_{replica.breaker.state}{tag}")
         routable = sum(1 for r in self.pool.replicas if r.routable())
+        prewarm = self.prewarm_status()
+        # exactly one of four statuses: "ok" (route), "degraded" (route
+        # unless routable == 0), "warming" (alive, hold NEW traffic until
+        # the prewarm lands), "draining" (finishing in-flight work; takes
+        # precedence over everything)
         if self.draining():
             status = "draining"
+        elif prewarm["status"] == "warming":
+            status = "warming"
         else:
             status = "degraded" if degraded else "ok"
         return {
@@ -1103,7 +1211,7 @@ class ServingFrontend:
             "degraded": degraded,
             "replicas": len(self.pool),
             "routable": routable,
-            "prewarm": self.prewarm_status(),
+            "prewarm": prewarm,
             "breaker": self.breaker.snapshot(),
             # the engine's torch device type ("cuda" on the card)
             "platform": self.engine.device.type,
@@ -1187,6 +1295,10 @@ class ServingFrontend:
         for wd in self._watchdogs:
             wd.stop()
         self.pool.close(join_timeout_s)
+        if self._graftsan is not None:
+            # thread-leak audit: workers and watchdogs this frontend spawned
+            # must all be joined by now (reported as thread_leak events)
+            self._graftsan.audit_thread_leaks("ServingFrontend.close", baseline=self._graftsan_thread_baseline)
         if self.access_log is not None:
             self.access_log.close()
         if self.events is not None:
@@ -1280,10 +1392,15 @@ class _Handler(BaseHTTPRequestHandler):
             query = urllib.parse.parse_qs(split.query)
             if split.path == "/healthz":
                 health = frontend.healthz()
-                # 503 while NO replica is routable or while draining; a
-                # partially degraded fleet answers 200, the body naming
+                # 503 while NO replica is routable, while the prewarm is
+                # still running (body status "warming") or while draining;
+                # a partially degraded fleet answers 200, the body naming
                 # what is down
-                code = HTTP_UNAVAILABLE if health["routable"] == 0 or health["status"] == "draining" else 200
+                code = (
+                    HTTP_UNAVAILABLE
+                    if health["routable"] == 0 or health["status"] in ("warming", "draining")
+                    else 200
+                )
                 if code != 200:
                     self._log_http(frontend, health["status"], code)
                 self._send_json(code, health)

@@ -28,6 +28,7 @@ which the frontend maps onto the shed contract (HTTP 429 +
 ``Retry-After``).
 """
 
+import threading
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -36,7 +37,7 @@ import torch
 
 from ..config import DEFAULT_TENANT
 from ..core.train_state import TrainState
-from ..utils.locks import san_lock
+from ..utils.locks import note_blocking, san_lock
 from ..utils.trees import tree_map
 from .cache import tree_bytes
 
@@ -138,6 +139,9 @@ class WeightPager:
         # tenant -> (device state, nbytes); OrderedDict order = LRU order
         self._resident: "OrderedDict[str, Tuple[Any, int]]" = OrderedDict()
         self._bytes = 0
+        # tenant -> Event set when its page-in settles; bytes reserved for them
+        self._inflight: Dict[str, threading.Event] = {}
+        self._reserved = 0
         self.page_ins = 0
         self.evictions = 0
         self._page_in_ms: List[float] = []
@@ -163,48 +167,83 @@ class WeightPager:
         # holding ours across it would invert it) and may read a checkpoint
         # from disk, which would park every concurrent page-in behind I/O
         host_state, _ = self.registry.host_state(tenant)
-        with self._lock:
-            entry = self._resident.get(tenant)
-            if entry is not None:
-                # raced page-in while we fetched; keep theirs, drop ours
-                self._resident.move_to_end(tenant)
-                return entry[0]
+        nbytes = master_bytes(host_state)
+        # the copy, and the card sync that settles it, also run outside the
+        # pager lock (a sync under it would park every resident() call,
+        # hits included, behind the transfer). So the budget holds across
+        # the copy, its bytes are reserved first, evicting LRU tenants
+        # under the lock; a miss that cannot fit beside other copies in
+        # flight, or whose tenant is already being copied, waits for one
+        while True:
+            with self._lock:
+                entry = self._resident.get(tenant)
+                if entry is not None:
+                    self._resident.move_to_end(tenant)
+                    return entry[0]
+                wait = self._inflight.get(tenant)
+                if wait is None:
+                    self._evict_for_locked(nbytes)
+                    if self._fits_locked(nbytes):
+                        done = self._inflight[tenant] = threading.Event()
+                        self._reserved += nbytes
+                        break
+                    wait = next(iter(self._inflight.values()))
+            wait.wait()
+        state = None
+        try:
             t0 = self._clock()
-            state = page_to(host_state, self.device)
+            copied = page_to(host_state, self.device)
             if self.device.type == "cuda":
                 # settle the copy inside the page-in measurement: the next
                 # dispatch must not silently pay it, and the time is the
                 # transfer's, not its launch's
+                note_blocking("WeightPager.page_in")
                 torch.cuda.synchronize(self.device)
-            self._page_in_ms.append((self._clock() - t0) * 1e3)
-            if len(self._page_in_ms) > _PAGE_IN_SAMPLES:
-                del self._page_in_ms[:-_PAGE_IN_SAMPLES]
-            nbytes = master_bytes(state)
-            self._resident[tenant] = (state, nbytes)
-            self._bytes += nbytes
-            self.page_ins += 1
-            self._pending_events.append({"event": "tenant_paged_in", "tenant": tenant, "bytes": nbytes})
-            self._evict_over_budget_locked(keep=tenant)
-            return state
+            page_in_ms = (self._clock() - t0) * 1e3
+            state = copied
+        finally:
+            with self._lock:
+                self._reserved -= nbytes
+                del self._inflight[tenant]
+                done.set()
+                if state is not None:
+                    self._page_in_ms.append(page_in_ms)
+                    if len(self._page_in_ms) > _PAGE_IN_SAMPLES:
+                        del self._page_in_ms[:-_PAGE_IN_SAMPLES]
+                    self._resident[tenant] = (state, nbytes)
+                    self._bytes += nbytes
+                    self.page_ins += 1
+                    self._pending_events.append({"event": "tenant_paged_in", "tenant": tenant, "bytes": nbytes})
+        return state
 
-    def _evict_over_budget_locked(self, keep: Optional[str] = None) -> None:
+    def _fits_locked(self, nbytes: int) -> bool:
+        """Whether ``nbytes`` more fit the budget beside the resident and
+        in-flight bytes. A master larger than the budget is still admitted
+        when nothing else is resident or in flight, as one resident over
+        budget is kept after the eviction pass."""
+        return (
+            self.budget_bytes <= 0
+            or self._bytes + self._reserved + nbytes <= self.budget_bytes
+            or not (self._resident or self._inflight)
+        )
+
+    def _evict_for_locked(self, nbytes: int) -> None:
         while (
             self.budget_bytes > 0
-            and self._bytes > self.budget_bytes
-            and len(self._resident) > (1 if keep in self._resident else 0)
+            and self._bytes + self._reserved + nbytes > self.budget_bytes
+            and self._resident
         ):
-            self._evict_lru_locked(keep=keep, reason="byte_budget")
+            self._evict_lru_locked(reason="byte_budget")
 
-    def _evict_lru_locked(self, keep: Optional[str] = None, reason: str = "byte_budget") -> Optional[str]:
+    def _evict_lru_locked(self, reason: str = "byte_budget") -> Optional[str]:
         for tenant in self._resident:
-            if tenant != keep:
-                _, nbytes = self._resident.pop(tenant)
-                self._bytes -= nbytes
-                self.evictions += 1
-                self._pending_events.append(
-                    {"event": "tenant_evicted", "tenant": tenant, "bytes": nbytes, "reason": reason}
-                )
-                return tenant
+            _, nbytes = self._resident.pop(tenant)
+            self._bytes -= nbytes
+            self.evictions += 1
+            self._pending_events.append(
+                {"event": "tenant_evicted", "tenant": tenant, "bytes": nbytes, "reason": reason}
+            )
+            return tenant
         return None
 
     def evict(self, tenant: str) -> bool:

@@ -93,17 +93,22 @@ def test_cross_process_rolling_restart_under_load(tmp_path, fleet_template):
 
 
 def test_training_episodes_and_the_campaign_raise_naming_a9(tmp_path):
-    """The in-process serve episodes and ``run_campaign`` raise naming their
-    ROADMAP item (A9.6); a training episode, runnable since the training
-    seams were wired, is refused by the gateway runner with a pointer to
-    ``_run_train_episode``."""
-    with pytest.raises(NotImplementedError, match="A9.6"):
+    """The gateway runner refuses the other modes with a pointer to their
+    runners: a serve episode to ``_run_serve_episode`` (ported with
+    ``run_campaign``, ROADMAP.md A9.6), a training episode to
+    ``_run_train_episode``; and ``run_campaign`` runs: one seeded serve
+    episode on the CPU, green, in one verdict."""
+    with pytest.raises(ValueError, match="_run_serve_episode"):
         _run_gateway_episode(Episode(kind="serve-dispatch-raise", mode="serve"), work_dir=str(tmp_path),
                              device="cpu")
     with pytest.raises(ValueError, match="_run_train_episode"):
         _run_gateway_episode(Episode(kind="nan-step", mode="train"), work_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9.6"):
-        run_campaign(str(tmp_path))
+    kinds = [e.kind for e in jax_campaign.sample_episodes(0, 21, include_subprocess=False)]
+    seed = next(s for s in range(100) if jax_campaign.sample_episodes(s, 1, False)[0].mode == "serve")
+    verdict = run_campaign(str(tmp_path), episodes=1, seed=seed, data_root=str(tmp_path), include_subprocess=False,
+                           log=lambda m: None, device="cpu")
+    assert verdict["ok"], verdict["violations"]
+    assert verdict["episode_results"][0]["mode"] == "serve" and verdict["episode_results"][0]["kind"] in kinds
 
 
 def test_serving_run_dirs_template_and_perturbation(tmp_path):

@@ -72,6 +72,7 @@ from howtotrainyourmamlpytorch_tpu_torch.serving import (
 from howtotrainyourmamlpytorch_tpu_torch.serving.errors import SessionQuarantinedError, UnknownAdaptationError
 from howtotrainyourmamlpytorch_tpu_torch.serving.metrics import EventCounters
 from howtotrainyourmamlpytorch_tpu_torch.utils.interop import state_from_jax
+from howtotrainyourmamlpytorch_tpu_torch.utils.strictmode import serving_planned_programs
 from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
 from tests.test_torch_runner import runner_config, small_system, toy_dataset  # noqa: F401
@@ -997,14 +998,51 @@ def test_clone_for_device_parity(weights):
 
 
 def test_frontend_refuses_unported_options(weights):
+    """The two options the frontend refused until they were ported now
+    run: ``aot.enabled`` answers /healthz ``warming`` until the serving
+    prewarm lands (503 over HTTP, as JAX's frontend does), then ``ok``;
+    ``resilience.sanitizer`` arms the lock sanitizer before the frontend's
+    locks are built, and ``close()`` audits no leak."""
+    from tools.graftsan import runtime
+
     cfg = _cfg(tcfg)
-    for patch, item in ((dict(aot=dataclasses.replace(cfg.aot, enabled=True)), "A10"),
-                        (dict(resilience=dataclasses.replace(cfg.resilience, sanitizer=True)), "A9")):
-        engine = AdaptationEngine(MAMLSystem(dataclasses.replace(cfg, **patch),
-                                             model=build_vgg(IMG, N_WAY, num_stages=2, cnn_num_filters=4),
-                                             device="cpu"), weights[2])
-        with pytest.raises(NotImplementedError, match=item):
-            ServingFrontend(engine)
+
+    def engine_for(**patch):
+        return AdaptationEngine(MAMLSystem(dataclasses.replace(cfg, **patch),
+                                           model=build_vgg(IMG, N_WAY, num_stages=2, cnn_num_filters=4),
+                                           device="cpu"), weights[2])
+
+    engine = engine_for(aot=dataclasses.replace(cfg.aot, enabled=True, max_workers=1))
+    release, real = threading.Event(), engine.prewarm
+    engine.prewarm = lambda **kw: release.wait(60) and real(**kw)
+    frontend = ServingFrontend(engine)
+    server = make_http_server(frontend, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        assert frontend.healthz()["status"] == "warming"
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(base + "/healthz", timeout=30)
+        assert err.value.code == 503 and json.loads(err.value.read())["status"] == "warming"
+        release.set()
+        status = frontend.wait_prewarm(60)
+        assert status["status"] == "warm" and status["programs"] == len(serving_planned_programs(engine.serving))
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as resp:
+            assert resp.status == 200 and json.loads(resp.read())["status"] == "ok"
+    finally:
+        server.shutdown()
+        server.server_close()
+        frontend.close()
+        thread.join(timeout=5)
+    try:
+        frontend = ServingFrontend(engine_for(resilience=dataclasses.replace(cfg.resilience, sanitizer=True)))
+        assert runtime.enabled() and isinstance(frontend._drain_lock, runtime.SanLock)
+        frontend.close()
+        assert runtime.violations() == []
+    finally:
+        runtime.disarm()
+        runtime.reset()
 
 
 def test_adapted_trees_own_their_memory(weights):

@@ -284,6 +284,75 @@ def test_pager_watermark_pressure_evicts_lru(pkg):
     assert pkg.WeightPager(_FakeRegistry(pkg.name, ["a"]), None).check_watermark() is None
 
 
+def test_concurrent_page_ins_never_exceed_the_byte_budget(monkeypatch):
+    """The port copies a master to the card outside the pager lock, so
+    several misses copy at once. Twelve threads miss on six tenants
+    (two per tenant) under a budget of two masters, each copy held open
+    long enough to overlap: the resident bytes plus the copies in flight
+    never pass the budget, no tenant is copied twice at once, and the
+    end state and counters are a serial pager's."""
+    import howtotrainyourmamlpytorch_tpu_torch.serving.tenancy as tenancy
+
+    per = 256 * 4
+    tenants = ["a", "b", "c", "d", "e", "f"]
+    pager = tenancy.WeightPager(_FakeRegistry("torch", tenants), template=None, budget_bytes=2 * per)
+    gauge = {"copying": set(), "worst": 0, "twice": 0}
+    gauge_lock = threading.Lock()
+    real_page_to = tenancy.page_to
+
+    def slow_page_to(state, device):
+        tenant = tenants[int(state.params["w"][0])]
+        with gauge_lock:
+            gauge["twice"] += tenant in gauge["copying"]
+            gauge["copying"].add(tenant)
+            live = pager._bytes + per * len(gauge["copying"])
+            gauge["worst"] = max(gauge["worst"], live)
+        time.sleep(0.02)
+        with gauge_lock:
+            gauge["copying"].discard(tenant)
+        return real_page_to(state, device)
+
+    monkeypatch.setattr(tenancy, "page_to", slow_page_to)
+    start = threading.Barrier(2 * len(tenants))
+    got = {}
+
+    def miss(tenant, k):
+        start.wait()
+        got[(tenant, k)] = _w("torch", pager.resident(tenant))[0]
+
+    threads = [threading.Thread(target=miss, args=(t, k)) for t in tenants for k in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads)
+    assert got == {(t, k): float(i) for i, t in enumerate(tenants) for k in range(2)}
+    assert gauge["worst"] <= 2 * per and gauge["twice"] == 0
+    st = pager.stats()
+    assert st["resident_bytes"] == 2 * per and st["resident"] == 2
+    assert st["page_ins"] - st["evictions"] == 2 and st["page_ins"] >= len(tenants)
+    assert pager._reserved == 0 and pager._inflight == {}
+
+
+def test_failed_page_in_releases_its_reservation(monkeypatch):
+    """A copy that raises leaves no reserved bytes, no copy in flight and
+    no resident entry behind it; the next miss pages the tenant in."""
+    import howtotrainyourmamlpytorch_tpu_torch.serving.tenancy as tenancy
+
+    pager = tenancy.WeightPager(_FakeRegistry("torch", ["a"]), template=None, budget_bytes=256 * 4)
+    real_page_to = tenancy.page_to
+
+    def broken(state, device):
+        raise RuntimeError("transfer failed")
+
+    monkeypatch.setattr(tenancy, "page_to", broken)
+    with pytest.raises(RuntimeError, match="transfer failed"):
+        pager.resident("a")
+    assert (pager._reserved, pager._inflight, pager.stats()["page_ins"]) == (0, {}, 0)
+    monkeypatch.setattr(tenancy, "page_to", real_page_to)
+    assert _w("torch", pager.resident("a"))[0] == 0.0 and pager.stats()["page_ins"] == 1
+
+
 # ---------------------------------------------------------------------------
 # the watermark provider
 # ---------------------------------------------------------------------------
