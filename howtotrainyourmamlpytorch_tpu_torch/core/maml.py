@@ -54,8 +54,25 @@ shard: batch norm uses each task's own statistics and ``bn_state`` is left
 as it is.
 
 ``scale_meta_lr`` rebuilds the outer schedule at scaled rates (the NaN
-rollback's backoff, ``experiment/runner.py``). Not here (ROADMAP.md): the
-multi-step chunk programs, compile ledger and donation (A10).
+rollback's backoff, ``experiment/runner.py``) and drops the built programs.
+
+Multi-step dispatch (JAX ``train_step_multi``/``eval_step_multi``):
+``train_step_multi`` takes K outer steps over batches with a leading
+``[K]`` axis, ``eval_step_multi`` every eval batch of an ``[N]`` stack. On
+the card each replays a captured CUDA graph of one train or eval step
+(``core/programs.py``), B1 and B2 inside it; on the CPU each runs the K (or
+N) eager steps and stacks their outputs, the plain version the tests hold
+against JAX's ``lax.scan`` programs. Programs are built once per key, as
+JAX's program caches build them (``_build_program``): ``(train, so, msl)``
+eagerly, ``(train_multi, so, msl)`` and ``(eval_multi,)`` as graphs on the
+card. With a compile ledger attached (``attach_compile_ledger``,
+``observability/compile_ledger.py``) every build is a ledger entry: a
+capture with its warmup, capture seconds, FLOPs and pool bytes, or a first
+eager dispatch, timed and priced by the flop counter. The graphs of a
+system share one memory pool; a variant that the epoch can no longer reach
+(second order switched on, the MSL window over) has its graphs released.
+Not here (ROADMAP.md): donation (A10.7); the multi-step programs on a mesh
+(A10.5 (mesh)).
 
 Strict mode (``Config.strict_recompile_guard``, ``utils/strictmode.py``):
 ``recompile_guard`` holds every train variant ``(kind, second_order,
@@ -238,6 +255,14 @@ class MAMLSystem:
             from ..utils.strictmode import RecompileGuard, train_planned_programs
 
             self.recompile_guard = RecompileGuard(planned=train_planned_programs(cfg), name="maml-system")
+        # the program caches (JAX's _train_step_cache, _train_multi_cache,
+        # _eval_step, _eval_multi) and the one graph pool they share
+        self.compile_ledger = None
+        self._train_programs: dict = {}
+        self._train_multi: dict = {}
+        self._eval_program = None
+        self._eval_multi = None
+        self._graph_pool = None
         self.meta_lr_scale = 1.0
         self.scale_meta_lr(1.0)
         self.precision = policy_from_config(cfg)
@@ -262,12 +287,47 @@ class MAMLSystem:
     def drop_compiled_programs(self) -> None:
         """Re-plan the program family: the JAX system drops its compiled
         train/eval programs here (the rollback backoff, the mesh grow-back),
-        and the recompiles after a deliberate drop are not violations. An
-        eager system keeps no programs, so only the strict guard is reset,
-        and the eval kind noted again, as the JAX system re-jits it."""
+        and the rebuilds after a deliberate drop are not violations. The
+        program caches are emptied (a graph bakes the outer schedule's rates
+        in), the strict guard is reset, and the eval kind noted again, as
+        the JAX system re-jits it."""
+        for program in list(self._train_multi.values()) + [self._eval_multi]:
+            if hasattr(program, "release"):
+                program.release()
+        self._train_programs, self._train_multi = {}, {}
+        self._eval_program = self._eval_multi = None
         if self.recompile_guard is not None:
             self.recompile_guard.reset()
         self._note_program((self._kind("eval"),))
+
+    def _build_program(self, key, build):
+        """One program-cache insert: build the program and, with a compile
+        ledger attached, hand it to the ledger, which prices its builds."""
+        fn = build()
+        if self.compile_ledger is not None:
+            fn = self.compile_ledger.wrap_build(key, fn)
+        return fn
+
+    def attach_compile_ledger(self, ledger) -> None:
+        """Route every program build through ``ledger``. Programs already
+        built are dropped, so that each is rebuilt, and priced, through the
+        ledger. (The JAX system also hands the ledger to its strict guard
+        for ``RecompileGuard.wrap``; no program of this system is wrapped,
+        the ledger prices each build itself, so the guard gets none.)"""
+        self.compile_ledger = ledger
+        self.drop_compiled_programs()
+
+    @property
+    def state_in_place(self) -> bool:
+        """True where the multi-step programs update the state in place
+        (CUDA graphs on the card): a caller that keeps a state across such a
+        dispatch must keep a copy of it."""
+        return self.device.type == "cuda"
+
+    def _graph_pool_handle(self):
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
 
     def _kind(self, base: str) -> str:
         """Program-key kind for this system's strategy (the default keeps
@@ -583,11 +643,24 @@ class MAMLSystem:
         when omitted it is read from ``state.step``. Data-parallel: given
         ``replicate(state, mesh)`` and ``shard_batch(batch, mesh)`` the
         update runs once, on the mesh's first device, and the new state is
-        replicated again."""
+        replicated again. Under the strict guard or a compile ledger the
+        step goes through its variant's program (noted, and its first
+        dispatch priced)."""
+        if self.recompile_guard is None and self.compile_ledger is None:
+            return self._train_step_impl(state, batch, epoch)
+        ep = epoch if epoch is not None else int(unreplicate(state).step) // self.cfg.total_iter_per_epoch
+        return self._compiled_train_step(self.use_second_order(ep), self.msl_active(ep))(state, batch, epoch=ep)
+
+    def _compiled_train_step(self, second_order: bool, msl_active: bool):
+        key = (self._kind("train"), second_order, msl_active)
+        fn = self._train_programs.get(key)
+        if fn is None:
+            self._note_program(key)
+            fn = self._train_programs[key] = self._build_program(key, lambda: self._train_step_impl)
+        return fn
+
+    def _train_step_impl(self, state: TrainState, batch, epoch: Optional[int] = None):
         cfg = self.cfg
-        if self.recompile_guard is not None:
-            ep = epoch if epoch is not None else int(unreplicate(state).step) // cfg.total_iter_per_epoch
-            self._note_program((self._kind("train"), self.use_second_order(ep), self.msl_active(ep)))
         sharded = isinstance(batch, ShardedBatch)
         if sharded:
             state = self._replicated(state, batch.mesh)
@@ -633,8 +706,15 @@ class MAMLSystem:
         """First-order, ``number_of_evaluation_steps_per_iter`` inner steps,
         final-step target loss only (reference :239-251); no gradients.
         Takes a sharded batch too."""
-        cfg = self.cfg
         self._note_program((self._kind("eval"),))
+        if self.compile_ledger is None:
+            return self._eval_step_impl(state, batch)
+        if self._eval_program is None:
+            self._eval_program = self._build_program((self._kind("eval"),), lambda: self._eval_step_impl)
+        return self._eval_program(state, batch)
+
+    def _eval_step_impl(self, state: TrainState, batch) -> StepOutput:
+        cfg = self.cfg
         if isinstance(batch, ShardedBatch):
             state = self._replicated(state, batch.mesh)
             with torch.no_grad():
@@ -651,6 +731,133 @@ class MAMLSystem:
                 cfg.number_of_evaluation_steps_per_iter, False,
             )
             return self._step_output(loss, aux, state)
+
+    # ------------------------------------------------------------------
+    # multi-step dispatch (JAX core/maml.py:955-1031)
+    # ------------------------------------------------------------------
+
+    def _step_batches(self, batches) -> list:
+        """A stack of batches (every key with a leading ``[K]`` axis) -> K
+        batch dicts. On the card the stack goes to the device once, in the
+        step's dtypes, and each batch is a view of it."""
+        if isinstance(batches, ShardedBatch):
+            raise NotImplementedError(
+                "train_step_multi/eval_step_multi on a mesh is not ported to PyTorch yet "
+                "(ROADMAP.md A10.5 (mesh)); dispatch one step per call on a mesh"
+            )
+        if self.device.type == "cuda":
+            batches = {key: self._tensor(value, torch.int64 if key.startswith("y") else torch.float32)
+                       for key, value in batches.items()}
+        n = len(batches["x_support"])
+        return [{key: value[i] for key, value in batches.items()} for i in range(n)]
+
+    def _release_unreachable(self, second_order: bool, msl_active: bool) -> None:
+        """Release the train graphs of variants no later epoch reaches: both
+        switches move one way (second order on after its epoch, the MSL
+        window closed after its epochs), as JAX drops programs."""
+        for key in list(self._train_multi):
+            _, so, msl = key
+            if (second_order and not so) or (msl and not msl_active):
+                program = self._train_multi.pop(key)
+                if hasattr(program, "release"):
+                    program.release()
+
+    def _train_graph_step(self, epoch: int):
+        """The step a train graph captures: the train step at ``epoch``'s
+        variant, with the per-step outputs the loop consumes."""
+
+        def step(state, batch):
+            new_state, out = self._train_step_impl(state, batch, epoch)
+            return new_state, (out.loss, out.accuracy, out.learning_rate)
+
+        return step
+
+    def _train_multi_eager(self, state, batches, epoch: int):
+        outs = []
+        for batch in batches:
+            state, out = self._train_step_impl(state, batch, epoch)
+            outs.append((out.loss, out.accuracy, out.learning_rate))
+        return state, outs
+
+    def _compiled_train_multi(self, second_order: bool, msl_active: bool):
+        key = (self._kind("train_multi"), second_order, msl_active)
+        fn = self._train_multi.get(key)
+        if fn is None:
+            self._release_unreachable(second_order, msl_active)
+            self._note_program(key)
+            if self.device.type == "cuda":
+                from .programs import GraphProgram
+
+                build = lambda: GraphProgram(self._train_graph_step, self.device, self._graph_pool_handle)  # noqa: E731
+            else:
+                build = lambda: self._train_multi_eager  # noqa: E731
+            fn = self._train_multi[key] = self._build_program(key, build)
+        return fn
+
+    def train_step_multi(self, state: TrainState, batches, epoch: Optional[int] = None):
+        """K outer updates in one dispatch over ``batches`` whose leaves
+        carry a leading ``[K]`` axis (``loader.train_batch_chunks``): the
+        same math as K ``train_step`` calls. On the card it replays a CUDA
+        graph of the train step K times (the state updated in place; the
+        returned state is a view of the graph's buffers); on the CPU it runs
+        the K eager steps. Returns ``(new_state, (losses[K], accuracies[K],
+        learning_rates[K]))``. The chunk must not span an epoch where the
+        ``(second_order, msl_active)`` variant flips: with ``epoch`` given
+        the caller dispatches within it (the runner does), without it the
+        step count is read once and a flipping chunk raises ``ValueError``.
+        A mesh's sharded batch raises ``NotImplementedError`` (ROADMAP.md
+        A10.5 (mesh))."""
+        steps = self._step_batches(batches)
+        if epoch is None:
+            first = int(unreplicate(state).step)
+            epoch, last = (first // self.cfg.total_iter_per_epoch,
+                           (first + len(steps) - 1) // self.cfg.total_iter_per_epoch)
+            variant = lambda e: (self.use_second_order(e), self.msl_active(e))  # noqa: E731
+            if variant(epoch) != variant(last):
+                raise ValueError(
+                    f"train_step_multi: the chunk of {len(steps)} steps from step {first} spans epochs "
+                    f"{epoch}..{last}, where the program variant flips {variant(epoch)} -> {variant(last)}"
+                )
+        program = self._compiled_train_multi(self.use_second_order(epoch), self.msl_active(epoch))
+        state, outs = program(state, steps, epoch=epoch)
+        losses, accuracies, lrs = (torch.stack([o[i] for o in outs]) for i in range(3))
+        return state, (losses, accuracies, lrs)
+
+    def _eval_graph_step(self):
+        def step(state, batch):
+            out = self._eval_step_impl(state, batch)
+            return None, (out.per_task_losses, out.per_task_accuracies)
+
+        return step
+
+    def _eval_multi_eager(self, state, batches):
+        outs = []
+        for batch in batches:
+            out = self._eval_step_impl(state, batch)
+            outs.append((out.per_task_losses, out.per_task_accuracies))
+        return state, outs
+
+    def _compiled_eval_multi(self):
+        if self._eval_multi is None:
+            key = (self._kind("eval_multi"),)
+            self._note_program(key)
+            if self.device.type == "cuda":
+                from .programs import GraphProgram
+
+                build = lambda: GraphProgram(self._eval_graph_step, self.device, self._graph_pool_handle)  # noqa: E731
+            else:
+                build = lambda: self._eval_multi_eager  # noqa: E731
+            self._eval_multi = self._build_program(key, build)
+        return self._eval_multi
+
+    def eval_step_multi(self, state: TrainState, batches):
+        """Every eval batch in one dispatch: ``batches`` with a leading
+        ``[N]`` axis -> ``(per_task_losses [N, B], per_task_accuracies [N,
+        B])``, the same per-batch math as N ``eval_step`` calls. On the card
+        it replays a CUDA graph of the eval step N times; on the CPU it runs
+        the N eager steps."""
+        _, outs = self._compiled_eval_multi()(state, self._step_batches(batches))
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
     # ------------------------------------------------------------------
     # data parallelism over a mesh (parallel/mesh.py)

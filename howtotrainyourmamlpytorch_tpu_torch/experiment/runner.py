@@ -39,16 +39,31 @@ watchdog build their locks, and its findings are ``graftsan_violation``
 events. Under ``strict_recompile_guard`` the system's guard snapshot is a
 telemetry provider.
 
+The program layer (JAX's runner, ROADMAP.md A10.3-A10.6):
+``train_steps_per_dispatch = K`` trains K outer steps per dispatch
+(``MAMLSystem.train_step_multi``: a CUDA graph replayed K times on the
+card, K eager steps on the CPU) over ``loader.train_batch_chunks``, with the
+NaN sentinel's one-dispatch lag over chunks; ``eval_fused_dispatch``
+evaluates the whole split in one dispatch (``eval_step_multi``). The
+compile ledger (``logs/compile_ledger.jsonl``) records every capture, the
+first eager dispatch of each program and each ``nvcc`` build; its observer
+sets the ``flops_per_step`` gauge that, with ``peak_flops_per_sec``, gives
+the telemetry's ``mfu``. ``profile_dir`` traces iterations [10, 20) of the
+first trained epoch ([0, 1) in a shorter one) with ``torch.profiler``, at
+K = 1, into ``profile_dir/plugins/profile/<ts>/*.pt.trace.json``
+(``utils/profiling.py`` reads it).
+
 Not here, each refused at construction with the ROADMAP.md item that ports
-it: multi-step dispatch, fused eval, the training-side AOT prewarm, state
-donation and the profiler window (A10); tensor parallelism, ``mp > 1`` or
-``tp_convs`` (A12).
+it: the training-side AOT prewarm (A10.8), state donation (A10.7), more than
+one step per dispatch on a mesh (A10.5 (mesh)); tensor parallelism,
+``mp > 1`` or ``tp_convs`` (A12).
 """
 
 import contextlib
 import dataclasses
 import os
 import signal
+import socket
 import threading
 import time
 from typing import Any, Dict, Optional
@@ -59,9 +74,13 @@ import torch
 from .. import exit_codes
 from ..config import Config, save_config
 from ..core.maml import MAMLSystem
+from ..core.programs import clone_tree
 from ..core.train_state import TrainState
 from ..data import MetaLearningDataLoader
+from ..data.loader import _stack
 from ..observability import TelemetryHub
+from ..observability import costs as obs_costs
+from ..observability.compile_ledger import CompileLedger
 from ..observability.memory import MemoryWatermarks
 from ..parallel.mesh import (
     all_gather_host,
@@ -81,6 +100,7 @@ from ..parallel.mesh import (
 )
 from ..resilience.faults import injector_from
 from ..resilience.watchdog import HeartbeatWatchdog
+from ..utils.profiling import trace_path
 from ..utils.trees import tree_leaves
 from . import checkpoint as ckpt
 from . import storage
@@ -119,18 +139,15 @@ def _refuse_unported(cfg: Config) -> None:
     the port does not run, so that none is quietly ignored."""
     refuse_tensor_parallel(cfg.parallel)
     refused = [
-        (cfg.train_steps_per_dispatch > 1, f"train_steps_per_dispatch={cfg.train_steps_per_dispatch}", "A10"),
-        (cfg.eval_fused_dispatch, "eval_fused_dispatch", "A10"),
-        (cfg.aot.enabled, "aot.enabled", "A10"),
-        (cfg.donate_train_state, "donate_train_state", "A10"),
-        (bool(cfg.profile_dir), "profile_dir", "A10"),
+        (cfg.aot.enabled, "aot.enabled (the training-side prewarm)", "A10.8"),
+        (cfg.donate_train_state, "donate_train_state", "A10.7"),
+        (cfg.parallel.dp > 1 and cfg.train_steps_per_dispatch > 1,
+         f"train_steps_per_dispatch={cfg.train_steps_per_dispatch} on a mesh of dp={cfg.parallel.dp}",
+         "A10.5 (mesh)"),
     ]
     for hit, what, item in refused:
         if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (ROADMAP.md {item}); the "
-                "port's runner trains one step per dispatch"
-            )
+            raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
 
 
 class ExperimentRunner:
@@ -175,21 +192,32 @@ class ExperimentRunner:
         # the device memory watermarks: a provider of every telemetry
         # snapshot, and one hbm_headroom_low event per card before an OOM
         self._memory: Optional[MemoryWatermarks] = None
+        # the compile ledger prices every program build into
+        # logs/compile_ledger.jsonl and feeds the flops_per_step gauge the
+        # live MFU reads; inert with the hub disabled
+        self._compile_ledger: Optional[CompileLedger] = None
         if self.hub.enabled:
             kind = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
             self.hub.registry.set_gauge("device_kind", kind)
+            peak = obs_costs.peak_flops_per_sec(kind)
+            if peak:
+                self.hub.registry.set_gauge("peak_flops_per_sec", peak)
+            else:
+                self.hub.registry.set_gauge("mfu_unavailable_reason",
+                                            f"no peak-FLOPs table entry for device_kind {kind!r}")
             if cfg.observability.memory_watermarks:
                 self._memory = MemoryWatermarks(cfg.observability.hbm_headroom_warn_frac)
-            # the JAX runner's XLA compile ledger has no port yet: record
-            # that, so that no artifact claims it
             if cfg.observability.compile_ledger:
-                self.events.append(
-                    {"ts": time.time(), "event": "not_ported", "modules": ["observability.compile_ledger"],
-                     "roadmap": "A10"}
-                )
+                self._compile_ledger = CompileLedger(logs_dir=self.logs_dir, session=self.hub.session_id)
+                self._compile_ledger.on_entry = self._note_program_cost
+                self.system.attach_compile_ledger(self._compile_ledger)
+                self._record_kernel_builds()
         # program variants already run once (second order x MSL): the first
         # step of each is tagged cold in the trace
         self._variants_seen: set = set()
+        # the profiler window: open between its first and last step
+        self._profiled = False
+        self._profiler = None
 
         # graftsan lock-discipline sanitizer: armed here, before the loader
         # pool and the watchdog build their locks, so that every lock built
@@ -390,6 +418,8 @@ class ExperimentRunner:
                 self.hub.add_provider("memory", self._memory.snapshot)
             if self.degraded_mesh is not None:
                 self.hub.registry.set_gauge("degraded_mesh", self.degraded_mesh)
+            if self._compile_ledger is not None:
+                self.hub.add_provider("compile_ledger", self._compile_ledger.summary)
 
     # ------------------------------------------------------------------
 
@@ -413,6 +443,41 @@ class ExperimentRunner:
         self._variants_seen.add(key)
         return True
 
+    def _note_program_cost(self, entry: Dict[str, Any]) -> None:
+        """Compile-ledger observer: when a train program is priced, publish
+        its FLOPs per meta-step as the gauge the live MFU reads (a
+        ``train_multi`` entry prices K steps, so its FLOPs divide by K)."""
+        flops = entry.get("flops")
+        program = entry.get("program") or ""
+        if not flops:
+            return
+        if program.startswith("train_multi/"):
+            flops = flops / max(1, self.cfg.train_steps_per_dispatch)
+        elif not program.startswith("train/"):
+            return
+        self.hub.registry.set_gauge("flops_per_step", flops)
+        if entry.get("bytes_accessed"):
+            self.hub.registry.set_gauge("train_step_bytes_accessed", entry["bytes_accessed"])
+
+    def _record_kernel_builds(self) -> None:
+        """On the card with the fused update: build the kernels now (one
+        ``nvcc`` per missing source, all at once) and record each source in
+        the ledger, instead of inside the first step."""
+        if not (self.cfg.use_pallas_inner_update and self.system.device.type == "cuda"):
+            return
+        from ..ops import _kernels
+
+        self._compile_ledger.record_kernel_builds(_kernels.build(), _kernels.BUILD_DIR)
+
+    def _close_compile_ledger(self) -> None:
+        if self._compile_ledger is not None:
+            try:
+                self._compile_ledger.close()
+            except Exception:
+                # a failing close (full disk) must not skip the closes after
+                # it or mask the run's exception
+                pass
+
     def _train_epoch(self, epoch: int) -> Dict[str, Any]:
         cfg = self.cfg
         losses, accs, lr = [], [], 0.0
@@ -421,75 +486,122 @@ class ExperimentRunner:
         # epoch (the loader cursor already points at the next one)
         skipped = self._resume_mid_iter if epoch == self.start_epoch else 0
         total_iters = cfg.total_iter_per_epoch - skipped
+        # the profiling window: iterations [10, 20) of the first trained
+        # epoch, past the first dispatches; the profiled epoch keeps K = 1,
+        # so that the window stays per step
+        profile_this_epoch = bool(cfg.profile_dir) and not self._profiled
+        prof_start, prof_stop = (10, 20) if total_iters >= 20 else (0, 1)
+        K = 1 if profile_this_epoch else max(1, cfg.train_steps_per_dispatch)
+        n_chunks, single_iters = divmod(total_iters, K)
 
         # --- NaN sentinel (resilience.nan_guard) -----------------------
-        # Each step's loss is judged on the host with a ONE-step lag: step
-        # i-1's loss is fetched only after step i has been issued, so the
-        # host keeps enqueueing while the card works. A non-finite loss
-        # discards the poisoned step (and the step issued on top of it) by
-        # restoring the state captured before it; the episode stream moves
-        # on past the bad batch. train_step never writes into the tensors of
-        # the state it was given, so the captured state is intact.
+        # Each dispatch's loss is judged on the host with a ONE-dispatch
+        # lag: dispatch i-1's losses are fetched only after dispatch i has
+        # been issued, so the host keeps enqueueing while the card works. A
+        # non-finite loss discards the poisoned dispatch (and the one issued
+        # on top of it) by restoring the state captured before it; the
+        # episode stream moves on past the bad batches. An eager step never
+        # writes into the tensors of the state it was given; a multi-step
+        # graph does (MAMLSystem.state_in_place), so there the captured
+        # state is a copy.
         guard = cfg.resilience.nan_guard
-        pending = None  # (state_before, out, forced_nan, cold)
+        # (state_before, loss, accuracy, forced_nan, cold, episodes, steps)
+        pending = None
 
         def settle() -> bool:
-            """Judge the pending step; True = good (stats recorded)."""
+            """Judge the pending dispatch; True = good (stats recorded)."""
             nonlocal pending
-            state_before, out, forced, cold = pending
+            state_before, loss_dev, acc_dev, forced, cold, episodes, steps = pending
             pending = None
-            # the lagged fetch of step i-1 while step i is queued: the
-            # pipeline's real device wait
+            # the lagged fetch of dispatch i-1 while dispatch i is queued:
+            # the pipeline's real device wait
             with self.hub.phase("settle", epoch=epoch, cold=cold):
-                loss_host = _host(out.loss)
+                loss_host = _host(loss_dev)
             self._beat(f"settle epoch {epoch}")
             if forced or not np.all(np.isfinite(loss_host)):
                 self.state = state_before
                 return False
             losses.append(loss_host)
-            accs.append(_host(out.accuracy))
+            accs.append(_host(acc_dev))
             # a good step breaks the streak: the K threshold counts
             # CONSECUTIVE discards
             self._bad_steps = 0
-            self.hub.step_completed(self.loader.batch_size)
+            self.hub.step_completed(episodes, steps=steps)
             self._note_cold_start()
             return True
 
         preempted = False
-        for batch in self._traced_batches(self.loader.train_batches(total_iters, augment_images=True), epoch):
-            if self._preempt_signum is not None:
-                preempted = True
-                break
-            # the runner.step seam: nan-loss marks this step poisoned for the
-            # sentinel, sigterm reaches the preemption handler, delay hangs
-            # the step for the wedge watchdog
-            forced = self._injector.fire("runner.step") == "nan-loss"
-            cold = self._note_variant((self.system.use_second_order(epoch), self.system.msl_active(epoch)))
-            before = self.state
-            # the dispatch phase is host work: the batch's copy to the
-            # device(s) and the step's kernel launches
-            with self.hub.phase("dispatch", epoch=epoch, cold=cold):
-                self.state, out = self.system.train_step(self.state, self._put(batch), epoch=epoch)
-            self._beat(f"dispatch epoch {epoch}")
-            lr = out.learning_rate
-            if not guard:
-                losses.append(out.loss)
-                accs.append(out.accuracy)
-                self.hub.step_completed(self.loader.batch_size)
-                self._note_cold_start()
-                continue
-            if pending is not None and not settle():
-                # settle() restored the pre-poison state, which also
-                # discards the step just issued on top of it
-                self._note_bad_step(epoch)
-                continue
-            pending = (before, out, forced, cold)
+        undispatched = 0  # drawn from the loader, never trained on
+        if K > 1:
+            chunk_episodes = K * self.loader.batch_size
+            in_place = guard and self.system.state_in_place
+            for chunk in self._traced_batches(self.loader.train_batch_chunks(n_chunks, K, augment_images=True),
+                                              epoch):
+                if self._preempt_signum is not None:
+                    preempted, undispatched = True, K
+                    break
+                forced = self._injector.fire("runner.step") == "nan-loss"
+                cold = self._note_variant(("multi", self.system.use_second_order(epoch),
+                                           self.system.msl_active(epoch)))
+                before = clone_tree(self.state) if in_place else self.state
+                with self.hub.phase("dispatch", epoch=epoch, cold=cold):
+                    self.state, (chunk_losses, chunk_accs, chunk_lrs) = self.system.train_step_multi(
+                        self.state, chunk, epoch)
+                self._beat(f"dispatch epoch {epoch}")
+                lr = chunk_lrs[-1]
+                if not guard:
+                    losses.append(chunk_losses)
+                    accs.append(chunk_accs)
+                    self.hub.step_completed(chunk_episodes, steps=K)
+                    self._note_cold_start()
+                    continue
+                if pending is not None and not settle():
+                    # settle() restored the pre-poison state, which also
+                    # discards the dispatch just issued on top of it
+                    self._note_bad_step(epoch)
+                    continue
+                pending = (before, chunk_losses, chunk_accs, forced, cold, chunk_episodes, K)
+        else:
+            single_iters = total_iters
+        if not preempted:
+            for it, batch in enumerate(self._traced_batches(
+                    self.loader.train_batches(single_iters, augment_images=True), epoch)):
+                if self._preempt_signum is not None:
+                    preempted, undispatched = True, 1
+                    break
+                if profile_this_epoch and it == prof_start:
+                    self._start_profile()
+                # the runner.step seam: nan-loss marks this step poisoned for
+                # the sentinel, sigterm reaches the preemption handler, delay
+                # hangs the step for the wedge watchdog
+                forced = self._injector.fire("runner.step") == "nan-loss"
+                cold = self._note_variant(("single", self.system.use_second_order(epoch),
+                                           self.system.msl_active(epoch)))
+                before = self.state
+                # the dispatch phase is host work: the batch's copy to the
+                # device(s) and the step's kernel launches
+                with self.hub.phase("dispatch", epoch=epoch, cold=cold):
+                    self.state, out = self.system.train_step(self.state, self._put(batch), epoch=epoch)
+                self._beat(f"dispatch epoch {epoch}")
+                if profile_this_epoch and it == prof_stop - 1:
+                    self._stop_profile()
+                lr = out.learning_rate
+                if not guard:
+                    losses.append(out.loss)
+                    accs.append(out.accuracy)
+                    self.hub.step_completed(self.loader.batch_size)
+                    self._note_cold_start()
+                    continue
+                if pending is not None and not settle():
+                    self._note_bad_step(epoch)
+                    continue
+                pending = (before, out.loss, out.accuracy, forced, cold, self.loader.batch_size, 1)
         # drain the lagged check (also before an emergency save: the saved
         # state must be a settled-good one)
         if pending is not None and not settle():
             self._note_bad_step(epoch)
         if preempted or self._preempt_signum is not None:
-            self._emergency_exit(epoch, undispatched=int(preempted))
+            self._emergency_exit(epoch, undispatched=undispatched)
         # with the guard off the entries are device tensors: one fetch each
         # here, after the loop
         losses = np.concatenate([_host(x) if torch.is_tensor(x) else x for x in losses] or [np.zeros(0)])
@@ -507,6 +619,28 @@ class ExperimentRunner:
             "learning_rate": float(lr),
             "epoch_run_time": time.time() - start,
         }
+
+    def _start_profile(self) -> None:
+        """Open the ``torch.profiler`` window (the card's timeline too where
+        the system runs on one)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.system.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.__enter__()
+
+    def _stop_profile(self) -> None:
+        """Close the window after the device has finished its steps, and
+        write the Chrome trace where ``jax.profiler`` writes its xplanes."""
+        if self.system.device.type == "cuda":
+            torch.cuda.synchronize(self.system.device)
+        prof, self._profiler = self._profiler, None
+        prof.__exit__(None, None, None)
+        stamp = time.strftime("%Y_%m_%d_%H_%M_%S")
+        prof.export_chrome_trace(trace_path(self.cfg.profile_dir, stamp, socket.gethostname()))
+        self._profiled = True
 
     # ------------------------------------------------------------------
     # resilience: NaN skip/rollback ladder, preemption, wedge
@@ -584,11 +718,12 @@ class ExperimentRunner:
         except Exception:
             pass
         # os._exit skips finally blocks: flush telemetry and close the
-        # event log here
+        # ledger and the event log here
         try:
             self.hub.close()
         except Exception:
             pass
+        self._close_compile_ledger()
         self.events.close()
 
     def _put(self, batch):
@@ -781,6 +916,14 @@ class ExperimentRunner:
         return self.loader.test_batches(n_batches)
 
     def _eval_split(self, split: str) -> Dict[str, Any]:
+        if self.cfg.eval_fused_dispatch and not self._multihost and self.mesh is None:
+            # one dispatch over the whole fixed eval set (a mesh and the
+            # multi-host path stay per batch)
+            stacked = _stack(list(self._eval_batches(split)))
+            with self.hub.phase("eval", split=split, cold=self._note_variant(("eval_fused",))):
+                losses, accs = self.system.eval_step_multi(self.state, stacked)
+            self._beat(f"eval {split}")
+            return _episode_stats(split, _host(losses.reshape(-1)), _host(accs.reshape(-1)))
         ep_losses, ep_accs = [], []
         for batch in self._eval_batches(split):
             with self.hub.phase("eval", split=split, cold=self._note_variant(("eval",))):
@@ -957,6 +1100,7 @@ class ExperimentRunner:
                 self._watchdog.stop()
             # final telemetry snapshot + Chrome-trace export
             self.hub.close()
+            self._close_compile_ledger()
             self.events.close()
             if self._owns_loader:
                 self.loader.close()

@@ -5,9 +5,11 @@ copies of the JAX package's stdlib and numpy modules, and the device
 memory watermarks (:mod:`memory`, over the CUDA caching allocator's
 counters).
 
-The XLA-specific modules of the JAX package's ``observability/`` (the
-compile ledger, ``costs`` and ``donation``) are not ported (ROADMAP.md
-A10).
+The program layer's modules: :mod:`costs` (FLOPs by the flop counter, the
+H100 peak table, MFU) and :mod:`compile_ledger` (every CUDA-graph capture,
+first eager dispatch and ``nvcc`` build, priced). The JAX package's
+``donation`` has no counterpart: buffer donation is not ported (ROADMAP.md
+A10.7).
 """
 
 from .metrics import MetricsRegistry  # noqa: F401

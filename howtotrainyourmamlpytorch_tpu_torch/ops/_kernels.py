@@ -102,16 +102,17 @@ def library_path(source: str) -> str:
 
 def build(sources: Sequence[str] = SOURCES) -> Dict[str, Dict[str, object]]:
     """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together. Returns per source its library path, the
-    build seconds (0 when it was already built) and the compiler's resource
-    report (``-Xptxas=-v``). Raises with the compiler's output if any fails."""
+    source, all started together. Returns per source its library path,
+    whether this call built it, the build seconds (0 when it was already
+    built) and the compiler's resource report (``-Xptxas=-v``). Raises with
+    the compiler's output if any fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     started = {}
     report: Dict[str, Dict[str, object]] = {}
     for source in sources:
         target = library_path(source)
         if os.path.exists(target):
-            report[source] = {"library": target, "seconds": 0.0, "ptxas": ""}
+            report[source] = {"library": target, "built": False, "seconds": 0.0, "ptxas": ""}
             continue
         tmp = f"{target}.tmp-{os.getpid()}"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
@@ -125,7 +126,7 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Dict[str, object]]:
             failures.append(f"{source}: nvcc exited {proc.returncode}\n{output}")
             continue
         os.replace(tmp, target)
-        report[source] = {"library": target, "seconds": seconds, "ptxas": output}
+        report[source] = {"library": target, "built": True, "seconds": seconds, "ptxas": output}
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return report

@@ -66,12 +66,19 @@ MAX_LEAF_ELEMENTS = (1 << 31) - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last :func:`reset_launch_counts` (CPU calls,
-#: which take the twin, do not count)
+#: which take the twin, do not count), the launches of replayed CUDA graphs
+#: included (:func:`count_replay`)
 launch_counts = {"fused_sgd": 0, "fused_sgd_bwd": 0}
+#: the part of ``launch_counts`` that replayed graphs launched
+replayed_counts = {"fused_sgd": 0, "fused_sgd_bwd": 0}
+#: launches recorded into CUDA graphs under capture, ever (a capture
+#: launches nothing: its launches run at each replay). ``core/programs.py``
+#: reads it before and after a capture for that graph's own tally.
+captured_counts = {"fused_sgd": 0, "fused_sgd_bwd": 0}
 #: non-contiguous leaves the CUDA wrappers copied before a launch, since the
 #: last :func:`reset_launch_counts`
 contiguous_copies = 0
-# both counts are updated under this lock: a server's batcher workers
+# the counts are updated under this lock: a server's batcher workers
 # launch from several threads
 _count_lock = threading.Lock()
 
@@ -80,13 +87,26 @@ def reset_launch_counts() -> None:
     global contiguous_copies
     with _count_lock:
         for name in launch_counts:
-            launch_counts[name] = 0
+            launch_counts[name] = replayed_counts[name] = 0
         contiguous_copies = 0
 
 
 def _count_launch(name: str) -> None:
     with _count_lock:
-        launch_counts[name] += 1
+        # a torch without CUDA has no capture to ask about
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            captured_counts[name] += 1
+        else:
+            launch_counts[name] += 1
+
+
+def count_replay(tally) -> None:
+    """One replay of a graph whose capture recorded ``tally`` (name ->
+    launches): those kernels ran again, without a Python wrapper."""
+    with _count_lock:
+        for name, n in tally.items():
+            launch_counts[name] += n
+            replayed_counts[name] += n
 
 
 def dlr_rounding_chain(chunks: int, element_size: int) -> int:

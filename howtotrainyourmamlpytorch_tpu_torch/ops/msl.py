@@ -32,5 +32,7 @@ def final_step_only(num_steps: int, device=None):
     """The no-MSL weighting: only the last inner step's target loss counts
     (reference ``few_shot_learning_system.py:246-251``)."""
     weights = torch.zeros(num_steps, dtype=torch.float32, device=device)
-    weights[-1] = 1.0
+    # fill_, not an item assignment: a Python scalar assigned to a CUDA
+    # element is copied from the host, which a captured graph cannot do
+    weights[-1:].fill_(1.0)
     return weights

@@ -59,8 +59,10 @@ def adam_update(grads, state, params, schedule: Callable):
     nu = tree_map(lambda g, v: (1 - B2) * (g * g) + B2 * v, grads, adam.nu)
     count = adam.count + 1
     countf = count.to(torch.float32)
-    bc1 = 1 - torch.tensor(B1, dtype=torch.float32, device=countf.device) ** countf
-    bc2 = 1 - torch.tensor(B2, dtype=torch.float32, device=countf.device) ** countf
+    # torch.full, not torch.tensor: a fill kernel, no host-to-device copy
+    # (a CUDA graph captures the step)
+    bc1 = 1 - torch.full((), B1, dtype=torch.float32, device=countf.device) ** countf
+    bc2 = 1 - torch.full((), B2, dtype=torch.float32, device=countf.device) ** countf
     step_size = -1 * schedule(sched.count)
     new_params = tree_map(
         lambda p, m, v: p + step_size.to(p.dtype) * ((m / bc1) / (torch.sqrt(v / bc2) + EPS)),

@@ -47,6 +47,7 @@ sanitizer, and returns the one-line verdict ``scripts/chaos_soak.py``
 prints.
 """
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -1000,9 +1001,9 @@ def make_serving_run_dir(
     ServingConfig (e.g. ``refine_enabled``); with a ``template`` the
     checkpoint is still copied byte-for-byte (same fingerprint), only the
     config is rewritten. The state is built on the CPU: writing a
-    checkpoint needs no card. AOT stays off: the port has no prewarm
-    (ROADMAP.md A10), so a backend answers /healthz ``ok`` as soon as it
-    binds."""
+    checkpoint needs no card. AOT is on, as in the JAX drills: a backend
+    answers /healthz ``warming`` until its serving prewarm has dispatched
+    the planned grid, so the gateway admits only warm backends."""
     import shutil
 
     run_dir = os.path.join(root, name)
@@ -1031,7 +1032,7 @@ def make_serving_run_dir(
             os.path.join(save_dir, "train_model_latest"),
         )
         return run_dir
-    from ..config import Config, ServingConfig, save_config
+    from ..config import AotConfig, Config, ServingConfig, save_config
     from ..experiment import checkpoint as ckpt
 
     cfg = Config(
@@ -1045,6 +1046,9 @@ def make_serving_run_dir(
             support_buckets=[16], query_buckets=[16], max_batch_size=2,
             cache_ttl_s=600.0, **(serving_overrides or {}),
         ),
+        # AOT on: the serving prewarm and the /healthz "warming" gate the
+        # drills' gateway waits on before it admits a (re)spawned backend
+        aot=AotConfig(enabled=True, max_workers=1, serving_background=True),
         experiment_root=root,
         experiment_name=name,
     )
@@ -1076,7 +1080,16 @@ def child_serve_main(run_dir: str, port_file: str, port: int = 0, device: str = 
     on ``device``, serve it through the REAL ``run_server`` path (SIGTERM =>
     graceful drain => spill => rc), and publish the bound port to
     ``port_file``. Importable (not ``__main__``) so the parent spawns it
-    with a one-line ``-c``."""
+    with a one-line ``-c``. On the card the deterministic algorithms are
+    on, as the serve CLI turns them on, so that a session re-adapted in
+    another backend gets bit-equal probabilities."""
+    from ..utils.seeding import deterministic_algorithms
+
+    with deterministic_algorithms() if device == "cuda" else contextlib.nullcontext():
+        return _serve_run_dir(run_dir, port_file, port, device)
+
+
+def _serve_run_dir(run_dir: str, port_file: str, port: int, device: str) -> int:
     from ..config import load_config
     from ..serving.engine import AdaptationEngine
     from ..serving.server import ServingFrontend, run_server
@@ -2037,19 +2050,26 @@ def _drill_fleet_surge(root, template_run, procs, device) -> List[str]:
         for t in clients:
             t.start()
         # scale-up: the supervisor must spawn slot 1 and the gateway must
-        # admit it (healthz-gated). With no "warming" state (the port has
-        # no AOT prewarm, ROADMAP.md A10) the gateway's poller can admit
-        # the new backend a poll before the supervisor's warm gate settles
-        # and journals it, so the wait takes both
+        # admit it (healthz-gated past "warming")
         try:
             _wait_until(
                 lambda: _http_json(gw_url + "/metrics", timeout_s=10.0)[1]
-                .get("backends_in") == 2
-                and any(e.get("event") == "scale_up" for e in _read_jsonl(events_path)),
+                .get("backends_in") == 2,
                 timeout_s=300.0, desc="scale-up to 2 backends",
             )
         except RuntimeError as exc:
             violations.append(f"surge never scaled up: {exc}")
+        # the gateway's poller and the supervisor's warm gate watch the
+        # same /healthz turn "ok"; the gateway may admit the backend a poll
+        # before the supervisor journals its scale_up, so the journal gets
+        # a bounded wait of its own (a missing line is still a violation)
+        try:
+            _wait_until(
+                lambda: any(e.get("event") == "scale_up" for e in _read_jsonl(events_path)),
+                timeout_s=30.0, desc="the supervisor's scale_up journal line",
+            )
+        except RuntimeError:
+            pass
         up_events = [e for e in _read_jsonl(events_path)
                      if e.get("event") == "scale_up"]
         if not up_events:

@@ -13,10 +13,17 @@ telemetry surfaces a run leaves behind into one report:
 - ``logs/access.jsonl`` — the serving tables (padding, strategies,
   tenants) and, with ``--fleet-events``, a supervisor's scaling decisions.
 
-The repo script's compile-tax, prewarm-ledger, donation and device-time
-sections read files a port run does not write yet (the compile ledger,
-donation audits and ``profile_dir`` are ROADMAP.md A10), so they are not
-here; on a port run directory both scripts give the same report.
+- ``logs/compile_ledger.jsonl`` (observability/compile_ledger.py) — the
+  compile tax: per-program build seconds (CUDA-graph captures, first
+  eager dispatches, ``nvcc`` builds), persistent-cache hits, priced FLOPs and
+  graph-pool bytes;
+- the ``torch.profiler`` Chrome trace of the run's ``profile_dir`` window,
+  when one was written — a device-time breakdown via ``utils/profiling.py``
+  (loaded by file path).
+
+The repo script's donation section reads audits a port run does not write
+(donation is ROADMAP.md A10.7), so it is not here; on a port run directory
+without a profile window both scripts give the same report.
 
 Host-phase coverage is the report's honesty check: the train-loop phase sums
 (data-wait + dispatch + settle) over the summed epoch wall-clock. Near 1.0
@@ -119,7 +126,82 @@ def _hbm_from_session(session: List[Dict[str, Any]]) -> Optional[Dict[str, Any]]
     }
 
 
-def build_report(run_dir: str, fleet_events: Optional[str] = None) -> Dict[str, Any]:
+def _profiling_module():
+    return _load_by_path("htymp_torch_profiling", os.path.join(_PKG, "utils", "profiling.py"))
+
+
+def _device_breakdown(trace_dir: Optional[str]) -> Optional[Dict[str, Any]]:
+    if not trace_dir or not os.path.isdir(trace_dir):
+        return None
+    try:
+        return _profiling_module().device_time_breakdown(trace_dir)
+    except Exception as exc:  # noqa: BLE001 — the join degrades, never dies
+        return {"error": f"trace parse failed: {exc!r}"}
+
+
+def _profile_dir_from_config(run_dir: str) -> Optional[str]:
+    """``profile_dir`` out of the run's saved config.yaml without a yaml
+    dependency surprise: the value is a plain scalar on its own line."""
+    path = os.path.join(run_dir, "config.yaml")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        for line in f:
+            if line.startswith("profile_dir:"):
+                value = line.split(":", 1)[1].strip().strip("'\"")
+                return value or None
+    return None
+
+
+def _aggregate_compile_ledger(entries: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The compile-tax section: per-program build seconds, build counts,
+    persistent-cache hits, priced FLOPs and memory, aggregated from
+    ``logs/compile_ledger.jsonl``. Re-implements ``CompileLedger.summary()``'s
+    aggregation: this script imports no package, so it cannot replay
+    entries through the ledger class. Keep the two shapes in sync."""
+    by: Dict[str, Dict[str, Any]] = {}
+    for e in entries:
+        agg = by.setdefault(
+            str(e.get("program", "?")),
+            {"builds": 0, "lower_s": 0.0, "compile_s": 0.0, "total_s": 0.0, "cache_hits": 0, "errors": 0,
+             "flops": None},
+        )
+        agg["builds"] += 1
+        agg["lower_s"] = round(agg["lower_s"] + (e.get("lower_s") or 0.0), 3)
+        agg["compile_s"] = round(agg["compile_s"] + (e.get("compile_s") or 0.0), 3)
+        agg["total_s"] = round(agg["total_s"] + (e.get("total_s") or 0.0), 3)
+        if (e.get("persistent_cache") or {}).get("hit"):
+            agg["cache_hits"] += 1
+        if e.get("error"):
+            agg["errors"] += 1
+        if e.get("flops"):
+            agg["flops"] = e["flops"]
+        # the memory column: peak bytes (a graph's pool) and the rest where a
+        # backend gives them; the latest build wins, like flops
+        mem = e.get("memory") or {}
+        for src, dst in (("argument_bytes", "argument_bytes"), ("output_bytes", "output_bytes"),
+                         ("temp_bytes", "temp_bytes"), ("peak_bytes", "peak_bytes"),
+                         ("alias_bytes", "donated_bytes")):
+            if mem.get(src) is not None:
+                agg[dst] = mem[src]
+    peaks = [p["peak_bytes"] for p in by.values() if p.get("peak_bytes")]
+    donated = [p["donated_bytes"] for p in by.values() if p.get("donated_bytes")]
+    return {
+        "entries": len(entries),
+        "programs": len(by),
+        "total_lower_s": round(sum(p["lower_s"] for p in by.values()), 3),
+        "total_compile_s": round(sum(p["compile_s"] for p in by.values()), 3),
+        "total_s": round(sum(p["total_s"] for p in by.values()), 3),
+        "cache_hits": sum(p["cache_hits"] for p in by.values()),
+        "errors": sum(p["errors"] for p in by.values()),
+        "peak_program_bytes": max(peaks) if peaks else None,
+        "donated_bytes": max(donated) if donated else None,
+        "by_program": by,
+    }
+
+
+def build_report(run_dir: str, trace_dir: Optional[str] = None,
+                 fleet_events: Optional[str] = None) -> Dict[str, Any]:
     logs_dir = os.path.join(run_dir, "logs")
     tel_path = os.path.join(logs_dir, "telemetry.jsonl")
     report: Dict[str, Any] = {
@@ -214,6 +296,29 @@ def build_report(run_dir: str, fleet_events: Optional[str] = None) -> Dict[str, 
     if gauges.get("cold_start_s") is not None:
         report["cold_start_s"] = gauges["cold_start_s"]
 
+    # compile tax (logs/compile_ledger.jsonl), scoped to the reported
+    # session when the entries carry session ids
+    ledger_path = os.path.join(logs_dir, "compile_ledger.jsonl")
+    if os.path.exists(ledger_path):
+        entries, torn_ledger = _read_jsonl(ledger_path)
+        if torn_ledger:
+            report["torn_ledger_lines"] = torn_ledger
+        session_id = last.get("session")
+        scoped = [e for e in entries if e.get("session") == session_id]
+        report["compile_tax"] = _aggregate_compile_ledger(scoped or entries)
+        if not scoped and entries:
+            report["compile_tax"]["all_sessions"] = True
+        # the prewarm slice of the tax: entries a prewarm paid
+        # (phase="prewarm") before the first step
+        prewarmed = [e for e in (scoped or entries) if e.get("phase") == "prewarm"]
+        if prewarmed:
+            report["prewarm"] = {
+                "programs": len({e.get("program") for e in prewarmed}),
+                "seconds": round(sum(e.get("total_s") or 0.0 for e in prewarmed), 3),
+                "cache_hits": sum(1 for e in prewarmed if (e.get("persistent_cache") or {}).get("hit")),
+                "store_hits": sum(1 for e in prewarmed if (e.get("executable_store") or {}).get("hit")),
+            }
+
     # host-phase coverage vs the SAME session's epoch wall-clock (the
     # honesty check)
     train_wall_s = sum(float(e.get("train_wall_s") or 0.0) for e in epochs)
@@ -300,6 +405,10 @@ def build_report(run_dir: str, fleet_events: Optional[str] = None) -> Dict[str, 
     scaling = _scaling_from_events(fleet_records or event_records)
     if scaling is not None:
         report["scaling"] = scaling
+
+    breakdown = _device_breakdown(trace_dir or _profile_dir_from_config(run_dir))
+    if breakdown is not None:
+        report["device_breakdown"] = breakdown
 
     trace_path = os.path.join(logs_dir, "trace.json")
     report["trace_path"] = trace_path if os.path.exists(trace_path) else None
@@ -537,6 +646,7 @@ def _tenants_from_access(
 def oneline(report: Dict[str, Any]) -> str:
     """One compact JSON line per run for sweep logs."""
     phases = report.get("phases", {})
+    compile_tax = report.get("compile_tax") or {}
     hbm = report.get("hbm") or {}
     slim = {
         "report": "obs",
@@ -546,6 +656,9 @@ def oneline(report: Dict[str, Any]) -> str:
         "episodes_per_s": report.get("episodes_per_s"),
         "mfu": report.get("mfu"),
         "cold_start_s": report.get("cold_start_s"),
+        "prewarm_s": (report.get("prewarm") or {}).get("seconds"),
+        "compile_tax_s": compile_tax.get("total_s"),
+        "peak_program_bytes": compile_tax.get("peak_program_bytes"),
         "peak_hbm_gib": hbm.get("peak_gib"),
         "padding_waste": (report.get("padding") or {}).get("padding_waste_frac"),
         "phase_coverage": report.get("phase_coverage"),
@@ -707,7 +820,48 @@ def render_human(report: Dict[str, Any]) -> str:
     if report.get("mfu") is not None:
         lines.append(f"live MFU (last snapshot): {report['mfu']}")
     if report.get("cold_start_s") is not None:
-        lines.append(f"cold start {report['cold_start_s']}s (init -> first settled step)")
+        prewarm = report.get("prewarm")
+        lines.append(
+            f"cold start {report['cold_start_s']}s (init -> first settled step)"
+            + (
+                f"; prewarm compiled {prewarm['programs']} programs in "
+                f"{prewarm['seconds']}s ({prewarm.get('store_hits', 0)} store hits, "
+                f"{prewarm['cache_hits']} cache hits)"
+                if prewarm
+                else ""
+            )
+        )
+    tax = report.get("compile_tax")
+    if tax:
+        lines.append(
+            f"-- compile tax ({tax['entries']} compiles, "
+            f"{tax['total_s']}s total: {tax['total_lower_s']}s lower + "
+            f"{tax['total_compile_s']}s compile; "
+            f"{tax['cache_hits']} persistent-cache hits"
+            + (", ALL sessions" if tax.get("all_sessions") else "")
+            + ") --"
+        )
+        lines.append(f"{'program':<28} {'builds':>6} {'lower s':>8} {'compile s':>9} {'hits':>5}  flops")
+        for name in sorted(tax["by_program"]):
+            p = tax["by_program"][name]
+            flops = f"{p['flops']:.3e}" if p.get("flops") else "-"
+            lines.append(
+                f"{name[:28]:<28} {p['builds']:>6} {p['lower_s']:>8} "
+                f"{p['compile_s']:>9} {p['cache_hits']:>5}  {flops}"
+            )
+        mem_rows = {name: p for name, p in tax["by_program"].items() if p.get("peak_bytes") is not None}
+        if mem_rows:
+            lines.append(f"-- program memory (peak over programs: {_fmt_mib(tax.get('peak_program_bytes'))} MiB) --")
+            lines.append(f"{'program':<28} {'args MiB':>9} {'out MiB':>8} {'temp MiB':>9} {'peak MiB':>9} {'donated':>8}")
+            for name in sorted(mem_rows):
+                p = mem_rows[name]
+                lines.append(
+                    f"{name[:28]:<28} {_fmt_mib(p.get('argument_bytes')):>9} "
+                    f"{_fmt_mib(p.get('output_bytes')):>8} "
+                    f"{_fmt_mib(p.get('temp_bytes')):>9} "
+                    f"{_fmt_mib(p.get('peak_bytes')):>9} "
+                    f"{_fmt_mib(p.get('donated_bytes')):>8}"
+                )
     padding = report.get("padding")
     if padding:
         lines.append(
@@ -801,6 +955,15 @@ def render_human(report: Dict[str, Any]) -> str:
             )
             lines.append(f"  {stamp}  {rec.get('event'):<20} {detail}")
     _render_scaling(report, lines)
+    dev = report.get("device_breakdown")
+    if dev and "error" not in dev:
+        lines.append("-- device time (torch.profiler trace) --")
+        lines.append(
+            f"  busy {dev.get('device_busy_ms')}ms: compute {dev.get('compute_frac')} "
+            f"dma {dev.get('dma_frac')} other {dev.get('other_frac')}"
+        )
+    elif dev:
+        lines.append(f"-- device time: {dev['error']}")
     providers = report.get("providers") or {}
     if providers:
         lines.append("-- providers (last snapshot) --")
@@ -835,6 +998,10 @@ def main(argv=None) -> int:
         help="copy the run's exported span trace (logs/trace.json) here",
     )
     parser.add_argument(
+        "--trace-dir",
+        help="torch.profiler trace dir for the device-time join (default: the run config's profile_dir)",
+    )
+    parser.add_argument(
         "--fleet-events",
         metavar="PATH",
         help="a fleet supervisor's events.jsonl (scripts/fleet_serve.py "
@@ -862,7 +1029,7 @@ def main(argv=None) -> int:
     if not os.path.isdir(args.run_dir):
         print(f"obs_report: no such run dir: {args.run_dir}", file=sys.stderr)
         return _RC_USAGE
-    report = build_report(args.run_dir, fleet_events=args.fleet_events)
+    report = build_report(args.run_dir, trace_dir=args.trace_dir, fleet_events=args.fleet_events)
     if args.chrome_trace:
         src = report.get("trace_path")
         if src:

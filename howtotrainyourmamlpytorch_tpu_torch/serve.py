@@ -34,9 +34,17 @@ and ``/metrics`` gains a ``tenants`` block.
 SIGINT drains gracefully: in-flight requests finish, cached sessions spill
 to ``saved_models/sessions/`` (rehydrated by the next start), and the
 process exits with ``serving.server.drain_exit_code`` (0 when clean).
+
+On the card the CLI turns on ``torch.use_deterministic_algorithms`` (warning
+where an op has no deterministic implementation) and
+``cudnn.deterministic`` before it builds the engine
+(``utils/seeding.py::deterministic_algorithms``, not for training):
+a session re-adapted in another backend process then gets bit-equal
+probabilities, as the JAX package's fleet drills require.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -70,6 +78,13 @@ def main(argv=None) -> int:
     parser.add_argument("overrides", nargs="*", default=[], help="key=value config overrides")
     args = parser.parse_intermixed_args(argv)
 
+    from .utils.seeding import deterministic_algorithms
+
+    with deterministic_algorithms() if args.device == "cuda" else contextlib.nullcontext():
+        return _serve(args)
+
+
+def _serve(args) -> int:
     from .serving import run_server
 
     frontend = build_frontend(args.run_dir, args.checkpoint, args.overrides, replicas=args.replicas,

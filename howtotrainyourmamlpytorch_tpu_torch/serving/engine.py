@@ -43,8 +43,11 @@ algorithm choice and the allocator's first blocks. Strict mode
 before it dispatches and raises on a key outside
 ``serving_planned_programs``. :meth:`AdaptationEngine.prewarm` dispatches
 the whole planned grid once, on zero inputs, and seals the guard, after
-which any first-seen key is a violation. Left out: the compile ledger
-(ROADMAP.md A10).
+which any first-seen key is a violation. With a compile ledger
+(``compile_ledger=``, or the frontend's), the first dispatch of each planned
+``(kind, bucket, batch)`` is a ledger entry of its seconds, total only, as
+the JAX ledger's guard-fed entries are: ``serve_adapt``, ``serve_refine``,
+``serve_predict`` under ``strategy_kind``'s spelling, with the replica's tag.
 Refine sessions (the guard, lineage and spill) live in the frontend
 (``serving/server.py``).
 """
@@ -118,6 +121,7 @@ class AdaptationEngine:
         ledger_tag: str = "",
         registry: Optional[TenantRegistry] = None,
         strict: Optional[bool] = None,
+        compile_ledger=None,
     ):
         self.system = system
         self.cfg = system.cfg
@@ -167,6 +171,11 @@ class AdaptationEngine:
         self._adapt_shapes = set()
         self._predict_shapes = set()
         self._refine_shapes = set()
+        # compile ledger (observability/compile_ledger.py): when set (ctor
+        # parameter, or attribute assignment before the first request: the
+        # frontend attaches a collector-only ledger when telemetry is on),
+        # each planned shape's first dispatch is timed into it
+        self.compile_ledger = compile_ledger
         # strict mode (Config.strict_recompile_guard / explicit ``strict=``):
         # the bucket tables declare the whole program family up front; a
         # request that would dispatch outside it (an oversize support/query
@@ -226,7 +235,7 @@ class AdaptationEngine:
         clone = AdaptationEngine(
             system, state, serving_cfg=self.serving, fingerprint=self.fingerprint, tracer=self.tracer,
             injector=self.injector, ledger_tag=f"@r{index}", registry=self.registry,
-            strict=self.recompile_guard is not None,
+            strict=self.recompile_guard is not None, compile_ledger=self.compile_ledger,
         )
         # replicas of a run-dir engine spill and rehydrate sessions alike
         if getattr(self, "save_dir", None):
@@ -253,6 +262,8 @@ class AdaptationEngine:
             out["tenants"] = list(self.registry.tenants())
         if self.recompile_guard is not None:
             out["recompile_guard"] = self.recompile_guard.snapshot()
+        if self.compile_ledger is not None:
+            out["compile_ledger"] = self.compile_ledger.summary()
         return out
 
     def support_bucket(self, size: int) -> int:
@@ -345,26 +356,44 @@ class AdaptationEngine:
         if self.recompile_guard is not None:
             self.recompile_guard.note((strategy_kind(base, strategy), bucket, b))
 
+    def _first_dispatch(self, shapes: set, base: str, strategy: str, bucket: int, b: int, call: Callable) -> Callable:
+        """Count the flush's shape among ``shapes``; the first dispatch of a
+        shape is timed into the compile ledger (total only)."""
+        first = (strategy, bucket, b) not in shapes
+        shapes.add((strategy, bucket, b))
+        ledger = self.compile_ledger
+        if ledger is None or not first:
+            return call
+        program = (f"{strategy_kind('serve_' + base, strategy)}{self.ledger_tag}", bucket, b)
+
+        def timed():
+            t0 = time.perf_counter()
+            out = call()
+            ledger.record(program, total_s=time.perf_counter() - t0)
+            return out
+
+        return timed
+
     def _adapt_call(self, state, xs, ys, ws, strategy: str, bucket: int, b: int) -> Callable:
         """One adapt flush as a call: noted, then counted among the shapes."""
         self._note_program("adapt", strategy, bucket, b)
-        self._adapt_shapes.add((strategy, bucket, b))
         if strategy == "protonet":
-            return lambda: self.system.protonet_adapt(state, xs, ys, support_weight=ws)
-        return lambda: self.system.adapt_fast_weights(
-            state, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+            call = lambda: self.system.protonet_adapt(state, xs, ys, support_weight=ws)  # noqa: E731
+        else:
+            call = lambda: self.system.adapt_fast_weights(  # noqa: E731
+                state, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+        return self._first_dispatch(self._adapt_shapes, "adapt", strategy, bucket, b, call)
 
     def _refine_call(self, state, stacked_fw, xs, ys, ws, strategy: str, bucket: int, b: int) -> Callable:
         self._note_program("refine", strategy, bucket, b)
-        self._refine_shapes.add((strategy, bucket, b))
-        return lambda: self.system.refine_fast_weights(
+        call = lambda: self.system.refine_fast_weights(  # noqa: E731
             state, stacked_fw, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
+        return self._first_dispatch(self._refine_shapes, "refine", strategy, bucket, b, call)
 
     def _predict_call(self, state, stacked, xs, ws, strategy: str, bucket: int, b: int) -> Callable:
         """One predict flush as a call; the call returns host probabilities
         (the flush's one device-to-host copy)."""
         self._note_program("predict", strategy, bucket, b)
-        self._predict_shapes.add((strategy, bucket, b))
         system = self.system
 
         def call():
@@ -374,7 +403,7 @@ class AdaptationEngine:
                 logits = system.predict_logits(stacked, state.bn_state, xs, ws)
             return torch.softmax(logits, dim=-1).cpu().numpy()
 
-        return call
+        return self._first_dispatch(self._predict_shapes, "predict", strategy, bucket, b, call)
 
     def adapt_batch(self, items: List[Tuple[Any, Any]], ctxs=None, strategy: Optional[str] = None,
                     tenant: Optional[str] = None):

@@ -39,8 +39,11 @@ construction, in the background when ``aot.serving_background`` is set, and
 holds traffic off a cold backend. The lock-discipline sanitizer
 (``resilience.sanitizer`` or ``HTYMP_GRAFTSAN=1``, ``tools/graftsan``) is
 armed before the frontend builds its locks; its findings go to the events
-log, and ``close()`` audits the threads the frontend started. Not ported:
-the compile-ledger hub provider (ROADMAP.md A10).
+log, and ``close()`` audits the threads the frontend started. With
+telemetry on, the engine gets a collector-only compile ledger
+(``observability/compile_ledger.py``): each planned shape's first dispatch
+is a row of the ``compile_ledger`` hub provider and of ``/metrics``
+``compiled.compile_ledger``.
 """
 
 import contextlib
@@ -179,6 +182,15 @@ class ServingFrontend:
                 self.engine.tracer = self.hub.tracer
             self.hub.add_provider("breaker", lambda: self.breaker.snapshot())
             obs_cfg = engine.cfg.observability
+            # collector-only compile ledger (a server owns no run dir): each
+            # planned shape's first dispatch shows in /metrics.compiled and
+            # in every hub snapshot
+            if self.engine.compile_ledger is None and obs_cfg.compile_ledger:
+                from ..observability.compile_ledger import CompileLedger
+
+                self.engine.compile_ledger = CompileLedger(session=self.hub.session_id)
+            if self.engine.compile_ledger is not None:
+                self.hub.add_provider("compile_ledger", self.engine.compile_ledger.summary)
             if obs_cfg.memory_watermarks:
                 self._memory = MemoryWatermarks(obs_cfg.hbm_headroom_warn_frac)
                 self.hub.add_provider("memory", self._memory.snapshot)

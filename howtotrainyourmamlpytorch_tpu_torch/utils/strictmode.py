@@ -31,6 +31,7 @@ cross-check, so a wrapped function is judged by its signatures alone.
 """
 
 import threading
+import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Set, Tuple
 
 
@@ -89,6 +90,9 @@ class RecompileGuard:
         self.planned: Optional[Set[Any]] = set(planned) if planned is not None else None
         self.budget = int(budget) if budget is not None else len(self.planned)  # type: ignore[arg-type]
         self._lock = threading.Lock()
+        # optional CompileLedger (observability/compile_ledger.py): wrap()
+        # records the first-call seconds of every new signature there
+        self.ledger = None
         self._seen: List[Any] = []
         # violating key -> message: a rejected key is NOT recorded as seen,
         # so a retried unplanned request re-raises instead of slipping past
@@ -204,10 +208,22 @@ class RecompileGuard:
         arguments (or ``key_fn(*args, **kwargs)``) and ``note()``s it, so
         the first call of every new signature counts against the plan."""
 
+        fn_label = getattr(fn, "__name__", None) or type(fn).__name__
+
         def wrapped(*args, **kwargs):
             sig = key_fn(*args, **kwargs) if key_fn is not None else abstract_signature((args, kwargs))
+            before = self.lowerings
             self.note(sig)
-            return fn(*args, **kwargs)
+            ledger = self.ledger
+            # a first call of a new signature: its seconds go to the ledger
+            # (total only: an eager call has no build phases to split)
+            time_it = ledger is not None and self.lowerings > before
+            t0 = time.perf_counter() if time_it else 0.0
+            out = fn(*args, **kwargs)
+            if time_it:
+                ledger.record(f"{self.name}/{fn_label}", total_s=time.perf_counter() - t0,
+                              signature_index=self.lowerings)
+            return out
 
         wrapped.guard = self  # type: ignore[attr-defined]
         return wrapped

@@ -536,3 +536,59 @@ def ckpt_state(run_dir):
     from howtotrainyourmamlpytorch_tpu_torch.experiment.checkpoint import load_for_inference
 
     return load_for_inference(str(run_dir / "saved_models"), "latest")[0]
+
+
+def _vgg_chunk_system(cuda, k=3):
+    cfg = Config(
+        num_classes_per_set=3, num_samples_per_class=2, num_target_samples=2, batch_size=2,
+        number_of_training_steps_per_iter=2, use_pallas_inner_update=True, remat_inner_steps=False,
+    )
+    system = MAMLSystem(cfg, model=build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8), device=cuda)
+    batches = [learnable_synthetic_batch(2, 3, 2, 2, (8, 8, 1), seed=i) for i in range(k)]
+    return system, batches, {key: np.stack([b[key] for b in batches]) for key in batches[0]}
+
+
+def test_graph_chunk_matches_eager_steps(cuda):
+    """A chunk of 3 train steps replayed from a CUDA graph of the step (B1
+    and B2 captured inside it) against the 3 eager steps from the same
+    state, under the deterministic algorithms: bit-equal losses and
+    params. The returned state is the graph's own, updated in place."""
+    from howtotrainyourmamlpytorch_tpu_torch.core.programs import clone_tree
+    from howtotrainyourmamlpytorch_tpu_torch.utils.seeding import deterministic_algorithms
+
+    with deterministic_algorithms():
+        system, batches, stacked = _vgg_chunk_system(cuda)
+        start = system.init_train_state()
+        eager, losses = start, []
+        for b in batches:
+            eager, out = system.train_step(eager, b, epoch=0)
+            losses.append(out.loss)
+        graph, (graph_losses, _, _) = system.train_step_multi(clone_tree(start), stacked, 0)
+        again, _ = system.train_step_multi(clone_tree(start), stacked, 0)
+        assert again is graph  # the static buffers, written in place
+        torch.cuda.synchronize()
+        assert torch.equal(torch.stack(losses), graph_losses)
+        for a, b in zip(tree_leaves(eager.params), tree_leaves(graph.params)):
+            assert torch.equal(a, b)
+        assert int(graph.step) == 3
+
+
+def test_b1_and_b2_run_inside_one_replay(cuda):
+    """The profiler sees B1 and B2 launched by a graph replay, and the
+    wrappers' counts gain the tally the graph's capture recorded (no Python
+    wrapper runs in a replay)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    system, _, stacked = _vgg_chunk_system(cuda, k=1)
+    state = system.init_train_state()
+    system.train_step_multi(state, stacked, 0)  # captures
+    fu.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        system.train_step_multi(state, stacked, 0)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    b2 = sum(e.count for e in kernels if "fused_sgd_bwd" in e.key)
+    b1 = sum(e.count for e in kernels if "fused_sgd" in e.key) - b2
+    assert b1 == 2 and b2 == 2, [e.key for e in kernels][:20]
+    assert fu.launch_counts == fu.replayed_counts == {"fused_sgd": 2, "fused_sgd_bwd": 2}

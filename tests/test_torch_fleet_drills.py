@@ -115,7 +115,8 @@ def test_serving_run_dirs_template_and_perturbation(tmp_path):
     """``template`` copies the checkpoint byte-for-byte (the fleet's
     backends share one fingerprint); ``perturb_seed`` makes distinct,
     deterministic checkpoints of one structure; ``serving_overrides``
-    rewrites only the config; AOT stays off (the port refuses it)."""
+    rewrites only the config; AOT is on with the JAX drills' settings (one
+    worker, the serving prewarm in the background)."""
     root = str(tmp_path)
     base = make_serving_run_dir(root, "base")
     copy = make_serving_run_dir(root, "copy", template=base, serving_overrides={"refine_enabled": True})
@@ -133,6 +134,7 @@ def test_serving_run_dirs_template_and_perturbation(tmp_path):
     assert blob(copy) == blob(base)
     assert load_config(os.path.join(copy, "config.yaml")).serving.refine_enabled
     assert not load_config(os.path.join(base, "config.yaml")).serving.refine_enabled
-    assert not load_config(os.path.join(base, "config.yaml")).aot.enabled
+    aot = load_config(os.path.join(base, "config.yaml")).aot
+    assert (aot.enabled, aot.max_workers, aot.serving_background) == (True, 1, True)
     assert fingerprint(a) == fingerprint(again)
     assert len({fingerprint(base), fingerprint(a), fingerprint(b)}) == 3

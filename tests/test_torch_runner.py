@@ -6,7 +6,7 @@ per-episode eval statistics, the early abort) and adds: the artifact files
 and CSV columns against a JAX runner's run; the NaN sentinel and its
 rollback, and SIGTERM in a subprocess (rc 75, then an exact mid-epoch
 resume), each drilled through the ``runner.step`` fault seam; the refused
-options and those ROADMAP A9 made run; the CLI in a subprocess; and a run directory resumed
+options and those ROADMAP A9 and A10 made run; the CLI in a subprocess; and a run directory resumed
 across the packages in both directions (the next step's loss within atol
 1e-5, the same loader cursor)."""
 
@@ -114,9 +114,13 @@ def jax_small_system(cfg):
     return JaxMAMLSystem(cfg, model=model)
 
 
-def _events(run_dir):
-    with open(os.path.join(run_dir, "logs", "events.jsonl")) as f:
+def _jsonl(path):
+    with open(path) as f:
         return [json.loads(line) for line in f if line.strip()]
+
+
+def _events(run_dir):
+    return _jsonl(os.path.join(run_dir, "logs", "events.jsonl"))
 
 
 def _header(path):
@@ -184,9 +188,12 @@ def test_end_to_end_artifacts_and_resume(toy_dataset, tmp_path, jax_run):
     assert len(lr_rows) == 2
     assert "test_accuracy_mean" in result
 
-    # the JAX runner's contract: the same files (its XLA compile ledger is
-    # not ported, ROADMAP.md A10) and the same CSV columns
-    jax_files = [f for f in _files(jax_run) if f != os.path.join("logs", "compile_ledger.jsonl")]
+    # the JAX runner's contract: the same files, the same compile-ledger
+    # program names (the first dispatch of the train variant and of eval)
+    # and the same CSV columns
+    jax_files = _files(jax_run)
+    ledger_names = lambda d: sorted({e["program"] for e in _jsonl(os.path.join(d, "logs", "compile_ledger.jsonl"))})  # noqa: E731
+    assert ledger_names(run_dir) == ledger_names(jax_run)
     assert _files(run_dir) == [f for f in jax_files if not f.startswith("saved_models")] + sorted(
         os.path.join("saved_models", f"train_model_{i}") for i in (0, 1, "best", "latest"))
     for name in ("summary_statistics.csv", "test_summary.csv"):
@@ -444,17 +451,58 @@ def test_sigterm_saves_mid_epoch_and_resume_continues_there(toy_dataset, tmp_pat
 
 
 REFUSED = {
-    "multi_dispatch": (dict(train_steps_per_dispatch=2), "A10"),
-    "eval_fused": (dict(eval_fused_dispatch=True), "A10"),
-    "aot": (dict(aot=tcfg.AotConfig(enabled=True)), "A10"),
-    "donation": (dict(donate_train_state=True), "A10"),
-    "profile": (dict(profile_dir="prof"), "A10"),
+    "aot": (dict(aot=tcfg.AotConfig(enabled=True)), "A10.8"),
+    "donation": (dict(donate_train_state=True), "A10.7"),
+    "dp2_multi_dispatch": (dict(parallel=tcfg.ParallelConfig(dp=2), train_steps_per_dispatch=2), r"A10\.5 \(mesh\)"),
     "mp2": (dict(parallel=tcfg.ParallelConfig(mp=2)), "A12"),
     "tp_convs": (dict(parallel=tcfg.ParallelConfig(dp=2, tp_convs=True)), "A12"),
 }
+
+
+def _ran_multi_dispatch(runner):
+    """K = 2 over 3 iterations: one chunk and one single step; the ledger
+    priced the chunk program."""
+    names = {e["program"] for e in _jsonl(os.path.join(runner.logs_dir, "compile_ledger.jsonl"))}
+    assert {"train_multi/True/True", "train/True/True"} <= names
+    assert int(runner.state.step) == 3
+
+
+def _ran_fused_eval(runner):
+    names = {e["program"] for e in _jsonl(os.path.join(runner.logs_dir, "compile_ledger.jsonl"))}
+    assert "eval_multi" in names and "eval" not in names
+    row = load_statistics(runner.logs_dir)[0]
+    assert float(row["val_num_episodes"]) == 4 and np.isfinite(float(row["val_loss_mean"]))
+
+
+def _ran_profile(runner):
+    """The window's Chrome trace in the runner's layout; a CPU trace has no
+    device time, so the breakdown is None, as JAX's is for a CPU xplane."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.profiling import device_time_breakdown
+
+    prof_dir = runner.cfg.profile_dir
+    stamps = os.listdir(os.path.join(prof_dir, "plugins", "profile"))
+    assert len(stamps) == 1 and runner._profiled
+    (trace,) = os.listdir(os.path.join(prof_dir, "plugins", "profile", stamps[0]))
+    assert trace.endswith(".pt.trace.json")
+    assert device_time_breakdown(prof_dir) is None
+
+
+def _ran_sanitized(runner):
+    from tools.graftsan import runtime
+
+    assert runtime.violations() == []
+    assert "graftsan_violation" not in _events(runner.run_dir)
+
+
 # options the runner refused until their ROADMAP.md item was ported: each
-# case now runs (the sanitizer, A9.7: armed, it logs no violation)
-NOW_PORTED = {"sanitizer": dict(resilience=tcfg.ResilienceConfig(sanitizer=True))}
+# case now runs (the sanitizer, A9.7: armed, it logs no violation; multi-step
+# dispatch, the fused eval and the profiler window, A10.4-A10.5)
+NOW_PORTED = {
+    "sanitizer": (dict(resilience=tcfg.ResilienceConfig(sanitizer=True)), _ran_sanitized),
+    "multi_dispatch": (dict(train_steps_per_dispatch=2, total_iter_per_epoch=3), _ran_multi_dispatch),
+    "eval_fused": (dict(eval_fused_dispatch=True), _ran_fused_eval),
+    "profile": (dict(profile_dir="prof"), _ran_profile),
+}
 
 
 @pytest.mark.parametrize("name", sorted(list(REFUSED) + list(NOW_PORTED)))
@@ -462,16 +510,18 @@ def test_unported_options_are_refused(toy_dataset, tmp_path, name):
     if name in NOW_PORTED:
         from tools.graftsan import runtime
 
-        cfg = runner_config(toy_dataset, tmp_path, total_epochs=1, total_iter_per_epoch=1, **NOW_PORTED[name])
+        overrides, check_run = NOW_PORTED[name]
+        if "profile_dir" in overrides:
+            overrides = dict(overrides, profile_dir=str(tmp_path / overrides["profile_dir"]))
+        cfg = runner_config(toy_dataset, tmp_path, **{"total_epochs": 1, "total_iter_per_epoch": 1, **overrides})
         try:
             runner = ExperimentRunner(cfg, system=small_system(cfg))
-            assert runtime.enabled()
+            assert runtime.enabled() == (name == "sanitizer")
             runner.run_experiment()
-            assert runtime.violations() == []
+            check_run(runner)
         finally:
             runtime.disarm()
             runtime.reset()
-        assert "graftsan_violation" not in _events(cfg.run_dir())
         return
     overrides, item = REFUSED[name]
     cfg = runner_config(toy_dataset, tmp_path, **overrides)
