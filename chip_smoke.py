@@ -55,7 +55,7 @@ Run from the repository root. Phases, one JSON line each:
    loaded by ``AdaptationEngine.from_run_dir`` and served one flush.
 8. ``http``: the trained state served over HTTP by ``python -m
    howtotrainyourmamlpytorch_tpu_torch.serve RUN_DIR`` in a subprocess on
-   the card, with ``serving.refine_enabled=true``: 8 client threads of 8
+   the card, with ``serving.refine_enabled=true``: 8 client threads of 4
    /adapt each at support 100, then /predict of 40 queries per adaptation
    id, a repeated /adapt (a cache hit, no launch), /adapt with refine,
    /adapt_predict, a malformed body (400) and an unknown id (404); SIGTERM
@@ -64,7 +64,7 @@ Run from the repository root. Phases, one JSON line each:
    adaptation ids equal to ``support_digest``, B1 launched 5 times per
    adapt and refine flush (the server's count in /metrics), and each
    answer within the float32 noise floor of the same request served alone
-   in this process (1e-6, or the largest distance any of the 64 requests
+   in this process (1e-6, or the largest distance any of the 32 requests
    moves when its images move by 1e-6), which another request's weights
    exceed. It reports client and server
    p50/p99 of /adapt and /predict, the median ``timing`` breakdown, and
@@ -126,8 +126,9 @@ Run from the repository root. Phases, one JSON line each:
    1-bit PNGs in 50 alphabet folders, read and resized to 28x28 by the
    loader): ``ExperimentRunner`` in this process for 2 epochs of 5 steps
    with validation (5 batches) and the best checkpoint's test, then three
-   CLI legs (``python -m howtotrainyourmamlpytorch_tpu_torch.train``), each
-   a subprocess, all at once: one resuming the run to 3 epochs, one
+   CLI legs (the training CLI), each a subprocess started once the folder
+   is written, importing and starting the card behind a gate while the
+   runner works, then released all at once: one resuming the run to 3 epochs, one
    training ResNet-12 at the fleet row ``omniglot.20.1.resnet-12.gd`` for
    one epoch of one step on the same folder, one with ``strategy=anil``
    likewise (the CLI legs evaluate one batch of 8 tasks and read the images
@@ -162,7 +163,9 @@ Run from the repository root. Phases, one JSON line each:
    same settings with ``HTYMP_FAULTS=checkpoint.write=sigterm:nth=2``
    (SIGTERM on the writer thread during an async 2-shard save) exits 75,
    and a clean CLI resume from its ``latest`` exits 0 and finishes the
-   run. It reports the per-width loss, cosine and
+   run. The three CLI processes start together after the timed steps and
+   the shrink and the resume wait behind gates until their turn. It
+   reports the per-width loss, cosine and
    step times with their ratios, the floor, the launches, the shard files'
    bytes, the events, the rcs and the phase's seconds (under 90 s, the run
    under 900 s: both checked after the ``timing`` line).
@@ -183,15 +186,15 @@ Run from the repository root. Phases, one JSON line each:
    runner at the same config, 1 epoch of 3 steps, in this process, unarmed
    then with ``resilience.sanitizer=true``: zero ``graftsan_violation``
    events, B1 and B2 K times per train step, the step period of each.
-   (4) The training fleet (``resilience/fleet.py``): 2 cells, seeds 0 and 1,
-   at the same config cut to 1 epoch of 3 steps and 16 evaluation tasks,
-   two at a time on the card,
-   the real card gate (``scripts/wait_for_card.py``, rc 0) and the real
-   launcher wrapped to set ``HTYMP_FAULTS=runner.step=sigterm:nth=2`` for
-   the first attempt of one cell: its rcs [75, 0] with a resume in its own
-   run directory, the other's [0], both ``done`` with obs rows from the
-   port's ``obs_report``; then ``fleet_run --dry-run`` over the same jobs
-   (rc 0, one JSON line). (5) One default-config support set adapted in
+   (4) The training fleet (``resilience/fleet.py``): 2 cells, seeds 0 and
+   1, at the same config cut to 1 epoch of 3 steps and 8 evaluation tasks,
+   two at a time on the card, the real card gate
+   (``scripts/wait_for_card.py``, rc 0) and the real launcher wrapped to
+   set ``HTYMP_FAULTS=runner.step=sigterm:nth=2`` for the first attempt of
+   one cell: its rcs [75, 0] with a resume in its own run directory, the
+   other's [0], both ``done`` with obs rows from the port's
+   ``obs_report``; beside them ``fleet_run --dry-run`` over the same jobs
+   (rc 0, one JSON line, two cells). (5) One default-config support set adapted in
    two fresh engines, with the defaults and then under
    ``torch.use_deterministic_algorithms`` and ``cudnn.deterministic``:
    bit-equality, the largest difference and the adapt flush ms of each;
@@ -219,12 +222,12 @@ Run from the repository root. Phases, one JSON line each:
     the program layer. B1 and B2 captured in one CUDA graph at the VGG-64
     and ResNet-12 trees, replayed on changed operands: bit-equal to their
     twins (``dlr`` within its bound). (a) The VGG train cell (the default
-    config, meta-batch 8, K=5, second order, MSL on): a chunk of 5 steps
+    config, meta-batch 8, K=5, second order, MSL on): a chunk of 3 steps
     replayed from a graph of the train step (``train_step_multi``) against
-    5 eager steps from one state, three eager runs giving the floor (2x
+    3 eager steps from one state, three eager runs giving the floor (2x
     their largest difference) for the graph and for two replays; a fresh
     system under the deterministic algorithms: graph and eager bit-equal.
-    (b) ResNet-12 (``omniglot.20.1.resnet-12.gd``), a chunk of 5 against 5
+    (b) ResNet-12 (``omniglot.20.1.resnet-12.gd``), a chunk of 3 against 3
     eager steps under the deterministic algorithms (its float32 rollout is
     too chaotic for a default-run gate): the first loss within 2e-3, and
     graph and eager, and two replays, bit-equal (or, where an op warned,
@@ -240,7 +243,25 @@ Run from the repository root. Phases, one JSON line each:
     intervals over the wall time), B1/B2 per replay (the profiler's, which
     must equal the tally the capture recorded) and their ms per launch
     inside a replay (the profiler's), under 120 s.
-20. ``kernels``: every kernel the run launched, with its launches on the
+20. ``prewarm`` (after ``programs``, on phase ``runner``'s image folder;
+    budget 120 s): the training-side prewarm and the program layer on a
+    mesh, at the default VGG config. (a) Two fresh training CLI processes,
+    2 epochs of 3 steps at ``train_steps_per_dispatch=3`` with the MSL
+    window closing after epoch 0 (epoch 1 flips the train variant), the
+    fused eval and the strict guard, each under the deterministic
+    algorithms (turned on in its own process): ``aot.enabled`` off and on.
+    Per-step losses bit-equal, zero guard violations, and in the
+    prewarmed leg no capture or first dispatch outside
+    ``phase="prewarm"``; each leg's cold start, the prewarm's seconds per
+    program, the first dispatch of epoch 1 (the flip), the ledger by
+    phase, B1/B2 launches. (b) The prewarmed leg again on its run
+    directory for a third epoch: the manifest's ``expected_warm``, every
+    ``nvcc/*`` line a cache hit, the captures it pays again. (c) A dp=2
+    mesh of ``[cuda:0, cuda:0]``: a chunk of 3 sharded steps replayed from
+    one CUDA graph against the sharded eager steps, bit-equal (the
+    deterministic algorithms), the replayed step beside the eager one, B1
+    and B2 per replay, and the fused eval on the mesh.
+21. ``kernels``: every kernel the run launched, with its launches on the
     paths (the wrappers' counts; a replay adds its graph's captured tally,
     ``core/programs.py``), its error against the twin and its times beside
     its bound and inside a replayed graph.
@@ -387,7 +408,7 @@ PRECISION_STEPS = 6
 # the http phase: concurrent clients, /adapt requests each (support 100 of
 # 20-way 5-shot), queries per /predict; seconds to wait for a server to
 # answer /healthz, and for one HTTP call
-HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_QUERIES = 8, 8, 40
+HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_QUERIES = 8, 4, 40
 HTTP_READY_S, HTTP_CALL_S = 240, 120
 # phase tenancy: the tenants, the round-robin rounds over them and the
 # default tenant, and the in-process page-ins per tenant
@@ -400,7 +421,7 @@ PAGE_IN_REPS = 10
 # gateway and direct
 FLEET_DEVICE = "cuda"
 FLEET_RPS, FLEET_STAIRS, FLEET_LOAD_S, FLEET_KILL_AT_S = 4.0, 3, 15.0, 6.0
-FLEET_HOP_REPS = 6
+FLEET_HOP_REPS = 4
 FLEET_BUDGET_S = 150.0  # the phase's share of the run's time limit
 # phase elastic: the data-parallel widths on the one card (dp=1 is the
 # plain single-device step), timed steps per width after one untimed, the
@@ -1361,11 +1382,13 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def start_server(run_dir: str, log_path: str, overrides=("serving.refine_enabled=true",), phase: str = "http"):
+def start_server(run_dir: str, log_path: str, overrides=("serving.refine_enabled=true",), phase: str = "http",
+                 while_starting=None):
     """``python -m howtotrainyourmamlpytorch_tpu_torch.serve RUN_DIR`` (on
     the card: no ``--device``) with the config ``overrides``, on a free
     port; returns (process, base URL, /healthz body) once /healthz answers
-    200."""
+    200. ``while_starting()``, where given, runs here while the server
+    process imports and starts."""
     port = _free_port()
     root = os.path.dirname(os.path.abspath(__file__))
     log = open(log_path, "a")
@@ -1376,6 +1399,12 @@ def start_server(run_dir: str, log_path: str, overrides=("serving.refine_enabled
     )
     log.close()
     base = f"http://127.0.0.1:{port}"
+    if while_starting is not None:
+        try:
+            while_starting()
+        except BaseException:
+            stop_server(proc)
+            raise
     deadline = time.monotonic() + HTTP_READY_S
     while True:
         try:
@@ -1429,6 +1458,28 @@ def _percentiles(values) -> dict:
     return {"p50_ms": float(p50), "p99_ms": float(p99), "n": len(values)}
 
 
+def _alone_references(engine, supports, queries, probs, seed: int):
+    """Each HTTP answer against the same request alone in this process ->
+    (its distance, its noise floor, another request's distance) per
+    request. The bound is the rollout's float32 noise floor at this
+    config: the largest distance any request moves when its images move by
+    NOISE_SCALE (one draw per request is too noisy an estimate to gate each
+    request by its own: in the first card run one answer of 64 lay 6.1e-4
+    from its lone twin against its own draw's 4.8e-4). Another request's
+    weights on the same queries show how far a routing or padding fault
+    would land."""
+    n = len(supports)
+    fws = [engine.adapt(x, y) for x, y in supports]
+    devs, floors, wrong = [], [], []
+    for i, ((x, y), q, p) in enumerate(zip(supports, queries, probs)):
+        alone = engine.predict(fws[i], q)
+        moved = (x + NOISE_SCALE * np.random.RandomState(seed + i).randn(*x.shape)).astype(np.float32)
+        devs.append(float(abs(p - alone).max()))
+        floors.append(float(abs(alone - engine.predict(engine.adapt(moved, y), q)).max()))
+        wrong.append(float(abs(p - engine.predict(fws[(i + 1) % n], q)).max()))
+    return devs, floors, wrong
+
+
 def phase_http(seed: int, system, trained):
     """Serving over HTTP on the card through the CLI: the trained state in a
     run directory (``config.yaml``, ``save_checkpoint``), ``python -m
@@ -1466,6 +1517,7 @@ def phase_http(seed: int, system, trained):
     engine = AdaptationEngine(system, trained)  # the lone-request reference, in this process
     out = {"phase": "http", "clients": HTTP_CLIENTS, "adapts_per_client": HTTP_PER_CLIENT, "support": 100,
            "queries": HTTP_QUERIES}
+    alone = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_http_") as run_dir:
         save_config(cfg, os.path.join(run_dir, "config.yaml"))
         save_checkpoint(os.path.join(run_dir, "saved_models"), trained, {"epoch": 0}, epoch=0,
@@ -1534,7 +1586,9 @@ def phase_http(seed: int, system, trained):
             check(rc == 0 and f"{entries} session(s) spilled" in log and spilled == entries, "http",
                   "SIGTERM drain", rc=rc, entries=entries, spilled_files=spilled, log=log[-2000:])
 
-            proc, base, _ = start_server(run_dir, log_path)
+            # the in-process references below run while the restart starts
+            proc, base, _ = start_server(run_dir, log_path, while_starting=lambda: alone.update(
+                zip(("devs", "floors", "wrong"), _alone_references(engine, supports[:n], queries[:n], probs, seed))))
             again = _http(base, "/metrics")[1]
             status, hit2, _ = _http(base, "/adapt", support_body[1])
             status_p, pred2, _ = _http(base, "/predict", predict_body[1])
@@ -1547,22 +1601,7 @@ def phase_http(seed: int, system, trained):
         finally:
             stop_server(proc)
 
-    # each answer against the same request alone in this process. The
-    # bound is the rollout's float32 noise floor at this config: the
-    # largest distance any of the n requests moves when its images move by
-    # NOISE_SCALE (one draw per request is too noisy an estimate to gate
-    # each of 64 requests by its own: in the first card run one answer lay
-    # 6.1e-4 from its lone twin against its own draw's 4.8e-4). Another
-    # request's weights on the same queries show how far a routing or
-    # padding fault would land.
-    fws = [engine.adapt(x, y) for x, y in supports[:n]]
-    devs, floors, wrong = [], [], []
-    for i, ((x, y), q, p) in enumerate(zip(supports[:n], queries[:n], probs)):
-        alone = engine.predict(fws[i], q)
-        moved = (x + NOISE_SCALE * np.random.RandomState(seed + i).randn(*x.shape)).astype(np.float32)
-        devs.append(float(abs(p - alone).max()))
-        floors.append(float(abs(alone - engine.predict(engine.adapt(moved, y), q)).max()))
-        wrong.append(float(abs(p - engine.predict(fws[(i + 1) % n], q)).max()))
+    devs, floors, wrong = alone["devs"], alone["floors"], alone["wrong"]
     bound = max(ALONE_TOLERANCE["maml++"], max(floors))
     worst = max(range(n), key=lambda i: devs[i])
     check(devs[worst] <= bound, "http", "an HTTP answer differs from the request served alone", index=worst,
@@ -1688,25 +1727,29 @@ def phase_tenancy(seed: int, system, trained, http_bound: float):
         adapted = tree_bytes(trained.params)
         budget, quota = 2 * one, TENANT_ROUNDS * adapted
         # the single-tenant controls: one engine per checkpoint, in this
-        # process, and each answer's float32 noise floor (how far it moves
-        # when the support images move by NOISE_SCALE), as in phase http
+        # process while the server starts, and each answer's float32 noise
+        # floor (how far it moves when the support images move by
+        # NOISE_SCALE), as in phase http
         controls, control_ms, floors = {}, [], []
-        for tenant in tenants:
-            ctrl = AdaptationEngine(system, trained) if tenant is None else AdaptationEngine.from_run_dir(
-                os.path.join(run_dir, "tenants", tenant), "latest", cfg=cfg, system=system)
-            check(ctrl.registry is None, "tenancy", "a control engine found a registry")
-            for r in range(TENANT_ROUNDS):
-                (x, y), q = supports[r], queries[r]
-                t0 = time.perf_counter()
-                controls[tenant, r] = ctrl.predict(ctrl.adapt(x, y), q)
-                control_ms.append((time.perf_counter() - t0) * 1e3)
-                moved = (x + NOISE_SCALE * np.random.RandomState(seed + r).randn(*x.shape)).astype(np.float32)
-                floors.append(float(abs(controls[tenant, r] - ctrl.predict(ctrl.adapt(moved, y), q)).max()))
-        bound = max(http_bound, max(floors))
+
+        def make_controls():
+            for tenant in tenants:
+                ctrl = AdaptationEngine(system, trained) if tenant is None else AdaptationEngine.from_run_dir(
+                    os.path.join(run_dir, "tenants", tenant), "latest", cfg=cfg, system=system)
+                check(ctrl.registry is None, "tenancy", "a control engine found a registry")
+                for r in range(TENANT_ROUNDS):
+                    (x, y), q = supports[r], queries[r]
+                    t0 = time.perf_counter()
+                    controls[tenant, r] = ctrl.predict(ctrl.adapt(x, y), q)
+                    control_ms.append((time.perf_counter() - t0) * 1e3)
+                    moved = (x + NOISE_SCALE * np.random.RandomState(seed + r).randn(*x.shape)).astype(np.float32)
+                    floors.append(float(abs(controls[tenant, r] - ctrl.predict(ctrl.adapt(moved, y), q)).max()))
+
         log_path = os.path.join(run_dir, "serve.log")
         proc, base, health = start_server(
             run_dir, log_path, (f"serving.tenant_budget_bytes={budget}", f"serving.tenant_max_resident_bytes={quota}"),
-            phase="tenancy")
+            phase="tenancy", while_starting=make_controls)
+        bound = max(http_bound, max(floors))
         dispatches, devs, wrong, cold_ms, resident_ms = [], [], [], [], []
         try:
             check(health["platform"] == "cuda", "tenancy", "healthz", health=health)
@@ -2199,9 +2242,10 @@ def phase_fleet(seed: int, system, trained, http_bound: float):
 
         client = threading.Thread(target=drive, daemon=True)
         client.start()
-        t0 = time.monotonic()
+        t0, roll_wall = time.monotonic(), time.time()
+        # each respawned backend is admitted by the gateway before the next drain
         roll = subprocess.run(
-            [sys.executable, os.path.join(scripts, "rolling_restart.py"), "--fleet", state_path,
+            [sys.executable, os.path.join(scripts, "rolling_restart.py"), "--fleet", state_path, "--gateway-url", gw,
              "--drain-timeout-s", "60", "--warm-timeout-s", str(HTTP_READY_S)],
             cwd=root, env=env, capture_output=True, text=True, timeout=600)
         roll_s = time.monotonic() - t0
@@ -2218,8 +2262,14 @@ def phase_fleet(seed: int, system, trained, http_bound: float):
         check(all(rc in (0, None) for rc in drain_rcs) and all(row["drain"] == "sigterm_sent"
                                                                for row in verdict["rows"]),
               "fleet", "a drain of the roll", rcs=drain_rcs, rows=verdict["rows"])
+        check(all("admit_s" in row for row in verdict["rows"]), "fleet", "the roll's gateway gate",
+              rows=verdict["rows"])
         check(all(code in (200, 404) for code in seen) and seen.count(200) >= 5, "fleet",
-              "the fleet through the roll", outcomes=seen)
+              "the fleet through the roll", outcomes=seen,
+              gateway_refusals=[r for r in _read_jsonl(os.path.join(tmp, "gateway", "access.jsonl"))
+                                if r["ts"] >= roll_wall and r["status"] not in (200, 404)],
+              gateway_flaps=[e for e in _read_jsonl(os.path.join(tmp, "gateway", "events.jsonl"))
+                             if e["ts"] >= roll_wall])
         new_pid = {row["url"]: row["new_pid"] for row in verdict["rows"]}
         for slot in live:
             slot["pid"] = new_pid[slot["url"]]
@@ -2289,31 +2339,45 @@ def phase_fleet(seed: int, system, trained, http_bound: float):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _write_omniglot_class(args):
+    """One class of :func:`make_omniglot_folder`: its folder and images."""
+    from PIL import Image
+
+    root, seed, c, base_blocks = args
+    side = OMNIGLOT["side"]
+    noise = np.random.RandomState(seed * 100_003 + c)
+    d = os.path.join(root, f"alphabet{c % OMNIGLOT['alphabets']:02d}", f"character{c // OMNIGLOT['alphabets']:02d}")
+    os.makedirs(d)
+    base = np.kron(base_blocks, np.ones((5, 5), bool))
+    for i in range(OMNIGLOT["per_class"]):
+        Image.fromarray(base ^ (noise.rand(side, side) > 0.95)).save(os.path.join(d, f"{c:04d}_{i:02d}.png"))
+
+
 def make_omniglot_folder(root: str, seed: int) -> str:
     """An image folder of Omniglot's layout and size: OMNIGLOT["classes"]
     classes of OMNIGLOT["per_class"] 105x105 1-bit PNGs in
     ``alphabetNN/characterNN/`` folders. Each class is a seeded random
     binary base image (5x5-pixel blocks) and each image flips 5% of its
-    pixels."""
+    pixels. Written by OMNIGLOT_WRITERS forked workers (PNG encoding holds
+    the GIL: 4 processes took a fifth of 8 threads' time on a CPU); a
+    worker only writes files and never touches the card."""
     import concurrent.futures
+    import multiprocessing
 
     from PIL import Image
 
-    side, rng = OMNIGLOT["side"], np.random.RandomState(seed)
-    bases = rng.rand(OMNIGLOT["classes"], side // 5, side // 5) > 0.5
-
-    def write(c):
-        noise = np.random.RandomState(seed * 100_003 + c)
-        d = os.path.join(root, f"alphabet{c % OMNIGLOT['alphabets']:02d}",
-                         f"character{c // OMNIGLOT['alphabets']:02d}")
-        os.makedirs(d)
-        base = np.kron(bases[c], np.ones((5, 5), bool))
-        for i in range(OMNIGLOT["per_class"]):
-            Image.fromarray(base ^ (noise.rand(side, side) > 0.95)).save(os.path.join(d, f"{c:04d}_{i:02d}.png"))
-
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        list(pool.map(write, range(OMNIGLOT["classes"])))
+    Image.preinit()  # the PNG plugin loads before any worker starts
+    rng = np.random.RandomState(seed)
+    bases = rng.rand(OMNIGLOT["classes"], OMNIGLOT["side"] // 5, OMNIGLOT["side"] // 5) > 0.5
+    jobs = [(root, seed, c, bases[c]) for c in range(OMNIGLOT["classes"])]
+    fork = multiprocessing.get_context("fork")
+    with concurrent.futures.ProcessPoolExecutor(OMNIGLOT_WRITERS, mp_context=fork) as pool:
+        list(pool.map(_write_omniglot_class, jobs, chunksize=16))
     return root
+
+
+# the image folder's writers: forked processes (PNG encoding holds the GIL)
+OMNIGLOT_WRITERS = 4
 
 
 def _finite(*values) -> bool:
@@ -2350,7 +2414,7 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str):
     """The experiment layer on the card at the default config: the runner
     in this process for RUNNER_EPOCHS epochs, then three CLI legs at once
     (the resume, ResNet-12, anil); see the module docstring. The generated image folder
-    and its index cache stay in ``tmp`` for phase ``elastic``."""
+    and its index cache stay in ``tmp`` for the phases after it."""
     from howtotrainyourmamlpytorch_tpu_torch.config import load_config
     from howtotrainyourmamlpytorch_tpu_torch.data import MetaLearningDataLoader
     from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
@@ -2358,15 +2422,35 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str):
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
-    t0 = time.perf_counter()
-    data = make_omniglot_folder(os.path.join(tmp, "omniglot_dataset"), seed)
-    generate_s = time.perf_counter() - t0
+    data = os.path.join(tmp, "omniglot_dataset")
     overrides = [
         "use_pallas_inner_update=true", "remat_inner_steps=false", f"dataset.path={data}",
         f"index_cache_dir={os.path.join(tmp, 'index')}",
         f"experiment_root={os.path.join(tmp, 'exps')}", f"total_iter_per_epoch={RUNNER_ITERS}",
         f"num_evaluation_tasks={RUNNER_EVAL_TASKS}", f"seed={seed}",
     ]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    cli_overrides = [*overrides, f"num_evaluation_tasks={CLI_EVAL_TASKS}", "load_into_memory=false"]
+    # three CLI legs, run at once after the runner below, each its own
+    # process and run directory on the same folder and index cache (read
+    # only): the CLI resuming this run; the slice's full-width model
+    # (ResNet-12 at the fleet row's shape), reading the images from disk
+    # (no second RAM cache); strategy=anil (the fleet row
+    # omniglot.20.5.vgg.gd.anil), at the config's matmul precision like
+    # every leg. They start once the folder is written and wait behind
+    # their gates; each leg's seconds are its wall time from its release,
+    # beside the others.
+    resnet_overrides = [*cli_overrides, *RESNET_OVERRIDES, "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
+                        "experiment_name=resnet12_cli"]
+    anil_overrides = [*cli_overrides, "strategy=anil", "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
+                      "experiment_name=anil_cli"]
+    resnet_cfg, anil_cfg = load_config(DEFAULT_CONFIG, resnet_overrides), load_config(DEFAULT_CONFIG, anil_overrides)
+    t0 = time.perf_counter()
+    make_omniglot_folder(data, seed)
+    generate_s = time.perf_counter() - t0
+    legs = {name: GatedCli(["--config", DEFAULT_CONFIG, *leg_overrides], env, os.path.join(tmp, f"cli_{name}.gate"))
+            for name, leg_overrides in (("resume", [*cli_overrides, f"total_epochs={RESUMED_EPOCHS}"]),
+                                        ("resnet12", resnet_overrides), ("anil", anil_overrides))}
     cfg = load_config(DEFAULT_CONFIG, overrides + [f"total_epochs={RUNNER_EPOCHS}"])
     t0 = time.perf_counter()
     runner = ExperimentRunner(cfg)  # builds the index and the RAM cache
@@ -2429,48 +2513,21 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str):
     _, book = ckpt.load_for_inference(runner.saved_models_dir, "latest")
     cursor = RUNNER_EPOCHS * RUNNER_ITERS * cfg.batch_size
     check(book["train_episodes_produced"] == cursor, "runner", "checkpoint cursor", bookkeeping=book)
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    cli_overrides = [*overrides, f"num_evaluation_tasks={CLI_EVAL_TASKS}", "load_into_memory=false"]
-    # three CLI legs at once, each its own process and run directory on the
-    # same folder and index cache (read only): the CLI resuming this run;
-    # the slice's full-width model (ResNet-12 at the fleet row's shape),
-    # reading the images from disk (no second RAM cache); strategy=anil (the
-    # fleet row omniglot.20.5.vgg.gd.anil), at the config's matmul precision
-    # like every leg. Each leg's seconds are its wall time beside the others.
-    resnet_overrides = [*cli_overrides, *RESNET_OVERRIDES, "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
-                        "experiment_name=resnet12_cli"]
-    anil_overrides = [*cli_overrides, "strategy=anil", "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
-                      "experiment_name=anil_cli"]
-    resnet_cfg, anil_cfg = load_config(DEFAULT_CONFIG, resnet_overrides), load_config(DEFAULT_CONFIG, anil_overrides)
-    legs = {name: [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
-                   *leg_overrides]
-            for name, leg_overrides in (("resume", [*cli_overrides, f"total_epochs={RESUMED_EPOCHS}"]),
-                                        ("resnet12", resnet_overrides), ("anil", anil_overrides))}
-    logs = {name: (open(os.path.join(tmp, f"cli_{name}.out"), "w+"), open(os.path.join(tmp, f"cli_{name}.err"), "w+"))
-            for name in legs}
     t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(cmd, stdout=logs[name][0], stderr=logs[name][1], text=True, env=env,
-                                    cwd=os.path.dirname(os.path.abspath(__file__))) for name, cmd in legs.items()}
-    leg_s = {}
+    for leg in legs.values():
+        leg.release()
     try:
-        while len(leg_s) < len(procs) and time.perf_counter() - t0 < 600:
-            for name, leg in procs.items():
-                if name not in leg_s and leg.poll() is not None:
-                    leg_s[name] = time.perf_counter() - t0
+        while None in [leg.poll() for leg in legs.values()] and time.perf_counter() - t0 < 600:
             time.sleep(0.2)
-        check(len(leg_s) == len(procs), "runner", "a CLI leg ran past 600 s", finished=sorted(leg_s))
-        done = {name: tuple(f.seek(0) or f.read() for f in logs[name]) + (procs[name].returncode,) for name in procs}
+        check(all(leg.seconds is not None for leg in legs.values()), "runner", "a CLI leg ran past 600 s",
+              finished=sorted(name for name, leg in legs.items() if leg.seconds is not None))
     finally:
-        for leg in procs.values():
-            if leg.poll() is None:
-                leg.kill()
-                leg.wait()
-        for files in logs.values():
-            for f in files:
-                f.close()
-    cli_s, resnet_cli_s, anil_cli_s = leg_s["resume"], leg_s["resnet12"], leg_s["anil"]
+        for leg in legs.values():
+            leg.stop()
+    done = {name: leg.result() for name, leg in legs.items()}
+    cli_s, resnet_cli_s, anil_cli_s = (done[name][1] for name in ("resume", "resnet12", "anil"))
 
-    stdout, stderr, rc = done["resume"]
+    rc, _, stdout, stderr = done["resume"]
     tail = (stdout[-3000:], stderr[-3000:])
     check(rc == 0, "runner", "the CLI resume failed", rc=rc, tail=tail)
     printed = [line.split(":")[0] for line in stdout.splitlines() if line.startswith("epoch ")]
@@ -2486,14 +2543,14 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str):
     check(book["epoch"] == RUNNER_EPOCHS and book["train_episodes_produced"] == cursor + RUNNER_ITERS * cfg.batch_size,
           "runner", "resumed checkpoint bookkeeping", bookkeeping=book)
 
-    stdout, stderr, rc = done["resnet12"]
+    rc, _, stdout, stderr = done["resnet12"]
     check(rc == 0, "runner", "the ResNet-12 CLI run failed", rc=rc, tail=(stdout[-3000:], stderr[-3000:]))
     resnet_rows = check_run_dir(resnet_cfg.run_dir(), 1, RESNET_LEAVES)
     resnet_saved = sorted(os.listdir(os.path.join(resnet_cfg.run_dir(), "saved_models")))
     check(all(name in resnet_saved for name in ("train_model_0", "train_model_best", "train_model_latest")),
           "runner", "ResNet-12 checkpoints missing", saved=resnet_saved)
 
-    stdout, stderr, rc = done["anil"]
+    rc, _, stdout, stderr = done["anil"]
     check(rc == 0, "runner", "the anil CLI run failed", rc=rc, tail=(stdout[-3000:], stderr[-3000:]))
     anil_rows = check_run_dir(anil_cfg.run_dir(), 1, n_lrs)
     check(load_config(os.path.join(anil_cfg.run_dir(), "config.yaml")).strategy == "anil", "runner",
@@ -2504,7 +2561,7 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str):
         "phase": "runner", "ok": True,
         "config": f"configs/default.yaml + use_pallas_inner_update=true, total_iter_per_epoch={RUNNER_ITERS}, "
                   "num_evaluation_tasks=40",
-        "data": {**OMNIGLOT, "generate_s": generate_s, "runner_init_s": init_s},
+        "data": {**OMNIGLOT, "writers": OMNIGLOT_WRITERS, "generate_s": generate_s, "runner_init_s": init_s},
         "epochs": RUNNER_EPOCHS, "resumed_to": RESUMED_EPOCHS, "train_steps": train_steps,
         "eval_steps": eval_steps, "launches": launches, "contiguous_copies": copies, "loader": loader_stats,
         "run_s": run_s, "epoch_train_s": epoch_s,
@@ -2536,15 +2593,92 @@ def _perturbed(batch, scale: float):
     return dict(batch, x_support=batch["x_support"] + np.float32(scale))
 
 
-def _elastic_cli(args, env):
-    """One training CLI leg of phase ``elastic`` on the card -> (rc,
-    seconds, stdout, the ends of stdout and stderr)."""
-    cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.train", "--config", DEFAULT_CONFIG,
-           "--device", ELASTIC_DEVICE, *args]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    return proc.returncode, time.perf_counter() - t0, proc.stdout, (proc.stdout[-2000:], proc.stderr[-2000:])
+# the training CLI (``python -m howtotrainyourmamlpytorch_tpu_torch.train``
+# with the arguments after ``-c``) in a fresh process that imports and
+# starts the card, then waits for the file SMOKE_GATE names before it runs;
+# it exits if the process that started it is gone
+_GATED_TRAIN = r"""
+import os, sys, time
+parent = os.getppid()
+import torch
+from howtotrainyourmamlpytorch_tpu_torch import train
+if torch.cuda.is_available():
+    torch.zeros(1, device="cuda")
+while not os.path.exists(os.environ["SMOKE_GATE"]):
+    if os.getppid() != parent:
+        sys.exit(3)
+    time.sleep(0.02)
+sys.exit(train.main(sys.argv[1:]))
+"""
+
+
+class GatedCli:
+    """One training CLI leg started now and run at :meth:`release`: its
+    imports and its card start (16-20 s on the card machine) overlap the
+    work before it instead of following it. ``seconds`` runs from the
+    release to the exit. Every leg not yet stopped is in ``GatedCli.live``
+    (:meth:`stop_all`)."""
+
+    live: list = []
+
+    def __init__(self, args, env, gate: str):
+        self.gate = gate
+        self.out, self.err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        self.proc = subprocess.Popen([sys.executable, "-c", _GATED_TRAIN, *args], stdout=self.out,
+                                     stderr=self.err, text=True, env=dict(env, SMOKE_GATE=gate),
+                                     cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.t0 = self.seconds = None
+        GatedCli.live.append(self)
+
+    def release(self) -> None:
+        self.t0 = time.perf_counter()
+        open(self.gate, "w").close()
+
+    def poll(self):
+        rc = self.proc.poll()
+        if rc is not None and self.t0 is not None and self.seconds is None:
+            self.seconds = time.perf_counter() - self.t0
+        return rc
+
+    def run(self, timeout_s: float = 300.0):
+        """Release and wait -> :meth:`result`."""
+        self.release()
+        try:
+            self.proc.wait(timeout=timeout_s)
+        finally:
+            self.stop()
+        return self.result()
+
+    def result(self):
+        """-> (rc, seconds, stdout, stderr)."""
+        self.poll()
+        stdout, stderr = (f.seek(0) or f.read() for f in (self.out, self.err))
+        return self.proc.returncode, self.seconds, stdout, stderr
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self in GatedCli.live:
+            GatedCli.live.remove(self)
+
+    @classmethod
+    def stop_all(cls) -> None:
+        for leg in list(cls.live):
+            leg.stop()
+
+
+def _elastic_leg(args, env, gate: str) -> GatedCli:
+    """One training CLI leg of phase ``elastic`` on the card, behind
+    ``gate``."""
+    return GatedCli(["--config", DEFAULT_CONFIG, "--device", ELASTIC_DEVICE, *args], env, gate)
+
+
+def _elastic_run(leg: GatedCli):
+    """Release ``leg`` and wait -> (rc, seconds, stdout, the ends of
+    stdout and stderr)."""
+    rc, seconds, stdout, stderr = leg.run()
+    return rc, seconds, stdout, (stdout[-2000:], stderr[-2000:])
 
 
 def _run_events(run_dir: str):
@@ -2647,13 +2781,22 @@ def phase_elastic(seed: int, tmp: str):
                               "checkpoint_shards=2"]
     fault_dir = load_config(DEFAULT_CONFIG, fault_args).run_dir()
     fault_legs = {}
+    # the three CLI legs start now: the resume and the shrink (3 below) wait
+    # behind their gates, so that their starts overlap the work before them
+    gates = os.path.join(tmp, "elastic_gates")
+    os.makedirs(gates, exist_ok=True)
+    legs = {"fault": _elastic_leg(fault_args, dict(env, HTYMP_FAULTS=ELASTIC_FAULT), os.path.join(gates, "fault")),
+            "resume": _elastic_leg(fault_args, env, os.path.join(gates, "resume")),
+            "shrink": _elastic_leg(overrides + ["total_epochs=2"], env, os.path.join(gates, "shrink"))}
 
     def fault_chain():
-        fault_legs["fault"] = _elastic_cli(fault_args, dict(env, HTYMP_FAULTS=ELASTIC_FAULT))
+        fault_legs["fault"] = _elastic_run(legs["fault"])
         fault_legs["fault_cold"] = _last_cold_start(fault_dir)
         if fault_legs["fault"][0] == 75:
             fault_legs["book"] = ckpt.load_for_inference(os.path.join(fault_dir, "saved_models"), "latest")[1]
-            fault_legs["resume"] = _elastic_cli(fault_args, env)
+            fault_legs["resume"] = _elastic_run(legs["resume"])
+        else:
+            legs["resume"].stop()
 
     fault_thread = threading.Thread(target=fault_chain, name="elastic-fault-chain", daemon=True)
     fault_thread.start()
@@ -2700,7 +2843,7 @@ def phase_elastic(seed: int, tmp: str):
         # 3. shrink: the CLI resumes on the one visible card
         is_degraded = lambda e: e.get("event") == "degraded_mesh"  # noqa: E731
         n_degraded = len([e for e in _run_events(runner.run_dir) if is_degraded(e)])
-        rc_shrink, shrink_s, stdout, tail = _elastic_cli(overrides + ["total_epochs=2"], env)
+        rc_shrink, shrink_s, stdout, tail = _elastic_run(legs["shrink"])
         check(rc_shrink == 0, "elastic", "the shrink CLI resume failed", rc=rc_shrink, tail=tail)
         cold = {"shrink_cli": _last_cold_start(runner.run_dir)}
         degraded = [e for e in _run_events(runner.run_dir) if is_degraded(e)][n_degraded:]
@@ -2728,6 +2871,7 @@ def phase_elastic(seed: int, tmp: str):
         check(got == want, "elastic", "the grown mesh's launches are not 2 x K per step", launches=got, want=want)
     finally:
         fault_thread.join(timeout=600)
+        legs["shrink"].stop()
 
     # 5: the fault chain's results
     check(not fault_thread.is_alive(), "elastic", "the fault chain's CLI legs ran past 600 s")
@@ -3035,7 +3179,18 @@ def ops_fleet(seed: int, tmp: str) -> dict:
         children.append(child)
         return child, out_path
 
-    report = fleet_mod.FleetScheduler(spec, launcher=launcher, gate=gate, log=lambda m: None).run()
+    # fleet_run --dry-run plans the same jobs over seeds 0 and 1; it touches
+    # no card, so it runs beside the fleet
+    root = os.path.dirname(os.path.abspath(__file__))
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.scripts.fleet_run", "--device", OPS_DEVICE,
+         "--dry-run", "--job", " ".join(["vgg"] + overrides), "--seeds", "0,1", "--exps-root",
+         os.path.join(tmp, "ops_fleet_plan")],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        report = fleet_mod.FleetScheduler(spec, launcher=launcher, gate=gate, log=lambda m: None).run()
+    finally:
+        dry_out, dry_err = dry.communicate(timeout=120)
     cells = {c["name"]: c for c in report["cells"]}
     check(gates and all(g["rc"] == 0 for g in gates), "operations", "the card gate did not pass", gates=gates)
     check(report["ok"] and cells[faulted]["rcs"] == [75, 0] and cells["vgg.s1"]["rcs"] == [0]
@@ -3046,14 +3201,9 @@ def ops_fleet(seed: int, tmp: str) -> dict:
     events = [e.get("event") for e in _run_events(os.path.join(exps, faulted))]
     check("preempted" in events and os.path.exists(os.path.join(exps, faulted, "logs", "test_summary.csv")),
           "operations", "the faulted cell did not resume in its own run directory", events=events)
-    cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.scripts.fleet_run", "--device", OPS_DEVICE,
-           "--dry-run", "--job", " ".join(["vgg"] + overrides), "--seeds", "0,1", "--exps-root", exps]
-    root = os.path.dirname(os.path.abspath(__file__))
-    dry = subprocess.run(cmd, capture_output=True, text=True, timeout=120, cwd=root,
-                         env=dict(os.environ, PYTHONPATH=root))
-    lines = [line for line in dry.stdout.splitlines() if line.strip()]
+    lines = [line for line in dry_out.splitlines() if line.strip()]
     check(dry.returncode == 0 and len(lines) == 1 and len(json.loads(lines[0])["cells"]) == 2, "operations",
-          "fleet_run --dry-run", rc=dry.returncode, stdout=dry.stdout[-2000:], stderr=dry.stderr[-2000:])
+          "fleet_run --dry-run", rc=dry.returncode, stdout=dry_out[-2000:], stderr=dry_err[-2000:])
     return {
         "gates": gates, "children": [{"cell": c.cell, "rc": c.returncode, "seconds": c.seconds} for c in children],
         "cells": {n: {k: c[k] for k in ("status", "rcs", "restarts", "wall_s")} for n, c in cells.items()},
@@ -3708,7 +3858,7 @@ def phase_precision(seed: int):
     return result
 
 
-PROGRAMS_CHUNK = 5  # train steps per multi-step dispatch (a)-(b)
+PROGRAMS_CHUNK = 3  # train steps per multi-step dispatch (a)-(b)
 PROGRAMS_EVAL_BATCHES = 8  # eval batches per fused dispatch (c)
 PROGRAMS_RUNNER = ["total_epochs=2", "total_iter_per_epoch=3", "train_steps_per_dispatch=3",
                    "eval_fused_dispatch=true", "num_evaluation_tasks=8", "load_into_memory=false"]
@@ -4103,6 +4253,351 @@ def phase_programs(seed: int, tmp: str):
     return result
 
 
+PREWARM_DEVICE = "cuda"
+# (a)-(b): 2 epochs of 3 steps at K=3, the MSL window closing after epoch 0
+# (epoch 1 flips the train variant), the fused eval, the strict guard
+PREWARM_RUNNER = ["total_epochs=2", "total_iter_per_epoch=3", "train_steps_per_dispatch=3",
+                  "multi_step_loss_num_epochs=1", "eval_fused_dispatch=true", "strict_recompile_guard=true",
+                  "num_evaluation_tasks=8", "load_into_memory=false"]
+PREWARM_MESH_DP, PREWARM_MESH_STEPS = 2, 3  # (c): the mesh's width and its chunk
+# three fresh CLI processes, each with 7-9 s of imports and as much for its
+# card start, overlapped (63.5-82.1 s on an NVIDIA H100 80GB HBM3)
+PREWARM_BUDGET_S = 90.0
+
+# one training CLI leg of phase prewarm, run as ``python -c`` with the CLI's
+# arguments: the deterministic algorithms on in the leg's own process
+# before the runner is built (as the serve CLI turns them on), each
+# multi-step dispatch timed to the card's idle with its losses, the
+# kernels' counts, and the wall clock at its start, after its imports and
+# the card's start, at its release (``PREWARM_GATE``: a file to wait for)
+# and around the runner's construction and run; one ``PREWARM_LEG {...}``
+# line after the CLI returns
+_PREWARM_LEG = r"""
+import time
+marks = {"start": time.time()}
+import json, os, sys
+import torch
+from howtotrainyourmamlpytorch_tpu_torch import train
+from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
+from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+from howtotrainyourmamlpytorch_tpu_torch.utils.seeding import deterministic_algorithms
+
+marks["imported"] = time.time()
+dispatches, real = [], MAMLSystem.train_step_multi
+real_init, real_run = ExperimentRunner.__init__, ExperimentRunner.run_experiment
+
+
+def init(self, *args, **kwargs):
+    marks["init"] = time.time()
+    real_init(self, *args, **kwargs)
+    marks["built"] = time.time()
+
+
+def run(self):
+    marks["run"] = time.time()
+    try:
+        return real_run(self)
+    finally:
+        marks["ran"] = time.time()
+
+
+def timed(self, state, batches, epoch=None):
+    cuda = self.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, outs = real(self, state, batches, epoch)
+    if cuda:
+        torch.cuda.synchronize()
+    dispatches.append((epoch, (time.perf_counter() - t0) * 1e3, outs[0].clone()))
+    return state, outs
+
+
+MAMLSystem.train_step_multi = timed
+ExperimentRunner.__init__, ExperimentRunner.run_experiment = init, run
+# what the CLI pays before its runner, paid before the gate: the
+# deterministic switch's imports (torch._inductor) and the card's start
+with deterministic_algorithms():
+    pass
+if torch.cuda.is_available():
+    torch.zeros(1, device="cuda")
+marks["ready"] = time.time()
+gate = os.environ.get("PREWARM_GATE")
+while gate and not os.path.exists(gate):
+    time.sleep(0.02)
+marks["released"] = time.time()
+with deterministic_algorithms():
+    rc = train.main(sys.argv[1:])
+print("PREWARM_LEG " + json.dumps({
+    "rc": rc, "launches": dict(fu.launch_counts), "marks": marks,
+    "dispatches": [{"epoch": e, "ms": ms, "losses": l.tolist()} for e, ms, l in dispatches]}), flush=True)
+sys.exit(rc)
+"""
+
+
+def _spawn_leg(name: str, overrides, env, gate: str) -> dict:
+    """Start one CLI leg in a fresh process: it imports and starts the
+    card, then waits for the file ``gate`` (:func:`_release_leg`) before
+    it runs, so that its start overlaps the work before it instead of
+    following it."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    leg = {"name": name, "run_dir": load_config(DEFAULT_CONFIG, overrides).run_dir(), "gate": gate}
+    out = tempfile.TemporaryFile("w+")
+    cmd = [sys.executable, "-c", _PREWARM_LEG, "--config", DEFAULT_CONFIG, "--device", PREWARM_DEVICE, *overrides]
+    leg.update(out=out, wall0=time.time(), t0=time.perf_counter(),
+               proc=subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, cwd=root,
+                                     env=dict(env, PREWARM_GATE=gate)))
+    return leg
+
+
+def _note_leg_start(leg: dict) -> None:
+    """The leg's run directory as it stands before the leg runs: what it
+    appends from here on is this leg's."""
+    from howtotrainyourmamlpytorch_tpu_torch.resilience.campaign import _read_jsonl
+
+    logs = os.path.join(leg["run_dir"], "logs")
+    leg["n_ledger"] = len(_read_jsonl(os.path.join(logs, "compile_ledger.jsonl")))
+    leg["n_events"] = len(_read_jsonl(os.path.join(logs, "events.jsonl")))
+
+
+def _release_leg(leg: dict) -> None:
+    _note_leg_start(leg)
+    open(leg["gate"], "w").close()
+
+
+def _stop_leg(leg: dict) -> None:
+    if leg["proc"].poll() is None:
+        leg["proc"].kill()
+        leg["proc"].wait()
+
+
+def _finish_leg(leg: dict) -> dict:
+    """Wait for one leg -> its ``PREWARM_LEG`` record, its seconds, and
+    what its run directory says of this session: the cold start, the
+    prewarm and manifest events, the ledger's new entries, the guard's last
+    snapshot."""
+    from howtotrainyourmamlpytorch_tpu_torch.resilience.campaign import _read_jsonl
+
+    name, run_dir, proc = leg["name"], leg["run_dir"], leg["proc"]
+    try:
+        proc.wait(timeout=300)
+    finally:
+        _stop_leg(leg)
+    wall_s, wall_end = time.perf_counter() - leg["t0"], time.time()
+    leg["out"].seek(0)
+    text = leg["out"].read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("PREWARM_LEG ")]
+    check(proc.returncode == 0 and len(lines) == 1, "prewarm", f"leg {name} failed", rc=proc.returncode,
+          out=text[-4000:])
+    record = json.loads(lines[0][len("PREWARM_LEG "):])
+    logs = os.path.join(run_dir, "logs")
+    events = _read_jsonl(os.path.join(logs, "events.jsonl"))[leg["n_events"]:]
+    entries = _read_jsonl(os.path.join(logs, "compile_ledger.jsonl"))[leg["n_ledger"]:]
+    telemetry = _read_jsonl(os.path.join(logs, "telemetry.jsonl"))
+    guards = [r["providers"]["recompile_guard"] for r in telemetry if (r.get("providers") or {}).get("recompile_guard")]
+    by_phase = {}
+    for e in entries:
+        key = "nvcc" if e["program"].startswith("nvcc/") else (e.get("phase") or "run")
+        by_phase[key] = by_phase.get(key, 0) + 1
+    captures = [e for e in entries if e.get("graph")]
+    first = lambda epoch: next((d["ms"] for d in record["dispatches"] if d["epoch"] == epoch), None)  # noqa: E731
+    prewarm = next((e for e in events if e.get("event") == "prewarm"), None)
+    marks = record["marks"]
+    # where the leg's wall time went: interpreter start, imports, the wait
+    # at its gate, the runner's construction, its run (the prewarm, the
+    # epochs, the test), the exit; and the run's phases from its last
+    # telemetry snapshot
+    timeline = {"spawn_s": marks["start"] - leg["wall0"], "import_s": marks["imported"] - marks["start"],
+                "card_start_s": marks["ready"] - marks["imported"], "gate_wait_s": marks["released"] - marks["ready"],
+                "cli_to_runner_s": marks["init"] - marks["released"], "runner_init_s": marks["built"] - marks["init"],
+                "run_s": marks["ran"] - marks["run"], "exit_s": wall_end - marks["ran"]}
+    snaps = [r for r in telemetry if r.get("phases")]
+    phases = {k: round(v.get("sum_ms", 0.0) / 1e3, 3) for k, v in (snaps[-1]["phases"] if snaps else {}).items()}
+    return {
+        "timeline": timeline, "run_phases_s": phases, "wall_s": wall_s,
+        "released_to_exit_s": wall_end - marks["released"], "run_dir": run_dir,
+        "cold_start_s": _last_cold_start(run_dir), "losses": [x for d in record["dispatches"] for x in d["losses"]],
+        "dispatch_ms": [d["ms"] for d in record["dispatches"]], "epoch0_first_ms": first(0), "flip_ms": first(1),
+        "epochs": [e["epoch"] for e in events if "train_loss_mean" in e],
+        "val_losses": [e["val_loss_mean"] for e in events if "val_loss_mean" in e],
+        "prewarm": {k: v for k, v in (prewarm or {}).items() if k != "ts"} or None,
+        "manifest_events": [{k: e[k] for k in ("expected_warm", "reason")} for e in events
+                            if e.get("event") == "prewarm_manifest"],
+        "ledger_by_phase": by_phase, "entries": entries,
+        "captures": [{"program": e["program"], "phase": e.get("phase"), "warmup_s": e["lower_s"],
+                      "capture_s": e["compile_s"], "pool_bytes": (e.get("memory") or {}).get("peak_bytes")}
+                     for e in captures],
+        "guard": guards[-1] if guards else None, "launches": record["launches"],
+    }
+
+
+def prewarm_mesh(seed: int) -> dict:
+    """(c): the VGG train cell on a dp=2 mesh of ``[cuda:0, cuda:0]`` under
+    the deterministic algorithms: a chunk of PREWARM_MESH_STEPS sharded
+    steps (one epoch of 3 steps) replayed from one CUDA graph of the
+    sharded step against the same sharded eager steps, bit-equal losses
+    and state; the replayed step's ms beside the eager one's; B1 and B2 per
+    replay; the fused eval of the trained state over the mesh against the
+    per-batch sharded eval, bit-equal."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import ParallelConfig
+    from howtotrainyourmamlpytorch_tpu_torch.core.programs import GraphProgram, clone_tree
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import make_mesh, replicate, shard_batch, unreplicate
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import shard_chunk
+
+    card = torch.device("cuda", 0) if PREWARM_DEVICE == "cuda" else torch.device(PREWARM_DEVICE)
+    launches = {"fused_sgd": 0, "fused_sgd_bwd": 0}
+    with deterministic_algorithms():
+        cfg, system, start = full_width_system(seed)
+        mesh = make_mesh(ParallelConfig(dp=PREWARM_MESH_DP), [card] * PREWARM_MESH_DP)
+        batches, stacked = _chunk(cfg, seed + 61, PREWARM_MESH_STEPS)
+        fu.reset_launch_counts()
+        eager, losses = replicate(clone_tree(start), mesh), []
+        system.train_step(clone_tree(eager), shard_batch(batches[0], mesh), epoch=0)  # the first dispatch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            eager, out = system.train_step(eager, shard_batch(b, mesh), epoch=0)
+            losses.append(out.loss)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        t0 = time.perf_counter()
+        graph, (graph_losses, _, _) = system.train_step_multi(replicate(clone_tree(start), mesh),
+                                                              shard_chunk(stacked, mesh), 0)
+        torch.cuda.synchronize()
+        capture_dispatch_s = time.perf_counter() - t0
+        for key in launches:
+            launches[key] += fu.launch_counts[key]
+        fu.reset_launch_counts()
+        t0 = time.perf_counter()
+        again, (again_losses, _, _) = system.train_step_multi(replicate(clone_tree(start), mesh),
+                                                              shard_chunk(stacked, mesh), 0)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3 / PREWARM_MESH_STEPS
+        per_replay = {k: n / PREWARM_MESH_STEPS for k, n in fu.replayed_counts.items()}
+        for key in launches:
+            launches[key] += fu.launch_counts[key]
+        fu.reset_launch_counts()
+        ev_batches, ev_stacked = _chunk(cfg, seed + 71, 2)
+        ev_losses, _ = system.eval_step_multi(graph, shard_chunk(ev_stacked, mesh))
+        ev_eager = torch.stack([system.eval_step(graph, shard_batch(b, mesh)).per_task_losses for b in ev_batches])
+        torch.cuda.synchronize()
+        for key in launches:
+            launches[key] += fu.launch_counts[key]
+        state_diff = _state_diff(unreplicate(graph), unreplicate(eager))
+        loss_diff = float((torch.stack(losses) - graph_losses).abs().max())
+        replay_diff = float((graph_losses - again_losses).abs().max())
+        eval_diff = float((ev_losses - ev_eager).abs().max())
+        program = next(iter(system._train_multi.values()))
+        captures = program.captures if isinstance(program, GraphProgram) else []
+        del system, program
+    K = cfg.number_of_training_steps_per_iter
+    capture = captures[0] if captures else None
+    out = {"dp": PREWARM_MESH_DP, "steps": PREWARM_MESH_STEPS, "eager_step_ms": eager_ms,
+           "replayed_step_ms": replay_ms, "replayed_over_eager": replay_ms / eager_ms,
+           "capture_dispatch_s": capture_dispatch_s, "graphs": len(captures),
+           "warmup_s": capture and capture.lower_s, "capture_s": capture and capture.compile_s,
+           "pool_bytes": capture and capture.memory.get("peak_bytes"),
+           "loss_max_abs": loss_diff, "state_max_abs": state_diff, "replay_loss_max_abs": replay_diff,
+           "fused_eval_max_abs": eval_diff, "launches_per_replay": per_replay, "launches": launches,
+           "losses": graph_losses.tolist()}
+    check(loss_diff == 0.0 and state_diff == 0.0 and replay_diff == 0.0, "prewarm",
+          "the mesh graph is not bit-equal to the sharded eager steps", **out)
+    check(eval_diff == 0.0 and tuple(ev_losses.shape) == (2, cfg.batch_size), "prewarm",
+          "the fused eval on the mesh differs from the sharded eval", diff=eval_diff, shape=list(ev_losses.shape))
+    want = {"fused_sgd": PREWARM_MESH_DP * K, "fused_sgd_bwd": PREWARM_MESH_DP * K}
+    check(len(captures) == 1 and per_replay == want == capture.launches, "prewarm",
+          "the mesh program was not one graph launching B1 and B2 dp x K per replay", per_replay=per_replay,
+          want=want, graphs=len(captures))
+    return out
+
+
+def phase_prewarm(seed: int, tmp: str):
+    """The training-side prewarm and the program layer on a mesh, on phase
+    ``runner``'s image folder; see the module docstring. (a) Two fresh CLI
+    processes at the default VGG config (fused, remat off) plus
+    PREWARM_RUNNER, ``aot.enabled`` off and on, under the deterministic
+    algorithms: per-step losses bit-equal, zero guard violations, and in
+    the prewarmed leg no build outside ``phase="prewarm"`` but the nvcc
+    lines. (b) The prewarmed leg again on its run directory for a third
+    epoch: the manifest promises a warm start, every ``nvcc/*`` line is a
+    cache hit, and the captures it pays again are printed. (c) The mesh
+    (:func:`prewarm_mesh`), first, while the legs' processes import and
+    start the card; then each leg runs alone."""
+    t_phase = time.perf_counter()
+    common = ["use_pallas_inner_update=true", "remat_inner_steps=false",
+              f"dataset.path={os.path.join(tmp, 'omniglot_dataset')}", f"index_cache_dir={os.path.join(tmp, 'index')}",
+              f"experiment_root={os.path.join(tmp, 'prewarm')}", f"seed={seed}", *PREWARM_RUNNER]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("HTYMP_FAULTS", None)
+    # the three processes start now and import (and start the card) while
+    # (c) runs here; then each leg runs alone, released when the one before
+    # it has ended
+    spawned = [_spawn_leg(name, [*common, *extra], env, gate=os.path.join(tmp, f"prewarm_gate_{name}"))
+               for name, extra in (
+                   ("cold", ["experiment_name=prewarm_cold", "aot.enabled=false"]),
+                   ("prewarmed", ["experiment_name=prewarm_prewarmed", "aot.enabled=true"]),
+                   ("restart", ["experiment_name=prewarm_prewarmed", "aot.enabled=true", "total_epochs=3"]))]
+    legs = {}
+    try:
+        t_mesh = time.perf_counter()
+        mesh = prewarm_mesh(seed)
+        mesh_s = time.perf_counter() - t_mesh
+        for leg in spawned:
+            _release_leg(leg)
+            legs[leg["name"]] = _finish_leg(leg)
+    finally:
+        for leg in spawned:
+            _stop_leg(leg)
+    cold, warm, restart = legs["cold"], legs["prewarmed"], legs["restart"]
+    for name, leg in legs.items():
+        violations = (leg["guard"] or {}).get("violations")
+        check(violations == [] and (leg["guard"] or {}).get("prewarmed") == (name != "cold"), "prewarm",
+              f"leg {name}: the strict guard", guard=leg["guard"])
+        check(all(_finite(x) for x in leg["losses"]) and len(leg["losses"]) == 3 * len(leg["epochs"]), "prewarm",
+              f"leg {name}: the losses", losses=leg["losses"], epochs=leg["epochs"])
+    check(cold["losses"] == warm["losses"] and cold["epochs"] == warm["epochs"] == [0, 1], "prewarm",
+          "the prewarmed leg's per-step losses are not bit-equal to the cold leg's", cold=cold["losses"],
+          prewarmed=warm["losses"])
+    outside = [(e["program"], e.get("phase")) for e in warm["entries"]
+               if not e["program"].startswith("nvcc/") and e.get("phase") != "prewarm"]
+    check(not outside and (warm["prewarm"] or {}).get("errors") == 0, "prewarm",
+          "the prewarmed leg built a program outside the prewarm (or the prewarm failed)", outside=outside,
+          prewarm=warm["prewarm"])
+    nvcc = [e for e in restart["entries"] if e["program"].startswith("nvcc/")]
+    check(restart["manifest_events"] and restart["manifest_events"][-1]["expected_warm"] is True
+          and nvcc and all((e.get("persistent_cache") or {}).get("hit") for e in nvcc) and restart["epochs"] == [2],
+          "prewarm", "the restart: the manifest's promise, the kernels' cache hits, the third epoch",
+          manifest=restart["manifest_events"], nvcc=[(e["program"], e.get("persistent_cache")) for e in nvcc],
+          epochs=restart["epochs"])
+    manifest_path = os.path.join(warm["run_dir"], "saved_models", "prewarm_manifest.json")
+    with open(manifest_path) as f:
+        programs = json.load(f)["programs"]
+    launches = {k: sum(leg["launches"].get(k, 0) for leg in legs.values()) for k in ("fused_sgd", "fused_sgd_bwd")}
+    seconds = time.perf_counter() - t_phase
+    pools = lambda leg: [c["pool_bytes"] for c in leg["captures"] if c["pool_bytes"]]  # noqa: E731
+    summary = {name: {k: leg[k] for k in ("wall_s", "released_to_exit_s", "timeline", "run_phases_s", "cold_start_s",
+                                          "epoch0_first_ms",
+                                          "flip_ms", "dispatch_ms",
+                                          "prewarm", "manifest_events", "ledger_by_phase", "captures", "guard",
+                                          "launches", "val_losses")}
+               for name, leg in legs.items()}
+    result = {"phase": "prewarm", "ok": True, "config": "configs/default.yaml " + " ".join(PREWARM_RUNNER),
+              "legs": summary, "losses": warm["losses"], "losses_bit_equal": True,
+              "cold_start_prewarmed_minus_cold_s": warm["cold_start_s"] - cold["cold_start_s"],
+              "flip_ms": {"cold": cold["flip_ms"], "prewarmed": warm["flip_ms"]},
+              "prewarm_program_seconds": {name: row.get("seconds") for name, row in sorted(programs.items())},
+              "pool_bytes_max": {name: max(pools(leg), default=None) for name, leg in legs.items()},
+              "restart_captures": restart["captures"], "mesh": mesh, "mesh_s": mesh_s,
+              "launches": launches, "launches_mesh": mesh["launches"],
+              "seconds": round(seconds, 1), "budget_s": PREWARM_BUDGET_S}
+    emit(result)
+    return result
+
+
 def kernel_entry(name, source, replaces, launches_by_path, phase, in_graph=None):
     """One kernel's entry of the ``kernels`` line: float32 at the VGG-64
     tree under the write flush (the yardstick of the earlier slices) in the
@@ -4180,7 +4675,7 @@ def main() -> int:
     fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"])
     st = timed("strategies", phase_strategies, args.seed, tr["train_step_ms_median"])
     timed("precision", phase_precision, args.seed)
-    # phase runner's image folder and index cache serve phase elastic too
+    # phase runner's image folder and index cache serve the phases after it
     data_tmp = tempfile.mkdtemp(prefix="chip_smoke_runner_")
     try:
         rn = timed("runner", phase_runner, args.seed, tr["train_step_ms_median"], data_tmp)
@@ -4188,17 +4683,21 @@ def main() -> int:
         ops = timed("operations", phase_operations, args.seed, data_tmp)
         rs = timed("resnet", phase_resnet, args.seed)
         pg = timed("programs", phase_programs, args.seed, data_tmp)
+        pw = timed("prewarm", phase_prewarm, args.seed, data_tmp)
     finally:
+        GatedCli.stop_all()
         shutil.rmtree(data_tmp, ignore_errors=True)
     rm = timed("remat", phase_remat, args.seed)
     br = timed("breadth", phase_breadth, args.seed)
     total_s = round(sum(seconds.values()), 1)
     emit({"phase": "timing", "seconds": seconds, "total_s": total_s,
           "budget_s": {"elastic": ELASTIC_BUDGET_S, "operations": OPERATIONS_BUDGET_S,
-                       "programs": PROGRAMS_BUDGET_S, "run": RUN_BUDGET_S}})
+                       "programs": PROGRAMS_BUDGET_S, "prewarm": PREWARM_BUDGET_S, "run": RUN_BUDGET_S}})
     check(seconds["elastic"] < ELASTIC_BUDGET_S and seconds["operations"] < OPERATIONS_BUDGET_S
-          and seconds["programs"] < PROGRAMS_BUDGET_S and total_s < RUN_BUDGET_S, "timing",
-          "phase elastic, operations or programs, or the run over its budget", seconds=seconds, total_s=total_s)
+          and seconds["programs"] < PROGRAMS_BUDGET_S and seconds["prewarm"] < PREWARM_BUDGET_S
+          and total_s < RUN_BUDGET_S, "timing",
+          "phase elastic, operations, programs or prewarm, or the run over its budget", seconds=seconds,
+          total_s=total_s)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
                  "http_serving": http["launches"], "tenancy": tn["launches"], "fleet": fl["launches"],
                  "anil_train": st["launches_with_eval"]["fused_sgd"],
@@ -4206,14 +4705,16 @@ def main() -> int:
                  "runner": rn["launches"]["fused_sgd"], "elastic": el["launches"]["fused_sgd"],
                  "operations": ops["launches"]["fused_sgd"], "resnet": rs["launches"]["fused_sgd"],
                  "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd"], "remat": rm["launches"]["fused_sgd"],
-                 "breadth": br["launches"]["fused_sgd"], "programs": pg["launches"]["fused_sgd"]}
+                 "breadth": br["launches"]["fused_sgd"], "programs": pg["launches"]["fused_sgd"],
+                 "prewarm": pw["launches"]["fused_sgd"], "mesh_programs": pw["launches_mesh"]["fused_sgd"]}
     bwd_paths = {"train": tr["launches"]["fused_sgd_bwd"], "anil_train": st["train_launches"]["fused_sgd_bwd"],
                  "anil_remat": st["remat_full"]["launches"]["fused_sgd_bwd"],
                  "runner": rn["launches"]["fused_sgd_bwd"], "elastic": el["launches"]["fused_sgd_bwd"],
                  "operations": ops["launches"]["fused_sgd_bwd"], "resnet": rs["launches"]["fused_sgd_bwd"],
                  "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd_bwd"],
                  "remat": rm["launches"]["fused_sgd_bwd"], "breadth": br["launches"]["fused_sgd_bwd"],
-                 "programs": pg["launches"]["fused_sgd_bwd"]}
+                 "programs": pg["launches"]["fused_sgd_bwd"], "prewarm": pw["launches"]["fused_sgd_bwd"],
+                 "mesh_programs": pw["launches_mesh"]["fused_sgd_bwd"]}
     for paths in (fwd_paths, bwd_paths):
         check(all(n > 0 for n in paths.values()), "kernels", "a path launched a kernel no time", paths=paths)
     emit({"kernels": [

@@ -69,10 +69,14 @@ card. With a compile ledger attached (``attach_compile_ledger``,
 ``observability/compile_ledger.py``) every build is a ledger entry: a
 capture with its warmup, capture seconds, FLOPs and pool bytes, or a first
 eager dispatch, timed and priced by the flop counter. The graphs of a
-system share one memory pool; a variant that the epoch can no longer reach
-(second order switched on, the MSL window over) has its graphs released.
-Not here (ROADMAP.md): donation (A10.7); the multi-step programs on a mesh
-(A10.5 (mesh)).
+system share one memory pool and one capture stream; where the run's
+variant changes, a variant that no later epoch reaches (second order
+switched on, the MSL window over) has its graphs released. On a mesh the
+multi-step programs take a sharded chunk (``parallel/mesh.py::shard_chunk``):
+one graph of the sharded step where every mesh entry is one card and one
+process, the sharded eager steps on a mesh over several. :meth:`prewarm`
+builds the whole planned family before the first step
+(``compile/aot.py``). Not here (ROADMAP.md): donation (A10.7).
 
 Strict mode (``Config.strict_recompile_guard``, ``utils/strictmode.py``):
 ``recompile_guard`` holds every train variant ``(kind, second_order,
@@ -262,7 +266,10 @@ class MAMLSystem:
         self._train_multi: dict = {}
         self._eval_program = None
         self._eval_multi = None
-        self._graph_pool = None
+        self._graph_pool = self._graph_stream = None
+        # the variant the last multi-step dispatch ran: where it changes,
+        # the graphs no later epoch reaches are released
+        self._run_variant = None
         self.meta_lr_scale = 1.0
         self.scale_meta_lr(1.0)
         self.precision = policy_from_config(cfg)
@@ -296,6 +303,7 @@ class MAMLSystem:
                 program.release()
         self._train_programs, self._train_multi = {}, {}
         self._eval_program = self._eval_multi = None
+        self._run_variant = None
         if self.recompile_guard is not None:
             self.recompile_guard.reset()
         self._note_program((self._kind("eval"),))
@@ -328,6 +336,14 @@ class MAMLSystem:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         return self._graph_pool
+
+    def _capture_stream(self):
+        """The one stream every graph of the system is captured on, so that
+        a capture reuses the pool's blocks an earlier one freed
+        (``core/programs.py``)."""
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        return self._graph_stream
 
     def _kind(self, base: str) -> str:
         """Program-key kind for this system's strategy (the default keeps
@@ -591,17 +607,26 @@ class MAMLSystem:
     def _step_epoch(self, state: TrainState):
         return torch.div(state.step, self.cfg.total_iter_per_epoch, rounding_mode="floor")
 
-    def _train_objective(self, state: TrainState, trainables, batch, epoch: Optional[int], device=None):
-        """The train step's objective at ``trainables``. ``epoch`` (host int)
-        selects second/first order and the MSL branch; the MSL weights
-        themselves follow ``state.step``. ``device``: where the batch goes
-        (default the system's)."""
-        cfg = self.cfg
+    def _variant(self, state, epoch: Optional[int] = None, variant=None) -> Tuple[bool, bool]:
+        """The train program variant ``(second_order, msl_active)``: as
+        given, or at ``epoch`` (host int), or at the epoch of
+        ``state.step``."""
+        if variant is not None:
+            return tuple(variant)
         if epoch is None:
-            epoch = int(state.step) // cfg.total_iter_per_epoch
+            epoch = int(unreplicate(state).step) // self.cfg.total_iter_per_epoch
+        return self.use_second_order(epoch), self.msl_active(epoch)
+
+    def _train_objective(self, state: TrainState, trainables, batch, variant, device=None):
+        """The train step's objective at ``trainables``. ``variant``
+        (``(second_order, msl_active)``, :meth:`_variant`) selects second or
+        first order and the MSL branch; the MSL weights themselves follow
+        ``state.step``. ``device``: where the batch goes (default the
+        system's)."""
+        second_order, msl_active = variant
         return self._meta_objective(
             trainables, state.bn_state, state.opt_state, self._batch(batch, device), self._step_epoch(state),
-            self.use_second_order(epoch), cfg.number_of_training_steps_per_iter, self.msl_active(epoch),
+            second_order, self.cfg.number_of_training_steps_per_iter, msl_active,
         )
 
     @staticmethod
@@ -614,11 +639,12 @@ class MAMLSystem:
     def meta_objective(self, state: TrainState, batch, epoch: Optional[int] = None):
         """The train step's objective and aux outputs at ``state``, without
         gradients -> ``(loss, aux)``. Takes a sharded batch too."""
+        variant = self._variant(state, epoch)
         if isinstance(batch, ShardedBatch):
-            return self._sharded_objective(state, batch, epoch, with_grads=False)[:2]
+            return self._sharded_objective(state, batch, variant, with_grads=False)[:2]
         with torch.no_grad():
             return self._train_objective(
-                state, {"params": state.params, "hparams": state.inner_hparams}, batch, epoch
+                state, {"params": state.params, "hparams": state.inner_hparams}, batch, variant
             )
 
     def meta_gradients(self, state: TrainState, batch, epoch: Optional[int] = None):
@@ -627,13 +653,16 @@ class MAMLSystem:
         :class:`~..parallel.mesh.ShardedBatch` (and a state from
         ``replicate``, or one to replicate), the gradient is the sum of the
         shards' gradients on the mesh's first device."""
+        return self._meta_gradients(state, batch, self._variant(state, epoch))
+
+    def _meta_gradients(self, state, batch, variant):
         if isinstance(batch, ShardedBatch):
-            return self._sharded_objective(state, batch, epoch, with_grads=True)
+            return self._sharded_objective(state, batch, variant, with_grads=True)
         trainables = tree_map(
             lambda t: t.detach().requires_grad_(True),
             {"params": state.params, "hparams": state.inner_hparams},
         )
-        loss, aux = self._train_objective(state, trainables, batch, epoch)
+        loss, aux = self._train_objective(state, trainables, batch, variant)
         return loss.detach(), aux, self._grads_of(loss, trainables)
 
     def train_step(self, state: TrainState, batch, epoch: Optional[int] = None) -> Tuple[TrainState, StepOutput]:
@@ -648,8 +677,8 @@ class MAMLSystem:
         dispatch priced)."""
         if self.recompile_guard is None and self.compile_ledger is None:
             return self._train_step_impl(state, batch, epoch)
-        ep = epoch if epoch is not None else int(unreplicate(state).step) // self.cfg.total_iter_per_epoch
-        return self._compiled_train_step(self.use_second_order(ep), self.msl_active(ep))(state, batch, epoch=ep)
+        variant = self._variant(state, epoch)
+        return self._compiled_train_step(*variant)(state, batch, variant=variant)
 
     def _compiled_train_step(self, second_order: bool, msl_active: bool):
         key = (self._kind("train"), second_order, msl_active)
@@ -659,12 +688,13 @@ class MAMLSystem:
             fn = self._train_programs[key] = self._build_program(key, lambda: self._train_step_impl)
         return fn
 
-    def _train_step_impl(self, state: TrainState, batch, epoch: Optional[int] = None):
+    def _train_step_impl(self, state: TrainState, batch, epoch: Optional[int] = None, variant=None):
         cfg = self.cfg
+        variant = self._variant(state, epoch, variant)
         sharded = isinstance(batch, ShardedBatch)
         if sharded:
             state = self._replicated(state, batch.mesh)
-        loss, aux, grads = self.meta_gradients(state, batch, epoch)
+        loss, aux, grads = self._meta_gradients(state, batch, variant)
         base = unreplicate(state)
         with torch.no_grad():
             if cfg.is_imagenet:
@@ -709,9 +739,13 @@ class MAMLSystem:
         self._note_program((self._kind("eval"),))
         if self.compile_ledger is None:
             return self._eval_step_impl(state, batch)
+        return self._compiled_eval_step()(state, batch)
+
+    def _compiled_eval_step(self):
         if self._eval_program is None:
+            self._note_program((self._kind("eval"),))
             self._eval_program = self._build_program((self._kind("eval"),), lambda: self._eval_step_impl)
-        return self._eval_program(state, batch)
+        return self._eval_program
 
     def _eval_step_impl(self, state: TrainState, batch) -> StepOutput:
         cfg = self.cfg
@@ -739,12 +773,18 @@ class MAMLSystem:
     def _step_batches(self, batches) -> list:
         """A stack of batches (every key with a leading ``[K]`` axis) -> K
         batch dicts. On the card the stack goes to the device once, in the
-        step's dtypes, and each batch is a view of it."""
+        step's dtypes, and each batch is a view of it. A mesh's sharded
+        chunk (``parallel/mesh.py::shard_chunk``: a list of K sharded
+        batches) is taken as it is."""
         if isinstance(batches, ShardedBatch):
-            raise NotImplementedError(
-                "train_step_multi/eval_step_multi on a mesh is not ported to PyTorch yet "
-                "(ROADMAP.md A10.5 (mesh)); dispatch one step per call on a mesh"
+            raise TypeError(
+                "train_step_multi/eval_step_multi take a chunk: on a mesh, shard_chunk(chunk, mesh) "
+                "(K sharded batches); one sharded batch is a train_step or an eval_step"
             )
+        if isinstance(batches, (list, tuple)):
+            if not batches or not all(isinstance(b, ShardedBatch) for b in batches):
+                raise TypeError("a list of batches must be a sharded chunk (parallel/mesh.py::shard_chunk)")
+            return list(batches)
         if self.device.type == "cuda":
             batches = {key: self._tensor(value, torch.int64 if key.startswith("y") else torch.float32)
                        for key, value in batches.items()}
@@ -754,7 +794,10 @@ class MAMLSystem:
     def _release_unreachable(self, second_order: bool, msl_active: bool) -> None:
         """Release the train graphs of variants no later epoch reaches: both
         switches move one way (second order on after its epoch, the MSL
-        window closed after its epochs), as JAX drops programs."""
+        window closed after its epochs), as JAX drops programs. Called
+        where the run's variant changes (:meth:`train_step_multi`), never
+        where a program is built: the prewarm builds every planned variant,
+        and the one epoch 0 needs must survive the build of the others."""
         for key in list(self._train_multi):
             _, so, msl = key
             if (second_order and not so) or (msl and not msl_active):
@@ -762,20 +805,22 @@ class MAMLSystem:
                 if hasattr(program, "release"):
                     program.release()
 
-    def _train_graph_step(self, epoch: int):
-        """The step a train graph captures: the train step at ``epoch``'s
-        variant, with the per-step outputs the loop consumes."""
+    def _train_graph_step(self, variant):
+        """The step a train graph captures: the train step at ``variant``,
+        with the per-step outputs the loop consumes. On a mesh the graph's
+        state is the unreplicated one: the step replicates it onto the
+        batch's mesh and hands back its first replica."""
 
         def step(state, batch):
-            new_state, out = self._train_step_impl(state, batch, epoch)
-            return new_state, (out.loss, out.accuracy, out.learning_rate)
+            new_state, out = self._train_step_impl(state, batch, variant=variant)
+            return unreplicate(new_state), (out.loss, out.accuracy, out.learning_rate)
 
         return step
 
-    def _train_multi_eager(self, state, batches, epoch: int):
+    def _train_multi_eager(self, state, batches, variant):
         outs = []
         for batch in batches:
-            state, out = self._train_step_impl(state, batch, epoch)
+            state, out = self._train_step_impl(state, batch, variant=variant)
             outs.append((out.loss, out.accuracy, out.learning_rate))
         return state, outs
 
@@ -783,14 +828,16 @@ class MAMLSystem:
         key = (self._kind("train_multi"), second_order, msl_active)
         fn = self._train_multi.get(key)
         if fn is None:
-            self._release_unreachable(second_order, msl_active)
             self._note_program(key)
+            variant = (second_order, msl_active)
+            eager = functools.partial(self._train_multi_eager, variant=variant)
             if self.device.type == "cuda":
                 from .programs import GraphProgram
 
-                build = lambda: GraphProgram(self._train_graph_step, self.device, self._graph_pool_handle)  # noqa: E731
+                build = lambda: GraphProgram(lambda: self._train_graph_step(variant), self.device,  # noqa: E731
+                                             self._graph_pool_handle, eager=eager, stream_for=self._capture_stream)
             else:
-                build = lambda: self._train_multi_eager  # noqa: E731
+                build = lambda: eager  # noqa: E731
             fn = self._train_multi[key] = self._build_program(key, build)
         return fn
 
@@ -805,8 +852,13 @@ class MAMLSystem:
         ``(second_order, msl_active)`` variant flips: with ``epoch`` given
         the caller dispatches within it (the runner does), without it the
         step count is read once and a flipping chunk raises ``ValueError``.
-        A mesh's sharded batch raises ``NotImplementedError`` (ROADMAP.md
-        A10.5 (mesh))."""
+
+        On a mesh: ``shard_chunk(chunk, mesh)`` with a state from
+        ``replicate`` (or one to replicate), the same math as K sharded
+        ``train_step`` calls, the returned state replicated. Where every
+        mesh entry is one card and one process the graph holds the sharded
+        step; a mesh over several cards or processes runs the K sharded
+        eager steps (``Mesh.graph_refusal``)."""
         steps = self._step_batches(batches)
         if epoch is None:
             first = int(unreplicate(state).step)
@@ -818,8 +870,13 @@ class MAMLSystem:
                     f"train_step_multi: the chunk of {len(steps)} steps from step {first} spans epochs "
                     f"{epoch}..{last}, where the program variant flips {variant(epoch)} -> {variant(last)}"
                 )
-        program = self._compiled_train_multi(self.use_second_order(epoch), self.msl_active(epoch))
-        state, outs = program(state, steps, epoch=epoch)
+        variant = self._variant(state, epoch)
+        if variant != self._run_variant:
+            self._release_unreachable(*variant)
+            self._run_variant = variant
+        state, outs = self._compiled_train_multi(*variant)(state, steps)
+        if isinstance(steps[0], ShardedBatch):
+            state = self._replicated(state, steps[0].mesh)
         losses, accuracies, lrs = (torch.stack([o[i] for o in outs]) for i in range(3))
         return state, (losses, accuracies, lrs)
 
@@ -844,7 +901,8 @@ class MAMLSystem:
             if self.device.type == "cuda":
                 from .programs import GraphProgram
 
-                build = lambda: GraphProgram(self._eval_graph_step, self.device, self._graph_pool_handle)  # noqa: E731
+                build = lambda: GraphProgram(self._eval_graph_step, self.device, self._graph_pool_handle,  # noqa: E731
+                                             eager=self._eval_multi_eager, stream_for=self._capture_stream)
             else:
                 build = lambda: self._eval_multi_eager  # noqa: E731
             self._eval_multi = self._build_program(key, build)
@@ -855,9 +913,32 @@ class MAMLSystem:
         ``[N]`` axis -> ``(per_task_losses [N, B], per_task_accuracies [N,
         B])``, the same per-batch math as N ``eval_step`` calls. On the card
         it replays a CUDA graph of the eval step N times; on the CPU it runs
-        the N eager steps."""
+        the N eager steps. On a mesh it takes ``shard_chunk(stack, mesh)``,
+        as :meth:`train_step_multi` does, and equals N sharded
+        ``eval_step`` calls."""
         _, outs = self._compiled_eval_multi()(state, self._step_batches(batches))
         return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+    # ------------------------------------------------------------------
+    # AOT prewarm (compile/aot.py; JAX core/maml.py:1033-1066)
+    # ------------------------------------------------------------------
+
+    def prewarm(self, state: TrainState, batch_sharding=None, chunk_sharding=None,
+                max_workers: Optional[int] = None, compile_timeout_s: Optional[float] = None, on_program=None):
+        """Build the whole planned train family before the first step:
+        exactly ``train_planned_programs`` (the set the strict guard
+        enforces), each through its program cache, every build a ledger
+        entry with ``phase="prewarm"`` and ``state`` never advanced; then
+        the guard is sealed. ``batch_sharding``/``chunk_sharding``: the
+        mesh the run places its batches and chunks on (the port's placement
+        is its mesh), so that the programs built are the ones the real
+        dispatches use. ``max_workers`` and ``compile_timeout_s`` keep the
+        JAX signature and are ignored (``compile/aot.py::prewarm_train``).
+        Returns the prewarm summary."""
+        from ..compile.aot import prewarm_train
+
+        return prewarm_train(self, state, batch_sharding=batch_sharding, chunk_sharding=chunk_sharding,
+                             max_workers=max_workers, compile_timeout_s=compile_timeout_s, on_program=on_program)
 
     # ------------------------------------------------------------------
     # data parallelism over a mesh (parallel/mesh.py)
@@ -869,7 +950,7 @@ class MAMLSystem:
             return state
         return replicate(state, mesh)
 
-    def _sharded_objective(self, state, batch: ShardedBatch, epoch: Optional[int], with_grads: bool):
+    def _sharded_objective(self, state, batch: ShardedBatch, variant, with_grads: bool):
         """The train objective of every shard on its device -> ``(loss, aux,
         grads)``. A shard's objective is the sum of its tasks' losses over
         the global task count, so the shards' gradients, summed in mesh
@@ -882,9 +963,9 @@ class MAMLSystem:
             trainables = {"params": replica.params, "hparams": replica.inner_hparams}
             if not with_grads:
                 with torch.no_grad():
-                    return self._train_objective(replica, trainables, shard, epoch, device)
+                    return self._train_objective(replica, trainables, shard, variant, device)
             trainables = tree_map(lambda t: t.detach().requires_grad_(True), trainables)
-            loss, aux = self._train_objective(replica, trainables, shard, epoch, device)
+            loss, aux = self._train_objective(replica, trainables, shard, variant, device)
             return loss, aux, self._grads_of(aux["per_task_losses"].sum() / total, trainables)
 
         loss, aux, shard_grads = self._per_shard(state, batch, shard_objective)

@@ -16,11 +16,17 @@ Python. :class:`CapturedStep` is one graph of one step callable
   real state does not advance), under ``torch.cuda.set_sync_debug_mode("error")``
   so that a hidden host sync raises there instead of breaking the capture.
   The warmup is priced by the flop counter (``observability/costs.py``);
-- the capture, into a memory pool the caller passes (``core/maml.py``
-  shares one, ``torch.cuda.graph_pool_handle()``, among all of a system's
-  graphs: they never run at once, and a pool each would hold each step's
-  peak); at its end an in-graph ``copy_`` writes the new state into the
-  static state buffers, so the state is updated in place;
+- the capture, with the garbage collector paused (a dead graph destroyed
+  inside a capture would invalidate it), into a memory pool and on a
+  stream the caller passes
+  (``core/maml.py`` shares one pool, ``torch.cuda.graph_pool_handle()``,
+  and one capture stream among all of a system's graphs: they never run
+  at once, and a pool each would hold each step's peak. The caching
+  allocator reuses a pool's free blocks only for allocations on the
+  stream that made them, so captures on streams of their own would not
+  reuse each other's working set); at its end an in-graph ``copy_``
+  writes the new state into the static state buffers, so the state is
+  updated in place;
 - :meth:`CapturedStep.replay`: batch k copied into the static batch on the
   stream, then ``graph.replay()``;
 - :meth:`CapturedStep.dispatch`: a state that is not the graph's own is
@@ -44,12 +50,17 @@ on two streams were already unsafe before graphs (a replay beside a serving
 flush on another stream is such a pair) and stay so.
 
 A failed capture raises: nothing falls back to eager. On the CPU no graph
-is captured; ``core/maml.py`` runs the K eager steps instead.
+is captured; ``core/maml.py`` runs the K eager steps instead. On a mesh of
+``[cuda:0] * dp`` (``parallel/mesh.py``) the graph holds the sharded step,
+its static buffers the unreplicated state and every shard of the batch; a
+mesh over several cards or processes runs eager, decided from the mesh
+before any capture (:class:`GraphProgram`).
 :class:`GraphProgram` keeps one :class:`CapturedStep` per batch signature
 and records each capture in the compile ledger
 (``observability/compile_ledger.py``).
 """
 
+import gc
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -57,11 +68,18 @@ import torch
 
 from ..observability.costs import pool_bytes, priced_call, program_memory
 from ..ops import fused_update
+from ..parallel.mesh import Replicated, ShardedBatch, replicate, unreplicate
 
 
 def tree_leaves_any(tree) -> List[Any]:
-    """The leaves of a tree of dicts (sorted keys), tuples, lists and
-    NamedTuples (a ``TrainState``), in a fixed order."""
+    """The leaves of a tree of dicts (sorted keys), tuples, lists,
+    NamedTuples (a ``TrainState``), a mesh's sharded batches (their
+    shards) and replicated states (the first replica's), in a fixed
+    order."""
+    if isinstance(tree, ShardedBatch):
+        return tree_leaves_any(tree.shards)
+    if isinstance(tree, Replicated):
+        return tree_leaves_any(unreplicate(tree))
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in tree_leaves_any(tree[key])]
     if isinstance(tree, (tuple, list)):
@@ -70,8 +88,13 @@ def tree_leaves_any(tree) -> List[Any]:
 
 
 def tree_map_any(fn: Callable, tree):
-    """``fn`` over every leaf of a tree of dicts, tuples, lists and
-    NamedTuples, keeping its structure."""
+    """``fn`` over every leaf of a tree of dicts, tuples, lists,
+    NamedTuples and sharded batches, keeping its structure; a replicated
+    state maps its first replica and replicates the result on its mesh."""
+    if isinstance(tree, ShardedBatch):
+        return ShardedBatch(tree.mesh, tree_map_any(fn, tree.shards))
+    if isinstance(tree, Replicated):
+        return replicate(tree_map_any(fn, unreplicate(tree)), tree.mesh)
     if isinstance(tree, dict):
         return {key: tree_map_any(fn, tree[key]) for key in tree}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -108,10 +131,11 @@ class CapturedStep:
     ``launches`` the fused update's kernels the capture recorded (name ->
     launches per replay)."""
 
-    def __init__(self, step: Callable, state, batch, device, pool=None):
+    def __init__(self, step: Callable, state, batch, device, pool, stream):
         self.step = step
         self.device = torch.device(device)
         self.pool = pool
+        self.stream = stream
         self.state = clone_tree(state)
         self.batch = clone_tree(batch)
         self._state_leaves = tree_leaves_any(self.state)
@@ -125,7 +149,7 @@ class CapturedStep:
 
     def build(self) -> "CapturedStep":
         device = self.device
-        stream = torch.cuda.Stream(device)
+        stream = self.stream
         stream.wait_stream(torch.cuda.current_stream(device))
         t0 = time.perf_counter()
         with torch.cuda.stream(stream):
@@ -140,10 +164,19 @@ class CapturedStep:
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         before = dict(fused_update.captured_counts)
-        with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-            new_state, outputs = self.step(self.state, self.batch)
-            if new_state is not None:
-                _copy_into(self._state_leaves, tree_leaves_any(new_state))
+        # no garbage collection inside the capture: a dead graph (a dropped
+        # system's) destroyed there is a CUDA call the capture does not
+        # permit, and it invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=stream):
+                new_state, outputs = self.step(self.state, self.batch)
+                if new_state is not None:
+                    _copy_into(self._state_leaves, tree_leaves_any(new_state))
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(device)
         self.launches = {k: n - before[k] for k, n in fused_update.captured_counts.items()}
         self.compile_s = time.perf_counter() - t1
@@ -182,15 +215,35 @@ class GraphProgram:
     it once per batch. The ledger (``wrap_build`` hands it over) gets one
     priced entry per capture, whose FLOPs are the captured step's times the
     replays of the dispatch (the JAX program scans them all); a capture that
-    fails is recorded with its error and raised."""
+    fails is recorded with its error and raised.
+
+    A mesh's sharded batches (``parallel/mesh.py``): the graph holds the
+    sharded step where every mesh entry is one card and one process; its
+    static state is the unreplicated state, which the step replicates
+    again. On a mesh that spans cards or processes (``Mesh.graph_refusal``)
+    the program runs ``eager``, the steps one by one, decided from the mesh
+    before anything is captured; its first dispatch of each signature is a
+    ledger entry with ``graph: false`` and the reason.
+
+    :meth:`warm` builds the program for a signature without a real
+    dispatch (``compile/aot.py::prewarm_train``): the capture, whose
+    warmup runs on a copy of the state, or the first eager dispatch, on a
+    copy the caller throws away. Its entries carry ``phase="prewarm"``;
+    after a warm, a real dispatch of a signature the warm did not build
+    is recorded under ``phase="prewarm_respec"``, as JAX records a rebuild
+    of a prewarmed program."""
 
     prices_own_builds = True
 
-    def __init__(self, step_for: Callable, device, pool_for: Callable):
+    def __init__(self, step_for: Callable, device, pool_for: Callable, eager: Callable, stream_for: Callable):
         self._step_for = step_for
         self.device = torch.device(device)
         self._pool_for = pool_for
+        self._stream_for = stream_for
+        self._eager = eager
         self._captured: Dict[Any, CapturedStep] = {}
+        self._eager_seen: set = set()
+        self._warmed = False
         self.ledger = None
         self.name = "graph"
 
@@ -201,30 +254,84 @@ class GraphProgram:
     def captures(self) -> List[CapturedStep]:
         return list(self._captured.values())
 
-    def __call__(self, state, batches: List[Any], **kwargs):
+    @staticmethod
+    def _signature(batches):
         from ..utils.strictmode import abstract_signature
 
-        sig = abstract_signature(batches[0])
+        return abstract_signature(batches[0])
+
+    @staticmethod
+    def _refusal(batches) -> Optional[str]:
+        return batches[0].mesh.graph_refusal() if isinstance(batches[0], ShardedBatch) else None
+
+    def _record(self, **entry) -> None:
+        if self.ledger is not None:
+            self.ledger.record(self.name, cold=True, **entry)
+
+    def _capture(self, sig, state, batches, phase: Optional[str], **kwargs) -> CapturedStep:
+        captured = CapturedStep(self._step_for(**kwargs), state, batches[0], self.device, self._pool_for(),
+                                self._stream_for())
+        try:
+            captured.build()
+        except Exception as exc:
+            self._record(error=f"capture failed: {type(exc).__name__}: {exc}", phase=phase)
+            raise
+        self._captured[sig] = captured
+        flops = captured.cost.get("flops")
+        self._record(
+            lower_s=captured.lower_s, compile_s=captured.compile_s,
+            flops=flops * len(batches) if flops else None, bytes_accessed=None, memory=captured.memory,
+            replays=len(batches), flops_per_replay=flops, cost_error=captured.cost.get("error"), graph=True,
+            phase=phase,
+        )
+        return captured
+
+    def _run_eager(self, sig, state, batches, reason: str, phase: Optional[str], **kwargs):
+        if sig in self._eager_seen:
+            return self._eager(state, batches, **kwargs)
+        t0 = time.perf_counter()
+        try:
+            out, cost = priced_call(self._eager, state, batches, **kwargs)
+        except Exception as exc:
+            self._record(total_s=time.perf_counter() - t0, graph=False, reason=reason, phase=phase,
+                         error=f"first dispatch failed: {type(exc).__name__}: {exc}")
+            raise
+        self._eager_seen.add(sig)
+        self._record(total_s=time.perf_counter() - t0, flops=cost.get("flops"), replays=len(batches), graph=False,
+                     reason=reason, phase=phase)
+        return out
+
+    def _respec(self) -> Optional[str]:
+        return "prewarm_respec" if self._warmed else None
+
+    def __call__(self, state, batches: List[Any], **kwargs):
+        sig, refusal = self._signature(batches), self._refusal(batches)
+        if refusal is not None:
+            return self._run_eager(sig, state, batches, refusal, self._respec(), **kwargs)
+        state = unreplicate(state)
         captured = self._captured.get(sig)
         if captured is None:
-            captured = CapturedStep(self._step_for(**kwargs), state, batches[0], self.device, self._pool_for())
-            try:
-                captured.build()
-            except Exception as exc:
-                if self.ledger is not None:
-                    self.ledger.record(self.name, cold=True, error=f"capture failed: {type(exc).__name__}: {exc}")
-                raise
-            self._captured[sig] = captured
-            if self.ledger is not None:
-                flops = captured.cost.get("flops")
-                self.ledger.record(
-                    self.name, lower_s=captured.lower_s, compile_s=captured.compile_s, cold=True,
-                    flops=flops * len(batches) if flops else None, bytes_accessed=None, memory=captured.memory,
-                    replays=len(batches), flops_per_replay=flops, cost_error=captured.cost.get("error"),
-                )
+            captured = self._capture(sig, state, batches, self._respec(), **kwargs)
         return captured.dispatch(state, batches)
+
+    def warm(self, state, batches: List[Any], **kwargs) -> Dict[str, Any]:
+        """Build the program for ``batches``' signature without advancing
+        ``state``: the capture (its warmup on a copy), or on a mesh a graph
+        cannot hold the first eager dispatch on a copy. -> JAX's warm
+        result keys, and ``graph``."""
+        sig, refusal = self._signature(batches), self._refusal(batches)
+        self._warmed = True
+        if sig in self._captured or sig in self._eager_seen:
+            return {"program": self.name, "already_warm": True, "signature": sig, "graph": refusal is None}
+        if refusal is not None:
+            # the step replicates the copy onto the batch's mesh
+            self._run_eager(sig, clone_tree(unreplicate(state)), batches, refusal, "prewarm", **kwargs)
+        else:
+            self._capture(sig, unreplicate(state), batches, "prewarm", **kwargs)
+        return {"program": self.name, "already_warm": False, "signature": sig, "graph": refusal is None}
 
     def release(self) -> None:
         """Drop every graph and its static buffers (their pool blocks go
         back to the shared pool for the next capture)."""
         self._captured.clear()
+        self._eager_seen.clear()

@@ -34,9 +34,13 @@ A file that fails a digest or does not decode raises
 one-save lag. The fault injector fires ``checkpoint.read`` on every file
 read (the blob, each shard) and ``checkpoint.write`` on every blob before
 its atomic write, as the JAX package's does.
+
+The prewarm manifest (``compile/aot.py``) lies beside the checkpoints as
+``prewarm_manifest.json``, in the JAX package's keys and atomic write.
 """
 
 import hashlib
+import json
 import os
 import re
 import threading
@@ -619,3 +623,35 @@ class AsyncCheckpointWriter:
 
     def close(self) -> None:
         self.wait()
+
+
+# ---------------------------------------------------------------------------
+# the prewarm manifest (compile/aot.py), beside the checkpoints: a restarted
+# process reads it to learn whether its prewarm will find the kernels built
+# for this environment
+# ---------------------------------------------------------------------------
+
+PREWARM_MANIFEST = "prewarm_manifest.json"
+
+
+def prewarm_manifest_path(save_dir: str) -> str:
+    return os.path.join(save_dir, PREWARM_MANIFEST)
+
+
+def save_prewarm_manifest(save_dir: str, manifest: Dict[str, Any]) -> str:
+    """Atomic write (the checkpoints' temp file and rename: a kill mid-write
+    leaves the previous manifest, never a torn one)."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = prewarm_manifest_path(save_dir)
+    _write_atomic(path, json.dumps(manifest, indent=1).encode())
+    return path
+
+
+def load_prewarm_manifest(save_dir: str) -> Optional[Dict[str, Any]]:
+    """None when absent or unreadable: a bad manifest reads as no
+    manifest (a cold start)."""
+    try:
+        with open(prewarm_manifest_path(save_dir)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None

@@ -53,10 +53,18 @@ first trained epoch ([0, 1) in a shorter one) with ``torch.profiler``, at
 K = 1, into ``profile_dir/plugins/profile/<ts>/*.pt.trace.json``
 (``utils/profiling.py`` reads it).
 
+On a mesh the chunks and the fused eval's stack are sharded batch by batch
+(``parallel/mesh.py::shard_chunk``): one CUDA graph of the sharded step on
+a mesh of one card, the sharded eager steps on a mesh over several (the
+multi-host path keeps the eval per batch, as JAX's does). Under
+``aot.enabled`` the whole planned train family is built before the first
+step, inside the watchdog's scope (``_prewarm_programs``,
+``compile/aot.py``), and the prewarm manifest is verified before it and
+written after it beside the checkpoints.
+
 Not here, each refused at construction with the ROADMAP.md item that ports
-it: the training-side AOT prewarm (A10.8), state donation (A10.7), more than
-one step per dispatch on a mesh (A10.5 (mesh)); tensor parallelism,
-``mp > 1`` or ``tp_convs`` (A12).
+it: state donation (A10.7); tensor parallelism, ``mp > 1`` or
+``tp_convs`` (A12).
 """
 
 import contextlib
@@ -94,6 +102,7 @@ from ..parallel.mesh import (
     refuse_tensor_parallel,
     requested_mesh_shape,
     shard_batch,
+    shard_chunk,
     shard_train_state,
     unreplicate,
     visible_devices,
@@ -138,16 +147,8 @@ def _refuse_unported(cfg: Config) -> None:
     """``NotImplementedError`` naming the ROADMAP.md item for every option
     the port does not run, so that none is quietly ignored."""
     refuse_tensor_parallel(cfg.parallel)
-    refused = [
-        (cfg.aot.enabled, "aot.enabled (the training-side prewarm)", "A10.8"),
-        (cfg.donate_train_state, "donate_train_state", "A10.7"),
-        (cfg.parallel.dp > 1 and cfg.train_steps_per_dispatch > 1,
-         f"train_steps_per_dispatch={cfg.train_steps_per_dispatch} on a mesh of dp={cfg.parallel.dp}",
-         "A10.5 (mesh)"),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
+    if cfg.donate_train_state:
+        raise NotImplementedError("donate_train_state is not ported to PyTorch yet (ROADMAP.md A10.7)")
 
 
 class ExperimentRunner:
@@ -546,7 +547,7 @@ class ExperimentRunner:
                 before = clone_tree(self.state) if in_place else self.state
                 with self.hub.phase("dispatch", epoch=epoch, cold=cold):
                     self.state, (chunk_losses, chunk_accs, chunk_lrs) = self.system.train_step_multi(
-                        self.state, chunk, epoch)
+                        self.state, self._put_chunk(chunk), epoch)
                 self._beat(f"dispatch epoch {epoch}")
                 lr = chunk_lrs[-1]
                 if not guard:
@@ -660,8 +661,59 @@ class ExperimentRunner:
         if self.hub.enabled:
             self.hub.registry.set_gauge("cold_start_s", self._cold_start_s)
         self.events.append(
-            {"ts": time.time(), "event": "cold_start", "cold_start_s": self._cold_start_s, "prewarmed": False}
+            {"ts": time.time(), "event": "cold_start", "cold_start_s": self._cold_start_s,
+             "prewarmed": bool(self.cfg.aot.enabled)}
         )
+
+    # ------------------------------------------------------------------
+    # the prewarm (compile/aot.py; Config.aot)
+    # ------------------------------------------------------------------
+
+    def _prewarm_programs(self) -> None:
+        """Build the whole planned train family before the first step (the
+        set the strict guard enforces), each build a ledger entry with
+        ``phase="prewarm"``, placed on the run's mesh; then write the
+        manifest beside the checkpoints. An existing manifest is verified
+        first (event ``prewarm_manifest``): a torch, CUDA, card or mesh
+        change, or a missing kernel library, is logged and the prewarm
+        builds cold. A prewarm that fails is contained (event
+        ``prewarm_failed``; a failed program counts in ``errors``): the run
+        goes on and builds it at its first dispatch."""
+        from ..compile import aot
+
+        cfg = self.cfg
+        device = self.system.device
+        mesh_shape = self._mesh_shape()
+        expected_warm, reason = aot.verify_manifest(ckpt.load_prewarm_manifest(self.saved_models_dir), mesh_shape,
+                                                    device=device)
+        self.events.append({"ts": time.time(), "event": "prewarm_manifest", "expected_warm": expected_warm,
+                            "reason": reason})
+        if not expected_warm:
+            print(f"prewarm: no warm-start promise ({reason})", flush=True)
+        try:
+            summary = self.system.prewarm(
+                self.state, batch_sharding=self.mesh, chunk_sharding=self.mesh,
+                # each program is watchdog progress: a long planned set must
+                # never read as a wedge
+                on_program=lambda name: self._beat(f"prewarm {name}"),
+            )
+        except Exception as exc:  # noqa: BLE001 — a prewarm must not kill the run
+            print(f"warning: prewarm failed (continuing cold): {exc!r}", flush=True)
+            self.events.append({"ts": time.time(), "event": "prewarm_failed", "error": repr(exc)})
+            return
+        slim = {k: v for k, v in summary.items() if k != "by_program"}
+        print(f"prewarm: {summary['programs']} programs in {summary['seconds']}s ({summary['errors']} errors)",
+              flush=True)
+        self.events.append({"ts": time.time(), "event": "prewarm", **slim})
+        if self.hub.enabled:
+            self.hub.registry.set_gauge("prewarm", slim)
+        if cfg.aot.executable_store:
+            try:
+                ckpt.save_prewarm_manifest(
+                    self.saved_models_dir, aot.build_manifest(train_summary=summary, mesh_shape=mesh_shape,
+                                                              device=device))
+            except OSError as exc:
+                print(f"warning: prewarm manifest not written: {exc!r}", flush=True)
 
     def _drain_ckpt_writer(self) -> None:
         """Block until any in-flight async save lands; a failed save is
@@ -730,6 +782,11 @@ class ExperimentRunner:
         """A loader batch as the step takes it: sharded over the mesh, or
         as it is (the system copies it to its device)."""
         return shard_batch(batch, self.mesh) if self.mesh is not None else batch
+
+    def _put_chunk(self, chunk):
+        """A chunk (or the fused eval's stack) as the multi-step programs
+        take it: sharded batch by batch over the mesh, or as it is."""
+        return shard_chunk(chunk, self.mesh) if self.mesh is not None else chunk
 
     def _host_state(self) -> TrainState:
         """The state (its first replica on a mesh) copied to the host, on
@@ -916,12 +973,13 @@ class ExperimentRunner:
         return self.loader.test_batches(n_batches)
 
     def _eval_split(self, split: str) -> Dict[str, Any]:
-        if self.cfg.eval_fused_dispatch and not self._multihost and self.mesh is None:
-            # one dispatch over the whole fixed eval set (a mesh and the
-            # multi-host path stay per batch)
+        if self.cfg.eval_fused_dispatch and not self._multihost:
+            # one dispatch over the whole fixed eval set (the multi-host
+            # path stays per batch: it gathers each batch's tasks across
+            # processes)
             stacked = _stack(list(self._eval_batches(split)))
             with self.hub.phase("eval", split=split, cold=self._note_variant(("eval_fused",))):
-                losses, accs = self.system.eval_step_multi(self.state, stacked)
+                losses, accs = self.system.eval_step_multi(self.state, self._put_chunk(stacked))
             self._beat(f"eval {split}")
             return _episode_stats(split, _host(losses.reshape(-1)), _host(accs.reshape(-1)))
         ep_losses, ep_accs = [], []
@@ -1110,6 +1168,11 @@ class ExperimentRunner:
         if cfg.evaluate_on_test_set_only:
             self.load_best()
             return self.evaluate_test()
+
+        # the prewarm (Config.aot): the planned program set is built HERE,
+        # inside the watchdog's scope, before the first step
+        if cfg.aot.enabled:
+            self._prewarm_programs()
 
         end_epoch = min(cfg.total_epochs, self.start_epoch + cfg.total_epochs_before_pause)
         for epoch in range(self.start_epoch, end_epoch):

@@ -34,6 +34,11 @@ entry's numbers are:
   ``utils/compcache.py``'s persistent XLA cache, so no separate module
   reads it.
 
+Entries a prewarm builds (``compile/aot.py``, :meth:`LedgerWrapped.warm`,
+``GraphProgram.warm``) carry ``phase="prewarm"``; a real dispatch that
+must build a program the prewarm did not (its batch signature differs)
+carries ``phase="prewarm_respec"``, as in the JAX ledger.
+
 One difference from the JAX ledger: where JAX falls back to the plain
 jitted call after an AOT failure, a build that fails here is recorded with
 its error **and re-raised**. The only fallback would be the eager path, and
@@ -98,10 +103,13 @@ class CompileLedger:
         bytes_accessed: Optional[float] = None,
         error: Optional[str] = None,
         memory: Optional[Dict[str, Any]] = None,
+        phase: Optional[str] = None,
         **extra: Any,
     ) -> Dict[str, Any]:
         """Append one ledger entry (and fold it into the in-process
-        aggregate). Never raises."""
+        aggregate). ``phase`` (``"prewarm"``, ``"prewarm_respec"``) is a key
+        of the entry only where given, as in the JAX ledger. Never
+        raises."""
         name = program_name(program)
         if total_s is None and (lower_s is not None or compile_s is not None):
             total_s = (lower_s or 0.0) + (compile_s or 0.0)
@@ -118,6 +126,8 @@ class CompileLedger:
             "memory": memory,
             "error": error,
         }
+        if phase is not None:
+            entry["phase"] = phase
         if self.session is not None:
             entry["session"] = self.session
         entry.update(extra)
@@ -220,7 +230,13 @@ class LedgerWrapped:
     of a seen signature (of the positional arguments) go straight to the
     callable. A first call that
     raises is recorded with its error and the exception re-raised; its
-    signature stays unseen."""
+    signature stays unseen.
+
+    :meth:`warm` is the prewarm's first dispatch (``compile/aot.py``): the
+    caller passes arguments it throws away (a copy of the state, a zero
+    batch), and the entry carries ``phase="prewarm"``. After a warm, a real
+    call of a signature the warm did not dispatch is recorded under
+    ``phase="prewarm_respec"``."""
 
     def __init__(self, ledger: CompileLedger, program: str, fn: Callable):
         self._ledger = ledger
@@ -228,6 +244,7 @@ class LedgerWrapped:
         self._fn = fn
         self._lock = san_lock("LedgerWrapped._lock")
         self._seen: set = set()
+        self._warmed = False
         self._clock = ledger._clock
 
     @staticmethod
@@ -242,22 +259,40 @@ class LedgerWrapped:
         except Exception:
             return ("unsigned",)
 
-    def __call__(self, *args, **kwargs):
-        sig = self._signature(args)
-        with self._lock:
-            first = sig not in self._seen
-            self._seen.add(sig)
-        if not first:
-            return self._fn(*args, **kwargs)
+    def _first(self, sig, phase: Optional[str], args, kwargs):
         t0 = self._clock()
         try:
             out, cost = priced_call(self._fn, *args, **kwargs)
         except Exception as exc:
             with self._lock:
                 self._seen.discard(sig)
-            self._ledger.record(self.program, total_s=self._clock() - t0, cold=True,
+            self._ledger.record(self.program, total_s=self._clock() - t0, cold=True, phase=phase,
                                 error=f"first dispatch failed: {type(exc).__name__}: {exc}")
             raise
         self._ledger.record(self.program, total_s=self._clock() - t0, cold=True, flops=cost.get("flops"),
-                            bytes_accessed=cost.get("bytes_accessed"), signature_index=len(self._seen))
+                            bytes_accessed=cost.get("bytes_accessed"), signature_index=len(self._seen),
+                            phase=phase)
         return out
+
+    def __call__(self, *args, **kwargs):
+        sig = self._signature(args)
+        with self._lock:
+            first = sig not in self._seen
+            self._seen.add(sig)
+            phase = "prewarm_respec" if self._warmed else None
+        if not first:
+            return self._fn(*args, **kwargs)
+        return self._first(sig, phase, args, kwargs)
+
+    def warm(self, *args, **kwargs) -> Dict[str, Any]:
+        """The first dispatch of the arguments' signature, its result
+        dropped -> JAX's warm result keys (``already_warm`` where the
+        signature was dispatched before)."""
+        sig = self._signature(args)
+        with self._lock:
+            self._warmed = True
+            first = sig not in self._seen
+            self._seen.add(sig)
+        if first:
+            self._first(sig, "prewarm", args, kwargs)
+        return {"program": self.program, "already_warm": not first, "signature": sig}

@@ -17,7 +17,10 @@ A mesh may name one device several times: on the CPU every entry is
 one card ``[cuda:0, cuda:0]`` runs the dp=2 code path. Replicas on one
 device share their tensors, which is safe because no step writes into the
 state it is given; it is how the tests and the one-card smoke run exercise
-sharding, not a way to go faster.
+sharding, not a way to go faster. :func:`shard_chunk` splits a chunk of K
+batches (the multi-step programs' input) the same way, batch by batch; a
+mesh whose entries are all one card and one process runs those programs as
+one CUDA graph of the sharded step (``Mesh.graph_refusal``).
 
 Across hosts: one process per host, joined by ``torch.distributed``
 (:func:`initialize_distributed`: NCCL between cards, gloo on the CPU). The
@@ -103,6 +106,20 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.shape[DATA_AXIS] * self.shape[MODEL_AXIS]
+
+    def graph_refusal(self) -> Optional[str]:
+        """Why one CUDA graph cannot hold a step on this mesh, or None when
+        it can: every entry is one card and one process drives it (the
+        ``[cuda:0] * dp`` mesh). A graph is recorded on one card's streams,
+        and a collective over gloo cannot be captured."""
+        if self.processes > 1:
+            return f"the mesh spans {self.processes} processes (a collective cannot be captured)"
+        cards = sorted({str(d) for d in self.devices})
+        if len(cards) > 1:
+            return f"the mesh spans {len(cards)} devices {cards} (a graph is recorded on one card)"
+        if self.devices[0].type != "cuda":
+            return f"the mesh lies on {cards[0]}, not a card"
+        return None
 
     def __repr__(self) -> str:
         return f"Mesh(shape={self.shape}, devices={[str(d) for d in self.devices]}, processes={self.processes})"
@@ -192,6 +209,16 @@ class ShardedBatch:
         self.num_tasks = sum(len(next(iter(s.values()))) for s in shards)
         self.global_tasks = self.num_tasks * mesh.processes
 
+    def abstract_signature(self):
+        """The shapes and dtypes of every shard, with its device and the
+        mesh's processes (``utils/strictmode.py::abstract_signature``): a
+        sharded batch never shares a program's signature with a plain
+        one, nor with one sharded otherwise."""
+        from ..utils.strictmode import abstract_signature
+
+        return ("sharded", self.mesh.processes,
+                tuple((str(d), abstract_signature(s)) for d, s in zip(self.mesh.devices, self.shards)))
+
 
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> ShardedBatch:
     """Split the task axis (axis 0) of every array of ``batch`` (numpy or
@@ -205,6 +232,22 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> ShardedBatch:
     for i, device in enumerate(mesh.devices[: mesh.local_dp]):
         shards.append({k: torch.as_tensor(v[i * per:(i + 1) * per]).to(device) for k, v in batch.items()})
     return ShardedBatch(mesh, shards)
+
+
+def shard_chunk(chunk: Dict[str, Any], mesh: Mesh) -> List[ShardedBatch]:
+    """A chunk of batches (every array with a leading ``[K]`` axis, task
+    axis second) -> K :class:`ShardedBatch`es, the tasks of each split over
+    the mesh exactly as :func:`shard_batch` splits one batch (the JAX
+    package's ``chunk_sharding``, ``P(None, dp)``). Each shard's ``[K]``
+    slice goes to its device once; batch k's shard is a view of it."""
+    first = next(iter(chunk.values()))
+    k, n = len(first), len(first[0])
+    if n % mesh.local_dp:
+        raise ValueError(f"meta-batch of {n} tasks not divisible by the mesh's local dp={mesh.local_dp}")
+    per = n // mesh.local_dp
+    placed = [{key: torch.as_tensor(v[:, i * per:(i + 1) * per]).to(device) for key, v in chunk.items()}
+              for i, device in enumerate(mesh.devices[: mesh.local_dp])]
+    return [ShardedBatch(mesh, [{key: v[j] for key, v in shard.items()} for shard in placed]) for j in range(k)]
 
 
 def global_batch_from_local(local_batch: Dict[str, Any], mesh: Mesh) -> ShardedBatch:

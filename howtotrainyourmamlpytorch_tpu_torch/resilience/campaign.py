@@ -1642,7 +1642,7 @@ def _drill_rolling_restart(root, template_run, procs, device) -> List[str]:
     roll = subprocess.run(
         [
             sys.executable, os.path.join(_SCRIPTS, "rolling_restart.py"),
-            "--fleet", fleet_path, "--drain-timeout-s", "90",
+            "--fleet", fleet_path, "--gateway-url", gw_url, "--drain-timeout-s", "90",
             "--warm-timeout-s", "300",
         ],
         cwd=_REPO_ROOT,
@@ -1919,6 +1919,26 @@ def _stop_supervisor(sup_proc, violations, label):
             violations.append(f"{label} supervisor SIGTERM rc {rc} (want 0)")
     except subprocess.TimeoutExpired:
         violations.append(f"{label} supervisor never exited on SIGTERM")
+
+
+def _await_control_loop(sup_url, violations, label, timeout_s=60.0):
+    """Wait, within ``timeout_s``, until a supervisor's control loop has
+    ticked. ``scripts/fleet_serve.py`` writes its port file before it
+    adopts the journaled fleet and installs its SIGTERM handler only after
+    the adoption returns: a restarted supervisor's journal can read settled
+    while the adoption is still returning, and a SIGTERM in that window
+    kills it with the default action (rc -15). The loop's first tick comes
+    after the handler."""
+    def ticked():
+        try:
+            return _http_json(sup_url + "/metrics", timeout_s=5.0)[1].get("counters", {}).get("ticks", 0) >= 1
+        except OSError:
+            return False
+
+    try:
+        _wait_until(ticked, timeout_s=timeout_s, desc=f"{label} supervisor's first control tick")
+    except RuntimeError as exc:
+        violations.append(str(exc))
 
 
 def _adopt_state_pids(state_path, procs):
@@ -2308,7 +2328,7 @@ def _drill_fleet_crashloop(root, template_run, procs, device) -> List[str]:
     except ProcessLookupError:
         violations.append("spawned backend died with its supervisor")
     # restart: the journal (not the slots file) is the source of truth
-    sup_b2, _sup_b2_url = _spawn_fleet_supervisor(
+    sup_b2, sup_b2_url = _spawn_fleet_supervisor(
         root, "supervisor_b2", state_b, gw_url, events_b, procs,
         min_backends=2, max_backends=2, poll_interval_s=0.2,
         warm_timeout_s=300.0, warm_poll_s=0.25,
@@ -2349,6 +2369,7 @@ def _drill_fleet_crashloop(root, template_run, procs, device) -> List[str]:
         except RuntimeError as exc:
             violations.append(str(exc))
     finally:
+        _await_control_loop(sup_b2_url, violations, "crashloop-B2")
         _stop_supervisor(sup_b2, violations, "crashloop-B2")
         _adopt_state_pids(state_b, procs)
     return violations

@@ -308,8 +308,11 @@ def build_report(run_dir: str, trace_dir: Optional[str] = None,
         report["compile_tax"] = _aggregate_compile_ledger(scoped or entries)
         if not scoped and entries:
             report["compile_tax"]["all_sessions"] = True
-        # the prewarm slice of the tax: entries a prewarm paid
-        # (phase="prewarm") before the first step
+        # the prewarm slice of the tax: the port's prewarm builds
+        # (compile/aot.py: graph captures and first eager dispatches,
+        # phase="prewarm") before the first step, and the builds a real
+        # dispatch paid again for a signature the prewarm did not build
+        # (phase="prewarm_respec")
         prewarmed = [e for e in (scoped or entries) if e.get("phase") == "prewarm"]
         if prewarmed:
             report["prewarm"] = {
@@ -317,6 +320,8 @@ def build_report(run_dir: str, trace_dir: Optional[str] = None,
                 "seconds": round(sum(e.get("total_s") or 0.0 for e in prewarmed), 3),
                 "cache_hits": sum(1 for e in prewarmed if (e.get("persistent_cache") or {}).get("hit")),
                 "store_hits": sum(1 for e in prewarmed if (e.get("executable_store") or {}).get("hit")),
+                "captures": sum(1 for e in prewarmed if e.get("graph")),
+                "respecs": sum(1 for e in (scoped or entries) if e.get("phase") == "prewarm_respec"),
             }
 
     # host-phase coverage vs the SAME session's epoch wall-clock (the

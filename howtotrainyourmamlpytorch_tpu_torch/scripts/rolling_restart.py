@@ -4,7 +4,7 @@ gate on /healthz, proceed to the next — zero-downtime behind the gateway.
 
 Usage:
     python howtotrainyourmamlpytorch_tpu_torch/scripts/rolling_restart.py \
-        --fleet fleet.json \
+        --fleet fleet.json [--gateway-url http://127.0.0.1:8100] \
         [--drain-timeout-s 60] [--warm-timeout-s 300] [--settle-s 0]
 
 ``fleet.json`` is either the legacy list form, in restart order::
@@ -23,9 +23,11 @@ Per backend the script: (1) sends SIGTERM — the backend flips /healthz to
 + queued requests, spills hot sessions to its run dir, and exits (rc 0
 clean; rc 77 = drain deadline exceeded — reported, the roll continues);
 (2) waits for the pid to disappear; (3) respawns it with ``respawn`` —
-the fresh process rehydrates the spilled sessions (the port has no AOT
-prewarm, ROADMAP.md A10, so its first request pays the card's cold start);
-(4) polls ``/healthz`` until it answers 200, then moves on.
+the fresh process rehydrates the spilled sessions; (4) polls ``/healthz``
+until it answers 200 and, with ``--gateway-url``, until that gateway's
+``/metrics`` lists the backend IN again, then moves on. Without that last
+wait the next drain can start before the gateway's next health probe has
+seen this backend back, and for that moment no backend takes new work.
 One JSON line per backend on stdout + a final summary line; rc 0 iff every
 backend came back healthy.
 
@@ -71,11 +73,14 @@ def rolling_restart(
     drain_timeout_s: float,
     warm_timeout_s: float,
     settle_s: float = 0.0,
+    gateway_url=None,
     log=lambda m: print(m, file=sys.stderr, flush=True),
 ) -> dict:
     rows = []
     for i, entry in enumerate(fleet):
-        row = restart_backend(entry, drain_timeout_s, warm_timeout_s, log=log)
+        row = restart_backend(
+            entry, drain_timeout_s, warm_timeout_s, gateway_url=gateway_url, log=log
+        )
         rows.append(row)
         print(json.dumps({"backend": i, **row}), flush=True)
         if not row["ok"]:
@@ -104,6 +109,10 @@ def main(argv=None) -> int:
                         "(should exceed serving.drain_deadline_s)")
     parser.add_argument("--warm-timeout-s", type=float, default=300.0,
                         help="max wait for a respawned backend's /healthz 200")
+    parser.add_argument("--gateway-url", default=None,
+                        help="the gateway in front of the fleet: before the "
+                        "next drain, wait until it routes to the respawned "
+                        "backend again")
     parser.add_argument("--settle-s", type=float, default=0.0,
                         help="pause between backends (let caches re-warm)")
     args = parser.parse_args(argv)
@@ -123,7 +132,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return RC_USAGE
     verdict = rolling_restart(
-        fleet, args.drain_timeout_s, args.warm_timeout_s, settle_s=args.settle_s
+        fleet, args.drain_timeout_s, args.warm_timeout_s, settle_s=args.settle_s,
+        gateway_url=args.gateway_url,
     )
     print(json.dumps(verdict), flush=True)
     return RC_OK if verdict["ok"] else 1

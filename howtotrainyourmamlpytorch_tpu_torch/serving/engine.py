@@ -546,63 +546,17 @@ class AdaptationEngine:
         image_shape: Optional[Tuple[int, int, int]] = None,
         on_program=None,
     ) -> Dict[str, Any]:
-        """Dispatch the full serving grid once before the first request:
-        the exact ``serving_planned_programs`` set the strict guard pins,
-        (adapt | refine | predict) x shape bucket x task-batch bucket, each
-        on zero inputs of its planned shapes through the engine's own flush
-        functions. The eager counterpart of the JAX engine's AOT prewarm,
-        which compiles the grid and runs nothing: here the first dispatch of
-        each shape pays cuDNN's algorithm choice and the allocator's first
-        blocks, so that no request pays it. Nothing is kept: no result, no
-        cache or session entry, no change to the engine's state; the fault
-        seams do not fire and no dispatch span is recorded. Then the strict
-        guard is sealed (``mark_prewarmed``).
-
-        The jobs run inline, one after another. ``max_workers`` and
-        ``compile_timeout_s`` keep the JAX signature and are ignored: the
-        JAX engine compiles programs in parallel under a per-program
-        timeout, but an eager engine dispatches to one card, where dispatch
-        from several threads serializes and gains nothing, and a timed-out
-        dispatch would go on touching the engine after the guard is sealed.
-        ``image_shape`` overrides the config's dataset shape for engines
-        serving hand-built models. ``on_program(name)`` is called as each
-        program settles. The JAX
+        """Dispatch the full serving grid once before the first request and
+        seal the guard: ``compile/aot.py::prewarm_serving``, where the JAX
+        package keeps it. The eager counterpart of the JAX engine's AOT
+        prewarm, which compiles the grid and runs nothing: here the first
+        dispatch of each shape pays cuDNN's algorithm choice and the
+        allocator's first blocks, so that no request pays it.
+        ``on_program(name)`` is called as each program settles. The JAX
         ``store`` (serialized executables) has no torch counterpart: an
         eager program has nothing to serialize, so there is no such
-        parameter. Returns the JAX summary keys: ``programs``, ``seconds``,
-        ``errors``, the per-program table ``by_program`` (with each
-        program's dispatch seconds) and the cache counters, which stay 0."""
-        del max_workers, compile_timeout_s
-        jobs = self._prewarm_jobs(image_shape)
-        t0 = time.perf_counter()
-        seconds: Dict[str, float] = {}
-        errors: Dict[str, str] = {}
-        for name, job in jobs:
-            t = time.perf_counter()
-            try:
-                self._warm_one(job)
-            except Exception as exc:  # noqa: BLE001 — contained per program
-                errors[name] = f"{type(exc).__name__}: {exc}"
-            seconds[name] = time.perf_counter() - t
-            if on_program is not None:
-                on_program(name)
-        by_program: Dict[str, Dict[str, Any]] = {}
-        for name, _ in jobs:
-            by_program[name] = {"total_s": round(seconds[name], 6), "cache_hit": False,
-                                "loaded": False, "stored": False, "already_warm": False}
-            if name in errors:
-                by_program[name]["error"] = errors[name]
-        summary = {
-            "programs": len(jobs),
-            "seconds": round(time.perf_counter() - t0, 3),
-            "compile_s": None,
-            "cache_hits": 0,
-            "store_hits": 0,
-            "already_warm": 0,
-            "errors": len(errors),
-            "by_program": by_program,
-        }
-        if self.recompile_guard is not None:
-            # the contract flip: the planned family is now declared complete
-            self.recompile_guard.mark_prewarmed()
-        return summary
+        parameter."""
+        from ..compile.aot import prewarm_serving
+
+        return prewarm_serving(self, max_workers=max_workers, compile_timeout_s=compile_timeout_s,
+                               image_shape=image_shape, on_program=on_program)

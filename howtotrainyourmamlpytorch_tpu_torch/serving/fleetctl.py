@@ -198,6 +198,33 @@ def wait_healthy(url: str, timeout_s: float, poll_s: float = 0.5) -> bool:
     return False
 
 
+def gateway_admits(gateway_url: str, url: str, timeout_s: float = 3.0) -> bool:
+    """Does the gateway's ``/metrics`` list the backend at ``url`` IN?"""
+    try:
+        with urllib.request.urlopen(
+            gateway_url.rstrip("/") + "/metrics", timeout=timeout_s
+        ) as resp:
+            backends = json.loads(resp.read()).get("backends") or []
+    except (urllib.error.URLError, OSError, ValueError):
+        return False
+    return any(b.get("url") == url.rstrip("/") and b.get("in") for b in backends)
+
+
+def wait_admitted(
+    gateway_url: str, url: str, timeout_s: float, poll_s: float = 0.1
+) -> bool:
+    """Poll the gateway until it routes to ``url`` again or timeout. A
+    backend's own /healthz 200 is not the gateway's admission: that waits
+    for the gateway's next health probe, and a roll that drains the next
+    backend in between leaves the gateway no backend to route to."""
+    end = time.monotonic() + timeout_s
+    while time.monotonic() < end:
+        if gateway_admits(gateway_url, url):
+            return True
+        time.sleep(poll_s)
+    return False
+
+
 # ---------------------------------------------------------------------------
 # spawn / drain
 
@@ -273,9 +300,12 @@ def restart_backend(
     entry: dict,
     drain_timeout_s: float,
     warm_timeout_s: float,
+    gateway_url=None,
     log=lambda m: print(m, file=sys.stderr, flush=True),
 ) -> dict:
-    """Drain + respawn + warm-gate ONE backend; returns its verdict row."""
+    """Drain + respawn + warm-gate ONE backend; returns its verdict row.
+    With ``gateway_url`` the gate also waits, within ``warm_timeout_s``,
+    until that gateway routes to the backend again (``admit_s``)."""
     url = entry["url"]
     row = drain_backend(entry, drain_timeout_s, log=log)
     respawn = entry.get("respawn")
@@ -292,4 +322,12 @@ def restart_backend(
     row["ok"] = healthy
     if not healthy:
         row["error"] = f"/healthz not 200 within {warm_timeout_s}s"
+    elif gateway_url:
+        t2 = time.monotonic()
+        row["ok"] = wait_admitted(
+            gateway_url, url, max(0.0, warm_timeout_s - row["warm_s"])
+        )
+        row["admit_s"] = round(time.monotonic() - t2, 2)
+        if not row["ok"]:
+            row["error"] = f"the gateway did not admit it within {warm_timeout_s}s"
     return row

@@ -432,36 +432,11 @@ class EnginePool:
         return [r.stats() for r in self.replicas]
 
     def prewarm(self, **kwargs) -> Dict[str, Any]:
-        """Warm every replica (the JAX ``compile/aot.py::prewarm_pool``):
-        each DISTINCT engine behind the pool runs its
-        :meth:`AdaptationEngine.prewarm` exactly once; same-device replicas
-        sharing an engine share its warm set. Returns the single-engine
-        summary keys (totals summed; seconds are the wall cost paid) plus a
-        per-replica table of the engine each replica serves through."""
-        engines = self.engines()
-        summaries = [engine.prewarm(**kwargs) for engine in engines]
-        merged: Dict[str, Any] = {
-            "programs": sum(s.get("programs", 0) for s in summaries),
-            "seconds": round(sum(s.get("seconds", 0.0) for s in summaries), 3),
-            "cache_hits": sum(s.get("cache_hits", 0) for s in summaries),
-            "store_hits": sum(s.get("store_hits", 0) for s in summaries),
-            "errors": sum(s.get("errors", 0) for s in summaries),
-            "by_program": {k: v for s in summaries for k, v in s.get("by_program", {}).items()},
-        }
-        per_replica = []
-        for replica in self.replicas:
-            engine_idx = next(i for i, e in enumerate(engines) if e is replica.engine)
-            s = summaries[engine_idx]
-            per_replica.append({
-                "replica": replica.index,
-                "engine": engine_idx,
-                "shared": sum(1 for r in self.replicas if r.engine is replica.engine) > 1,
-                "programs": s.get("programs", 0),
-                "seconds": s.get("seconds", 0.0),
-                "errors": s.get("errors", 0),
-            })
-        merged["replicas"] = per_replica
-        return merged
+        """Warm every replica: ``compile/aot.py::prewarm_pool``, where the
+        JAX package keeps it."""
+        from ..compile.aot import prewarm_pool
+
+        return prewarm_pool(self, **kwargs)
 
     def close(self, join_timeout_s: float = None) -> None:
         for r in self.replicas:

@@ -42,7 +42,12 @@ class RecompileBudgetExceededError(RuntimeError):
 
 def abstract_signature(value: Any) -> Any:
     """Hashable (shape, dtype)-level abstraction of a call argument: two
-    arguments with equal signatures dispatch the same shapes."""
+    arguments with equal signatures dispatch the same shapes. A value
+    whose type defines ``abstract_signature()`` (a mesh's sharded batch)
+    gives its own."""
+    own = getattr(type(value), "abstract_signature", None)
+    if own is not None:
+        return own(value)
     if hasattr(value, "shape") and hasattr(value, "dtype"):
         return ("arr", tuple(value.shape), str(value.dtype))
     if isinstance(value, dict):

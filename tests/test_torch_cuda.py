@@ -538,13 +538,13 @@ def ckpt_state(run_dir):
     return load_for_inference(str(run_dir / "saved_models"), "latest")[0]
 
 
-def _vgg_chunk_system(cuda, k=3):
+def _vgg_chunk_system(cuda, k=3, image=(8, 8, 1), **overrides):
     cfg = Config(
         num_classes_per_set=3, num_samples_per_class=2, num_target_samples=2, batch_size=2,
-        number_of_training_steps_per_iter=2, use_pallas_inner_update=True, remat_inner_steps=False,
+        number_of_training_steps_per_iter=2, use_pallas_inner_update=True, remat_inner_steps=False, **overrides,
     )
-    system = MAMLSystem(cfg, model=build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8), device=cuda)
-    batches = [learnable_synthetic_batch(2, 3, 2, 2, (8, 8, 1), seed=i) for i in range(k)]
+    system = MAMLSystem(cfg, model=build_vgg(image, 3, num_stages=2, cnn_num_filters=8), device=cuda)
+    batches = [learnable_synthetic_batch(2, 3, 2, 2, image, seed=i) for i in range(k)]
     return system, batches, {key: np.stack([b[key] for b in batches]) for key in batches[0]}
 
 
@@ -592,3 +592,124 @@ def test_b1_and_b2_run_inside_one_replay(cuda):
     b1 = sum(e.count for e in kernels if "fused_sgd" in e.key) - b2
     assert b1 == 2 and b2 == 2, [e.key for e in kernels][:20]
     assert fu.launch_counts == fu.replayed_counts == {"fused_sgd": 2, "fused_sgd_bwd": 2}
+
+
+def test_prewarmed_graphs_replay_bit_equal_to_cold_ones_across_the_flip(cuda):
+    """Two systems under the deterministic algorithms, one prewarmed
+    (every planned graph captured before the first dispatch, none
+    released), one built as it dispatches: a chunk of 2 steps at epoch 0
+    (MSL on) and one at epoch 1 (the window closed, the variant flips),
+    losses and state bit-equal; the prewarmed system's ledger holds its
+    prewarm builds and nothing else."""
+    from howtotrainyourmamlpytorch_tpu_torch.core.programs import clone_tree, tree_leaves_any
+    from howtotrainyourmamlpytorch_tpu_torch.observability.compile_ledger import CompileLedger
+    from howtotrainyourmamlpytorch_tpu_torch.utils.seeding import deterministic_algorithms
+
+    out = {}
+    with deterministic_algorithms():
+        for warm in (False, True):
+            # the prewarm builds at the config's episode shape (Omniglot's 28x28x1)
+            system, _, stacked = _vgg_chunk_system(cuda, k=2, image=(28, 28, 1), multi_step_loss_num_epochs=1,
+                                                   total_iter_per_epoch=2, train_steps_per_dispatch=2,
+                                                   num_evaluation_tasks=4)
+            entries = []
+            ledger = CompileLedger()
+            ledger.on_entry = entries.append
+            system.attach_compile_ledger(ledger)
+            state = system.init_train_state(seed=0)
+            if warm:
+                summary = system.prewarm(state)
+                assert summary["errors"] == 0 and all(e.get("phase") == "prewarm" for e in entries), \
+                    {name: row.get("error") for name, row in summary["by_program"].items()}
+            losses = []
+            for epoch in (0, 1):
+                state, (chunk_losses, _, _) = system.train_step_multi(state, stacked, epoch)
+                losses.append(chunk_losses.clone())
+            torch.cuda.synchronize()
+            out[warm] = (torch.cat(losses), clone_tree(state), entries)
+    (cold_losses, cold_state, _), (warm_losses, warm_state, warm_entries) = out[False], out[True]
+    assert torch.equal(cold_losses, warm_losses)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves_any(cold_state), tree_leaves_any(warm_state)))
+    assert int(warm_state.step) == 4
+    assert all(e.get("phase") == "prewarm" for e in warm_entries)
+    assert {e["program"] for e in warm_entries if e.get("graph")} >= {"train_multi/True/True", "train_multi/True/False"}
+    # one capture stream: the prewarm's five graphs reuse each other's
+    # blocks of the shared pool, which ends below twice the cold system's
+    # one train graph (five graphs on streams of their own hold about five)
+    cold_pool = next(e["memory"]["peak_bytes"] for e in out[False][2] if e.get("graph"))
+    warm_pool = [e["memory"]["peak_bytes"] for e in warm_entries if e.get("graph")][-1]
+    assert warm_pool < 2 * cold_pool, (warm_pool, cold_pool)
+
+
+def _mesh_chunk_system(cuda, k=3):
+    from howtotrainyourmamlpytorch_tpu_torch.config import ParallelConfig
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import make_mesh
+
+    cfg = Config(
+        num_classes_per_set=3, num_samples_per_class=2, num_target_samples=2, batch_size=4,
+        number_of_training_steps_per_iter=2, use_pallas_inner_update=True, remat_inner_steps=False,
+    )
+    system = MAMLSystem(cfg, model=build_vgg((8, 8, 1), 3, num_stages=2, cnn_num_filters=8), device=cuda)
+    batches = [learnable_synthetic_batch(4, 3, 2, 2, (8, 8, 1), seed=i) for i in range(k)]
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(ParallelConfig(dp=2), [card, card])
+    return system, mesh, batches, {key: np.stack([b[key] for b in batches]) for key in batches[0]}
+
+
+def test_mesh_graph_on_one_card_matches_sharded_eager_steps(cuda):
+    """A dp=2 mesh of ``[cuda:0, cuda:0]``: K=3 sharded steps replayed from
+    one CUDA graph of the sharded step against the 3 sharded eager steps,
+    under the deterministic algorithms: bit-equal losses and state; the
+    ledger's capture says ``graph: true``; a replay launches B1 and B2 dp x
+    K_inner times each, as the eager sharded step does."""
+    from howtotrainyourmamlpytorch_tpu_torch.core.programs import clone_tree, tree_leaves_any
+    from howtotrainyourmamlpytorch_tpu_torch.observability.compile_ledger import CompileLedger
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import replicate, shard_batch, unreplicate
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import shard_chunk
+    from howtotrainyourmamlpytorch_tpu_torch.utils.seeding import deterministic_algorithms
+
+    with deterministic_algorithms():
+        system, mesh, batches, stacked = _mesh_chunk_system(cuda)
+        entries = []
+        ledger = CompileLedger()
+        ledger.on_entry = entries.append
+        system.attach_compile_ledger(ledger)
+        start = system.init_train_state(seed=0)
+        eager, losses = replicate(clone_tree(start), mesh), []
+        for b in batches:
+            eager, out = system.train_step(eager, shard_batch(b, mesh), epoch=0)
+            losses.append(out.loss)
+        graph, (graph_losses, _, _) = system.train_step_multi(replicate(clone_tree(start), mesh),
+                                                              shard_chunk(stacked, mesh), 0)
+        fu.reset_launch_counts()
+        again, _ = system.train_step_multi(replicate(clone_tree(start), mesh), shard_chunk(stacked, mesh), 0)
+        torch.cuda.synchronize()
+    K = system.cfg.number_of_training_steps_per_iter
+    assert fu.launch_counts == fu.replayed_counts == {"fused_sgd": 3 * 2 * K, "fused_sgd_bwd": 3 * 2 * K}
+    assert torch.equal(torch.stack(losses), graph_losses)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves_any(unreplicate(eager)), tree_leaves_any(unreplicate(graph))))
+    (capture,) = [e for e in entries if e["program"] == "train_multi/True/True"]
+    assert capture["graph"] is True and capture["replays"] == 3
+    assert len(graph.replicas) == 2 and int(graph.step) == 3
+
+
+def test_replicated_state_advances_in_place(cuda):
+    """On the one-card mesh the returned state is replicated over the
+    graph's static buffers: the next dispatch from it advances those same
+    tensors, so a state kept across a dispatch must be a copy
+    (``MAMLSystem.state_in_place``), as the runner's NaN guard keeps it."""
+    from howtotrainyourmamlpytorch_tpu_torch.core.programs import clone_tree, tree_leaves_any
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import replicate
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import shard_chunk
+
+    system, mesh, _, stacked = _mesh_chunk_system(cuda, k=2)
+    assert system.state_in_place
+    first, _ = system.train_step_multi(replicate(system.init_train_state(seed=0), mesh), shard_chunk(stacked, mesh), 0)
+    kept = clone_tree(first)
+    assert int(first.step) == 2 and first.replicas[0] is first.replicas[1]
+    second, _ = system.train_step_multi(first, shard_chunk(stacked, mesh), 0)
+    torch.cuda.synchronize()
+    ptrs = lambda s: [t.data_ptr() for t in tree_leaves_any(s)]  # noqa: E731
+    assert ptrs(second) == ptrs(first)
+    assert int(first.step) == int(second.step) == 4 and int(kept.step) == 2
+    assert not all(torch.equal(a, b) for a, b in zip(tree_leaves_any(kept.params), tree_leaves_any(first.params)))

@@ -573,6 +573,42 @@ def test_obs_top_renders_the_port_supervisor_frame(tmp_path):
     assert "scale_up" in rendered and "capacity_repair" in rendered
 
 
+def test_rolling_restart_waits_for_the_gateway_to_admit_the_respawned_backend(monkeypatch):
+    """A backend's own /healthz 200 is not the gateway's admission: the
+    roll's gate waits until the gateway's /metrics lists the respawned
+    backend IN, so the next drain never finds the gateway with no backend
+    to route to. Without ``gateway_url`` the gate stays the /healthz one."""
+    from howtotrainyourmamlpytorch_tpu_torch.serving import fleetctl
+
+    url = "http://127.0.0.1:9"
+    g = Gateway([url, "http://127.0.0.1:10"], health_interval_s=30.0, pass_threshold=1)
+    g._stop.set()  # no health poller: membership moves only as observed here
+    server = make_gateway_server(g, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    gw_url = f"http://127.0.0.1:{server.server_address[1]}"
+    monkeypatch.setattr(fleetctl, "drain_backend", lambda entry, timeout_s, log: {"drain": "sigterm_sent"})
+    monkeypatch.setattr(fleetctl, "spawn_backend", lambda entry: type("P", (), {"pid": 4_500_001})())
+    monkeypatch.setattr(fleetctl, "wait_healthy", lambda u, timeout_s: True)
+    entry = {"url": url, "pid": 4_500_000, "respawn": ["true"]}
+    try:
+        assert not fleetctl.gateway_admits(gw_url, url)
+        row = fleetctl.restart_backend(entry, 1.0, 0.5, gateway_url=gw_url, log=lambda m: None)
+        assert not row["ok"] and "did not admit" in row["error"] and row["admit_s"] >= 0.4
+        assert fleetctl.restart_backend(entry, 1.0, 0.5, log=lambda m: None)["ok"]  # no gateway: no wait
+        admit = threading.Timer(0.3, lambda: g.observe(g.backends[0], True, "ok"))
+        admit.start()
+        row = fleetctl.restart_backend(entry, 1.0, 30.0, gateway_url=gw_url, log=lambda m: None)
+        admit.join()
+        assert row["ok"] and 0.2 <= row["admit_s"] < 10.0, row
+        assert fleetctl.gateway_admits(gw_url, url + "/")
+        assert not fleetctl.gateway_admits(gw_url, "http://127.0.0.1:10")
+        assert not fleetctl.gateway_admits("http://127.0.0.1:9", url)  # no gateway there
+    finally:
+        server.shutdown()
+        server.server_close()
+        g.close()
+
+
 def _load_port_autoscaler():
     spec = importlib.util.spec_from_file_location(
         "t_port_autoscaler_gw", os.path.join(REPO, "howtotrainyourmamlpytorch_tpu_torch", "serving", "autoscaler.py"))

@@ -12,10 +12,15 @@ inner steps, second order, MSL on) from the same numpy-seeded weights
   the post-Adam params);
 - the eval per-task losses and accuracies;
 - the port's chunk equal, bit for bit, to K ``train_step`` calls;
-- a chunk that spans a variant flip, and a mesh's sharded batch, refused;
+- a chunk that spans a variant flip refused; on a dp=2 mesh over
+  ``[cpu, cpu]`` a sharded chunk (``shard_chunk``) equal, bit for bit, to
+  K sharded ``train_step`` calls and within the train parity's tolerances
+  of JAX's meshless program on the same global batches, and the fused
+  eval on the mesh equal to the per-batch sharded eval;
 - a runner epoch with K=2 (one chunk and a single step over 3 iterations)
   bit-equal to the K=1 port run and within atol 1e-5 of JAX's runner with
-  K=2 (``test_runner_epoch_with_multi_dispatch``'s statistics);
+  K=2 (``test_runner_epoch_with_multi_dispatch``'s statistics), and on a
+  dp=2 mesh within rtol 1e-5 of K=1;
 - a forced ``nan-loss`` under K=2 that discards the chunk and restores the
   state;
 - the fused eval's statistics equal to the per-batch ones."""
@@ -31,8 +36,9 @@ import torch
 
 from howtotrainyourmamlpytorch_tpu.experiment import ExperimentRunner as JaxRunner
 from howtotrainyourmamlpytorch_tpu_torch import config as tcfg
+from howtotrainyourmamlpytorch_tpu_torch.core.programs import tree_leaves_any
 from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
-from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch, shard_chunk, unreplicate
 from howtotrainyourmamlpytorch_tpu_torch.utils.interop import params_to_jax
 from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
@@ -96,7 +102,15 @@ def test_chunk_equals_sequential_steps_bit_for_bit(chunk):
     assert torch.equal(ev, tsys.eval_step_multi(state, chunk["stacked"])[0])
 
 
+def _cpu_mesh():
+    return make_mesh(tcfg.ParallelConfig(dp=2), [torch.device("cpu")] * 2)
+
+
 def test_flipping_chunk_and_mesh_batches_are_refused(chunk):
+    """The flipping chunk stays refused. The mesh's case, refused until
+    ROADMAP.md A10.5 (mesh): a sharded chunk now runs, bit-equal to K
+    sharded ``train_step`` calls (one sharded batch is not a chunk and is
+    refused)."""
     tsys, state = chunk["tsys"], chunk["tstate"]
     # 4 iterations per epoch, MSL for 3 epochs: steps 10..12 span epochs 2
     # and 3, where the MSL window closes
@@ -105,9 +119,46 @@ def test_flipping_chunk_and_mesh_batches_are_refused(chunk):
         tsys.train_step_multi(late, chunk["stacked"])
     start, _ = tsys.train_step_multi(state, chunk["stacked"])  # epoch read from the step: 0..2
     assert int(start.step) == K
-    mesh = make_mesh(tcfg.ParallelConfig(dp=2), [torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match=r"A10\.5 \(mesh\)"):
+    mesh = _cpu_mesh()
+    with pytest.raises(TypeError, match="shard_chunk"):
         tsys.train_step_multi(state, shard_batch(chunk["batches"][0], mesh), 0)
+    seq, losses = replicate(state, mesh), []
+    for b in chunk["batches"]:
+        seq, out = tsys.train_step(seq, shard_batch(b, mesh), epoch=0)
+        losses.append(out.loss)
+    new, (chunk_losses, _, _) = tsys.train_step_multi(replicate(state, mesh), shard_chunk(chunk["stacked"], mesh), 0)
+    assert torch.equal(torch.stack(losses), chunk_losses)
+    got, want = unreplicate(new), unreplicate(seq)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves_any(got), tree_leaves_any(want)))
+    assert int(got.step) == K
+
+
+def test_mesh_chunk_matches_jax_meshless_program(chunk):
+    """The dp=2 chunk against JAX's ``train_step_multi`` on the same global
+    batches without a mesh: the losses within rtol 1e-5, the state within
+    atol 1e-5 (the elastic tests' hold of dp to JAX); conv biases left out,
+    as above."""
+    tsys, jnew = chunk["tsys"], chunk["jnew"]
+    mesh = _cpu_mesh()
+    new, (losses, _, _) = tsys.train_step_multi(chunk["tstate"], shard_chunk(chunk["stacked"], mesh), 0)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(chunk["outs"][0]), rtol=1e-5, atol=0)
+    new, fs = unreplicate(new), tsys.model.feature_shape
+    got = params_to_jax(new.params, fs)
+    for stage in ("stage_0", "stage_1"):
+        _close(got[stage]["conv"]["w"], jnew.params[stage]["conv"]["w"])
+        _close(got[stage]["bn"], jnew.params[stage]["bn"])
+    _close(got["fc"], jnew.params["fc"])
+    _close(params_to_jax(new.inner_hparams, fs), jnew.inner_hparams)
+    assert int(new.step) == K
+
+
+def test_fused_eval_on_a_mesh_equals_the_sharded_eval(chunk):
+    tsys, state = chunk["tsys"], chunk["tstate"]
+    mesh = _cpu_mesh()
+    losses, accs = tsys.eval_step_multi(replicate(state, mesh), shard_chunk(chunk["stacked"], mesh))
+    outs = [tsys.eval_step(state, shard_batch(b, mesh)) for b in chunk["batches"]]
+    assert torch.equal(losses, torch.stack([o.per_task_losses for o in outs]))
+    assert torch.equal(accs, torch.stack([o.per_task_accuracies for o in outs]))
 
 
 def _epoch(module_runner, cfg, system, start=None):
@@ -148,6 +199,29 @@ def test_runner_epoch_with_multi_dispatch(toy_dataset, tmp_path):  # noqa: F811
         np.testing.assert_allclose(s2[key], js[key], rtol=0, atol=ATOL, err_msg=key)
     np.testing.assert_allclose(s2["learning_rate"], js["learning_rate"], rtol=1e-6)
     jax.clear_caches()
+
+
+def test_runner_epoch_with_multi_dispatch_on_a_mesh(toy_dataset, tmp_path):  # noqa: F811
+    """JAX's ``test_runner_epoch_with_multi_dispatch`` on a dp=2 mesh over
+    ``[cpu, cpu]``: K=2 (a sharded chunk and a single sharded step) within
+    rtol 1e-5 of K=1, the state replicated on the mesh after it."""
+    common = dict(total_epochs=1, total_iter_per_epoch=3, num_evaluation_tasks=2, parallel=tcfg.ParallelConfig(dp=2))
+    out = {}
+    for k in (1, 2):
+        cfg = runner_config(toy_dataset, tmp_path / f"k{k}", train_steps_per_dispatch=k, **common)
+        runner = ExperimentRunner(cfg, system=small_system(cfg), devices=[torch.device("cpu")] * 2)
+        assert runner.mesh is not None and runner.mesh.shape["dp"] == 2
+        try:
+            out[k] = (runner._train_epoch(0), runner)
+        finally:
+            runner.loader.close()
+            runner.events.close()
+    (s1, r1), (s2, r2) = out[1], out[2]
+    for key in ("train_loss_mean", "train_accuracy_mean", "learning_rate"):
+        np.testing.assert_allclose(s2[key], s1[key], rtol=1e-5, atol=0, err_msg=key)
+    assert int(r2.state.step) == 3 and len(r2.state.replicas) == 2
+    for a, b in zip(tree_leaves(unreplicate(r1.state).params), tree_leaves(unreplicate(r2.state).params)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-7)
 
 
 def test_nan_under_multi_dispatch_discards_the_chunk(toy_dataset, tmp_path):  # noqa: F811

@@ -216,8 +216,11 @@ local = shard_batch({k: v[lo:hi] for k, v in batch.items()}, mesh)
 assert local.num_tasks == hi - lo and local.global_tasks == len(batch["x_support"])
 loss, _, grads = system.meta_gradients(replicate(state, mesh), local, epoch=0)
 new, out = system.train_step(replicate(state, mesh), local, epoch=0)
+from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import shard_chunk
+chunk = {k: np.stack([v[lo:hi], v[lo:hi][::-1]]) for k, v in batch.items()}
+chunked, (chunk_losses, _, _) = system.train_step_multi(replicate(state, mesh), shard_chunk(chunk, mesh), 0)
 np.savez(os.path.join(work, f"step{rank}.npz"), loss=float(loss), out_loss=float(out.loss),
-         step_losses=out.per_task_losses.numpy(),
+         step_losses=out.per_task_losses.numpy(), chunk_losses=chunk_losses.numpy(), chunk_step=int(chunked.step),
          **{"g_" + "/".join(p): g.numpy() for g, p in zip(*tree_flatten(grads))},
          **{"p_" + "/".join(p): t.numpy() for t, p in zip(*tree_flatten(new.params))})
 
@@ -328,6 +331,28 @@ def test_two_process_gloo_step_equals_one_process_dp2_and_jax(two_process_run):
     jscale = max(float(np.abs(np.asarray(g)).max()) for g in jflat)
     for a, b in zip(pflat, jflat):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0, atol=1e-5 * jscale)
+
+
+def test_two_process_chunk_equals_one_process_dp2_chunk(two_process_run):
+    """A chunk of K=2 steps on the two-process mesh (the mesh spans
+    processes, so the multi-step program runs the sharded eager steps, the
+    meta-gradient all-reduced over gloo in each): its losses equal a
+    one-process dp=2 chunk's over the same global batches (rtol 1e-6)."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import shard_chunk
+
+    run = two_process_run
+    steps = [np.load(run["work"] / f"step{r}.npz") for r in (0, 1)]
+    batch = run["batch"]
+    halves = [{k: v[lo:hi] for k, v in batch.items()} for lo, hi in ((0, 2), (2, 4))]
+    # each process reversed its own two tasks in the chunk's second batch
+    second = {k: np.concatenate([h[k][::-1] for h in halves]) for k in batch}
+    chunk = {k: np.stack([batch[k], second[k]]) for k in batch}
+    mesh = tpar.make_mesh(tcfg.ParallelConfig(dp=2), ["cpu"] * 2)
+    tsys, tstate = run["tsys"], run["tstate"]
+    new, (losses, _, _) = tsys.train_step_multi(tpar.replicate(tstate, mesh), shard_chunk(chunk, mesh), 0)
+    for step in steps:
+        np.testing.assert_allclose(step["chunk_losses"], losses.numpy(), rtol=1e-6)
+        assert int(step["chunk_step"]) == int(new.step) == 2
 
 
 def test_top_k_ensemble_gathered_over_the_group(two_process_run):

@@ -451,9 +451,7 @@ def test_sigterm_saves_mid_epoch_and_resume_continues_there(toy_dataset, tmp_pat
 
 
 REFUSED = {
-    "aot": (dict(aot=tcfg.AotConfig(enabled=True)), "A10.8"),
     "donation": (dict(donate_train_state=True), "A10.7"),
-    "dp2_multi_dispatch": (dict(parallel=tcfg.ParallelConfig(dp=2), train_steps_per_dispatch=2), r"A10\.5 \(mesh\)"),
     "mp2": (dict(parallel=tcfg.ParallelConfig(mp=2)), "A12"),
     "tp_convs": (dict(parallel=tcfg.ParallelConfig(dp=2, tp_convs=True)), "A12"),
 }
@@ -487,6 +485,34 @@ def _ran_profile(runner):
     assert device_time_breakdown(prof_dir) is None
 
 
+def _ran_prewarmed(runner):
+    """The whole planned family built before the first step, every train
+    and eval entry of the ledger a prewarm build, the manifest beside the
+    checkpoints with those programs."""
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint as ckpt
+    from howtotrainyourmamlpytorch_tpu_torch.observability.compile_ledger import program_name
+    from howtotrainyourmamlpytorch_tpu_torch.utils.strictmode import train_planned_programs
+
+    planned = {program_name(k) for k in train_planned_programs(runner.cfg)}
+    events = _events(runner.run_dir)
+    (prewarm,) = [e for e in events if e.get("event") == "prewarm"]
+    assert prewarm["programs"] == len(planned) and prewarm["errors"] == 0
+    assert [e["expected_warm"] for e in events if e.get("event") == "prewarm_manifest"] == [False]
+    assert [e["prewarmed"] for e in events if e.get("event") == "cold_start"] == [True]
+    entries = _jsonl(os.path.join(runner.logs_dir, "compile_ledger.jsonl"))
+    assert {e["program"] for e in entries} == planned
+    assert all(e.get("phase") == "prewarm" for e in entries)
+    manifest = ckpt.load_prewarm_manifest(runner.saved_models_dir)
+    assert set(manifest["programs"]) == planned and manifest["fingerprint"]["mesh"] == [1, 1]
+
+
+def _ran_multi_dispatch_on_a_mesh(runner):
+    """K = 2 over 3 iterations on a dp=2 mesh: a sharded chunk and a
+    sharded single step; the state stays replicated on the mesh."""
+    _ran_multi_dispatch(runner)
+    assert runner.mesh.shape["dp"] == 2 and len(runner.state.replicas) == 2
+
+
 def _ran_sanitized(runner):
     from tools.graftsan import runtime
 
@@ -496,8 +522,13 @@ def _ran_sanitized(runner):
 
 # options the runner refused until their ROADMAP.md item was ported: each
 # case now runs (the sanitizer, A9.7: armed, it logs no violation; multi-step
-# dispatch, the fused eval and the profiler window, A10.4-A10.5)
+# dispatch, the fused eval and the profiler window, A10.4-A10.5; the
+# prewarm, A10.8; multi-step dispatch on a dp=2 mesh of the CPU named twice,
+# A10.5 (mesh))
 NOW_PORTED = {
+    "aot": (dict(aot=tcfg.AotConfig(enabled=True)), _ran_prewarmed),
+    "dp2_multi_dispatch": (dict(parallel=tcfg.ParallelConfig(dp=2), train_steps_per_dispatch=2,
+                                total_iter_per_epoch=3), _ran_multi_dispatch_on_a_mesh),
     "sanitizer": (dict(resilience=tcfg.ResilienceConfig(sanitizer=True)), _ran_sanitized),
     "multi_dispatch": (dict(train_steps_per_dispatch=2, total_iter_per_epoch=3), _ran_multi_dispatch),
     "eval_fused": (dict(eval_fused_dispatch=True), _ran_fused_eval),
@@ -514,8 +545,9 @@ def test_unported_options_are_refused(toy_dataset, tmp_path, name):
         if "profile_dir" in overrides:
             overrides = dict(overrides, profile_dir=str(tmp_path / overrides["profile_dir"]))
         cfg = runner_config(toy_dataset, tmp_path, **{"total_epochs": 1, "total_iter_per_epoch": 1, **overrides})
+        devices = [torch.device("cpu")] * 2 if name == "dp2_multi_dispatch" else None
         try:
-            runner = ExperimentRunner(cfg, system=small_system(cfg))
+            runner = ExperimentRunner(cfg, system=small_system(cfg), devices=devices)
             assert runtime.enabled() == (name == "sanitizer")
             runner.run_experiment()
             check_run(runner)
