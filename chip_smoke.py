@@ -154,7 +154,10 @@ Run from the repository root. Phases, one JSON line each:
    per step, the median step of each width. Then an ``ExperimentRunner``
    at ``parallel.dp=2`` on ``[cuda:0, cuda:0]`` writes a format-3 ``latest``
    (2 shards and a manifest, async); the same checkpoint evaluated on dp=2
-   and on a degraded one-device runner agree within the floor; the CLI
+   and on a degraded one-device runner agree within twice the eval's own
+   floor (the largest relative move of the dp=2 eval's loss run again and
+   with the val images moved by 1e-6: +-1e-6 on every pixel, and 1e-6 with
+   3 drawn sign patterns); the CLI
    resumes it on the one visible card (``degraded_mesh`` {requested [2, 1],
    granted [1, 1], visible 1}, an epoch trained, rc 0); a runner whose
    device probe walks 1 then 2 grows back at the epoch boundary
@@ -169,6 +172,27 @@ Run from the repository root. Phases, one JSON line each:
    step times with their ratios, the floor, the launches, the shard files'
    bytes, the events, the rcs and the phase's seconds (under 90 s, the run
    under 900 s: both checked after the ``timing`` line).
+14b. ``tensor_parallel``: tensor parallelism and buffer donation at the
+   same config, on phase ``runner``'s image folder, in this process, on a
+   dp=2 x mp=2 mesh naming cuda:0 four times. (1) The dp x mp step with
+   ``tp_convs`` (each conv kernel split into two blocks of 32 output
+   channels, the head into two of 10) and without (the head alone split)
+   against dp=1 on one start state and batch: the loss and the
+   meta-gradient's cosine within twice the card's float32 floor (as in
+   ``elastic``), B1 and B2 launched dp x mp x K times per step, the step
+   times beside dp=1's. (2) Under the deterministic algorithms a chunk of 3
+   TP steps replayed from one CUDA graph (``train_step_multi`` on a
+   sharded chunk) bit-equal to the eager TP steps and a second replay, B1
+   and B2 dp x mp x K per replay. (3) An ``ExperimentRunner`` at dp=2 x
+   mp=2 with ``tp_convs`` and ``donate_train_state``, 1 epoch of 2 steps:
+   the ``donation_selfcheck`` event ``clean``, the ``donation_audit``
+   event, every step in place, a synchronous format-3 ``latest`` of 4
+   shards with bookkeeping mesh [2, 2]; the checkpoint evaluated on a
+   one-device runner (``degraded_mesh`` granted [1, 1]) within twice the
+   eval's own floor, then served one flush by
+   ``AdaptationEngine.from_run_dir``. (4) The default config's eager train
+   step donated and plain under the deterministic algorithms: bit-equal,
+   the donated one in place, the peak memory of each. Under 60 s.
 15. ``operations``: the operations layer on the card, on phase
    ``runner``'s image folder. (1) The sanitized chaos campaign
    (``run_campaign``, 8 episodes at the run's seed, in-process, the
@@ -224,8 +248,8 @@ Run from the repository root. Phases, one JSON line each:
     twins (``dlr`` within its bound). (a) The VGG train cell (the default
     config, meta-batch 8, K=5, second order, MSL on): a chunk of 3 steps
     replayed from a graph of the train step (``train_step_multi``) against
-    3 eager steps from one state, three eager runs giving the floor (2x
-    their largest difference) for the graph and for two replays; a fresh
+    3 eager steps from one state, five eager runs giving the floor (2x
+    the largest difference over their 10 pairs) for the graph and for two replays; a fresh
     system under the deterministic algorithms: graph and eager bit-equal.
     (b) ResNet-12 (``omniglot.20.1.resnet-12.gd``), a chunk of 3 against 3
     eager steps under the deterministic algorithms (its float32 rollout is
@@ -265,6 +289,14 @@ Run from the repository root. Phases, one JSON line each:
     paths (the wrappers' counts; a replay adds its graph's captured tally,
     ``core/programs.py``), its error against the twin and its times beside
     its bound and inside a replayed graph.
+
+Fresh processes start early, behind gate files, so that their imports and
+card start (10-25 s each) overlap the phases before them: phase ``http``'s
+first server from phase ``small`` on, ``fleet``'s first two backends during
+``tenancy``, ``operations``' strict serve CLI during ``tensor_parallel``,
+``prewarm``'s three CLI legs during ``programs`` (and, as before, the
+runner's and ``elastic``'s CLI legs within their phases). Each is released
+where its phase used to start it; a process whose parent is gone exits.
 
 A ``timing`` line before the ``kernels`` line gives each phase's wall
 seconds. Then the card's ``nvidia-smi`` name and power limit, and last
@@ -1382,22 +1414,79 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def start_server(run_dir: str, log_path: str, overrides=("serving.refine_enabled=true",), phase: str = "http",
-                 while_starting=None):
+# ``python -m MODULE ARGS`` (the arguments after ``-c``) in a fresh process
+# that imports the serving stack and starts the card, then waits for the
+# file SMOKE_GATE names before it runs the module; it exits if the process
+# that started it is gone. Its pid is the server's.
+_GATED_MODULE = r"""
+import os, runpy, sys, time
+parent = os.getppid()
+import torch
+import torch._inductor.config  # noqa: F401 (the serve CLI's deterministic switch imports it)
+from howtotrainyourmamlpytorch_tpu_torch import serving  # noqa: F401
+from howtotrainyourmamlpytorch_tpu_torch.serving import engine  # noqa: F401
+if torch.cuda.is_available():
+    torch.zeros(1, device="cuda")
+while not os.path.exists(os.environ["SMOKE_GATE"]):
+    if os.getppid() != parent:
+        sys.exit(3)
+    time.sleep(0.02)
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def start_gated_server(argv, log_path: str, gate: str):
+    """``argv`` (``python -m MODULE ...``) started now behind ``gate``
+    (:data:`_GATED_MODULE`): its imports and card start (8-16 s) overlap
+    the work before its release (``open(gate, "w")``). -> the process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    assert argv[:2] == [sys.executable, "-m"], argv
+    log = open(log_path, "ab")
+    proc = subprocess.Popen([sys.executable, "-c", _GATED_MODULE, *argv[2:]], cwd=root,
+                            env=dict(os.environ, PYTHONPATH=root, SMOKE_GATE=gate), stdout=log,
+                            stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+HTTP_SERVE_OVERRIDES = ("serving.refine_enabled=true",)
+
+
+def _serve_argv(run_dir: str, port: int, overrides):
+    return [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve", run_dir, "--port", str(port),
+            *overrides]
+
+
+def prestart_http() -> dict:
+    """Phase ``http``'s first server, started before phase ``small`` behind
+    a gate on a run directory that phase ``http`` fills (the trained
+    state) before it releases it: its imports and card start overlap the
+    phases between."""
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    port, gate, log_path = _free_port(), os.path.join(run_dir, "serve.gate"), os.path.join(run_dir, "serve.log")
+    return {"run_dir": run_dir, "port": port, "gate": gate, "log_path": log_path,
+            "proc": start_gated_server(_serve_argv(run_dir, port, HTTP_SERVE_OVERRIDES), log_path, gate)}
+
+
+def start_server(run_dir: str, log_path: str, overrides=HTTP_SERVE_OVERRIDES, phase: str = "http",
+                 while_starting=None, gated=None):
     """``python -m howtotrainyourmamlpytorch_tpu_torch.serve RUN_DIR`` (on
     the card: no ``--device``) with the config ``overrides``, on a free
-    port; returns (process, base URL, /healthz body) once /healthz answers
-    200. ``while_starting()``, where given, runs here while the server
-    process imports and starts."""
-    port = _free_port()
-    root = os.path.dirname(os.path.abspath(__file__))
-    log = open(log_path, "a")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve", run_dir, "--port", str(port),
-         *overrides],
-        cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=log, stderr=subprocess.STDOUT,
-    )
-    log.close()
+    port, or ``gated`` (:func:`prestart_http`) released; returns (process,
+    base URL, /healthz body) once /healthz answers 200.
+    ``while_starting()``, where given, runs here while the server process
+    imports and starts."""
+    if gated is None:
+        port = _free_port()
+        root = os.path.dirname(os.path.abspath(__file__))
+        log = open(log_path, "a")
+        proc = subprocess.Popen(_serve_argv(run_dir, port, overrides), cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                                stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+    else:
+        proc, port = gated["proc"], gated["port"]
+        open(gated["gate"], "w").close()
     base = f"http://127.0.0.1:{port}"
     if while_starting is not None:
         try:
@@ -1480,7 +1569,7 @@ def _alone_references(engine, supports, queries, probs, seed: int):
     return devs, floors, wrong
 
 
-def phase_http(seed: int, system, trained):
+def phase_http(seed: int, system, trained, pre: dict):
     """Serving over HTTP on the card through the CLI: the trained state in a
     run directory (``config.yaml``, ``save_checkpoint``), ``python -m
     howtotrainyourmamlpytorch_tpu_torch.serve`` in a subprocess with
@@ -1492,7 +1581,8 @@ def phase_http(seed: int, system, trained):
     a cache hit with the same probabilities). B1 launches are the server
     process's count (zero at its start), read from /metrics before the
     drain. Each answer is held against the same request adapted and
-    predicted alone in this process (the bound below)."""
+    predicted alone in this process (the bound below). ``pre``: the first
+    server, started behind a gate (:func:`prestart_http`)."""
     from howtotrainyourmamlpytorch_tpu_torch.config import save_config
     from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
     from howtotrainyourmamlpytorch_tpu_torch.experiment.checkpoint import save_checkpoint
@@ -1518,12 +1608,12 @@ def phase_http(seed: int, system, trained):
     out = {"phase": "http", "clients": HTTP_CLIENTS, "adapts_per_client": HTTP_PER_CLIENT, "support": 100,
            "queries": HTTP_QUERIES}
     alone = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_http_") as run_dir:
+    run_dir, log_path = pre["run_dir"], pre["log_path"]
+    try:
         save_config(cfg, os.path.join(run_dir, "config.yaml"))
         save_checkpoint(os.path.join(run_dir, "saved_models"), trained, {"epoch": 0}, epoch=0,
                         feature_shape=system.model.feature_shape)
-        log_path = os.path.join(run_dir, "serve.log")
-        proc, base, health = start_server(run_dir, log_path)
+        proc, base, health = start_server(run_dir, log_path, gated=pre)
         try:
             check(health["platform"] == "cuda" and health["status"] == "ok", "http", "healthz", health=health)
             # the server's first adapt and predict: its cold start, timed apart
@@ -1600,6 +1690,9 @@ def phase_http(seed: int, system, trained):
             check(rc2 == 0, "http", "the second drain", rc=rc2)
         finally:
             stop_server(proc)
+    finally:
+        stop_server(pre["proc"])
+        shutil.rmtree(run_dir, ignore_errors=True)
 
     devs, floors, wrong = alone["devs"], alone["floors"], alone["wrong"]
     bound = max(ALONE_TOLERANCE["maml++"], max(floors))
@@ -2000,7 +2093,38 @@ def _b1_per_flush(metrics: dict, steps: int) -> dict:
     return {"launches": launches, "flushes": flushes, "equal": launches == steps * flushes}
 
 
-def phase_fleet(seed: int, system, trained, http_bound: float):
+def prestart_fleet(system, trained) -> dict:
+    """Phase ``fleet``'s slots, made before phase ``tenancy``: the trained
+    state in a run directory per slot (3 slots, each on a free port) and
+    the first two slots' backends started behind one gate, so that their
+    imports and card start overlap phase ``tenancy``."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import save_config
+    from howtotrainyourmamlpytorch_tpu_torch.experiment.checkpoint import save_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    template = os.path.join(tmp, "template")
+    os.makedirs(template)
+    save_config(system.cfg, os.path.join(template, "config.yaml"))
+    save_checkpoint(os.path.join(template, "saved_models"), trained, {"epoch": 0}, epoch=0,
+                    feature_shape=system.model.feature_shape)
+    slots = []
+    for i in range(3):
+        run_dir = os.path.join(tmp, f"b{i}")
+        shutil.copytree(template, run_dir)
+        port = _free_port()
+        slots.append({
+            "url": f"http://127.0.0.1:{port}", "port": port, "run_dir": run_dir, "cwd": root,
+            "log": os.path.join(run_dir, "serve.log"),
+            "respawn": [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve", run_dir,
+                        "--port", str(port), "--device", FLEET_DEVICE, "--checkpoint", "latest"],
+        })
+    gate = os.path.join(tmp, "backends.gate")
+    procs = [start_gated_server(slot["respawn"], slot["log"], gate) for slot in slots[:2]]
+    return {"tmp": tmp, "slots": slots, "procs": procs, "gate": gate}
+
+
+def phase_fleet(seed: int, system, trained, http_bound: float, pre: dict):
     """The serving fleet on the card through the port's import-light CLIs
     (``scripts/gateway.py``, ``scripts/fleet_serve.py``,
     ``scripts/rolling_restart.py``) and the serve CLI: the trained state in
@@ -2019,9 +2143,7 @@ def phase_fleet(seed: int, system, trained, http_bound: float):
     the backends and the gateway stopped, no process left."""
     import signal
 
-    from howtotrainyourmamlpytorch_tpu_torch.config import save_config
     from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
-    from howtotrainyourmamlpytorch_tpu_torch.experiment.checkpoint import save_checkpoint
     from howtotrainyourmamlpytorch_tpu_torch.resilience.campaign import _read_jsonl, spawn_gateway
     from howtotrainyourmamlpytorch_tpu_torch.serving.fleetctl import pid_alive
 
@@ -2041,24 +2163,8 @@ def phase_fleet(seed: int, system, trained, http_bound: float):
     procs, pids = [], set()  # everything this phase started, to stop in the end
     out = {"phase": "fleet", "slots": 3, "min_backends": 2, "max_backends": 3, "rps": FLEET_RPS,
            "stairs": FLEET_STAIRS, "load_s": FLEET_LOAD_S, "adapt_frac": 0.25, "subreaper": subreaper}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    tmp, slots, early = pre["tmp"], pre["slots"], pre["procs"]
     try:
-        template = os.path.join(tmp, "template")
-        os.makedirs(template)
-        save_config(cfg, os.path.join(template, "config.yaml"))
-        save_checkpoint(os.path.join(template, "saved_models"), trained, {"epoch": 0}, epoch=0,
-                        feature_shape=system.model.feature_shape)
-        slots = []
-        for i in range(3):
-            run_dir = os.path.join(tmp, f"b{i}")
-            shutil.copytree(template, run_dir)
-            port = _free_port()
-            slots.append({
-                "url": f"http://127.0.0.1:{port}", "port": port, "run_dir": run_dir, "cwd": root,
-                "log": os.path.join(run_dir, "serve.log"),
-                "respawn": [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve", run_dir,
-                            "--port", str(port), "--device", FLEET_DEVICE, "--checkpoint", "latest"],
-            })
         urls = [s["url"] for s in slots]
 
         def http(url, path, body=None):
@@ -2070,15 +2176,14 @@ def phase_fleet(seed: int, system, trained, http_bound: float):
         # the gateway over every slot; the third stays OUT until spawned
         gw_proc, gw = spawn_gateway(urls, os.path.join(tmp, "gateway"))
         procs.append(gw_proc)
-        # two backends started together, handed to the supervisor below
-        for slot in slots[:2]:
-            log = open(slot["log"], "ab")
-            proc = subprocess.Popen(slot["respawn"], cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
-            log.close()
+        # two backends started together before phase tenancy behind a gate,
+        # released now and handed to the supervisor below
+        for slot, proc in zip(slots[:2], early):
             procs.append(proc)
             slot["pid"] = proc.pid
             pids.add(proc.pid)
         t0 = time.monotonic()
+        open(pre["gate"], "w").close()
         for slot, proc in zip(slots[:2], procs[1:]):
             _wait_for(lambda: http(slot["url"], "/healthz")[0] == 200 or proc.poll() is not None, HTTP_READY_S,
                       "fleet", "a backend's /healthz")
@@ -2719,18 +2824,7 @@ def phase_elastic(seed: int, tmp: str):
 
     # 1. the sharded step against dp=1, beside the card's float32 floor
     fu.reset_launch_counts()
-    loss1, _, g1 = system.meta_gradients(start, batch, epoch=0)
-    loss1b, _, g1b = system.meta_gradients(start, batch, epoch=0)
-    floor_loss, floor_cos = abs(float(loss1b) - float(loss1)), 1.0 - _cosine(_flat(g1), _flat(g1b))
-    moved = []
-    for sign in (1.0, -1.0):
-        lp, _, gp = system.meta_gradients(start, _perturbed(batch, sign * NOISE_SCALE), epoch=0)
-        moved.append((abs(float(lp) - float(loss1)), 1.0 - _cosine(_flat(g1), _flat(gp))))
-    floor = {"loss": max([floor_loss] + [m[0] for m in moved]), "one_minus_cosine": max([floor_cos] + [m[1] for m in moved]),
-             "same_step_twice": {"loss": floor_loss, "one_minus_cosine": floor_cos},
-             "noise_scale": NOISE_SCALE}
-    gate = {"loss": max(ELASTIC_FLOOR_FACTOR * floor["loss"], ELASTIC_MIN_RTOL * abs(float(loss1))),
-            "one_minus_cosine": max(ELASTIC_FLOOR_FACTOR * floor["one_minus_cosine"], ELASTIC_MIN_RTOL)}
+    loss1, g1, floor, gate = _dp1_floor(system, start, batch)
     add(fu.launch_counts)
     per_dp = {}
     for dp in ELASTIC_DPS:
@@ -2825,20 +2919,22 @@ def phase_elastic(seed: int, tmp: str):
 
         # the same checkpoint (the run's only epoch is its best, which the test
         # left in place) evaluated on dp=2 and on a runner shrunk to one device
+        # the gate: twice the eval's own floor (the dp=2 eval again, and
+        # with the val images moved by 1e-6)
         fu.reset_launch_counts()
         evals = {"dp2": runner._eval_split("val")}
+        val_floor = eval_floor(runner, evals["dp2"]["val_loss_mean"])
         runner.loader.close()
         shrunk = ExperimentRunner(run_cfg, devices=[card], device_probe=lambda: 1)
         evals["one_device"], evals["one_device_degraded"] = shrunk._eval_split("val"), shrunk.degraded_mesh
         shrunk.loader.close()
         shrunk.events.close()
         add(fu.launch_counts)
-        val_gate = max(ELASTIC_FLOOR_FACTOR * floor["loss"] / max(abs(float(loss1)), 1e-12), ELASTIC_MIN_RTOL)
         val_diff = (abs(evals["one_device"]["val_loss_mean"] - evals["dp2"]["val_loss_mean"])
                     / abs(evals["dp2"]["val_loss_mean"]))
         check(evals["one_device_degraded"] == {"requested": [2, 1], "granted": [1, 1], "visible_devices": 1}
-              and val_diff <= val_gate, "elastic", "the degraded eval of the dp=2 checkpoint", evals=evals,
-              val_loss_rel_diff=val_diff, gate=val_gate)
+              and val_diff <= val_floor["gate"], "elastic", "the degraded eval of the dp=2 checkpoint", evals=evals,
+              val_loss_rel_diff=val_diff, floor=val_floor)
 
         # 3. shrink: the CLI resumes on the one visible card
         is_degraded = lambda e: e.get("event") == "degraded_mesh"  # noqa: E731
@@ -2896,12 +2992,330 @@ def phase_elastic(seed: int, tmp: str):
                      f"same dp=1 step twice and a {NOISE_SCALE} move of the support images), at least "
                      f"{ELASTIC_MIN_RTOL} relative",
         "launches": launches, "shard_bytes": shard_bytes, "evals": evals, "val_loss_rel_diff": val_diff,
+        "degraded_eval_gate": {"floor": val_floor["floor"], "value": val_diff, "gate": val_floor["gate"],
+                               "eval_floor": val_floor},
         "degraded_event": degraded[0], "grown_event": grown[-1], "fault": ELASTIC_FAULT,
         "rcs": {"shrink": rc_shrink, "fault": rc_fault, "resume": rc_resume},
         "seconds": {"steps": steps_s, "shrink_cli": shrink_s, "fault_cli": fault_s, "resume_cli": resume_s,
                     "phase": time.perf_counter() - t_phase},
         "cli_cold_start_s": cold,
     }
+    emit(out)
+    # the dp=1 reference phase tensor_parallel holds its steps to (the same
+    # config, start state and batch)
+    return {**out, "reference": {"loss": loss1, "grads": g1, "floor": floor, "gate": gate,
+                                 "step_ms": per_dp[1]["step_ms"]}}
+
+
+TP_DEVICE = "cuda"
+TP_DP, TP_MP = 2, 2
+TP_STEPS = 2  # timed steps per width, after one untimed
+TP_CHUNK = 3  # steps per multi-step dispatch of the graph leg
+TP_ITERS = 2  # the runner leg's steps (one epoch)
+TENSOR_PARALLEL_BUDGET_S = 60.0
+
+
+def _dp1_floor(system, start, batch):
+    """The card's float32 floor at dp=1: the larger of the same step twice
+    and its move under a NOISE_SCALE change of the support images, for the
+    loss and for 1 - cosine of the meta-gradient -> (loss, grads, floor,
+    gate)."""
+    loss1, _, g1 = system.meta_gradients(start, batch, epoch=0)
+    loss1b, _, g1b = system.meta_gradients(start, batch, epoch=0)
+    floor_loss, floor_cos = abs(float(loss1b) - float(loss1)), 1.0 - _cosine(_flat(g1), _flat(g1b))
+    moved = []
+    for sign in (1.0, -1.0):
+        lp, _, gp = system.meta_gradients(start, _perturbed(batch, sign * NOISE_SCALE), epoch=0)
+        moved.append((abs(float(lp) - float(loss1)), 1.0 - _cosine(_flat(g1), _flat(gp))))
+    floor = {"loss": max([floor_loss] + [m[0] for m in moved]),
+             "one_minus_cosine": max([floor_cos] + [m[1] for m in moved]),
+             "same_step_twice": {"loss": floor_loss, "one_minus_cosine": floor_cos}, "noise_scale": NOISE_SCALE}
+    gate = {"loss": max(ELASTIC_FLOOR_FACTOR * floor["loss"], ELASTIC_MIN_RTOL * abs(float(loss1))),
+            "one_minus_cosine": max(ELASTIC_FLOOR_FACTOR * floor["one_minus_cosine"], ELASTIC_MIN_RTOL)}
+    return loss1, g1, floor, gate
+
+
+#: the moves of the val images an eval's floor samples: +-NOISE_SCALE on
+#: every pixel, and NOISE_SCALE with the sign of each pixel drawn from
+#: these seeds (the difference the degraded-eval gates bound is reorder
+#: noise, which is not one uniform shift; the loss's move under a 1e-6
+#: move is heavy-tailed over draws)
+EVAL_FLOOR_SIGNS, EVAL_FLOOR_SEEDS = (1.0, -1.0), (0, 1, 2)
+
+
+def _moved_images(batch, scale: float, seed=None):
+    """``batch`` with its support and target images moved by ``scale``,
+    every pixel alike, or with a sign per pixel drawn from ``seed``."""
+    def move(x):
+        if seed is None:
+            return x + np.float32(scale)
+        sign = np.sign(np.random.RandomState(seed).randn(*x.shape)).astype(np.float32)
+        return x + np.float32(scale) * sign
+
+    return dict(batch, x_support=move(batch["x_support"]), x_target=move(batch["x_target"]))
+
+
+def eval_floor(runner, first: float) -> dict:
+    """The float32 floor of a runner's val eval on its own state: the
+    largest relative move of the val loss (``first``: one eval's) over the
+    same eval again and over the val images (support and target) moved by
+    NOISE_SCALE (EVAL_FLOOR_SIGNS uniformly, EVAL_FLOOR_SEEDS with a drawn
+    sign per pixel); the gate is ELASTIC_FLOOR_FACTOR times it, at least
+    ELASTIC_MIN_RTOL. The eval's own quantity under the algorithms the
+    compared evals run (the default ones)."""
+    rel = lambda x: abs(x - first) / max(abs(first), 1e-12)  # noqa: E731
+    again = runner._eval_split("val")["val_loss_mean"]
+    real = runner._eval_batches
+    moved = {}
+    for name, scale, seed in ([(f"uniform{s:+.0f}", s * NOISE_SCALE, None) for s in EVAL_FLOOR_SIGNS]
+                              + [(f"signs{seed}", NOISE_SCALE, seed) for seed in EVAL_FLOOR_SEEDS]):
+        runner._eval_batches = lambda split, sc=scale, sd=seed: (_moved_images(b, sc, sd) for b in real(split))
+        try:
+            moved[name] = rel(runner._eval_split("val")["val_loss_mean"])
+        finally:
+            del runner._eval_batches
+    floor = max([rel(again)] + list(moved.values()))
+    return {"val_loss": first, "same_eval_twice": rel(again), "images_moved": moved,
+            "noise_scale": NOISE_SCALE, "floor": floor, "gate": max(ELASTIC_FLOOR_FACTOR * floor, ELASTIC_MIN_RTOL)}
+
+
+def phase_tensor_parallel(seed: int, tmp: str, reference=None):
+    """Tensor parallelism and buffer donation on the card at the default VGG
+    config (fused update, remat off), on phase ``runner``'s image folder
+    and index cache; see the module docstring. The mesh names cuda:0 four
+    times: the dp=2 x mp=2 code paths on the one card. ``reference``: phase
+    ``elastic``'s dp=1 loss, meta-gradient, floor and step times at the
+    same config, start state and batch (measured here where not given)."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import ParallelConfig, load_config
+    from howtotrainyourmamlpytorch_tpu_torch.core.programs import GraphProgram, clone_tree, tree_leaves_any
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint as ckpt
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import make_mesh, placement, shard_batch, shard_train_state
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import shard_chunk, unreplicate
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0) if TP_DEVICE == "cuda" else torch.device(TP_DEVICE)
+    entries = [card] * (TP_DP * TP_MP)
+    launches = {"fused_sgd": 0, "fused_sgd_bwd": 0}
+    graph_launches = {"fused_sgd": 0, "fused_sgd_bwd": 0}
+
+    def add(counts, into=launches):
+        for key in into:
+            into[key] += counts.get(key, 0)
+
+    cfg, system, start = full_width_system(seed)
+    K, K_eval = cfg.number_of_training_steps_per_iter, cfg.number_of_evaluation_steps_per_iter
+    filters, n_way = start.params["stage_0"]["conv"]["w"].shape[0], cfg.num_classes_per_set
+    batch = learnable_synthetic_batch(cfg.batch_size, cfg.num_classes_per_set, cfg.num_samples_per_class,
+                                      cfg.num_target_samples, cfg.image_shape, seed=seed + 5)
+    seconds = {}
+
+    # 1. the dp x mp step against dp=1, with tp_convs on and off
+    if reference is None:
+        fu.reset_launch_counts()
+        loss1, g1, floor, gate = _dp1_floor(system, start, batch)
+        _, _, ms1 = _steps(system, start, batch, TP_STEPS + 1)
+        add(fu.launch_counts)
+        reference = {"loss": loss1, "grads": g1, "floor": floor, "gate": gate, "step_ms": ms1[1:]}
+    loss1, g1, floor, gate = (reference[k] for k in ("loss", "grads", "floor", "gate"))
+    per_placement = {"dp1": {"loss": float(loss1), "step_ms": reference["step_ms"],
+                             "step_ms_median": statistics.median(reference["step_ms"])}}
+    for tp_convs in (True, False):
+        name = "tp_convs" if tp_convs else "head_only"
+        mesh = make_mesh(ParallelConfig(dp=TP_DP, mp=TP_MP, tp_convs=tp_convs), entries)
+        placed = shard_train_state(start, mesh)
+        rows = {"conv": placed.replicas[1].params["stage_0"]["conv"]["w"].shape[0],
+                "head": placed.replicas[1].params["fc"]["w"].shape[0]}
+        check(rows == {"conv": filters // TP_MP if tp_convs else filters, "head": n_way // TP_MP}, "tensor_parallel",
+              f"{name}: the blocks an mp entry holds", rows=rows, filters=filters, n_way=n_way)
+        fu.reset_launch_counts()
+        loss, _, g = system.meta_gradients(placed, shard_batch(batch, mesh), epoch=0)
+        s, losses, ms = _steps(system, placed, shard_batch(batch, mesh), TP_STEPS + 1)
+        got = dict(fu.launch_counts)
+        add(got)
+        entry = {"loss": float(loss), "loss_diff": abs(float(loss) - float(loss1)),
+                 "cosine": _cosine(_flat(g1), _flat(g)),
+                 "blocks": rows, "step_ms": ms[1:], "step_ms_median": statistics.median(ms[1:]),
+                 "over_dp1": statistics.median(ms[1:]) / per_placement["dp1"]["step_ms_median"],
+                 "placement_conv_w": placement(s).params["stage_0"]["conv"]["w"]}
+        check(entry["loss_diff"] <= gate["loss"] and 1.0 - entry["cosine"] <= gate["one_minus_cosine"],
+              "tensor_parallel", f"{name}: the dp x mp step off dp=1 beyond the floor", entry=entry, floor=floor,
+              gate=gate)
+        want_fwd = TP_DP * TP_MP * K * (TP_STEPS + 2)  # the meta-gradient, then the steps
+        want = {"fused_sgd": want_fwd, "fused_sgd_bwd": want_fwd}
+        check(got == want and entry["placement_conv_w"] == (("mp", None, None, None) if tp_convs else ()),
+              "tensor_parallel", f"{name}: B1 and B2 not dp x mp x K per step, or the placement changed",
+              launches=got, want=want, placement=entry["placement_conv_w"])
+        per_placement[name] = entry
+    seconds["steps"] = time.perf_counter() - t_phase
+
+    # 2. a chunk of TP steps replayed from one CUDA graph against the eager
+    # TP steps, under the deterministic algorithms
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        _, dsystem, dstart = full_width_system(seed)
+        mesh = make_mesh(ParallelConfig(dp=TP_DP, mp=TP_MP, tp_convs=True), entries)
+        batches, stacked = _chunk(cfg, seed + 81, TP_CHUNK)
+        fu.reset_launch_counts()
+        eager, eager_losses = shard_train_state(clone_tree(dstart), mesh), []
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter()
+        for b in batches:
+            eager, out = dsystem.train_step(eager, shard_batch(b, mesh), epoch=0)
+            eager_losses.append(out.loss)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t_eager) * 1e3 / TP_CHUNK
+        add(fu.launch_counts)
+        fu.reset_launch_counts()
+        graph, (graph_losses, _, _) = dsystem.train_step_multi(shard_train_state(clone_tree(dstart), mesh),
+                                                               shard_chunk(stacked, mesh), 0)
+        graph = clone_tree(graph)
+        torch.cuda.synchronize()
+        t_replay = time.perf_counter()
+        again, (again_losses, _, _) = dsystem.train_step_multi(shard_train_state(clone_tree(dstart), mesh),
+                                                               shard_chunk(stacked, mesh), 0)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t_replay) * 1e3 / TP_CHUNK
+        replayed = dict(fu.replayed_counts)
+        add(replayed, graph_launches)
+        add({k: n - replayed[k] for k, n in fu.launch_counts.items()})  # the capture's warmup: eager
+        program = next(iter(dsystem._train_multi.values()))
+        captures = program.captures if isinstance(program, GraphProgram) else []
+        state_diff = _state_diff(unreplicate(graph), unreplicate(eager))
+        loss_diff = float((torch.stack(eager_losses) - graph_losses).abs().max())
+        replay_diff = float((graph_losses - again_losses).abs().max()) + _state_diff(unreplicate(graph),
+                                                                                      unreplicate(again))
+        del dsystem, program
+    per_replay = {k: n / (2 * TP_CHUNK) for k, n in replayed.items()}
+    want = {"fused_sgd": TP_DP * TP_MP * K, "fused_sgd_bwd": TP_DP * TP_MP * K}
+    graph_out = {"chunk": TP_CHUNK, "loss_max_abs": loss_diff, "state_max_abs": state_diff,
+                 "replay_vs_replay_max_abs": replay_diff, "eager_step_ms": eager_ms, "replayed_step_ms": replay_ms,
+                 "replayed_over_eager": replay_ms / eager_ms, "graphs": len(captures),
+                 "capture_launches": captures[0].launches if captures else None, "launches_per_replay": per_replay,
+                 "losses": graph_losses.tolist()}
+    check(loss_diff == 0.0 and state_diff == 0.0 and replay_diff == 0.0, "tensor_parallel",
+          "the TP graph is not bit-equal to its eager steps under the deterministic algorithms", **graph_out)
+    check(len(captures) == 1 and per_replay == want == captures[0].launches, "tensor_parallel",
+          "the TP program was not one graph launching B1 and B2 dp x mp x K per replay", want=want, **graph_out)
+    seconds["graph"] = time.perf_counter() - t0
+
+    # 3. the runner at dp x mp with tp_convs and donation: 1 epoch of
+    # TP_ITERS steps, a synchronous format-3 latest of dp x mp shards, the
+    # checkpoint evaluated on a one-device runner, then served
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "omniglot_dataset")
+    run_cfg = load_config(DEFAULT_CONFIG, [
+        "use_pallas_inner_update=true", "remat_inner_steps=false", f"dataset.path={data}",
+        f"index_cache_dir={os.path.join(tmp, 'index')}", f"experiment_root={os.path.join(tmp, 'tensor_parallel')}",
+        "experiment_name=tp", "total_epochs=1", f"total_iter_per_epoch={TP_ITERS}",
+        f"num_evaluation_tasks={cfg.batch_size}", "load_into_memory=false", f"seed={seed}",
+        f"parallel.dp={TP_DP}", f"parallel.mp={TP_MP}", "parallel.tp_convs=true", "donate_train_state=true",
+        "checkpoint_async=true", "checkpoint_shards=0",
+    ])
+    fu.reset_launch_counts()
+    runner_s = {}
+    runner = ExperimentRunner(run_cfg, devices=entries)
+    runner_s["init"] = time.perf_counter() - t0
+    check(runner.mesh is not None and runner.mesh.shape == {"dp": TP_DP, "mp": TP_MP} and runner._ckpt_writer is None,
+          "tensor_parallel", "the runner's mesh, or its checkpoint writer is not synchronous under donation",
+          mesh=repr(runner.mesh))
+    in_place = []
+    real_step = runner.system.train_step
+
+    def step(state, batch, epoch=None):
+        new, out = real_step(state, batch, epoch=epoch)
+        in_place.append(new is state)
+        return new, out
+
+    runner.system.train_step = step
+    runner.run_experiment()
+    runner_s["run_experiment"] = time.perf_counter() - t0 - runner_s["init"]
+    got = dict(fu.launch_counts)
+    add(got)
+    events = _run_events(runner.run_dir)
+    selfcheck = [e for e in events if e.get("event") in ("donation_selfcheck", "donation_refused")]
+    audit = [e for e in events if e.get("event") == "donation_audit"]
+    check(len(selfcheck) == 1 and selfcheck[0]["event"] == "donation_selfcheck" and selfcheck[0]["verdict"] == "clean"
+          and len(audit) == 1 and audit[0]["flags"]["donate_train_state"] and in_place == [True] * TP_ITERS,
+          "tensor_parallel", "donation: the self-check, the audit, the steps in place", selfcheck=selfcheck,
+          audit=audit, in_place=in_place)
+    # B2 runs in train steps only: the runner's, and the self-check's two
+    # arms of 6 steps at min(K, 2) inner steps on one device
+    want_bwd = TP_DP * TP_MP * K * TP_ITERS + 2 * 6 * min(K, 2)
+    check(got["fused_sgd_bwd"] == want_bwd and got["fused_sgd"] >= want_bwd + TP_DP * TP_MP * K_eval,
+          "tensor_parallel", "the runner's B1/B2 launches", launches=got, want_bwd=want_bwd)
+    save_dir = runner.saved_models_dir
+    shards = sorted(n for n in os.listdir(save_dir) if n.startswith("train_model_latest.shard"))
+    _, book = ckpt.load_for_inference(save_dir, "latest")
+    check(shards == [f"train_model_latest.shard{k}" for k in range(TP_DP * TP_MP)] and book["mesh"] == [TP_DP, TP_MP],
+          "tensor_parallel", "format-3 latest of dp x mp shards", shards=shards, bookkeeping=book)
+    fu.reset_launch_counts()
+    t1 = time.perf_counter()
+    evals = {"dp2_mp2": runner._eval_split("val")}
+    val_floor = eval_floor(runner, evals["dp2_mp2"]["val_loss_mean"])
+    runner_s["evals_and_floor"] = time.perf_counter() - t1
+    runner.loader.close()
+    t1 = time.perf_counter()
+    shrunk = ExperimentRunner(run_cfg, devices=[card], device_probe=lambda: 1)
+    evals["one_device"], degraded = shrunk._eval_split("val"), shrunk.degraded_mesh
+    runner_s["one_device"] = time.perf_counter() - t1
+    shrunk.loader.close()
+    shrunk.events.close()
+    val_diff = (abs(evals["one_device"]["val_loss_mean"] - evals["dp2_mp2"]["val_loss_mean"])
+                / abs(evals["dp2_mp2"]["val_loss_mean"]))
+    check(degraded == {"requested": [TP_DP, TP_MP], "granted": [1, 1], "visible_devices": 1}
+          and val_diff <= val_floor["gate"], "tensor_parallel", "the degraded eval of the dp x mp checkpoint",
+          evals=evals, val_loss_rel_diff=val_diff, floor=val_floor, degraded=degraded)
+    req = slice_requests(cfg, seed)
+    engine = AdaptationEngine.from_run_dir(runner.run_dir, "latest")
+    probs = engine.predict_batch(list(zip(engine.adapt_batch(req["a"]), req["qa"])))
+    _check_probs("tensor_parallel", "a", probs, [q.shape[0] for q in req["qa"]], cfg.num_classes_per_set)
+    add(fu.launch_counts)
+    seconds["runner"] = time.perf_counter() - t0
+    seconds["runner_legs"] = runner_s
+
+    # 4. the default config's eager train step, donated and plain, under
+    # the deterministic algorithms: bit-equal, and the peak memory of each
+    t0 = time.perf_counter()
+    donated = {}
+    fu.reset_launch_counts()
+    with deterministic_algorithms():
+        for donate in (False, True):
+            _, dsystem, state = full_width_system(seed, [f"donate_train_state={str(donate).lower()}"])
+            given = tree_leaves_any(state)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state, losses, ms = _steps(dsystem, state, batch, TP_STEPS)
+            donated[donate] = {"losses": losses, "state": clone_tree(state), "step_ms": ms,
+                               "peak_above_start_bytes": torch.cuda.max_memory_allocated() - base,
+                               "in_place": all(a is b for a, b in zip(tree_leaves_any(state), given))}
+            del dsystem, state, given
+    add(fu.launch_counts)
+    plain, don = donated[False], donated[True]
+    donation_out = {"losses": don["losses"], "plain_losses": plain["losses"],
+                    "state_max_abs": _state_diff(plain["state"], don["state"]),
+                    "peak_above_start_bytes": {"plain": plain["peak_above_start_bytes"],
+                                               "donated": don["peak_above_start_bytes"]},
+                    "step_ms": {"plain": plain["step_ms"], "donated": don["step_ms"]},
+                    "in_place": {"plain": plain["in_place"], "donated": don["in_place"]}}
+    check(don["losses"] == plain["losses"] and donation_out["state_max_abs"] == 0.0 and don["in_place"]
+          and not plain["in_place"], "tensor_parallel",
+          "the donated step is not in place or not bit-equal to the plain one", **donation_out)
+    seconds["donation"] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+    out = {"phase": "tensor_parallel", "ok": True,
+           "config": "configs/default.yaml + use_pallas_inner_update=true, remat off; mesh dp=2 x mp=2 of cuda:0",
+           "per_placement": per_placement, "floor": floor, "gate": gate, "graph": graph_out,
+           "runner": {"evals": evals, "val_loss_rel_diff": val_diff, "eval_floor": val_floor, "shards": shards,
+                      "audit": {k: audit[0][k] for k in ("state_bytes", "batch_bytes", "donated_bytes",
+                                                         "left_on_table_bytes")},
+                      "selfcheck": {k: selfcheck[0].get(k) for k in ("verdict", "max_loss_dev", "global_param_rel")}},
+           "donation": donation_out, "launches": launches, "launches_graph": graph_launches, "seconds": seconds,
+           "budget_s": TENSOR_PARALLEL_BUDGET_S}
     emit(out)
     return out
 
@@ -2946,30 +3360,34 @@ def _serve_run_dir(root: str, cfg, system, state) -> str:
     return root
 
 
-def ops_frontend(seed: int, tmp: str) -> dict:
-    """Leg 2: the serve CLI in a fresh process at the default config with
-    the strict guard, the serving prewarm and the sanitizer: the warm gate
-    over HTTP, the first /adapt after ``ok`` against warm ones, mixed
-    traffic over every bucket, the sealed guard, zero sanitizer findings
-    after the drain, B1 launches from the server's /metrics."""
+def prestart_ops_frontend(seed: int, tmp: str) -> dict:
+    """Leg 2's serve CLI, made before phase ``tensor_parallel``: its run
+    directory at the default config and the process started behind a gate,
+    so that its imports and card start overlap that phase."""
+    cfg, system, state = full_width_system(seed)
+    run_dir = _serve_run_dir(os.path.join(tmp, "ops_serve"), cfg, system, state)
+    log_path, gate, port = os.path.join(tmp, "ops_serve.log"), os.path.join(tmp, "ops_serve.gate"), _free_port()
+    proc = start_gated_server(
+        [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve", run_dir, "--port", str(port),
+         "--device", OPS_DEVICE, *OPS_SERVE_OVERRIDES], log_path, gate)
+    return {"cfg": cfg, "run_dir": run_dir, "log_path": log_path, "gate": gate, "port": port, "proc": proc}
+
+
+def ops_frontend(seed: int, tmp: str, pre: dict) -> dict:
+    """Leg 2: the serve CLI in a fresh process (:func:`prestart_ops_frontend`,
+    released here) at the default config with the strict guard, the
+    serving prewarm and the sanitizer: the warm gate over HTTP, the first
+    /adapt after ``ok`` against warm ones, mixed traffic over every bucket,
+    the sealed guard, zero sanitizer findings after the drain, B1 launches
+    from the server's /metrics."""
     from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
     from howtotrainyourmamlpytorch_tpu_torch.utils.strictmode import serving_planned_programs
 
-    cfg, system, state = full_width_system(seed)
-    run_dir = _serve_run_dir(os.path.join(tmp, "ops_serve"), cfg, system, state)
+    cfg, run_dir, log_path, port, proc = (pre[k] for k in ("cfg", "run_dir", "log_path", "port", "proc"))
     n_way, img = cfg.num_classes_per_set, cfg.image_shape
     supports = {b: b // n_way for b in cfg.serving.support_buckets}  # bucket -> shots
-    log_path = os.path.join(tmp, "ops_serve.log")
-    port = _free_port()
-    root = os.path.dirname(os.path.abspath(__file__))
-    log = open(log_path, "a")
-    t_spawn = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve", run_dir, "--port", str(port),
-         "--device", OPS_DEVICE, *OPS_SERVE_OVERRIDES],
-        cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=log, stderr=subprocess.STDOUT,
-    )
-    log.close()
+    t_spawn = time.perf_counter()  # the release: imports and the card started before it
+    open(pre["gate"], "w").close()
     base = f"http://127.0.0.1:{port}"
 
     def server_log():
@@ -3060,7 +3478,7 @@ def ops_frontend(seed: int, tmp: str) -> dict:
                      key=repr)
     return {
         "launches": launches, "adapt_flushes": adapt_flushes, "statuses": statuses,
-        "spawn_to_bound_s": round(t_bound - t_spawn, 3), "warming_s": round(t_ok - t_bound, 3),
+        "release_to_bound_s": round(t_bound - t_spawn, 3), "warming_s": round(t_ok - t_bound, 3),
         "prewarm": prewarm, "first_adapt_ms": first_ms, "warm_adapt_ms": warm_ms,
         "warm_adapt_median_ms": warm_median,
         "first_adapt_gate": f"first /adapt after ok <= {OPS_FIRST_ADAPT_FACTOR} x the median of "
@@ -3286,9 +3704,10 @@ def ops_determinism(seed: int) -> dict:
             "support": int(x_s.shape[0] * x_s.shape[1]), "queries": int(x_q.shape[0]), "flush_cost": cost}
 
 
-def phase_operations(seed: int, tmp: str):
+def phase_operations(seed: int, tmp: str, frontend_pre: dict):
     """The operations layer on the card (see the module docstring), on
-    phase ``runner``'s image folder and index cache in ``tmp``."""
+    phase ``runner``'s image folder and index cache in ``tmp``;
+    ``frontend_pre``: leg 2's gated serve CLI (:func:`prestart_ops_frontend`)."""
     t_phase = time.perf_counter()
     seconds = {}
 
@@ -3299,7 +3718,7 @@ def phase_operations(seed: int, tmp: str):
         return out
 
     campaign = leg("campaign", ops_campaign, seed, tmp)
-    frontend = leg("frontend", ops_frontend, seed, tmp)
+    frontend = leg("frontend", ops_frontend, seed, tmp, frontend_pre)
     runner = leg("runner", ops_runner, seed, tmp)
     fleet = leg("fleet", ops_fleet, seed, tmp)
     determinism = leg("determinism", ops_determinism, seed)
@@ -3863,10 +4282,11 @@ PROGRAMS_EVAL_BATCHES = 8  # eval batches per fused dispatch (c)
 PROGRAMS_RUNNER = ["total_epochs=2", "total_iter_per_epoch=3", "train_steps_per_dispatch=3",
                    "eval_fused_dispatch=true", "num_evaluation_tasks=8", "load_into_memory=false"]
 PROGRAMS_BUDGET_S = 120.0
-# the default algorithms' floor: the largest difference among PROGRAMS_EAGER
-# eager runs of one chunk from one state (the rollout is chaotic: one pair
-# is one draw), times the factor phase elastic uses for its floor
-PROGRAMS_EAGER, PROGRAMS_FLOOR_FACTOR = 3, 2.0
+# the default algorithms' floor: the largest difference over every pair of
+# PROGRAMS_EAGER eager runs of one chunk from one state (the rollout is
+# chaotic: one pair is one draw of a spread of 0.5-3% of the loss; 5 runs
+# give 10 pairs), times the factor phase elastic uses for its floor
+PROGRAMS_EAGER, PROGRAMS_FLOOR_FACTOR = 5, 2.0
 
 
 def _chunk(cfg, seed: int, n: int):
@@ -4041,7 +4461,9 @@ def programs_train(seed: int, tmp: str, overrides=(), deterministic: bool = Fals
     if pairs:  # (b) has one eager run unless an op warned
         floor_loss = PROGRAMS_FLOOR_FACTOR * max(float((a[1] - b[1]).abs().max()) for a, b in pairs)
         floor_state = PROGRAMS_FLOOR_FACTOR * max(_state_diff(a[0], b[0]) for a, b in pairs)
-        out.update(eager_floor_loss_max_abs=floor_loss, eager_floor_state_max_abs=floor_state)
+        out.update(eager_floor_loss_max_abs=floor_loss, eager_floor_state_max_abs=floor_state,
+                   replay_gate={"pairs": len(pairs), "floor": floor_loss / PROGRAMS_FLOOR_FACTOR,
+                                "value": replay_loss, "gate": floor_loss})
     del cell, pairs
     if deterministic:
         out["bit_equal"] = loss_diff == 0.0 and state_diff == 0.0
@@ -4276,6 +4698,7 @@ _PREWARM_LEG = r"""
 import time
 marks = {"start": time.time()}
 import json, os, sys
+parent = os.getppid()
 import torch
 from howtotrainyourmamlpytorch_tpu_torch import train
 from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
@@ -4325,6 +4748,8 @@ if torch.cuda.is_available():
 marks["ready"] = time.time()
 gate = os.environ.get("PREWARM_GATE")
 while gate and not os.path.exists(gate):
+    if os.getppid() != parent:
+        sys.exit(3)
     time.sleep(0.02)
 marks["released"] = time.time()
 with deterministic_algorithms():
@@ -4515,7 +4940,23 @@ def prewarm_mesh(seed: int) -> dict:
     return out
 
 
-def phase_prewarm(seed: int, tmp: str):
+def prestart_prewarm(seed: int, tmp: str) -> list:
+    """Phase ``prewarm``'s three CLI legs, started before phase
+    ``programs``: each imports and starts the card (21-25 s) behind its
+    gate while the phases before it run."""
+    common = ["use_pallas_inner_update=true", "remat_inner_steps=false",
+              f"dataset.path={os.path.join(tmp, 'omniglot_dataset')}", f"index_cache_dir={os.path.join(tmp, 'index')}",
+              f"experiment_root={os.path.join(tmp, 'prewarm')}", f"seed={seed}", *PREWARM_RUNNER]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("HTYMP_FAULTS", None)
+    return [_spawn_leg(name, [*common, *extra], env, gate=os.path.join(tmp, f"prewarm_gate_{name}"))
+            for name, extra in (
+                ("cold", ["experiment_name=prewarm_cold", "aot.enabled=false"]),
+                ("prewarmed", ["experiment_name=prewarm_prewarmed", "aot.enabled=true"]),
+                ("restart", ["experiment_name=prewarm_prewarmed", "aot.enabled=true", "total_epochs=3"]))]
+
+
+def phase_prewarm(seed: int, tmp: str, spawned: list):
     """The training-side prewarm and the program layer on a mesh, on phase
     ``runner``'s image folder; see the module docstring. (a) Two fresh CLI
     processes at the default VGG config (fused, remat off) plus
@@ -4525,22 +4966,11 @@ def phase_prewarm(seed: int, tmp: str):
     lines. (b) The prewarmed leg again on its run directory for a third
     epoch: the manifest promises a warm start, every ``nvcc/*`` line is a
     cache hit, and the captures it pays again are printed. (c) The mesh
-    (:func:`prewarm_mesh`), first, while the legs' processes import and
-    start the card; then each leg runs alone."""
+    (:func:`prewarm_mesh`), first; then each leg runs alone, released when
+    the one before it has ended. The legs' processes (``spawned``,
+    :func:`prestart_prewarm`) imported and started the card during phase
+    ``programs``."""
     t_phase = time.perf_counter()
-    common = ["use_pallas_inner_update=true", "remat_inner_steps=false",
-              f"dataset.path={os.path.join(tmp, 'omniglot_dataset')}", f"index_cache_dir={os.path.join(tmp, 'index')}",
-              f"experiment_root={os.path.join(tmp, 'prewarm')}", f"seed={seed}", *PREWARM_RUNNER]
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    env.pop("HTYMP_FAULTS", None)
-    # the three processes start now and import (and start the card) while
-    # (c) runs here; then each leg runs alone, released when the one before
-    # it has ended
-    spawned = [_spawn_leg(name, [*common, *extra], env, gate=os.path.join(tmp, f"prewarm_gate_{name}"))
-               for name, extra in (
-                   ("cold", ["experiment_name=prewarm_cold", "aot.enabled=false"]),
-                   ("prewarmed", ["experiment_name=prewarm_prewarmed", "aot.enabled=true"]),
-                   ("restart", ["experiment_name=prewarm_prewarmed", "aot.enabled=true", "total_epochs=3"]))]
     legs = {}
     try:
         t_mesh = time.perf_counter()
@@ -4666,38 +5096,54 @@ def main() -> int:
     smi, parent = timed("device", phase_device, args.parent_kernels)
     kernel = timed("kernel", phase_kernel, args.seed, parent)
     kernel_bwd = timed("kernel_bwd", phase_kernel_bwd, args.seed, parent)
+    # phase http's first server imports and starts the card from here on
+    http_pre = prestart_http()
     timed("small", phase_small, args.seed)
     sl = timed("slice", phase_slice, args.seed)
     tr, system, trained = timed("train", phase_train, args.seed)
     served = timed("serve_trained", phase_serve_trained, args.seed, system, trained)
-    http = timed("http", phase_http, args.seed, system, trained)
+    http = timed("http", phase_http, args.seed, system, trained, http_pre)
+    # the fleet's two first backends import and start the card during tenancy
+    fleet_pre = prestart_fleet(system, trained)
     tn = timed("tenancy", phase_tenancy, args.seed, system, trained, http["alone_bound"])
-    fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"])
+    fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"], fleet_pre)
     st = timed("strategies", phase_strategies, args.seed, tr["train_step_ms_median"])
     timed("precision", phase_precision, args.seed)
     # phase runner's image folder and index cache serve the phases after it
     data_tmp = tempfile.mkdtemp(prefix="chip_smoke_runner_")
+    prewarm_legs = []
     try:
         rn = timed("runner", phase_runner, args.seed, tr["train_step_ms_median"], data_tmp)
         el = timed("elastic", phase_elastic, args.seed, data_tmp)
-        ops = timed("operations", phase_operations, args.seed, data_tmp)
+        # operations' strict serve CLI imports and starts the card during
+        # phase tensor_parallel
+        ops_pre = prestart_ops_frontend(args.seed, data_tmp)
+        tp = timed("tensor_parallel", phase_tensor_parallel, args.seed, data_tmp, el["reference"])
+        ops = timed("operations", phase_operations, args.seed, data_tmp, ops_pre)
         rs = timed("resnet", phase_resnet, args.seed)
+        # phase prewarm's three CLI legs import and start the card during
+        # phase programs
+        prewarm_legs = prestart_prewarm(args.seed, data_tmp)
         pg = timed("programs", phase_programs, args.seed, data_tmp)
-        pw = timed("prewarm", phase_prewarm, args.seed, data_tmp)
+        pw = timed("prewarm", phase_prewarm, args.seed, data_tmp, prewarm_legs)
     finally:
         GatedCli.stop_all()
+        for leg in prewarm_legs:
+            _stop_leg(leg)
         shutil.rmtree(data_tmp, ignore_errors=True)
     rm = timed("remat", phase_remat, args.seed)
     br = timed("breadth", phase_breadth, args.seed)
     total_s = round(sum(seconds.values()), 1)
     emit({"phase": "timing", "seconds": seconds, "total_s": total_s,
-          "budget_s": {"elastic": ELASTIC_BUDGET_S, "operations": OPERATIONS_BUDGET_S,
-                       "programs": PROGRAMS_BUDGET_S, "prewarm": PREWARM_BUDGET_S, "run": RUN_BUDGET_S}})
-    check(seconds["elastic"] < ELASTIC_BUDGET_S and seconds["operations"] < OPERATIONS_BUDGET_S
+          "budget_s": {"elastic": ELASTIC_BUDGET_S, "tensor_parallel": TENSOR_PARALLEL_BUDGET_S,
+                       "operations": OPERATIONS_BUDGET_S, "programs": PROGRAMS_BUDGET_S,
+                       "prewarm": PREWARM_BUDGET_S, "run": RUN_BUDGET_S}})
+    check(seconds["elastic"] < ELASTIC_BUDGET_S and seconds["tensor_parallel"] < TENSOR_PARALLEL_BUDGET_S
+          and seconds["operations"] < OPERATIONS_BUDGET_S
           and seconds["programs"] < PROGRAMS_BUDGET_S and seconds["prewarm"] < PREWARM_BUDGET_S
           and total_s < RUN_BUDGET_S, "timing",
-          "phase elastic, operations, programs or prewarm, or the run over its budget", seconds=seconds,
-          total_s=total_s)
+          "phase elastic, tensor_parallel, operations, programs or prewarm, or the run over its budget",
+          seconds=seconds, total_s=total_s)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
                  "http_serving": http["launches"], "tenancy": tn["launches"], "fleet": fl["launches"],
                  "anil_train": st["launches_with_eval"]["fused_sgd"],
@@ -4706,7 +5152,8 @@ def main() -> int:
                  "operations": ops["launches"]["fused_sgd"], "resnet": rs["launches"]["fused_sgd"],
                  "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd"], "remat": rm["launches"]["fused_sgd"],
                  "breadth": br["launches"]["fused_sgd"], "programs": pg["launches"]["fused_sgd"],
-                 "prewarm": pw["launches"]["fused_sgd"], "mesh_programs": pw["launches_mesh"]["fused_sgd"]}
+                 "prewarm": pw["launches"]["fused_sgd"], "mesh_programs": pw["launches_mesh"]["fused_sgd"],
+                 "tensor_parallel": tp["launches"]["fused_sgd"], "tp_programs": tp["launches_graph"]["fused_sgd"]}
     bwd_paths = {"train": tr["launches"]["fused_sgd_bwd"], "anil_train": st["train_launches"]["fused_sgd_bwd"],
                  "anil_remat": st["remat_full"]["launches"]["fused_sgd_bwd"],
                  "runner": rn["launches"]["fused_sgd_bwd"], "elastic": el["launches"]["fused_sgd_bwd"],
@@ -4714,7 +5161,9 @@ def main() -> int:
                  "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd_bwd"],
                  "remat": rm["launches"]["fused_sgd_bwd"], "breadth": br["launches"]["fused_sgd_bwd"],
                  "programs": pg["launches"]["fused_sgd_bwd"], "prewarm": pw["launches"]["fused_sgd_bwd"],
-                 "mesh_programs": pw["launches_mesh"]["fused_sgd_bwd"]}
+                 "mesh_programs": pw["launches_mesh"]["fused_sgd_bwd"],
+                 "tensor_parallel": tp["launches"]["fused_sgd_bwd"],
+                 "tp_programs": tp["launches_graph"]["fused_sgd_bwd"]}
     for paths in (fwd_paths, bwd_paths):
         check(all(n > 0 for n in paths.values()), "kernels", "a path launched a kernel no time", paths=paths)
     emit({"kernels": [

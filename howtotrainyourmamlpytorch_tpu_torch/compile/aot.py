@@ -309,7 +309,8 @@ def prewarm_pool(pool, **kwargs) -> Dict[str, Any]:
 def environment_fingerprint(mesh_shape=None, device=None) -> Dict[str, Any]:
     """What the built programs and kernels are valid for: the torch and
     CUDA builds, the backend and the card (its name and compute capability:
-    the kernels are built for ``sm_90a``), the device count and the mesh.
+    the kernels are built for ``sm_90a``), the device count and the mesh
+    (``[dp, mp]``).
     ``device``: the run's (default the card where one is visible)."""
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"

@@ -42,16 +42,30 @@ order at every epoch) or ``anil`` (the head-only inner loop).
 already carry the task axis, with the hparams and inner state of the
 masters.
 
-Data parallelism (``parallel/mesh.py``): ``train_step``, ``eval_step``,
-``meta_gradients`` and ``meta_objective`` also take a batch from
-``shard_batch`` with a state from ``replicate``. Each shard's tasks roll out
-on its device (B1, and B2 in the backward, launched there), its objective is
-the sum of its task losses over the global task count, and the shards'
-gradients are summed in mesh order on the mesh's first device, then over
-the hosts' processes: the gradient of the mean over every task. The outer
-update runs once and its result is replicated. No statistic crosses a
-shard: batch norm uses each task's own statistics and ``bn_state`` is left
-as it is.
+Data and tensor parallelism (``parallel/mesh.py``): ``train_step``,
+``eval_step``, ``meta_gradients`` and ``meta_objective`` also take a batch
+from ``shard_batch`` with a state from ``replicate`` or
+``shard_train_state``. Each dp row's tasks roll out on the row
+(``Replicated.row``: on a ``dp x mp`` mesh a split leaf is a dict of its
+blocks, each on its entry's device; ``models/layers.py`` computes such a
+layer column-parallel, and the fused update launches B1, and B2 in the
+backward, once per mesh entry). A row's objective is the sum of its task
+losses over the global task count, and the rows' gradients are summed in
+mesh order, each leaf on row 0's device for it (a split leaf's gradient
+stays split), then over the hosts' processes: the gradient of the mean
+over every task. The outer update runs once, on row 0's tree, and its
+result is placed as the state came in. No statistic crosses a row: batch
+norm uses each task's own statistics over the whole channel set, and
+``bn_state`` is left as it is.
+
+Donation (JAX ``_donate_argnums``, ``Config.donate_train_state``): the
+eager ``train_step`` (the sharded one too) writes the new params, BN
+state, hparams, Adam moments and step into the tensors of the state it
+was given, after every read of the old values, and returns that state;
+``donate_batch`` empties the batch's dicts once the rollout is done, which
+drops the step's references to its tensors. A multi-step graph keeps its
+state in place already (:attr:`state_in_place`); its batch is a static
+buffer, donated to no one.
 
 ``scale_meta_lr`` rebuilds the outer schedule at scaled rates (the NaN
 rollback's backoff, ``experiment/runner.py``) and drops the built programs.
@@ -76,7 +90,7 @@ multi-step programs take a sharded chunk (``parallel/mesh.py::shard_chunk``):
 one graph of the sharded step where every mesh entry is one card and one
 process, the sharded eager steps on a mesh over several. :meth:`prewarm`
 builds the whole planned family before the first step
-(``compile/aot.py``). Not here (ROADMAP.md): donation (A10.7).
+(``compile/aot.py``).
 
 Strict mode (``Config.strict_recompile_guard``, ``utils/strictmode.py``):
 ``recompile_guard`` holds every train variant ``(kind, second_order,
@@ -110,7 +124,16 @@ from ..ops.losses import cross_entropy
 from ..ops.msl import final_step_only, per_step_loss_importance
 from ..ops.outer_adam import adam_init, adam_update
 from ..ops.precision import as_f32, policy_from_config
-from ..parallel.mesh import Replicated, ShardedBatch, all_reduce_sum, replicate, unreplicate
+from ..parallel.mesh import (
+    Replicated,
+    ShardedBatch,
+    all_reduce_sum,
+    place_row,
+    row_view,
+    shard_train_state,
+    spread_over_blocks,
+    unreplicate,
+)
 from ..utils import seeding
 from ..utils.trees import tree_flatten, tree_map
 from . import strategies
@@ -160,6 +183,33 @@ def _flatten_task(x):
     """[B, n_way, k, ...] -> [B, n_way*k, ...] (reference view(-1, c, h, w),
     per task)."""
     return x.reshape((x.shape[0], -1) + tuple(x.shape[3:]))
+
+def _drop_batch(batch) -> None:
+    """``donate_batch``: empty the batch's dicts (a sharded batch's
+    shards), dropping the step's references to its tensors."""
+    for part in batch.shards if isinstance(batch, ShardedBatch) else [batch]:
+        if isinstance(part, dict):
+            part.clear()
+
+
+def _write_into(given, new):
+    """``donate_train_state``: every tensor of ``new`` copied into the
+    matching tensor of ``given`` (a ``TrainState``, or a placed one replica
+    by replica; a tensor that entries share is written once) -> ``given``.
+    Runs after every read of the old values."""
+    from .programs import _copy_into, tree_leaves_any
+
+    pairs = zip(given.replicas, new.replicas) if isinstance(given, Replicated) else [(given, new)]
+    dsts, srcs, seen = [], [], set()
+    for old, fresh in pairs:
+        for d, s in zip(tree_leaves_any(old), tree_leaves_any(fresh)):
+            if torch.is_tensor(d) and id(d) not in seen:
+                seen.add(id(d))
+                dsts.append(d)
+                srcs.append(s)
+    _copy_into(dsts, srcs)
+    return given
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card: raise where there is none, never fall back
@@ -571,7 +621,9 @@ class MAMLSystem:
         the aux outputs. ``batch`` is a :meth:`_batch` dict; ``opt_state``
         (the outer Adam's) warm-starts inner Adam."""
         params = trainables["params"]
-        hparams = self._inner_hparams_for_rollout(trainables["hparams"], params)
+        # a tensor-parallel row's split leaves take their whole leaf's
+        # hyperparameters once per block
+        hparams = spread_over_blocks(self._inner_hparams_for_rollout(trainables["hparams"], params), params)
         inner_state0 = self._initial_inner_state(params, hparams, opt_state)
         loss_weights = self._loss_weights(epoch, num_steps, msl_active, batch["x_support"].device)
         task_losses, target_logits = self._rollout(
@@ -614,7 +666,7 @@ class MAMLSystem:
         if variant is not None:
             return tuple(variant)
         if epoch is None:
-            epoch = int(unreplicate(state).step) // self.cfg.total_iter_per_epoch
+            epoch = int(row_view(state).step) // self.cfg.total_iter_per_epoch
         return self.use_second_order(epoch), self.msl_active(epoch)
 
     def _train_objective(self, state: TrainState, trainables, batch, variant, device=None):
@@ -672,13 +724,16 @@ class MAMLSystem:
         when omitted it is read from ``state.step``. Data-parallel: given
         ``replicate(state, mesh)`` and ``shard_batch(batch, mesh)`` the
         update runs once, on the mesh's first device, and the new state is
-        replicated again. Under the strict guard or a compile ledger the
-        step goes through its variant's program (noted, and its first
-        dispatch priced)."""
+        replicated again (on a ``dp x mp`` mesh, from ``shard_train_state``,
+        split as it came). Under ``donate_train_state`` the new state is
+        written into the given state's tensors and the given state
+        returned. Under the strict guard or a compile ledger the step goes
+        through its variant's program (noted, and its first dispatch
+        priced)."""
         if self.recompile_guard is None and self.compile_ledger is None:
-            return self._train_step_impl(state, batch, epoch)
+            return self._train_step_impl(state, batch, epoch, donate=True)
         variant = self._variant(state, epoch)
-        return self._compiled_train_step(*variant)(state, batch, variant=variant)
+        return self._compiled_train_step(*variant)(state, batch, variant=variant, donate=True)
 
     def _compiled_train_step(self, second_order: bool, msl_active: bool):
         key = (self._kind("train"), second_order, msl_active)
@@ -688,14 +743,19 @@ class MAMLSystem:
             fn = self._train_programs[key] = self._build_program(key, lambda: self._train_step_impl)
         return fn
 
-    def _train_step_impl(self, state: TrainState, batch, epoch: Optional[int] = None, variant=None):
+    def _train_step_impl(self, state: TrainState, batch, epoch: Optional[int] = None, variant=None,
+                         donate: bool = False):
+        """The train step. ``donate`` (the eager entry points): honour
+        ``donate_train_state`` and ``donate_batch``."""
         cfg = self.cfg
         variant = self._variant(state, epoch, variant)
         sharded = isinstance(batch, ShardedBatch)
         if sharded:
             state = self._replicated(state, batch.mesh)
         loss, aux, grads = self._meta_gradients(state, batch, variant)
-        base = unreplicate(state)
+        if donate and cfg.donate_batch:
+            _drop_batch(batch)
+        base = row_view(state)
         with torch.no_grad():
             if cfg.is_imagenet:
                 # element-wise clamp of classifier grads only (reference
@@ -717,8 +777,10 @@ class MAMLSystem:
                 step=base.step + 1,
             )
             out = self._step_output(loss, aux, base)
-        if sharded:
-            new_state = replicate(new_state, batch.mesh)
+            if sharded:
+                new_state = place_row(new_state, state)
+            if donate and cfg.donate_train_state:
+                new_state = _write_into(state, new_state)
         return new_state, out
 
     def _step_output(self, loss, aux, state: TrainState) -> StepOutput:
@@ -757,7 +819,7 @@ class MAMLSystem:
                     replica.opt_state, self._batch(shard, device), self._step_epoch(replica), False,
                     cfg.number_of_evaluation_steps_per_iter, False,
                 ))[:2]
-            return self._step_output(loss, aux, unreplicate(state))
+            return self._step_output(loss, aux, row_view(state))
         with torch.no_grad():
             loss, aux = self._meta_objective(
                 {"params": state.params, "hparams": state.inner_hparams}, state.bn_state, state.opt_state,
@@ -820,7 +882,7 @@ class MAMLSystem:
     def _train_multi_eager(self, state, batches, variant):
         outs = []
         for batch in batches:
-            state, out = self._train_step_impl(state, batch, variant=variant)
+            state, out = self._train_step_impl(state, batch, variant=variant, donate=True)
             outs.append((out.loss, out.accuracy, out.learning_rate))
         return state, outs
 
@@ -861,7 +923,7 @@ class MAMLSystem:
         eager steps (``Mesh.graph_refusal``)."""
         steps = self._step_batches(batches)
         if epoch is None:
-            first = int(unreplicate(state).step)
+            first = int(row_view(state).step)
             epoch, last = (first // self.cfg.total_iter_per_epoch,
                            (first + len(steps) - 1) // self.cfg.total_iter_per_epoch)
             variant = lambda e: (self.use_second_order(e), self.msl_active(e))  # noqa: E731
@@ -946,16 +1008,18 @@ class MAMLSystem:
 
     @staticmethod
     def _replicated(state, mesh) -> Replicated:
+        """``state`` on ``mesh``: as placed, or placed as the mesh says
+        (``shard_train_state``: whole replicas on a dp mesh)."""
         if isinstance(state, Replicated) and state.mesh is mesh:
             return state
-        return replicate(state, mesh)
+        return shard_train_state(state, mesh)
 
     def _sharded_objective(self, state, batch: ShardedBatch, variant, with_grads: bool):
-        """The train objective of every shard on its device -> ``(loss, aux,
-        grads)``. A shard's objective is the sum of its tasks' losses over
-        the global task count, so the shards' gradients, summed in mesh
-        order on the first device (then over the processes), are the
-        gradient of the global mean."""
+        """The train objective of every dp row -> ``(loss, aux, grads)``. A
+        row's objective is the sum of its tasks' losses over the global
+        task count, so the rows' gradients, summed in mesh order, each leaf
+        on row 0's device for it (then over the processes), are the
+        gradient of the global mean; a split leaf's stays split."""
         state = self._replicated(state, batch.mesh)
         total = batch.global_tasks
 
@@ -971,25 +1035,25 @@ class MAMLSystem:
         loss, aux, shard_grads = self._per_shard(state, batch, shard_objective)
         if not with_grads:
             return loss, aux, None
-        first = batch.mesh.devices[0]
-        grads = tree_map(lambda *gs: functools.reduce(lambda acc, g: acc + g.to(first), gs[1:], gs[0]),
+        grads = tree_map(lambda *gs: functools.reduce(lambda acc, g: acc + g.to(gs[0].device), gs[1:], gs[0]),
                          *shard_grads)
         if batch.mesh.processes > 1:
             all_reduce_sum(tree_flatten(grads)[0])
         return loss, aux, grads
 
     def _per_shard(self, state: Replicated, batch: ShardedBatch, fn):
-        """``fn(replica, shard, device)`` for every shard, each under its
-        card's device guard -> (global mean loss, merged aux, [the third
-        outputs of ``fn``]). The per-task outputs are concatenated in task
-        order on the mesh's first device; the loss and accuracy are means
-        over every process's tasks."""
+        """``fn(row, shard, device)`` for every dp row (its tree,
+        ``Replicated.row``, its batch shard and first device), each under
+        that card's device guard -> (global mean loss, merged aux, [the
+        third outputs of ``fn``]). The per-task outputs are concatenated in
+        task order on the mesh's first device; the loss and accuracy are
+        means over every process's tasks."""
         mesh = batch.mesh
         first = mesh.devices[0]
         results = []
-        for i, (device, shard) in enumerate(zip(mesh.devices, batch.shards)):
+        for i, (device, shard) in enumerate(zip(mesh.row_devices, batch.shards)):
             with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
-                results.append(fn(state.replicas[i], shard, device))
+                results.append(fn(state.row(i), shard, device))
         auxes = [r[1] for r in results]
         cat = lambda key: torch.cat([a[key].detach().to(first) for a in auxes])  # noqa: E731
         per_task_losses, per_task_acc = cat("per_task_losses"), cat("per_task_accuracies")

@@ -51,8 +51,10 @@ flush on another stream is such a pair) and stay so.
 
 A failed capture raises: nothing falls back to eager. On the CPU no graph
 is captured; ``core/maml.py`` runs the K eager steps instead. On a mesh of
-``[cuda:0] * dp`` (``parallel/mesh.py``) the graph holds the sharded step,
-its static buffers the unreplicated state and every shard of the batch; a
+``[cuda:0] * (dp * mp)`` (``parallel/mesh.py``) the graph holds the sharded
+step (the dp x mp step where the state is split over ``mp``: B1 and B2
+once per mesh entry per inner step), its static buffers the whole state,
+which the step places on the mesh again, and every shard of the batch; a
 mesh over several cards or processes runs eager, decided from the mesh
 before any capture (:class:`GraphProgram`).
 :class:`GraphProgram` keeps one :class:`CapturedStep` per batch signature
@@ -68,14 +70,14 @@ import torch
 
 from ..observability.costs import pool_bytes, priced_call, program_memory
 from ..ops import fused_update
-from ..parallel.mesh import Replicated, ShardedBatch, replicate, unreplicate
+from ..parallel.mesh import Replicated, ShardedBatch, place_like, unreplicate
 
 
 def tree_leaves_any(tree) -> List[Any]:
     """The leaves of a tree of dicts (sorted keys), tuples, lists,
     NamedTuples (a ``TrainState``), a mesh's sharded batches (their
-    shards) and replicated states (the first replica's), in a fixed
-    order."""
+    shards) and placed states (the whole state's: the first replica, or
+    its split leaves gathered), in a fixed order."""
     if isinstance(tree, ShardedBatch):
         return tree_leaves_any(tree.shards)
     if isinstance(tree, Replicated):
@@ -89,12 +91,12 @@ def tree_leaves_any(tree) -> List[Any]:
 
 def tree_map_any(fn: Callable, tree):
     """``fn`` over every leaf of a tree of dicts, tuples, lists,
-    NamedTuples and sharded batches, keeping its structure; a replicated
-    state maps its first replica and replicates the result on its mesh."""
+    NamedTuples and sharded batches, keeping its structure; a placed state
+    maps its whole state and places the result as it was placed."""
     if isinstance(tree, ShardedBatch):
         return ShardedBatch(tree.mesh, tree_map_any(fn, tree.shards))
     if isinstance(tree, Replicated):
-        return replicate(tree_map_any(fn, unreplicate(tree)), tree.mesh)
+        return place_like(tree_map_any(fn, unreplicate(tree)), tree)
     if isinstance(tree, dict):
         return {key: tree_map_any(fn, tree[key]) for key in tree}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

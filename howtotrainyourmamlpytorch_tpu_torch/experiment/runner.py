@@ -17,17 +17,22 @@ The state lives on the system's device (the card unless ``device="cpu"``).
 Host copies of it (the rollback anchor, checkpoint snapshots) are taken on
 the main thread: the writer and watchdog threads make no CUDA call.
 
-Data parallelism (``parallel/mesh.py``): the runner builds a mesh of
-``parallel.dp`` entries of ``devices`` (default: every visible card, or the
-CPU on request), replicates the state on it and shards every batch. A
+Data and tensor parallelism (``parallel/mesh.py``): the runner builds a
+``parallel.dp x parallel.mp`` mesh of ``devices`` (default: every visible
+card, or the CPU on request), places the state on it as the JAX runner
+does (``shard_train_state(..., tp_convs=parallel.tp_convs)``: the dense
+head, and under ``tp_convs`` the conv kernels, split over ``mp``) and
+shards every batch over ``dp``. A
 config that demands more devices than ``device_probe()`` sees shrinks onto
 the largest feasible mesh (the ``degraded_mesh`` event; ``[1, 1]`` means
 one device and no mesh), and while degraded each epoch boundary probes
 again and grows the mesh back (``mesh_grown``). A resume onto a bigger mesh
 than the checkpoint's ``mesh`` bookkeeping is a grow too. Checkpoints are
 format 3 with ``checkpoint_shards`` files (0: one per mesh device), format 2
-for one. Across hosts (a ``torch.distributed`` group of more than one
-process) each process loads its slice of every batch (the loader's
+for one; a save gathers the whole state, so its files are the JAX
+package's bytes for that state whatever the placement. Across hosts (a
+``torch.distributed`` group of more than one process) each process loads
+its slice of every batch (the loader's
 ``host_shard``), the meta-gradient is all-reduced, and evaluation gathers
 the per-task values in process order. The fault injector fires at the
 ``runner.step``, ``checkpoint.read``/``checkpoint.write`` and
@@ -62,9 +67,15 @@ step, inside the watchdog's scope (``_prewarm_programs``,
 ``compile/aot.py``), and the prewarm manifest is verified before it and
 written after it beside the checkpoints.
 
-Not here, each refused at construction with the ROADMAP.md item that ports
-it: state donation (A10.7); tensor parallelism, ``mp > 1`` or
-``tp_convs`` (A12).
+Buffer donation (``donate_train_state``, ``donate_batch``,
+``observability/donation.py``): under ``donate_train_state`` the runner
+first runs the A/B self-check (``donation_selfcheck``; a verdict other than
+``clean`` is a ``donation_refused`` event and the run trains without
+donation), writes the ``donation_audit`` event and gauge (on every run, as
+JAX does), keeps the checkpoint writer synchronous, and where the NaN
+sentinel discards a step it restores the last good state (the last
+checkpoint's host copy): a donated step has already written over the
+state it was given.
 """
 
 import contextlib
@@ -99,7 +110,6 @@ from ..parallel.mesh import (
     move_tree,
     process_count,
     process_index,
-    refuse_tensor_parallel,
     requested_mesh_shape,
     shard_batch,
     shard_chunk,
@@ -143,14 +153,6 @@ def _host(x) -> np.ndarray:
     return np.atleast_1d(x.detach().cpu().numpy())
 
 
-def _refuse_unported(cfg: Config) -> None:
-    """``NotImplementedError`` naming the ROADMAP.md item for every option
-    the port does not run, so that none is quietly ignored."""
-    refuse_tensor_parallel(cfg.parallel)
-    if cfg.donate_train_state:
-        raise NotImplementedError("donate_train_state is not ported to PyTorch yet (ROADMAP.md A10.7)")
-
-
 class ExperimentRunner:
     def __init__(
         self,
@@ -168,14 +170,12 @@ class ExperimentRunner:
         there; an entry may repeat). ``device_probe``: the visible-device
         count, read at init and at each epoch boundary while degraded
         (default ``len(devices)`` times the processes), injectable so a
-        drill can walk it up and down. Refused options raise before
-        anything is written."""
+        drill can walk it up and down."""
         self.cfg = cfg
         self._t_init = time.perf_counter()
         self._cold_start_s: Optional[float] = None
         self.system = system or MAMLSystem(cfg, device=device)
         device = self.system.device
-        _refuse_unported(cfg)
         self._devices = list(devices) if devices is not None else visible_devices(device)
         self._device_probe = device_probe or (lambda: len(self._devices) * process_count())
         self._feature_shape = self.system.model.feature_shape
@@ -339,9 +339,10 @@ class ExperimentRunner:
                     "to deliberately train on a single device"
                 )
             self.mesh = mesh
-            # one replica of the state per mesh device (a degraded resume
-            # re-places the restored state onto the shrunken mesh here)
-            self.state = shard_train_state(self.state, self.mesh)
+            # the state placed on the mesh (a degraded resume re-places the
+            # restored state onto the shrunken mesh here): whole replicas on
+            # a dp mesh, the JAX runner's tensor-parallel split on dp x mp
+            self.state = shard_train_state(self.state, self.mesh, tp_convs=cfg.parallel.tp_convs)
 
         # resume-side grow-back: the checkpoint was written under a smaller
         # mesh than this process just built
@@ -352,9 +353,11 @@ class ExperimentRunner:
         ):
             self._note_mesh_grown(previous=self._resume_prev_mesh, granted=granted_now, n_visible=n_visible)
 
-        # one-save-lag checkpoint writer: serialization off the step path
+        # one-save-lag checkpoint writer: serialization off the step path.
+        # Synchronous under donation, as in the JAX runner: a donated step
+        # writes into the state a lagged save would still be reading
         self._ckpt_writer: Optional[ckpt.AsyncCheckpointWriter] = (
-            ckpt.AsyncCheckpointWriter() if cfg.checkpoint_async else None
+            ckpt.AsyncCheckpointWriter() if cfg.checkpoint_async and not cfg.donate_train_state else None
         )
         # multi-host: each process loads only its slice of the global
         # meta-batch. Host slicing without a mesh would leave every process
@@ -520,7 +523,9 @@ class ExperimentRunner:
                 loss_host = _host(loss_dev)
             self._beat(f"settle epoch {epoch}")
             if forced or not np.all(np.isfinite(loss_host)):
-                self.state = state_before
+                # a donated step wrote over the state it was given: the
+                # last good state is the last checkpoint's host copy
+                self.state = self._place_state(self._last_good) if cfg.donate_train_state else state_before
                 return False
             losses.append(loss_host)
             accs.append(_host(acc_dev))
@@ -715,6 +720,50 @@ class ExperimentRunner:
             except OSError as exc:
                 print(f"warning: prewarm manifest not written: {exc!r}", flush=True)
 
+    # ------------------------------------------------------------------
+    # buffer donation (observability/donation.py; Config.donate_*)
+    # ------------------------------------------------------------------
+
+    def _donation_gate(self) -> None:
+        """The donation A/B on this run's device; state donation is refused
+        on any verdict but ``clean``, a self-check that fails included.
+        Runs before the first step."""
+        from ..observability import donation
+
+        self._beat("donation_selfcheck")
+        try:
+            result = donation.donation_selfcheck(self.cfg, device=self.system.device)
+        except Exception as exc:  # noqa: BLE001 — an uncertified device trains without donation
+            result = {"verdict": "selfcheck_failed", "error": f"{type(exc).__name__}: {exc}"}
+        self._beat("donation_selfcheck done")
+        if result["verdict"] == "clean":
+            self.events.append({"ts": time.time(), "event": "donation_selfcheck", **result})
+            return
+        self.cfg.donate_train_state = False
+        msg = (f"DONATION REFUSED: the self-check's verdict is {result['verdict']!r} on "
+               f"{result.get('backend', self.system.device.type)}; training without donation")
+        print(msg, flush=True)
+        self.events.append({"ts": time.time(), "event": "donation_refused", **result})
+        storage.change_json_log_experiment_status(self.logs_dir, self.experiment_name, msg)
+
+    def _note_donation_audit(self) -> None:
+        """One ``donation_audit`` event (and gauge), and the audit's bytes
+        in the compile ledger. An audit that fails costs the event, never
+        the run."""
+        from ..observability import donation
+
+        try:
+            audit = donation.donation_audit(self.cfg, self.state)
+        except Exception as exc:  # noqa: BLE001 — bookkeeping only
+            print(f"warning: donation audit unavailable: {exc!r}", flush=True)
+            return
+        self.events.append({"ts": time.time(), "event": "donation_audit", **audit})
+        if self._compile_ledger is not None:
+            self._compile_ledger.note_donation(audit)
+        if self.hub.enabled:
+            self.hub.registry.set_gauge("donation", {"flags": audit["flags"], "donated_bytes": audit["donated_bytes"],
+                                                     "left_on_table_bytes": audit["left_on_table_bytes"]})
+
     def _drain_ckpt_writer(self) -> None:
         """Block until any in-flight async save lands; a failed save is
         reported (events + stderr) but never masks the caller's own exit
@@ -789,15 +838,20 @@ class ExperimentRunner:
         return shard_chunk(chunk, self.mesh) if self.mesh is not None else chunk
 
     def _host_state(self) -> TrainState:
-        """The state (its first replica on a mesh) copied to the host, on
-        the main thread."""
-        return move_tree(unreplicate(self.state), "cpu")
+        """The whole state (gathered on a mesh) copied to the host, on the
+        main thread. On the CPU under donation a copy: the next step writes
+        into the live state's tensors."""
+        host = move_tree(unreplicate(self.state), "cpu")
+        return clone_tree(host) if self.cfg.donate_train_state and self.system.device.type == "cpu" else host
 
     def _place_state(self, host_state: TrainState) -> TrainState:
-        """A host state placed as the run places its state."""
+        """A host state placed as the run places its state (a fresh copy
+        under donation, so that the host state stays as it is)."""
         if self.mesh is not None:
-            return shard_train_state(host_state, self.mesh)
-        return move_tree(host_state, self.system.device)
+            state = shard_train_state(host_state, self.mesh, tp_convs=self.cfg.parallel.tp_convs)
+        else:
+            state = move_tree(host_state, self.system.device)
+        return clone_tree(state) if self.cfg.donate_train_state and self.system.device.type == "cpu" else state
 
     # ------------------------------------------------------------------
     # elastic mesh grow-back (parallel/mesh.py::grow_mesh_plan)
@@ -857,7 +911,7 @@ class ExperimentRunner:
         # takes without the process restart
         host_state = self._host_state()
         self.mesh = make_mesh(dataclasses.replace(self.cfg.parallel, dp=dp, mp=mp), self._devices)
-        self.state = shard_train_state(host_state, self.mesh)
+        self.state = shard_train_state(host_state, self.mesh, tp_convs=self.cfg.parallel.tp_convs)
         # the JAX runner drops the programs built for the degraded mesh here;
         # strict mode re-plans the same family
         self.system.drop_compiled_programs()
@@ -1168,6 +1222,12 @@ class ExperimentRunner:
         if cfg.evaluate_on_test_set_only:
             self.load_best()
             return self.evaluate_test()
+
+        # the donation gate: the A/B self-check before any donated step (a
+        # verdict other than clean trains without donation), then the audit
+        if cfg.donate_train_state and cfg.donation_selfcheck:
+            self._donation_gate()
+        self._note_donation_audit()
 
         # the prewarm (Config.aot): the planned program set is built HERE,
         # inside the watchdog's scope, before the first step

@@ -12,6 +12,13 @@ PyTorch's own layouts. Models convert NHWC input at their entry.
 ``utils/interop.py`` converts JAX weights, including the flatten order of the
 first linear layer (JAX flattens ``(h, w, c)``, this port ``(c, h, w)``).
 
+Tensor parallelism (``parallel/mesh.py``): a conv or linear ``w`` given as
+a dict of blocks of its output channels (``{"mp0": ..., "mp1": ...}``, each
+on its mesh entry's device) is column-parallel: each block's output
+channels are computed on its device from the whole input, with its slice
+of the (whole) bias, and the blocks' outputs are concatenated in channel
+order on the input's device. A plain ``w`` runs the single-device code.
+
 Initializers draw from the JAX package's distribution families (torch's
 defaults: kaiming-uniform with a=sqrt(5) for conv and linear weights, fan-in
 uniform biases; kaiming-normal fan_out for ResNet's convs and fan_in for
@@ -22,6 +29,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import shard_blocks
 
 # ---------------------------------------------------------------------------
 # Initializers (torch-default distributions)
@@ -69,15 +78,32 @@ def init_batch_norm(c):
 # ---------------------------------------------------------------------------
 
 
+def _column_parallel(fn, x, blocks, b, dim):
+    """``fn(x, w_block, b_slice)`` per block of output channels, each on
+    its block's device, concatenated along ``dim`` on ``x``'s device."""
+    outs, lo = [], 0
+    for w in shard_blocks(blocks):
+        hi = lo + w.shape[0]
+        outs.append(fn(x.to(w.device), w, None if b is None else b[lo:hi].to(w.device)).to(x.device))
+        lo = hi
+    return torch.cat(outs, dim=dim)
+
+
 def conv2d(params, x, stride=1, padding=0):
     """Conv over NCHW with an OIHW kernel; ``padding`` is a symmetric int."""
     if not isinstance(padding, int):
         raise TypeError(f"conv2d supports symmetric int padding only, got {padding!r}")
-    return F.conv2d(x, params["w"], params.get("b"), stride=stride, padding=padding)
+    w, b = params["w"], params.get("b")
+    if isinstance(w, dict):
+        return _column_parallel(lambda xs, ws, bs: F.conv2d(xs, ws, bs, stride=stride, padding=padding), x, w, b, 1)
+    return F.conv2d(x, w, b, stride=stride, padding=padding)
 
 
 def linear(params, x):
-    return F.linear(x, params["w"], params["b"])
+    w, b = params["w"], params["b"]
+    if isinstance(w, dict):
+        return _column_parallel(F.linear, x, w, b, -1)
+    return F.linear(x, w, b)
 
 
 # ---------------------------------------------------------------------------

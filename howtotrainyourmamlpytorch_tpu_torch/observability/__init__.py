@@ -7,9 +7,9 @@ counters).
 
 The program layer's modules: :mod:`costs` (FLOPs by the flop counter, the
 H100 peak table, MFU) and :mod:`compile_ledger` (every CUDA-graph capture,
-first eager dispatch and ``nvcc`` build, priced). The JAX package's
-``donation`` has no counterpart: buffer donation is not ported (ROADMAP.md
-A10.7).
+first eager dispatch and ``nvcc`` build, priced) and :mod:`donation`
+(the donation audit and the A/B self-check that gates
+``donate_train_state``).
 """
 
 from .metrics import MetricsRegistry  # noqa: F401

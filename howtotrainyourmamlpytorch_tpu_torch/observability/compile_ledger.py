@@ -44,6 +44,10 @@ jitted call after an AOT failure, a build that fails here is recorded with
 its error **and re-raised**. The only fallback would be the eager path, and
 a graph that silently became eager would hide the path it exists for.
 
+``donated_bytes`` (JAX: the compiled program's ``alias_bytes``) comes from
+the donation audit (``observability/donation.py``, :meth:`CompileLedger.
+note_donation`): eager PyTorch reports no aliasing of its own.
+
 With no ``logs_dir`` the ledger collects only (a serving frontend owns no
 run directory; its summary rides ``/metrics`` and the hub provider).
 """
@@ -78,6 +82,8 @@ class CompileLedger:
         # program name -> aggregate {builds, lower_s, compile_s, total_s,
         # cache_hits, errors, flops, bytes_accessed, peak_bytes, donated_bytes}
         self._programs: Dict[str, Dict[str, Any]] = {}
+        # program name -> the bytes the donation audit says it donates
+        self._donated: Dict[str, int] = {}
         self._entries = 0
         self._log = None
         if logs_dir is not None:
@@ -155,6 +161,8 @@ class CompileLedger:
                     agg["peak_bytes"] = memory["peak_bytes"]
                 if memory.get("alias_bytes") is not None:
                     agg["donated_bytes"] = memory["alias_bytes"]
+            if name in self._donated:
+                agg["donated_bytes"] = self._donated[name]
         if self._log is not None:
             try:
                 self._log.append(entry)
@@ -167,6 +175,17 @@ class CompileLedger:
             except Exception:
                 pass
         return entry
+
+    def note_donation(self, audit: Dict[str, Any]) -> None:
+        """Each audited program's donated bytes (``donation_audit`` rows
+        with any) as its ``donated_bytes``, for the programs built so far
+        and those built later."""
+        with self._lock:
+            for row in audit.get("rows", []):
+                if row.get("donated_bytes"):
+                    self._donated[row["program"]] = int(row["donated_bytes"])
+                    if row["program"] in self._programs:
+                        self._programs[row["program"]]["donated_bytes"] = int(row["donated_bytes"])
 
     def summary(self) -> Dict[str, Any]:
         """The build-tax aggregate (hub provider / ``/metrics`` payload):

@@ -29,6 +29,12 @@ launches its kernel or raises; for CPU tensors each computes its plain
 PyTorch twin (:func:`fused_sgd_tree_reference`,
 :func:`fused_sgd_tree_bwd_reference`), because the tensors lie on the CPU.
 
+A tensor-parallel row's tree (``parallel/mesh.py``: a split leaf is a dict
+of blocks, each on its mesh entry's device) is launched once per mesh
+entry: block ``j`` of every split leaf in launch ``j``, the other leaves in
+launch 0, with the row's first entry. A launch never reads a leaf on
+another device; the twins take the same groups.
+
 Trees of up to :data:`MAX_LEAVES` leaves: the C functions launch with a
 64-leaf table in the classic 4 KB parameter space where it holds the tree
 (the VGG trees), else with a 256-leaf table (ResNet-12's 86 leaves,
@@ -52,6 +58,7 @@ from typing import List, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..parallel.mesh import shard_index
 from ..utils.trees import tree_flatten, tree_unflatten
 
 KERNEL_SOURCE = "fused_sgd.cu"
@@ -308,15 +315,31 @@ class FusedSGD(torch.autograd.Function):
         return (None, *cts, *dgs, *dlr.unbind())
 
 
+def launch_groups(paths) -> List[List[int]]:
+    """The leaves (by index) of each launch over a tree with these key
+    paths: one group, or one per mesh entry of a tensor-parallel row
+    (block ``j`` of a split leaf in group ``j``, every other leaf in group
+    0)."""
+    entries = [shard_index(path[-1]) or 0 for path in paths]
+    return [[i for i, e in enumerate(entries) if e == j] for j in range(max(entries) + 1)]
+
+
 def fused_sgd_update(params, grads, lr_tree):
     """One LSLR SGD step ``p - lr_t * g`` over the whole tree as one kernel
-    launch, differentiable in params, grads and lrs (B2 in the backward).
-    ``lr_tree`` holds one scalar per leaf. The leaves of ``params`` and
-    ``grads`` may carry a leading task axis: the tasks of a flush then
-    update in the same launch. Returns a tree of new tensors."""
+    launch (one per mesh entry of a tensor-parallel row:
+    :func:`launch_groups`), differentiable in params, grads and lrs (B2 in
+    the backward). ``lr_tree`` holds one scalar per leaf. The leaves of
+    ``params`` and ``grads`` may carry a leading task axis: the tasks of a
+    flush then update in the same launch. Returns a tree of new
+    tensors."""
     ps, paths = tree_flatten(params)
     gs, g_paths = tree_flatten(grads)
     lrs, lr_paths = tree_flatten(lr_tree)
     if not (paths == g_paths == lr_paths):
         raise ValueError("fused_sgd: params, grads and lrs must have the same tree structure")
-    return tree_unflatten(paths, list(FusedSGD.apply(len(ps), *ps, *gs, *lrs)))
+    out = [None] * len(ps)
+    for group in launch_groups(paths):
+        pick = lambda leaves: [leaves[i] for i in group]  # noqa: E731
+        for i, new in zip(group, FusedSGD.apply(len(group), *pick(ps), *pick(gs), *pick(lrs))):
+            out[i] = new
+    return tree_unflatten(paths, out)

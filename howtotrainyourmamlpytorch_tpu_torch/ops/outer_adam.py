@@ -64,8 +64,11 @@ def adam_update(grads, state, params, schedule: Callable):
     bc1 = 1 - torch.full((), B1, dtype=torch.float32, device=countf.device) ** countf
     bc2 = 1 - torch.full((), B2, dtype=torch.float32, device=countf.device) ** countf
     step_size = -1 * schedule(sched.count)
+    # the scalars go to each leaf's device (a tensor-parallel block may lie
+    # on another card than the counts; on the same device .to is a no-op)
     new_params = tree_map(
-        lambda p, m, v: p + step_size.to(p.dtype) * ((m / bc1) / (torch.sqrt(v / bc2) + EPS)),
+        lambda p, m, v: p + step_size.to(p.device, p.dtype) * ((m / bc1.to(p.device))
+                                                                / (torch.sqrt(v / bc2.to(p.device)) + EPS)),
         params, mu, nu,
     )
     return new_params, (ScaleByAdamState(count=count, mu=mu, nu=nu), ScaleByScheduleState(count=sched.count + 1))

@@ -1,42 +1,63 @@
-"""Device mesh and data-parallel placement (JAX package ``parallel/mesh.py``).
+"""Device mesh, data-parallel and tensor-parallel placement (JAX package
+``parallel/mesh.py``).
 
-The JAX package shards the meta-batch over the ``dp`` axis of a ``Mesh``
-and lets XLA partition the second-order program and insert the
-meta-gradient ``psum``. Here the mesh is what one process drives: a
-``dp x mp`` grid of ``torch.device`` entries. :func:`shard_batch` splits the
-task axis into ``dp`` contiguous chunks, one on each entry;
-:func:`replicate` gives every entry the state. ``MAMLSystem.train_step``
-given such a pair runs each chunk's rollout on its device and sums the
-chunks' meta-gradients in mesh order (``core/maml.py``). Shrinking onto
-fewer devices and growing back are re-placements inside the process, as in
-the JAX runner; a DDP group could not change its size without restarting
-every process.
+The JAX package shards the meta-batch over the ``dp`` axis of a ``Mesh``,
+places the parameters with ``train_state_shardings`` and lets XLA
+partition the second-order program and insert the collectives. Here the
+mesh is what one process drives: a ``dp x mp`` grid of ``torch.device``
+entries, entry ``(i, j)`` at ``devices[i * mp + j]``. :func:`shard_batch`
+splits the task axis into ``dp`` contiguous chunks, chunk ``i`` on row
+``i``'s first entry (``Mesh.row_devices``); :func:`replicate` gives every
+entry the whole state. ``MAMLSystem.train_step`` given such a pair runs
+each chunk's rollout on its row and sums the rows' meta-gradients in mesh
+order (``core/maml.py``). Shrinking onto fewer devices and growing back are
+re-placements inside the process, as in the JAX runner; a DDP group could
+not change its size without restarting every process.
+
+Tensor parallelism (``mp > 1``): :func:`shard_train_state` places a
+``TrainState`` as JAX's ``train_state_shardings`` does. :func:`param_spec`
+is JAX's ``_param_spec`` read on the port's layout: a dense ``w`` (``[out,
+in]`` here, ``[in, out]`` in JAX) and, under ``tp_convs``, a conv ``w``
+(OIHW here, HWIO in JAX) split their output axis, the port's dim 0, over
+``mp`` where it divides; the outer Adam moments of a parameter split as
+the parameter does; every other leaf is whole on every entry. Entry ``(i,
+j)`` holds block ``j`` of each split leaf, a contiguous block of rows. A
+row's step reads its entries as one tree (:meth:`Replicated.row`) in which
+a split leaf is a dict of its blocks, ``{"mp0": ..., "mp1": ...}``
+(:func:`shard_key`), each on its entry's device: a conv or dense layer
+given such a ``w`` computes each block's output channels on that block's
+device and concatenates them in channel order (``models/layers.py``,
+column-parallel as GSPMD lays it out); batch norm, activations and the next
+layer see the whole activation on the row's first device. The meta-gradient
+of a split leaf stays split, and the new state keeps the placement it came
+in with. :func:`unreplicate` gathers the whole state (checkpoints, the NaN
+guard, serving).
 
 A mesh may name one device several times: on the CPU every entry is
 ``cpu`` (the counterpart of the JAX tests' 8 virtual CPU devices), and on
-one card ``[cuda:0, cuda:0]`` runs the dp=2 code path. Replicas on one
-device share their tensors, which is safe because no step writes into the
-state it is given; it is how the tests and the one-card smoke run exercise
-sharding, not a way to go faster. :func:`shard_chunk` splits a chunk of K
+one card ``[cuda:0] * (dp * mp)`` runs the dp x mp code paths. Entries on
+one device share their tensors (a block is a view of its whole leaf where
+the leaf lies on the entry's device already); a step that writes into the
+state it is given (``donate_train_state``) writes after every read of the
+old values. It is how the tests and the one-card smoke run exercise the
+mesh, not a way to go faster. :func:`shard_chunk` splits a chunk of K
 batches (the multi-step programs' input) the same way, batch by batch; a
 mesh whose entries are all one card and one process runs those programs as
 one CUDA graph of the sharded step (``Mesh.graph_refusal``).
 
 Across hosts: one process per host, joined by ``torch.distributed``
 (:func:`initialize_distributed`: NCCL between cards, gloo on the CPU). The
-mesh's ``dp`` then counts every host's devices, as JAX's global mesh does;
-each process holds ``dp / process_count`` of them, builds its own slice of
-the meta-batch (``host_shard_bounds``, the loader's ``host_shard``) and the
-meta-gradient is all-reduced over the processes.
-
-Tensor parallelism (``mp > 1``, ``tp_convs``) is not ported: it raises
-``NotImplementedError`` naming ROADMAP.md A12. The plan functions are the
-JAX package's arithmetic, copied.
+mesh's ``dp`` then counts every host's rows, as JAX's global mesh does;
+each process holds ``dp / process_count`` of them, each with its ``mp``
+entries (the ``mp`` axis always lies within a process), builds its own
+slice of the meta-batch (``host_shard_bounds``, the loader's
+``host_shard``) and the meta-gradient is all-reduced over the processes.
+The plan functions are the JAX package's arithmetic, copied.
 """
 
 import os
 from datetime import timedelta
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,18 +67,25 @@ from ..config import ParallelConfig
 
 DATA_AXIS = "dp"
 MODEL_AXIS = "mp"
-#: the ROADMAP.md item that ports tensor parallelism
-TENSOR_PARALLEL_ITEM = "A12"
+#: a split leaf in a row's tree is ``{SHARD_PREFIX + str(j): block j}``
+SHARD_PREFIX = MODEL_AXIS
 
 
-def refuse_tensor_parallel(parallel: Optional[ParallelConfig]) -> None:
-    """``NotImplementedError`` for ``mp > 1`` or ``tp_convs``."""
-    parallel = parallel or ParallelConfig()
-    if parallel.mp > 1 or parallel.tp_convs:
-        raise NotImplementedError(
-            f"tensor parallelism (parallel mp={parallel.mp}, tp_convs={parallel.tp_convs}) is not "
-            f"ported to PyTorch yet (ROADMAP.md {TENSOR_PARALLEL_ITEM}); the port's mesh is data-parallel"
-        )
+def shard_key(j: int) -> str:
+    """The key of block ``j`` of a split leaf in a row's tree."""
+    return f"{SHARD_PREFIX}{j}"
+
+
+def shard_index(key) -> Optional[int]:
+    """``j`` for :func:`shard_key` ``(j)``, else None."""
+    if isinstance(key, str) and key.startswith(SHARD_PREFIX) and key[len(SHARD_PREFIX):].isdigit():
+        return int(key[len(SHARD_PREFIX):])
+    return None
+
+
+def shard_blocks(node: Dict[str, Any]) -> List[Any]:
+    """The blocks of a split leaf, in channel order."""
+    return [node[shard_key(j)] for j in range(len(node))]
 
 
 def process_count() -> int:
@@ -92,7 +120,7 @@ class Mesh:
     count every process's devices (JAX's global mesh); ``devices`` are this
     process's, ``local_dp`` of them along ``dp``."""
 
-    def __init__(self, devices: Sequence, dp: int, mp: int = 1, processes: int = 1):
+    def __init__(self, devices: Sequence, dp: int, mp: int = 1, processes: int = 1, tp_convs: bool = False):
         if dp % processes:
             raise ValueError(f"mesh dp={dp} does not divide over {processes} processes")
         self.devices = [_canonical(d) for d in devices]
@@ -102,15 +130,24 @@ class Mesh:
                              f"local devices, got {len(self.devices)}")
         self.shape = {DATA_AXIS: dp, MODEL_AXIS: mp}
         self.processes = processes
+        # the placement shard_train_state gives a whole state on this mesh
+        # where the caller names none (the graph path re-places its own)
+        self.tp_convs = bool(tp_convs)
 
     @property
     def size(self) -> int:
         return self.shape[DATA_AXIS] * self.shape[MODEL_AXIS]
 
+    @property
+    def row_devices(self) -> List[torch.device]:
+        """Each local dp row's first entry: where the row's batch shard,
+        its whole activations and its replicated leaves' work lie."""
+        return self.devices[:: self.shape[MODEL_AXIS]]
+
     def graph_refusal(self) -> Optional[str]:
         """Why one CUDA graph cannot hold a step on this mesh, or None when
         it can: every entry is one card and one process drives it (the
-        ``[cuda:0] * dp`` mesh). A graph is recorded on one card's streams,
+        ``[cuda:0] * (dp * mp)`` mesh). A graph is recorded on one card's streams,
         and a collective over gloo cannot be captured."""
         if self.processes > 1:
             return f"the mesh spans {self.processes} processes (a collective cannot be captured)"
@@ -122,14 +159,15 @@ class Mesh:
         return None
 
     def __repr__(self) -> str:
-        return f"Mesh(shape={self.shape}, devices={[str(d) for d in self.devices]}, processes={self.processes})"
+        return (f"Mesh(shape={self.shape}, devices={[str(d) for d in self.devices]}, processes={self.processes}"
+                + (", tp_convs=True)" if self.tp_convs else ")"))
 
 
 def make_mesh(parallel: Optional[ParallelConfig] = None, devices=None) -> Mesh:
-    """The mesh of ``parallel`` over ``devices`` (default: every visible
-    card); ``dp=-1`` takes them all. Refuses tensor parallelism."""
+    """The ``dp x mp`` mesh of ``parallel`` over ``devices`` (default:
+    every visible card), entry ``(i, j)`` at ``devices[i * mp + j]``;
+    ``dp=-1`` takes them all. The mesh keeps ``parallel.tp_convs``."""
     parallel = parallel or ParallelConfig()
-    refuse_tensor_parallel(parallel)
     devices = list(devices if devices is not None else visible_devices())
     hosts = process_count()
     n_devices = len(devices) * hosts
@@ -137,7 +175,7 @@ def make_mesh(parallel: Optional[ParallelConfig] = None, devices=None) -> Mesh:
     dp = parallel.dp if parallel.dp and parallel.dp > 0 else n_devices // mp
     if dp * mp > n_devices:
         raise ValueError(f"mesh {dp}x{mp} needs {dp * mp} devices, have {n_devices}")
-    return Mesh(devices[: (dp // hosts) * mp], dp, mp, hosts)
+    return Mesh(devices[: (dp // hosts) * mp], dp, mp, hosts, tp_convs=parallel.tp_convs)
 
 
 def requested_mesh_shape(parallel: Optional[ParallelConfig], n_devices: int):
@@ -197,7 +235,7 @@ def host_shard_bounds(batch_size: int, process_index: int, process_count: int):
 
 class ShardedBatch:
     """A meta-batch split over the mesh's ``dp`` axis: ``shards[i]`` is a
-    dict of the i-th contiguous chunk of tasks, on ``mesh.devices[i]``.
+    dict of the i-th contiguous chunk of tasks, on ``mesh.row_devices[i]``.
     ``num_tasks`` counts this process's tasks, ``global_tasks`` every
     process's."""
 
@@ -217,19 +255,20 @@ class ShardedBatch:
         from ..utils.strictmode import abstract_signature
 
         return ("sharded", self.mesh.processes,
-                tuple((str(d), abstract_signature(s)) for d, s in zip(self.mesh.devices, self.shards)))
+                self.mesh.shape[MODEL_AXIS],
+                tuple((str(d), abstract_signature(s)) for d, s in zip(self.mesh.row_devices, self.shards)))
 
 
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> ShardedBatch:
     """Split the task axis (axis 0) of every array of ``batch`` (numpy or
     tensors) into ``local_dp`` contiguous chunks, chunk ``i`` on
-    ``mesh.devices[i]``."""
+    ``mesh.row_devices[i]``."""
     n = len(next(iter(batch.values())))
     if n % mesh.local_dp:
         raise ValueError(f"meta-batch of {n} tasks not divisible by the mesh's local dp={mesh.local_dp}")
     per = n // mesh.local_dp
     shards = []
-    for i, device in enumerate(mesh.devices[: mesh.local_dp]):
+    for i, device in enumerate(mesh.row_devices):
         shards.append({k: torch.as_tensor(v[i * per:(i + 1) * per]).to(device) for k, v in batch.items()})
     return ShardedBatch(mesh, shards)
 
@@ -246,7 +285,7 @@ def shard_chunk(chunk: Dict[str, Any], mesh: Mesh) -> List[ShardedBatch]:
         raise ValueError(f"meta-batch of {n} tasks not divisible by the mesh's local dp={mesh.local_dp}")
     per = n // mesh.local_dp
     placed = [{key: torch.as_tensor(v[:, i * per:(i + 1) * per]).to(device) for key, v in chunk.items()}
-              for i, device in enumerate(mesh.devices[: mesh.local_dp])]
+              for i, device in enumerate(mesh.row_devices)]
     return [ShardedBatch(mesh, [{key: v[j] for key, v in shard.items()} for shard in placed]) for j in range(k)]
 
 
@@ -270,28 +309,106 @@ def move_tree(tree, device):
     return tree.to(device)
 
 
-class Replicated:
-    """A state (or any tree of tensors) with one replica per mesh device:
-    ``replicas[i]`` lies on ``mesh.devices[i]``, and entries that name the
-    same device share one replica. Reading an attribute reads the first
-    replica's (``state.params``, ``state.step``)."""
+def param_spec(shape, mp: int, tp_convs: bool = False, leaf_name=None) -> Tuple:
+    """JAX's ``_param_spec`` on the port's layout: ``(MODEL_AXIS, None)``
+    for a dense kernel (a 2-D leaf named ``w``, ``[out, in]``) whose output
+    axis divides over ``mp``; under ``tp_convs`` ``(MODEL_AXIS, None, None,
+    None)`` for a conv kernel (a 4-D ``w``, OIHW) whose output channels do;
+    else ``()`` (replicated, JAX's ``P()``). JAX's split axis (``[in, out]``
+    axis 1, HWIO axis 3) is the port's dim 0. Both branches key off the
+    name, as JAX's do: a 2-D or 4-D leaf of another name is replicated."""
+    if leaf_name == "w" and len(shape) == 2 and shape[0] >= mp and shape[0] % mp == 0:
+        return (MODEL_AXIS, None)
+    if tp_convs and leaf_name == "w" and len(shape) == 4 and shape[0] >= mp and shape[0] % mp == 0:
+        return (MODEL_AXIS, None, None, None)
+    return ()
 
-    def __init__(self, mesh: Mesh, replicas: List[Any]):
+
+def param_specs(params, mp: int, tp_convs: bool = False):
+    """:func:`param_spec` of every leaf of a parameter tree."""
+    return {k: param_specs(v, mp, tp_convs) if isinstance(v, dict) else param_spec(tuple(v.shape), mp, tp_convs, k)
+            for k, v in params.items()}
+
+
+def _split(spec) -> bool:
+    return bool(spec) and MODEL_AXIS in spec
+
+
+def _walk(nodes: List[Any], spec, fn, specs):
+    """``fn(leaves, spec)`` over matching leaves of the trees ``nodes``
+    (NamedTuples, tuples, lists, dicts), keeping the first one's structure.
+    ``spec`` is a leaf's :func:`param_spec` inside the parameters and
+    inside the optimizer's mirrors of them (a subtree under a key or field
+    ``params``, as JAX's ``opt_spec`` finds them), else None. A split leaf
+    reaches ``fn`` whatever its node is (a row's split leaf is a dict of
+    blocks)."""
+    node = nodes[0]
+    if isinstance(spec, tuple):
+        return fn(nodes, spec)
+    if isinstance(node, dict):
+        return {k: _walk([n[k] for n in nodes], spec[k] if spec is not None else (specs if k == "params" else None),
+                         fn, specs) for k in node}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_walk([getattr(n, f) for n in nodes],
+                                  spec if spec is not None else (specs if f == "params" else None), fn, specs)
+                            for f in node._fields))
+    if isinstance(node, (tuple, list)):
+        return type(node)(_walk([n[i] for n in nodes], spec, fn, specs) for i in range(len(node)))
+    return fn(nodes, None)
+
+
+class _Mover:
+    """``.to(device)`` with one copy per (leaf, device) while the leaves it
+    is given live: entries on one device share a whole leaf."""
+
+    def __init__(self):
+        self._moved: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+    def __call__(self, x, device):
+        if not torch.is_tensor(x) or x.device == device:
+            return x
+        key = (id(x), device)
+        if key not in self._moved:
+            self._moved[key] = x.to(device)
+        return self._moved[key]
+
+
+class Replicated:
+    """A state (or any tree of tensors) placed on a mesh: ``replicas[i]``
+    is entry ``i``'s (on ``mesh.devices[i]``), and entries that name the
+    same device share their tensors. ``specs`` (None: every entry holds the
+    whole tree) is the :func:`param_specs` tree of a tensor-parallel
+    ``TrainState``: entry ``(i, j)`` then holds block ``j`` of each split
+    leaf. Reading an attribute reads the whole state's (``state.params``,
+    ``state.step``: the first replica's, or the gathered tree)."""
+
+    def __init__(self, mesh: Mesh, replicas: List[Any], specs=None):
         self.mesh = mesh
         self.replicas = replicas
+        self.specs = specs
 
     def on(self, device) -> Any:
-        """The replica on ``device``."""
+        """The replica on ``device`` (a state without split leaves)."""
         return self.replicas[self.mesh.devices.index(_canonical(device))]
 
+    def row(self, i: int) -> Any:
+        """The tree dp row ``i`` computes with: its first entry's, each
+        split leaf as ``{shard_key(j): entry (i, j)'s block}``."""
+        mp = self.mesh.shape[MODEL_AXIS]
+        entries = self.replicas[i * mp:(i + 1) * mp]
+        if self.specs is None:
+            return entries[0]
+        return _walk(entries, None, lambda leaves, spec: (
+            {shard_key(j): x for j, x in enumerate(leaves)} if _split(spec) else leaves[0]), self.specs)
+
     def __getattr__(self, name):
-        if name in ("mesh", "replicas"):
+        if name in ("mesh", "replicas", "specs"):
             raise AttributeError(name)
-        return getattr(self.replicas[0], name)
+        return getattr(unreplicate(self), name)
 
 
 def replicate(tree, mesh: Mesh) -> Replicated:
-    """``tree`` copied once to each distinct device of the mesh."""
+    """``tree`` copied whole once to each distinct device of the mesh."""
     tree = unreplicate(tree)
     placed: Dict[torch.device, Any] = {}
     for device in mesh.devices:
@@ -300,17 +417,108 @@ def replicate(tree, mesh: Mesh) -> Replicated:
     return Replicated(mesh, [placed[d] for d in mesh.devices])
 
 
-def shard_train_state(state, mesh: Mesh, tp_convs: bool = False) -> Replicated:
-    """The train state on the mesh: a replica per device while ``mp == 1``
-    (the only mesh the port builds)."""
-    if tp_convs or mesh.shape[MODEL_AXIS] > 1:
-        refuse_tensor_parallel(ParallelConfig(mp=mesh.shape[MODEL_AXIS], tp_convs=tp_convs))
-    return replicate(state, mesh)
+def _place(state, mesh: Mesh, specs, pick) -> Replicated:
+    """Entry ``(i, j)`` of ``mesh`` gets ``pick(leaf, j)`` of every split
+    leaf of ``state`` and the others whole, each on the entry's device;
+    entries on one device share."""
+    mp = mesh.shape[MODEL_AXIS]
+    move, placed, replicas = _Mover(), {}, []
+    for k, device in enumerate(mesh.devices):
+        j = k % mp
+        if (device, j) not in placed:
+            placed[(device, j)] = _walk([state], None, lambda leaves, spec, j=j, device=device: (
+                pick(leaves[0], j).to(device) if _split(spec) else move(leaves[0], device)), specs)
+        replicas.append(placed[(device, j)])
+    return Replicated(mesh, replicas, specs)
+
+
+def _block(x: torch.Tensor, j: int, mp: int) -> torch.Tensor:
+    """Rows ``[j n, (j + 1) n)`` of ``x``, ``n = len(x) / mp``: a view."""
+    n = x.shape[0] // mp
+    return x[j * n:(j + 1) * n]
+
+
+def shard_train_state(state, mesh: Mesh, tp_convs: Optional[bool] = None) -> Replicated:
+    """The train state on the mesh, as JAX's ``shard_train_state`` places
+    it: with ``mp == 1`` a whole replica per entry; else each parameter and
+    its outer-Adam moments split over ``mp`` where :func:`param_spec` says
+    so, every other leaf whole on every entry. ``tp_convs`` None: the
+    mesh's. A placed state is gathered first."""
+    mp = mesh.shape[MODEL_AXIS]
+    if mp == 1:
+        return replicate(state, mesh)
+    state = unreplicate(state)
+    specs = param_specs(state.params, mp, mesh.tp_convs if tp_convs is None else tp_convs)
+    return _place(state, mesh, specs, lambda x, j: _block(x, j, mp))
+
+
+def place_like(tree, like: Replicated) -> Replicated:
+    """A whole ``tree`` placed as ``like`` is."""
+    if like.specs is None:
+        return replicate(tree, like.mesh)
+    mp = like.mesh.shape[MODEL_AXIS]
+    return _place(tree, like.mesh, like.specs, lambda x, j: _block(x, j, mp))
+
+
+def place_row(row, like: Replicated) -> Replicated:
+    """A row's tree (:meth:`Replicated.row`: split leaves as dicts of
+    blocks, on their entries' devices) placed on every row as ``like`` is:
+    what a step writes back after it updated row 0's tree."""
+    if like.specs is None:
+        return replicate(row, like.mesh)
+    return _place(row, like.mesh, like.specs, lambda blocks, j: blocks[shard_key(j)])
+
+
+def row_view(tree, i: int = 0):
+    """Row ``i``'s tree of a placed state; anything else as it is."""
+    return tree.row(i) if isinstance(tree, Replicated) else tree
 
 
 def unreplicate(tree):
-    """The first replica of a :class:`Replicated`, anything else as it is."""
-    return tree.replicas[0] if isinstance(tree, Replicated) else tree
+    """The whole tree of a :class:`Replicated` (the first replica, or its
+    split leaves gathered on the mesh's first device), anything else as it
+    is."""
+    if not isinstance(tree, Replicated):
+        return tree
+    if tree.specs is None:
+        return tree.replicas[0]
+    first = tree.mesh.devices[0]
+    mp = tree.mesh.shape[MODEL_AXIS]
+    return _walk(tree.replicas[:mp], None, lambda leaves, spec: (
+        torch.cat([x.to(first) for x in leaves]) if _split(spec) else leaves[0]), tree.specs)
+
+
+def placement(state) -> Any:
+    """The :func:`param_spec` of every leaf of a state as it is placed
+    (``()``: whole on every entry), in the state's structure: the
+    counterpart of the specs of JAX's ``train_state_shardings``."""
+    specs = state.specs if isinstance(state, Replicated) else None
+    return _walk([unreplicate(state)], None, lambda leaves, spec: spec if spec is not None else (), specs)
+
+
+def spread_over_blocks(tree, like):
+    """``tree`` (a hyperparameter tree with one leaf per whole parameter,
+    ``{"lr": params-like, ...}``) with each leaf that stands for a split
+    parameter of ``like`` (a row's parameters) given once per block, moved
+    to the block's device: the per-tensor hyperparameters a row's inner
+    update takes. ``tree`` itself where ``like`` has no split leaf."""
+
+    def spread(h, p):
+        if isinstance(p, dict) and not isinstance(h, dict):
+            return {k: h.to(b.device) for k, b in p.items()}
+        if isinstance(p, dict):
+            return {k: spread(h[k], p[k]) for k in h}
+        return h
+
+    if not _has_blocks(like):
+        return tree
+    return {name: spread(sub, like) for name, sub in tree.items()}
+
+
+def _has_blocks(params) -> bool:
+    if isinstance(params, dict):
+        return any(shard_index(k) is not None or _has_blocks(v) for k, v in params.items())
+    return False
 
 
 # ---------------------------------------------------------------------------

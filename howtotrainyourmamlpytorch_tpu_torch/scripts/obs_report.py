@@ -21,9 +21,12 @@ telemetry surfaces a run leaves behind into one report:
   when one was written — a device-time breakdown via ``utils/profiling.py``
   (loaded by file path).
 
-The repo script's donation section reads audits a port run does not write
-(donation is ROADMAP.md A10.7), so it is not here; on a port run directory
-without a profile window both scripts give the same report.
+- the donation audit and a refusal (``donation_audit`` and
+  ``donation_refused`` events, ``observability/donation.py``), as the repo
+  script reads them.
+
+On a port run directory without a profile window both scripts give the
+same report.
 
 Host-phase coverage is the report's honesty check: the train-loop phase sums
 (data-wait + dispatch + settle) over the summed epoch wall-clock. Near 1.0
@@ -387,6 +390,16 @@ def build_report(run_dir: str, trace_dir: Optional[str] = None,
         refinement = _refinement_from_events(event_records)
         if refinement is not None:
             report["refinement"] = refinement
+        # donation bookkeeping: the audit table (donatable vs donated bytes
+        # per planned program) and, where the self-check refused donation,
+        # its verdict
+        audit = next((r for r in reversed(event_records) if r.get("event") == "donation_audit"), None)
+        if audit is not None:
+            report["donation"] = {k: v for k, v in audit.items() if k not in ("ts", "event")}
+        refused = next((r for r in reversed(event_records) if r.get("event") == "donation_refused"), None)
+        if refused is not None:
+            report.setdefault("donation", {})["refused"] = {k: v for k, v in refused.items()
+                                                            if k not in ("ts", "event")}
     # padding-waste accounting (ROADMAP 4d): the access log records every
     # request's true vs bucketed sample count — aggregate the wasted-FLOPs
     # fraction per (verb, bucket) so bucket-edge tuning has a number
@@ -778,6 +791,13 @@ def _render_scaling(report: Dict[str, Any], lines: List[str]) -> None:
         )
 
 
+def _fmt_mib(n: Optional[float]) -> str:
+    """bytes -> MiB with 2 decimals, '-' for unknown."""
+    if n is None:
+        return "-"
+    return f"{n / 2**20:.2f}"
+
+
 def render_human(report: Dict[str, Any]) -> str:
     lines = [f"== run report: {report.get('run')} =="]
     if report.get("error"):
@@ -867,6 +887,26 @@ def render_human(report: Dict[str, Any]) -> str:
                     f"{_fmt_mib(p.get('peak_bytes')):>9} "
                     f"{_fmt_mib(p.get('donated_bytes')):>8}"
                 )
+    donation = report.get("donation")
+    if donation:
+        flags = donation.get("flags") or {}
+        lines.append(
+            f"-- donation audit -- donate_train_state={flags.get('donate_train_state')} donate_batch="
+            f"{flags.get('donate_batch')}; donated {_fmt_mib(donation.get('donated_bytes'))} MiB, left on table "
+            f"{_fmt_mib(donation.get('left_on_table_bytes'))} MiB --"
+        )
+        for row in donation.get("rows") or []:
+            lines.append(
+                f"  {row['program']:<24} donated={','.join(row['donated']) or '-'} "
+                f"not_donated={','.join(row['not_donated']) or '-'} "
+                f"left_on_table={_fmt_mib(row['left_on_table_bytes'])} MiB"
+            )
+        if donation.get("refused"):
+            refused = donation["refused"]
+            lines.append(
+                f"  DONATION REFUSED by aliasing self-check: verdict={refused.get('verdict')} "
+                f"worst_param_rel={refused.get('worst_param_rel')}"
+            )
     padding = report.get("padding")
     if padding:
         lines.append(

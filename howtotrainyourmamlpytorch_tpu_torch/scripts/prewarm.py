@@ -69,7 +69,7 @@ def _mesh(cfg, device):
         if (cfg.batch_size * cfg.samples_per_iter) % mesh.shape["dp"]:
             raise ValueError(f"meta-batch not divisible by dp={mesh.shape['dp']}")
         return mesh
-    except (ValueError, NotImplementedError) as exc:
+    except ValueError as exc:
         _log(f"prewarm: meshless ({type(exc).__name__}: {exc})")
         return None
 

@@ -3,8 +3,8 @@
 CPU, where a mesh of 8 ``cpu`` entries stands in for JAX's 8 virtual CPU
 devices.
 
-- mesh shapes; ``pp=2`` rejected as JAX rejects it; ``mp=2`` and
-  ``tp_convs`` refused naming ROADMAP.md A12;
+- mesh shapes; ``pp=2`` rejected as JAX rejects it (``mp=2`` and
+  ``tp_convs``: ``tests/test_torch_tensor_parallel.py``);
 - the dp=8 sharded train step of the linear model against the port's
   single-device step and against JAX's dp=8 step on its 8 virtual devices
   (JAX's tolerances: loss rtol 1e-5, weights rtol 1e-5 / atol 1e-6), the
@@ -71,16 +71,12 @@ def test_make_mesh_shapes():
 
 
 def test_pp_hook_rejects_multi_stage_and_tensor_parallelism_is_refused():
+    """``pp=2`` is rejected as JAX rejects it. (Tensor parallelism is no
+    longer refused: ``tests/test_torch_tensor_parallel.py``.)"""
     assert tcfg.ParallelConfig().pp == 1
     for module in (tcfg, jcfg):
         with pytest.raises(ValueError, match="pipeline parallelism"):
             module.ParallelConfig(pp=2)
-    for parallel in (tcfg.ParallelConfig(dp=4, mp=2), tcfg.ParallelConfig(dp=4, tp_convs=True)):
-        with pytest.raises(NotImplementedError, match=tpar.TENSOR_PARALLEL_ITEM):
-            tpar.make_mesh(parallel, devices=CPU8)
-    mesh = tpar.make_mesh(tcfg.ParallelConfig(dp=2), devices=CPU8)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tpar.shard_train_state({}, mesh, tp_convs=True)
 
 
 # ---------------------------------------------------------------------------

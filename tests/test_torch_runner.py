@@ -5,8 +5,8 @@ contract and resume, test-only evaluation, named and integer epochs,
 per-episode eval statistics, the early abort) and adds: the artifact files
 and CSV columns against a JAX runner's run; the NaN sentinel and its
 rollback, and SIGTERM in a subprocess (rc 75, then an exact mid-epoch
-resume), each drilled through the ``runner.step`` fault seam; the refused
-options and those ROADMAP A9 and A10 made run; the CLI in a subprocess; and a run directory resumed
+resume), each drilled through the ``runner.step`` fault seam; the options
+ROADMAP A9, A10 and A12 made run; the CLI in a subprocess; and a run directory resumed
 across the packages in both directions (the next step's loss within atol
 1e-5, the same loader cursor)."""
 
@@ -450,13 +450,6 @@ def test_sigterm_saves_mid_epoch_and_resume_continues_there(toy_dataset, tmp_pat
     assert [int(float(r["epoch"])) for r in load_statistics(os.path.join(cfg.run_dir(), "logs"))] == [0, 1]
 
 
-REFUSED = {
-    "donation": (dict(donate_train_state=True), "A10.7"),
-    "mp2": (dict(parallel=tcfg.ParallelConfig(mp=2)), "A12"),
-    "tp_convs": (dict(parallel=tcfg.ParallelConfig(dp=2, tp_convs=True)), "A12"),
-}
-
-
 def _ran_multi_dispatch(runner):
     """K = 2 over 3 iterations: one chunk and one single step; the ledger
     priced the chunk program."""
@@ -513,6 +506,30 @@ def _ran_multi_dispatch_on_a_mesh(runner):
     assert runner.mesh.shape["dp"] == 2 and len(runner.state.replicas) == 2
 
 
+def _ran_donated(runner):
+    """The self-check read clean, the audit counts the state as donated,
+    the checkpoint writer was synchronous."""
+    events = _events(runner.run_dir)
+    assert [e["verdict"] for e in events if e.get("event") == "donation_selfcheck"] == ["clean"]
+    (audit,) = [e for e in events if e.get("event") == "donation_audit"]
+    assert audit["flags"]["donate_train_state"] and audit["donated_bytes"] == audit["state_bytes"]
+    assert runner._ckpt_writer is None
+
+
+def _ran_tensor_parallel(runner):
+    """The run's mesh has its mp axis and its state is placed on it (with
+    tp_convs the conv kernels split over mp); a format-3 latest of dp x mp
+    shards."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import placement
+
+    dp, mp = runner._mesh_shape()
+    assert mp == 2 and runner.state.specs is not None
+    conv = placement(runner.state).params["stage_0"]["conv"]["w"]
+    assert conv == (("mp", None, None, None) if runner.cfg.parallel.tp_convs else ())
+    shards = [n for n in os.listdir(runner.saved_models_dir) if n.startswith("train_model_latest.shard")]
+    assert len(shards) == dp * mp and int(runner.state.step) == 1
+
+
 def _ran_sanitized(runner):
     from tools.graftsan import runtime
 
@@ -524,9 +541,14 @@ def _ran_sanitized(runner):
 # case now runs (the sanitizer, A9.7: armed, it logs no violation; multi-step
 # dispatch, the fused eval and the profiler window, A10.4-A10.5; the
 # prewarm, A10.8; multi-step dispatch on a dp=2 mesh of the CPU named twice,
-# A10.5 (mesh))
+# A10.5 (mesh); donation, A10.7; tensor parallelism, A12, on CPU meshes of
+# 1 x 2 and 2 x 2 entries)
 NOW_PORTED = {
     "aot": (dict(aot=tcfg.AotConfig(enabled=True)), _ran_prewarmed),
+    "donation": (dict(donate_train_state=True), _ran_donated),
+    "mp2": (dict(parallel=tcfg.ParallelConfig(dp=1, mp=2), checkpoint_shards=0), _ran_tensor_parallel),
+    "tp_convs": (dict(parallel=tcfg.ParallelConfig(dp=2, mp=2, tp_convs=True), checkpoint_shards=0),
+                 _ran_tensor_parallel),
     "dp2_multi_dispatch": (dict(parallel=tcfg.ParallelConfig(dp=2), train_steps_per_dispatch=2,
                                 total_iter_per_epoch=3), _ran_multi_dispatch_on_a_mesh),
     "sanitizer": (dict(resilience=tcfg.ResilienceConfig(sanitizer=True)), _ran_sanitized),
@@ -536,30 +558,26 @@ NOW_PORTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(list(REFUSED) + list(NOW_PORTED)))
+@pytest.mark.parametrize("name", sorted(NOW_PORTED))
 def test_unported_options_are_refused(toy_dataset, tmp_path, name):
-    if name in NOW_PORTED:
-        from tools.graftsan import runtime
+    """No option is refused any more: each one the runner refused before its
+    ROADMAP.md item was ported runs, and leaves its mark on the run."""
+    from tools.graftsan import runtime
 
-        overrides, check_run = NOW_PORTED[name]
-        if "profile_dir" in overrides:
-            overrides = dict(overrides, profile_dir=str(tmp_path / overrides["profile_dir"]))
-        cfg = runner_config(toy_dataset, tmp_path, **{"total_epochs": 1, "total_iter_per_epoch": 1, **overrides})
-        devices = [torch.device("cpu")] * 2 if name == "dp2_multi_dispatch" else None
-        try:
-            runner = ExperimentRunner(cfg, system=small_system(cfg), devices=devices)
-            assert runtime.enabled() == (name == "sanitizer")
-            runner.run_experiment()
-            check_run(runner)
-        finally:
-            runtime.disarm()
-            runtime.reset()
-        return
-    overrides, item = REFUSED[name]
-    cfg = runner_config(toy_dataset, tmp_path, **overrides)
-    with pytest.raises(NotImplementedError, match=item):
-        ExperimentRunner(cfg, device="cpu")
-    assert not os.path.exists(cfg.run_dir())
+    overrides, check_run = NOW_PORTED[name]
+    if "profile_dir" in overrides:
+        overrides = dict(overrides, profile_dir=str(tmp_path / overrides["profile_dir"]))
+    cfg = runner_config(toy_dataset, tmp_path, **{"total_epochs": 1, "total_iter_per_epoch": 1, **overrides})
+    mesh = cfg.parallel.dp * cfg.parallel.mp if cfg.parallel.dp > 0 else 1
+    devices = [torch.device("cpu")] * mesh if mesh > 1 else None
+    try:
+        runner = ExperimentRunner(cfg, system=small_system(cfg), devices=devices)
+        assert runtime.enabled() == (name == "sanitizer")
+        runner.run_experiment()
+        check_run(runner)
+    finally:
+        runtime.disarm()
+        runtime.reset()
 
 
 A6_OPTIONS = {
