@@ -39,18 +39,20 @@ Run from the repository root. Phases, one JSON line each:
    and to a task batch of 4), the third of them again alone, and predictions
    on 40 and 15 queries. Checks: finite probabilities whose rows sum to 1, the
    lone request equal to its place in the flush, one kernel launch per inner
-   step of every flush, and agreement with the same engine on the CPU. It
-   also reports how far each device's float32 is from a float64 reference,
-   and a ``torch.profiler`` breakdown of one adapt flush by kernel.
+   step of every flush, and (in phase ``cross``) agreement with the same
+   engine on the CPU, and how far each device's float32 is from a float64
+   reference. It reports a ``torch.profiler`` breakdown of one adapt flush
+   by kernel.
 6. ``train``: ``MAMLSystem.train_step`` at the same config (meta-batch 8,
    second order, MSL on) on one class-structured batch: 10 steps at epoch
    0, one past the MSL window, 3 eval steps. Checks: finite losses, the loss
    lowered by 10 steps, B1 launched 5 times per train and eval step and B2 5
    times per train step, one leaf copied to make it contiguous per B2
-   launch (the head weight's cotangent) and none on the serving paths, the
-   first step's loss against the CPU's, and the meta-gradient at 2 tasks
-   against the CPU's and a float64 one (with that loss, reported). It reports
-   step times, peak memory and a ``torch.profiler`` breakdown of one step.
+   launch (the head weight's cotangent) and none on the serving paths, and
+   (in phase ``cross``) the first step's loss against the CPU's and the
+   meta-gradient at 2 tasks against the CPU's and a float64 one (with that
+   loss, reported). It reports step times, peak memory and a
+   ``torch.profiler`` breakdown of one step.
 7. ``serve_trained``: the trained state saved with ``save_checkpoint``,
    loaded by ``AdaptationEngine.from_run_dir`` and served one flush.
 8. ``http``: the trained state served over HTTP by ``python -m
@@ -103,6 +105,10 @@ Run from the repository root. Phases, one JSON line each:
    respawn to ``ok``, the respawned backend's first /adapt, the gateway hop
    (the same /predict through the gateway and direct) and the phase's
    seconds.
+10b. ``cross`` (after ``fleet``): the card-against-CPU checks of phases
+   ``slice`` and ``train`` on their card halves and the CPU halves the CPU
+   twin made meanwhile, each CPU half checked to have run on the card's
+   own weights and inputs.
 11. ``strategies``: the strategy registry at the fleet row
    ``omniglot.20.5.vgg.gd.anil`` (the default config with
    ``strategy=anil``): 10 anil train steps and an eval step, B1 and B2 over
@@ -124,7 +130,8 @@ Run from the repository root. Phases, one JSON line each:
 13. ``runner``: the experiment layer at the same config, on a generated
    image folder of Omniglot's layout and size (1,623 classes of 20 105x105
    1-bit PNGs in 50 alphabet folders, read and resized to 28x28 by the
-   loader): ``ExperimentRunner`` in this process for 2 epochs of 5 steps
+   loader; the folder and its index cache are made by a process started
+   after phase ``device``): ``ExperimentRunner`` in this process for 2 epochs of 5 steps
    with validation (5 batches) and the best checkpoint's test, then three
    CLI legs (the training CLI), each a subprocess started once the folder
    is written, importing and starting the card behind a gate while the
@@ -236,7 +243,9 @@ Run from the repository root. Phases, one JSON line each:
 17. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
     ``net=resnet-12`` (84x84x3, 5-way 5-shot) under the remat policies
     none, full and dots_saveable: the first step's loss and meta-gradient
-    equal across them, peak memory and step times each; the default
+    equal across them, dots_saveable's peak memory between full's and
+    none's; one eager step per policy, wall and host CPU ms; a chunk of 3
+    steps replayed from a CUDA graph under dots_saveable; the default
     config's VGG at none and full, peak memory.
 18. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
     inner Adam with learnable betas and the warm start, inner Rprop, and
@@ -285,6 +294,23 @@ Run from the repository root. Phases, one JSON line each:
     one CUDA graph against the sharded eager steps, bit-equal (the
     deterministic algorithms), the replayed step beside the eager one, B1
     and B2 per replay, and the fused eval on the mesh.
+20b. ``diagnostics`` (after ``prewarm``, on phase ``runner``'s run
+    directory and image folder; budget 60 s): the card-against-CPU tools
+    of ``howtotrainyourmamlpytorch_tpu_torch/scripts/`` through their
+    ``main(argv)`` in this process. The precision probe's ``compare`` of
+    the default model's meta-gradient (20-way 5-shot, 2 tasks) under
+    ``highest`` and ``high`` against a CPU ``save`` made in the CPU twin
+    (cosine under ``highest`` >= 0.98); the autopsy of every checkpoint on
+    the card, and of checkpoint 0 on the CPU in the twin (accuracies within
+    0.05); the stream replay from
+    checkpoint 0, whose batches must be the ones the runner consumed after
+    it (digests equal; losses beside the runner's); the descent probe (its
+    loss falls); the donation probe (``clean``); ``imagenet_at_scale`` at
+    84x84x3 with ResNet-12 5-way 5-shot, 2 steps, on a tree of 32 classes
+    x 20 images; the sweep launcher's ``--dry-run`` (324 jobs) and its
+    job 0 on the card (started before phase ``programs`` behind a gate and
+    run during ``prewarm``, ``launch_all --select 0 --in-process``), then
+    ``summarize_run`` on its run directory. B1 and B2 launch the counts each tool's steps imply.
 21. ``kernels``: every kernel the run launched, with its launches on the
     paths (the wrappers' counts; a replay adds its graph's captured tally,
     ``core/programs.py``), its error against the twin and its times beside
@@ -294,9 +320,15 @@ Fresh processes start early, behind gate files, so that their imports and
 card start (10-25 s each) overlap the phases before them: phase ``http``'s
 first server from phase ``small`` on, ``fleet``'s first two backends during
 ``tenancy``, ``operations``' strict serve CLI during ``tensor_parallel``,
-``prewarm``'s three CLI legs during ``programs`` (and, as before, the
-runner's and ``elastic``'s CLI legs within their phases). Each is released
-where its phase used to start it; a process whose parent is gone exits.
+``prewarm``'s three CLI legs and ``diagnostics``' sweep job during
+``programs`` (and, as before, the runner's and ``elastic``'s CLI legs
+within their phases). Each is released where its phase used to start it; a
+process whose parent is gone exits. Two processes start after phase
+``device`` and work at once: the runner's image folder and index, and
+the CPU twin, which makes the CPU halves of the cross-checks of phases
+``slice``, ``train`` and ``strategies`` while the card runs the phases up
+to ``fleet``, then ``diagnostics``' CPU half (its autopsy waits for the
+runner's checkpoints).
 
 A ``timing`` line before the ``kernels`` line gives each phase's wall
 seconds. Then the card's ``nvidia-smi`` name and power limit, and last
@@ -309,8 +341,10 @@ compute.
 """
 
 import argparse
+import hashlib
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -403,7 +437,11 @@ MANY_LEAVES = 220  # the synthetic tree past 200 leaves: 1 to 3,000 elements eac
 # gated; no longer run: it took ~27 s of the run's time limit).
 RESNET_CROSS = {"loss_rtol": 1e-3, "cosine": 0.999, "cosine_f64": 0.999}
 REMAT_POLICIES = ("none", "full", "dots_saveable")
-REMAT_STEPS = 2
+# the steps of dots_saveable's chunk replayed from a CUDA graph (its graph
+# captures the recompute and the record/replay mode; phase programs
+# replays graphs without remat; scripts/remat_probe.py times every
+# policy's eager steps over rounds in turn and replays each policy's graph)
+REMAT_CHUNK = 3
 # remat against none on the card (cuDNN deterministic): the same forward,
 # so the loss bit-equal; the recompute's gradient sums add the same terms
 # in another order, so the meta-gradient within REMAT_GRAD_RTOL of its
@@ -611,17 +649,39 @@ def phase_device(parent_dir=None):
     return smi, parent
 
 
-def full_width_system(seed: int, overrides=(), config: str = DEFAULT_CONFIG):
+def full_width_system(seed: int, overrides=(), config: str = DEFAULT_CONFIG, device=None):
     """A repository config (default: configs/default.yaml) with the fused
-    update and remat off, then ``overrides``, on the card, seeded. (Remat
-    off is the program phases slice, train, serve_trained and runner
-    measured before remat applied in the port.)"""
+    update and remat off, then ``overrides``, on the card (or ``device``),
+    seeded. (Remat off is the program phases slice, train, serve_trained
+    and runner measured before remat applied in the port.)"""
     from howtotrainyourmamlpytorch_tpu_torch.config import load_config
     from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
 
     cfg = load_config(config, ["use_pallas_inner_update=true", "remat_inner_steps=false", *overrides])
-    system = MAMLSystem(cfg)
+    system = MAMLSystem(cfg, device=device)
     return cfg, system, system.init_train_state(seed)
+
+
+def _digest(*trees) -> str:
+    """sha256 of every tensor and array in ``trees`` (dicts by sorted key,
+    sequences in order): the CPU twin's inputs against the card's."""
+    h = hashlib.sha256()
+
+    def walk(o):
+        if isinstance(o, dict):
+            for k in sorted(o):
+                h.update(str(k).encode())
+                walk(o[k])
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+        elif isinstance(o, torch.Tensor):
+            h.update(o.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(np.ascontiguousarray(o).tobytes())
+
+    walk(trees)
+    return h.hexdigest()
 
 
 def cpu_copy(state):
@@ -1118,8 +1178,27 @@ def slice_requests(cfg, seed: int):
     }
 
 
+def slice_cpu(seed: int) -> dict:
+    """Phase ``slice``'s CPU half, in the CPU twin: the same engine, weights
+    and requests on the CPU (the twin, no kernel), and flush b's requests
+    each adapted alone and unpadded in float64."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+
+    cfg, system, state = full_width_system(seed, device="cpu")
+    req = slice_requests(cfg, seed)
+    engine = AdaptationEngine(system, cpu_copy(state))
+    before = fu.launch_counts["fused_sgd"]
+    t0 = time.perf_counter()
+    probs = serve(engine, req)
+    cpu_s = time.perf_counter() - t0
+    launches = fu.launch_counts["fused_sgd"] - before
+    ref = [float64_reference(system, state, x, y, q, engine.num_steps) for (x, y), q in zip(req["b"], req["qb"])]
+    return {"digest": _digest(state.params, state.bn_state, state.inner_hparams, req), "steps": engine.num_steps,
+            "probs": probs, "float64": ref, "launches": launches, "cpu_s": cpu_s}
+
+
 def phase_slice(seed: int):
-    from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
     from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
 
@@ -1169,22 +1248,38 @@ def phase_slice(seed: int):
     check(alone_dev <= FLUSH_TOLERANCE, "slice", "lone request differs from its place in the flush",
           max_abs=alone_dev)
 
-    # the same engine, weights and requests on the CPU (the twin, no kernel)
-    cpu_system = MAMLSystem(cfg, device="cpu")
-    before = fu.launch_counts["fused_sgd"]
-    t0 = time.perf_counter()
-    cpu_probs = serve(AdaptationEngine(cpu_system, cpu_copy(state)), req)
-    cpu_s = time.perf_counter() - t0
-    check(fu.launch_counts["fused_sgd"] == before, "slice", "the CPU run launched the kernel")
+    out = {
+        "phase": "slice", "ok": True, "config": "configs/default.yaml + use_pallas_inner_update=true",
+        "n_way": n_way, "adapt_steps": steps, "flushes": flushes, "launches": launches,
+        "first_pass_s": first_s, "adapt_flush_ms_median": statistics.median(adapt_ms),
+        "predict_flush_ms_median": statistics.median(predict_ms),
+        "adapt_flush": {"tasks": 8, "support": 100}, "predict_flush": {"tasks": 8, "queries": 40},
+        "alone_vs_flush_max_abs": alone_dev, "counts": counts, "contiguous_copies": copies,
+        "adapt_flush_profile": profile,
+    }
+    emit(out)
+    # the CPU half (phase cross): the same requests on the CPU, by the CPU twin
+    pending = {"probs": probs, "steps": steps,
+               "digest": _digest(state.params, state.bn_state, state.inner_hparams, req)}
+    return out, pending
+
+
+def slice_cross_check(pending: dict, cpu: dict) -> dict:
+    """Phase ``slice``'s card-against-CPU check: the card's probabilities
+    (``pending``) against the same engine, weights and requests on the CPU
+    (the twin, no kernel: :func:`slice_cpu`) within CPU_TOLERANCE, and no
+    further from float64 (flush b's requests, each adapted alone and
+    unpadded) than F64_FACTOR times the CPU's distance."""
+    check(cpu["digest"] == pending["digest"] and cpu["steps"] == pending["steps"], "slice",
+          "the CPU twin served other weights or requests")
+    check(cpu["launches"] == 0, "slice", "the CPU run launched the kernel", launches=cpu["launches"])
+    probs, cpu_probs, ref = pending["probs"], cpu["probs"], cpu["float64"]
     cpu_dev = max(
         float(abs(g - c).max())
         for key in ("a", "b")
         for g, c in zip(probs[key], cpu_probs[key])
     )
     cpu_dev = max(cpu_dev, float(abs(probs["alone"] - cpu_probs["alone"]).max()))
-    # how far float32 itself is from float64 here: flush b's requests, each
-    # adapted alone and unpadded in float64
-    ref = [float64_reference(system, state, x, y, q, steps) for (x, y), q in zip(req["b"], req["qb"])]
     f64_dev = {
         name: max(float(abs(p - r).max()) for p, r in zip(got["b"], ref))
         for name, got in (("card", probs), ("cpu", cpu_probs))
@@ -1193,19 +1288,8 @@ def phase_slice(seed: int):
           tol=CPU_TOLERANCE, float64_max_abs=f64_dev)
     check(f64_dev["card"] <= F64_FACTOR * f64_dev["cpu"] + 1e-5, "slice",
           "card further from float64 than the CPU", float64_max_abs=f64_dev, factor=F64_FACTOR)
-
-    out = {
-        "phase": "slice", "ok": True, "config": "configs/default.yaml + use_pallas_inner_update=true",
-        "n_way": n_way, "adapt_steps": steps, "flushes": flushes, "launches": launches,
-        "first_pass_s": first_s, "adapt_flush_ms_median": statistics.median(adapt_ms),
-        "predict_flush_ms_median": statistics.median(predict_ms),
-        "adapt_flush": {"tasks": 8, "support": 100}, "predict_flush": {"tasks": 8, "queries": 40},
-        "alone_vs_flush_max_abs": alone_dev, "cpu_max_abs": cpu_dev, "cpu_tolerance": CPU_TOLERANCE,
-        "cpu_s": cpu_s, "float64_max_abs": f64_dev, "counts": counts, "contiguous_copies": copies,
-        "adapt_flush_profile": profile,
-    }
-    emit(out)
-    return out
+    return {"cpu_max_abs": cpu_dev, "cpu_tolerance": CPU_TOLERANCE, "float64_max_abs": f64_dev,
+            "cpu_s": cpu["cpu_s"], "cpu_waited_s": cpu["waited_s"]}
 
 
 def _flat(grads):
@@ -1244,11 +1328,10 @@ def float64_plain(cfg, state):
                                    step=state.step.cpu())
 
 
-def train_cross_check(cfg, start, batch, card_loss, phase: str = "train", loss_rtol: float = LOSS_RTOL,
-                      cosine: float = GRAD_COSINE, cosine_f64: float = GRAD_COSINE_F64):
-    """Card against CPU: the first step's loss at full width; card and CPU
-    against float64: the meta-gradient (and its loss, reported) at
-    CROSS_TASKS tasks; checked against the tolerances given."""
+def cross_check_cpu(cfg, start, batch) -> dict:
+    """:func:`train_cross_check`'s CPU half: the full-width loss on the CPU
+    in float32, and the meta-gradient at CROSS_TASKS tasks in float32 and
+    (the plain path) in float64."""
     from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
 
     t0 = time.perf_counter()
@@ -1256,16 +1339,53 @@ def train_cross_check(cfg, start, batch, card_loss, phase: str = "train", loss_r
     cpu_state = cpu_copy(start)
     f64_system, f64_state = float64_plain(cfg, start)
     cpu_loss = float(cpu_system.meta_objective(cpu_state, batch, epoch=0)[0])
-    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
     small = {k: v[:CROSS_TASKS] for k, v in batch.items()}
-    (card_small, _, card), (cpu_small, _, cpu), (exact_small, _, exact) = (
+    (cpu_small, _, cpu), (exact_small, _, exact) = (
         (float(loss), aux, _flat(grads)) for loss, aux, grads in (
-            MAMLSystem(cfg).meta_gradients(start, small, epoch=0),
             cpu_system.meta_gradients(cpu_state, small, epoch=0),
             f64_system.meta_gradients(f64_state, small, epoch=0)))
+    return {"digest": _digest(start.params, start.bn_state, start.inner_hparams, batch), "loss": cpu_loss,
+            "small_loss": cpu_small, "grad": cpu, "f64_small_loss": exact_small, "f64_grad": exact,
+            "cpu_s": time.perf_counter() - t0}
+
+
+def cross_check_twin(seed: int, overrides) -> dict:
+    """:func:`cross_check_cpu` in the CPU twin, for the state
+    ``full_width_system(seed, overrides)`` and the class-structured batch
+    of seed + 3 that phases ``train`` and ``strategies`` step on."""
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+
+    cfg, _, start = full_width_system(seed, overrides, device="cpu")
+    batch = learnable_synthetic_batch(cfg.batch_size, cfg.num_classes_per_set, cfg.num_samples_per_class,
+                                      cfg.num_target_samples, cfg.image_shape, seed=seed + 3)
+    return cross_check_cpu(cfg, start, batch)
+
+
+def cross_check_card(cfg, start, batch) -> dict:
+    """:func:`train_cross_check`'s card half: the meta-gradient at
+    CROSS_TASKS tasks on the card (flat, on the host)."""
+    from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
+
+    small = {k: v[:CROSS_TASKS] for k, v in batch.items()}
+    loss, _, grads = MAMLSystem(cfg).meta_gradients(start, small, epoch=0)
+    return {"digest": _digest(start.params, start.bn_state, start.inner_hparams, batch), "small_loss": float(loss),
+            "grad": _flat(grads), "inner_steps": cfg.number_of_training_steps_per_iter}
+
+
+def compare_halves(card_loss: float, card_half: dict, cpu_half: dict, phase: str, loss_rtol: float = LOSS_RTOL,
+                   cosine: float = GRAD_COSINE, cosine_f64: float = GRAD_COSINE_F64) -> dict:
+    """Card against CPU: the first step's loss at full width; card and CPU
+    against float64: the meta-gradient (and its loss, reported) at
+    CROSS_TASKS tasks; checked against the tolerances given."""
+    check(cpu_half["digest"] == card_half["digest"], phase,
+          "the CPU half of the cross-check ran on other weights or another batch")
+    card_small, card = card_half["small_loss"], card_half["grad"]
+    cpu_loss, cpu_small, cpu, exact_small, exact = (
+        cpu_half[k] for k in ("loss", "small_loss", "grad", "f64_small_loss", "f64_grad"))
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
     dist = lambda a: float((a - exact).norm() / exact.norm())  # noqa: E731
     out = {
-        "inner_steps": cfg.number_of_training_steps_per_iter,
+        "inner_steps": card_half["inner_steps"],
         "loss_card": card_loss, "loss_cpu": cpu_loss,
         "loss_rel_card_cpu": rel(card_loss, cpu_loss), "loss_rtol": loss_rtol,
         "loss_float64_at_grad_tasks": exact_small,
@@ -1275,7 +1395,8 @@ def train_cross_check(cfg, start, batch, card_loss, phase: str = "train", loss_r
         "grad_cosine_card_f64": _cosine(card, exact), "grad_cosine_cpu_f64": _cosine(cpu, exact),
         "grad_cosine_f64_min": cosine_f64,
         "grad_rel_l2_from_f64": {"card": dist(card), "cpu": dist(cpu)},
-        "grad_max_abs_card_cpu": float((card - cpu).abs().max()), "cpu_s": time.perf_counter() - t0,
+        "grad_max_abs_card_cpu": float((card - cpu).abs().max()), "cpu_s": cpu_half["cpu_s"],
+        "cpu_waited_s": cpu_half["waited_s"],
     }
     check(out["loss_rel_card_cpu"] <= loss_rtol, phase, "card and CPU losses disagree", **out)
     check(out["grad_cosine_card_f64"] >= cosine_f64, phase, "card meta-gradient far from float64", **out)
@@ -1285,11 +1406,20 @@ def train_cross_check(cfg, start, batch, card_loss, phase: str = "train", loss_r
     return out
 
 
+def train_cross_check(cfg, start, batch, card_loss, phase: str = "train", cpu_half=None, **tolerances):
+    """:func:`compare_halves` of the card's half and ``cpu_half`` (made
+    in the CPU twin on the same inputs, or None to make it here)."""
+    if cpu_half is None:
+        cpu_half = dict(cross_check_cpu(cfg, start, batch), waited_s=0.0)
+    return compare_halves(card_loss, cross_check_card(cfg, start, batch), cpu_half, phase, **tolerances)
+
+
 def phase_train(seed: int):
     """The training path: train_step at the default config (second order,
     MSL on) on one class-structured meta-batch, then past the MSL window,
     then eval_step; launches, finiteness, the loss going down, step times,
-    peak memory, a profile, and the CPU cross-check."""
+    peak memory, a profile, and the card's half of the CPU cross-check
+    (returned; phase cross compares it)."""
     from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
 
@@ -1341,7 +1471,8 @@ def phase_train(seed: int):
     check(losses[-1] <= TRAIN_DROP * losses[0], "train", "10 steps on one batch did not lower the loss",
           losses=losses, drop=TRAIN_DROP)
     profile = profile_device(lambda: system.train_step(state, batch, epoch=0))
-    cross = train_cross_check(cfg, start, batch, losses[0])
+    # the CPU half is compared in phase cross
+    pending = (losses[0], cross_check_card(cfg, start, batch))
     result = {
         "phase": "train", "ok": True, "config": "configs/default.yaml + use_pallas_inner_update=true",
         "meta_batch": cfg.batch_size, "n_way": n_way, "support": n_way * cfg.num_samples_per_class,
@@ -1350,11 +1481,22 @@ def phase_train(seed: int):
         "final_branch_loss": float(final.loss), "eval_loss": float(ev.loss), "eval_accuracy": float(ev.accuracy),
         "train_step_ms_median": statistics.median(train_ms), "train_step_ms": train_ms,
         "final_branch_step_ms": final_ms, "eval_step_ms_median": statistics.median(eval_ms),
-        "max_memory_allocated": peak, "train_step_profile": profile, "cross_check": cross,
-        "num_params": system.num_params(start),
+        "max_memory_allocated": peak, "train_step_profile": profile, "num_params": system.num_params(start),
     }
     emit(result)
-    return result, system, state
+    return result, system, state, pending
+
+
+def phase_cross(twin: dict, slice_pending: dict, train_pending: tuple):
+    """The card-against-CPU checks of phases ``slice``
+    (:func:`slice_cross_check`) and ``train`` (:func:`compare_halves`) on
+    their card halves and the CPU halves the CPU twin made meanwhile."""
+    loss, card_half = train_pending
+    out = {"phase": "cross", "ok": True,
+           "slice": slice_cross_check(slice_pending, twin_result(twin, "slice", "slice")),
+           "train": compare_halves(loss, card_half, twin_result(twin, "train", "train"), "train")}
+    emit(out)
+    return out
 
 
 def phase_serve_trained(seed: int, system, trained):
@@ -2515,25 +2657,80 @@ def check_run_dir(run_dir: str, epochs: int, n_lrs: int) -> list:
     return rows
 
 
-def phase_runner(seed: int, bare_step_ms: float, tmp: str):
+def runner_overrides(seed: int, tmp: str) -> list:
+    """Phase ``runner``'s overrides of configs/default.yaml."""
+    return [
+        "use_pallas_inner_update=true", "remat_inner_steps=false",
+        f"dataset.path={os.path.join(tmp, 'omniglot_dataset')}", f"index_cache_dir={os.path.join(tmp, 'index')}",
+        f"experiment_root={os.path.join(tmp, 'exps')}", f"total_iter_per_epoch={RUNNER_ITERS}",
+        f"num_evaluation_tasks={RUNNER_EVAL_TASKS}", f"seed={seed}",
+    ]
+
+
+# phase runner's image folder and its index, made by a process started
+# after phase device (argv: the repository root, the config, the seed, the
+# status file, the overrides as JSON); the status file holds the seconds
+_RUNNER_DATA = r"""
+import json, os, sys, time
+root, config, seed, status = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+overrides = json.loads(sys.argv[5])
+sys.path.insert(0, root)
+import chip_smoke
+from howtotrainyourmamlpytorch_tpu_torch.config import load_config
+from howtotrainyourmamlpytorch_tpu_torch.data import FewShotDataset
+cfg = load_config(config, overrides + ["load_into_memory=false"])
+t0 = time.perf_counter()
+chip_smoke.make_omniglot_folder(cfg.dataset.path, seed)
+t1 = time.perf_counter()
+FewShotDataset(cfg)
+t2 = time.perf_counter()
+with open(status + ".tmp", "w") as f:
+    json.dump({"generate_s": t1 - t0, "index_s": t2 - t1}, f)
+os.replace(status + ".tmp", status)
+"""
+
+
+def prestart_runner_data(seed: int, tmp: str) -> dict:
+    """Phase ``runner``'s image folder and index cache, made in a process
+    started after phase ``device``: the writers and the index bootstrap
+    (16 and some 15 s of host work) overlap the kernel phases."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    status = os.path.join(tmp, "runner_data.json")
+    log = open(os.path.join(tmp, "runner_data.log"), "ab")
+    proc = subprocess.Popen([sys.executable, "-c", _RUNNER_DATA, root, DEFAULT_CONFIG, str(seed), status,
+                             json.dumps(runner_overrides(seed, tmp))], cwd=root, stdout=log, stderr=subprocess.STDOUT,
+                            env=dict(os.environ, PYTHONPATH=root))
+    log.close()
+    return {"proc": proc, "status": status, "t0": time.perf_counter()}
+
+
+def finish_runner_data(pre: dict) -> dict:
+    """Wait for :func:`prestart_runner_data`'s process -> its seconds, and
+    how long this process waited for it."""
+    t0 = time.perf_counter()
+    rc = pre["proc"].wait(timeout=600)
+    check(rc == 0 and os.path.exists(pre["status"]), "runner", "the image folder's process failed", rc=rc)
+    with open(pre["status"]) as f:
+        return {**json.load(f), "waited_s": time.perf_counter() - t0}
+
+
+def phase_runner(seed: int, bare_step_ms: float, tmp: str, data_pre: dict):
     """The experiment layer on the card at the default config: the runner
     in this process for RUNNER_EPOCHS epochs, then three CLI legs at once
-    (the resume, ResNet-12, anil); see the module docstring. The generated image folder
-    and its index cache stay in ``tmp`` for the phases after it."""
+    (the resume, ResNet-12, anil); see the module docstring. The generated
+    image folder and its index cache (:func:`prestart_runner_data`) stay in
+    ``tmp`` for the phases after it; the result names the run directory and
+    the digests and losses of the batches epoch 1 consumed (phase
+    ``diagnostics`` replays them)."""
     from howtotrainyourmamlpytorch_tpu_torch.config import load_config
     from howtotrainyourmamlpytorch_tpu_torch.data import MetaLearningDataLoader
     from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
     from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint as ckpt
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.scripts.stream_replay_probe import batch_digest
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
-    data = os.path.join(tmp, "omniglot_dataset")
-    overrides = [
-        "use_pallas_inner_update=true", "remat_inner_steps=false", f"dataset.path={data}",
-        f"index_cache_dir={os.path.join(tmp, 'index')}",
-        f"experiment_root={os.path.join(tmp, 'exps')}", f"total_iter_per_epoch={RUNNER_ITERS}",
-        f"num_evaluation_tasks={RUNNER_EVAL_TASKS}", f"seed={seed}",
-    ]
+    overrides = runner_overrides(seed, tmp)
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     cli_overrides = [*overrides, f"num_evaluation_tasks={CLI_EVAL_TASKS}", "load_into_memory=false"]
     # three CLI legs, run at once after the runner below, each its own
@@ -2550,9 +2747,7 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str):
     anil_overrides = [*cli_overrides, "strategy=anil", "total_epochs=1", f"total_iter_per_epoch={CLI_ITERS}",
                       "experiment_name=anil_cli"]
     resnet_cfg, anil_cfg = load_config(DEFAULT_CONFIG, resnet_overrides), load_config(DEFAULT_CONFIG, anil_overrides)
-    t0 = time.perf_counter()
-    make_omniglot_folder(data, seed)
-    generate_s = time.perf_counter() - t0
+    made = finish_runner_data(data_pre)
     legs = {name: GatedCli(["--config", DEFAULT_CONFIG, *leg_overrides], env, os.path.join(tmp, f"cli_{name}.gate"))
             for name, leg_overrides in (("resume", [*cli_overrides, f"total_epochs={RESUMED_EPOCHS}"]),
                                         ("resnet12", resnet_overrides), ("anil", anil_overrides))}
@@ -2561,16 +2756,28 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str):
     runner = ExperimentRunner(cfg)  # builds the index and the RAM cache
     init_s = time.perf_counter() - t0
     check(runner.start_epoch == 0, "runner", "the run directory was not fresh")
-    real, calls, box = runner.system.train_step, [], {}
+    real, calls, box, step_losses = runner.system.train_step, [], {}, []
 
     def step(state, batch, epoch=None):
         calls.append(time.perf_counter())
         if len(calls) != RUNNER_PROFILED_CALL:
-            return real(state, batch, epoch=epoch)
-        box["profile"] = profile_device(lambda: box.setdefault("out", real(state, batch, epoch=epoch)))
-        return box["out"]
+            result = real(state, batch, epoch=epoch)
+        else:
+            box["profile"] = profile_device(lambda: box.setdefault("out", real(state, batch, epoch=epoch)))
+            result = box["out"]
+        step_losses.append(result[1].loss)  # read after the run: no sync here
+        return result
+
+    # the digest of every train batch the loader hands the runner
+    real_batches, digests = runner.loader.train_batches, []
+
+    def digested(*args, **kwargs):
+        for b in real_batches(*args, **kwargs):
+            digests.append(batch_digest(b))
+            yield b
 
     runner.system.train_step = step
+    runner.loader.train_batches = digested
     fu.reset_launch_counts()  # the runner's path starts here
     t0 = time.perf_counter()
     result = runner.run_experiment()
@@ -2586,7 +2793,8 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str):
     n_lrs = len(tree_leaves(runner.state.inner_hparams["lr"]))
     rows = check_run_dir(runner.run_dir, RUNNER_EPOCHS, n_lrs)
     check(n_lrs == 18, "runner", "the default model has 18 learned lrs", n_lrs=n_lrs)
-    check(len(calls) == train_steps, "runner", "train steps", calls=len(calls), want=train_steps)
+    check(len(calls) == train_steps == len(digests), "runner", "train steps", calls=len(calls),
+          digests=len(digests), want=train_steps)
     want = {"fused_sgd": K * train_steps + K_eval * eval_steps, "fused_sgd_bwd": K * train_steps}
     check(launches == want, "runner", "kernel launches through the runner", launches=launches, want=want)
     check(copies == K * train_steps, "runner", "leaf copies other than the head cotangent per B2 launch",
@@ -2666,7 +2874,9 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str):
         "phase": "runner", "ok": True,
         "config": f"configs/default.yaml + use_pallas_inner_update=true, total_iter_per_epoch={RUNNER_ITERS}, "
                   "num_evaluation_tasks=40",
-        "data": {**OMNIGLOT, "writers": OMNIGLOT_WRITERS, "generate_s": generate_s, "runner_init_s": init_s},
+        "data": {**OMNIGLOT, "writers": OMNIGLOT_WRITERS, **made, "runner_init_s": init_s},
+        "run_dir": runner.run_dir, "index_cache_dir": cfg.index_cache_dir,
+        "epoch1_batches": digests[RUNNER_ITERS:], "epoch1_losses": [float(x) for x in step_losses[RUNNER_ITERS:]],
         "epochs": RUNNER_EPOCHS, "resumed_to": RESUMED_EPOCHS, "train_steps": train_steps,
         "eval_steps": eval_steps, "launches": launches, "contiguous_copies": copies, "loader": loader_stats,
         "run_s": run_s, "epoch_train_s": epoch_s,
@@ -2703,22 +2913,24 @@ def _perturbed(batch, scale: float):
 # starts the card, then waits for the file SMOKE_GATE names before it runs;
 # it exits if the process that started it is gone
 _GATED_TRAIN = r"""
-import os, sys, time
+import importlib, os, sys, time
 parent = os.getppid()
 import torch
 from howtotrainyourmamlpytorch_tpu_torch import train
+main = importlib.import_module(os.environ.get("SMOKE_MAIN", train.__name__)).main
 if torch.cuda.is_available():
     torch.zeros(1, device="cuda")
 while not os.path.exists(os.environ["SMOKE_GATE"]):
     if os.getppid() != parent:
         sys.exit(3)
     time.sleep(0.02)
-sys.exit(train.main(sys.argv[1:]))
+sys.exit(main(sys.argv[1:]))
 """
 
 
 class GatedCli:
-    """One training CLI leg started now and run at :meth:`release`: its
+    """One training CLI leg (or another module's ``main(argv)``,
+    ``main_module``) started now and run at :meth:`release`: its
     imports and its card start (16-20 s on the card machine) overlap the
     work before it instead of following it. ``seconds`` runs from the
     release to the exit. Every leg not yet stopped is in ``GatedCli.live``
@@ -2726,11 +2938,12 @@ class GatedCli:
 
     live: list = []
 
-    def __init__(self, args, env, gate: str):
+    def __init__(self, args, env, gate: str, main_module: str = ""):
         self.gate = gate
         self.out, self.err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        env = dict(env, SMOKE_GATE=gate, **({"SMOKE_MAIN": main_module} if main_module else {}))
         self.proc = subprocess.Popen([sys.executable, "-c", _GATED_TRAIN, *args], stdout=self.out,
-                                     stderr=self.err, text=True, env=dict(env, SMOKE_GATE=gate),
+                                     stderr=self.err, text=True, env=env,
                                      cwd=os.path.dirname(os.path.abspath(__file__)))
         self.t0 = self.seconds = None
         GatedCli.live.append(self)
@@ -3894,62 +4107,137 @@ def phase_remat(seed: int):
     """The remat policies on the card: configs/mini_imagenet_5way_5shot.yaml
     with net=resnet-12 (84x84x3, 5-way 5-shot, meta-batch 8, K=5, the
     ImageNet +-10 clamp; the fused update), the same batch and start state
-    under each of REMAT_POLICIES, cuDNN deterministic: the first step's
-    loss and meta-gradient, then REMAT_STEPS train steps; peak memory and
-    step times per policy. The first step's loss must be equal across
-    policies and its meta-gradient within REMAT_GRAD_RTOL of its largest
-    element; B1 launches K times per meta-gradient without remat and 2 K
-    with it (the recompute), B2 K. A policy that runs out of the card's
-    memory is recorded and the others go on. Then configs/default.yaml (the
-    VGG) at none and full: one train step's peak memory each."""
+    under each of REMAT_POLICIES, cuDNN deterministic: per policy the first
+    step's loss, meta-gradient and peak memory, then one timed eager train
+    step (wall and host CPU ms); then dots_saveable's chunk of REMAT_CHUNK
+    steps as a CUDA graph (``train_step_multi``): the warmup's and the
+    capture's seconds and the replayed chunk's ms per step. The first
+    step's loss must be equal across policies, the meta-gradient within
+    REMAT_GRAD_RTOL of its largest element, the peak memory of
+    dots_saveable between full's and none's; B1 launches K times per
+    meta-gradient without remat and 2 K with it (the recompute), B2 K, and
+    the chunk's warmup and replays REMAT_CHUNK + 1 times that. Times are
+    reported, not gated (``scripts/remat_probe.py`` times the policies
+    over rounds in turn). A policy that runs out of the card's memory is
+    recorded and the others go on. Then configs/default.yaml (the VGG) at
+    none and full: one train step's peak memory each."""
+    import gc
+
     from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
 
     out, first, launches_total = {}, {}, {"fused_sgd": 0, "fused_sgd_bwd": 0}
-    batch = None
-    for policy in REMAT_POLICIES:
-        cfg, system, state = full_width_system(seed, ["net=resnet-12", f"remat_policy={policy}"],
-                                               config=MINI_IMAGENET_CONFIG)
-        check(cfg.is_imagenet and system.remat_policy == policy, "remat", "config", policy=system.remat_policy)
-        K = cfg.number_of_training_steps_per_iter
-        if batch is None:
-            batch = learnable_synthetic_batch(cfg.batch_size, cfg.num_classes_per_set, cfg.num_samples_per_class,
-                                              cfg.num_target_samples, cfg.image_shape, seed=seed + 6)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        torch.backends.cudnn.deterministic = True
-        try:
-            fu.reset_launch_counts()  # this policy's path starts here
-            loss, _, grads = system.meta_gradients(state, batch, epoch=0)
-            torch.cuda.synchronize()
-            grad_launches = dict(fu.launch_counts)
-            first[policy] = (float(loss), _flat(grads))
-            del grads
-            _, losses, ms = _steps(system, state, batch, REMAT_STEPS)
-            launches = dict(fu.launch_counts)  # and ends here
-        except torch.cuda.OutOfMemoryError as exc:
-            out[policy] = {"oom": str(exc).splitlines()[0][:300]}
-            continue
-        finally:
-            torch.backends.cudnn.deterministic = False
-        per = 1 if policy == "none" else 2
-        want = {"fused_sgd": per * K, "fused_sgd_bwd": K}
-        check(grad_launches == want, "remat", "launches per meta-gradient", policy=policy, launches=grad_launches,
-              want=want)
-        check(_finite(*losses), "remat", "non-finite loss", policy=policy, losses=losses)
+    graphed, batch = None, None
+
+    def add(launches):
         for name in launches_total:
             launches_total[name] += launches[name]
-        out[policy] = {"max_memory_allocated": torch.cuda.max_memory_allocated(), "step_ms_median": statistics.median(ms),
-                       "step_ms": ms, "losses": losses, "first_loss": first[policy][0], "launches": launches}
-    check(len(first) >= 2, "remat", "fewer than two policies ran", out=out)
-    ref_policy = next(iter(first))
-    ref_loss, ref_grad = first[ref_policy]
-    scale = float(ref_grad.abs().max())
-    for policy, (loss, g) in first.items():
-        diff = float((g - ref_grad).abs().max())
-        out[policy].update(first_loss_equal=loss == ref_loss, grad_max_abs_vs_ref=diff)
-        check(loss == ref_loss and diff <= REMAT_GRAD_RTOL * scale, "remat", "policies disagree on the first step",
-              policy=policy, reference=ref_policy, loss=loss, ref_loss=ref_loss, diff=diff, bound=REMAT_GRAD_RTOL * scale)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for policy in REMAT_POLICIES:
+            cfg, system, state = full_width_system(seed, ["net=resnet-12", f"remat_policy={policy}"],
+                                                   config=MINI_IMAGENET_CONFIG)
+            check(cfg.is_imagenet and system.remat_policy == policy, "remat", "config", policy=system.remat_policy)
+            K = cfg.number_of_training_steps_per_iter
+            if batch is None:
+                batch = learnable_synthetic_batch(cfg.batch_size, cfg.num_classes_per_set,
+                                                  cfg.num_samples_per_class, cfg.num_target_samples,
+                                                  cfg.image_shape, seed=seed + 6)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                fu.reset_launch_counts()  # this policy's path starts here
+                t0 = time.perf_counter()
+                loss, _, grads = system.meta_gradients(state, batch, epoch=0)
+                torch.cuda.synchronize()
+                grad_ms = (time.perf_counter() - t0) * 1e3
+                launches = dict(fu.launch_counts)
+                peak = torch.cuda.max_memory_allocated()
+                first[policy] = (float(loss), _flat(grads))
+                del grads
+                c0, t0 = time.thread_time(), time.perf_counter()
+                _, step_out = system.train_step(state, batch, epoch=0)
+                torch.cuda.synchronize()
+                step_ms, host_ms = (time.perf_counter() - t0) * 1e3, (time.thread_time() - c0) * 1e3
+                step_launches = {name: n - launches[name] for name, n in fu.launch_counts.items()}  # and ends here
+            except torch.cuda.OutOfMemoryError as exc:
+                out[policy] = {"oom": str(exc).splitlines()[0][:300]}
+                continue
+            per = 1 if policy == "none" else 2
+            want = {"fused_sgd": per * K, "fused_sgd_bwd": K}
+            check(launches == want and step_launches == want, "remat", "launches per meta-gradient and per step",
+                  policy=policy, launches=launches, step_launches=step_launches, want=want)
+            check(_finite(first[policy][0], float(step_out.loss)), "remat", "non-finite loss", policy=policy,
+                  loss=first[policy][0], step_loss=float(step_out.loss))
+            add(launches)
+            add(step_launches)
+            if policy == "dots_saveable":
+                graphed = (system, state, per)
+            out[policy] = {"max_memory_allocated": peak, "first_meta_gradient_ms": grad_ms,
+                           "first_loss": first[policy][0], "launches": launches, "step_ms": step_ms,
+                           "host_cpu_ms": host_ms, "step_loss": float(step_out.loss)}
+            del system, state
+        check(len(first) >= 2, "remat", "fewer than two policies ran", out=out)
+        ref_policy = next(iter(first))
+        ref_loss, ref_grad = first[ref_policy]
+        scale = float(ref_grad.abs().max())
+        for policy, (loss, g) in first.items():
+            diff = float((g - ref_grad).abs().max())
+            out[policy].update(first_loss_equal=loss == ref_loss, grad_max_abs_vs_ref=diff)
+            check(loss == ref_loss and diff <= REMAT_GRAD_RTOL * scale, "remat", "policies disagree on the first step",
+                  policy=policy, reference=ref_policy, loss=loss, ref_loss=ref_loss, diff=diff,
+                  bound=REMAT_GRAD_RTOL * scale)
+            check(out[policy]["step_loss"] == out[ref_policy]["step_loss"], "remat",
+                  "a policy's train step changed the loss", policy=policy, loss=out[policy]["step_loss"],
+                  reference=out[ref_policy]["step_loss"])
+        if all(p in out and "oom" not in out[p] for p in REMAT_POLICIES):
+            peaks = {p: out[p]["max_memory_allocated"] for p in REMAT_POLICIES}
+            check(peaks["full"] < peaks["dots_saveable"] < peaks["none"], "remat",
+                  "dots_saveable's peak memory is not between full's and none's", peaks=peaks)
+
+        # dots_saveable's chunk as a CUDA graph: one multi-step dispatch,
+        # which warms up (one eager step on a copy), captures and replays
+        # the chunk; the replays' ms are its seconds less the warmup's and
+        # the capture's (CapturedStep.lower_s, compile_s)
+        if graphed is not None:
+            _, stacked = _chunk(cfg, seed + 6, REMAT_CHUNK)
+            system, state, per = graphed
+            graphed = None
+            try:
+                fu.reset_launch_counts()  # the warmup and the replayed chunk start here
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, (graph_losses, _, _) = system.train_step_multi(state, stacked, 0)
+                torch.cuda.synchronize()
+                dispatch_s = time.perf_counter() - t0
+                graph_launches = dict(fu.launch_counts)  # and end here
+                graphs = [c for p in system._train_multi.values() for c in getattr(p, "_captured", {}).values()]
+            except torch.cuda.OutOfMemoryError as exc:
+                out["dots_saveable"]["graph"] = {"oom": str(exc).splitlines()[0][:300]}
+                graphs = None
+            finally:
+                del system, state
+                gc.collect()
+                torch.cuda.empty_cache()
+            if graphs is not None:
+                check(len(graphs) == 1, "remat", "one CUDA graph per chunk", graphs=len(graphs))
+                captured = graphs[0]
+                replay_s = dispatch_s - captured.lower_s - captured.compile_s
+                per_step = {"fused_sgd": per * K, "fused_sgd_bwd": K}
+                want = {name: n * (REMAT_CHUNK + 1) for name, n in per_step.items()}
+                check(graph_launches == want and captured.launches == per_step, "remat",
+                      "launches of the warmup and the replayed chunk", launches=graph_launches,
+                      captured=captured.launches, want=want)
+                check(_finite(*graph_losses), "remat", "non-finite graph loss")
+                add(graph_launches)
+                out["dots_saveable"]["graph"] = {
+                    "chunk": REMAT_CHUNK, "warmup_s": captured.lower_s, "capture_s": captured.compile_s,
+                    "replay_ms_per_step": replay_s * 1e3 / REMAT_CHUNK, "losses": [float(x) for x in graph_losses],
+                    "launches": graph_launches}
+    finally:
+        torch.backends.cudnn.deterministic = False
     vgg = {}
     for policy in ("none", "full"):
         cfg, system, state = full_width_system(seed, [f"remat_policy={policy}"])
@@ -3960,8 +4248,7 @@ def phase_remat(seed: int):
         fu.reset_launch_counts()  # and the VGG's
         _, losses, ms = _steps(system, state, batch_vgg, 1)
         launches = dict(fu.launch_counts)
-        for name in launches_total:
-            launches_total[name] += launches[name]
+        add(launches)
         vgg[policy] = {"max_memory_allocated": torch.cuda.max_memory_allocated(), "step_ms": ms[0],
                        "loss": losses[0], "launches": launches}
     result = {"phase": "remat", "ok": True,
@@ -4161,7 +4448,7 @@ def serve_strategies(seed: int, cfg, system, state) -> dict:
             "head_leaves": len(tree_leaves(head))}
 
 
-def phase_strategies(seed: int, maml_step_ms: float):
+def phase_strategies(seed: int, maml_step_ms: float, twin: dict):
     """The strategy registry on the card at the fleet row
     omniglot.20.5.vgg.gd.anil: TRAIN_STEPS anil train steps and an eval
     step (B1 and B2 over the head's 2 leaves, K launches each per step),
@@ -4217,7 +4504,8 @@ def phase_strategies(seed: int, maml_step_ms: float):
     check(remat_losses[0] == losses[0], "strategies", "remat changed the first step's loss",
           remat=remat_losses[0], none=losses[0])
     small = small_anil_cross_check(seed)
-    cross = train_cross_check(cfg, start, batch, losses[0], phase="strategies")
+    cross = train_cross_check(cfg, start, batch, losses[0], phase="strategies",
+                              cpu_half=twin_result(twin, "strategies", "strategies"))
     served = serve_strategies(seed, cfg, system, state)
     result = {
         "phase": "strategies", "ok": True,
@@ -5028,6 +5316,330 @@ def phase_prewarm(seed: int, tmp: str, spawned: list):
     return result
 
 
+# phase diagnostics: the card-against-CPU tools on phase runner's run
+# directory and image folder. The CPU half of the precision probe (its
+# save at CROSS_TASKS tasks) and of the autopsy (one checkpoint) run in the
+# CPU twin (see TWIN_JOBS), the autopsy on DIAG_CPU_THREADS threads; the
+# sweep's selected job in a gated process started before phase programs.
+DIAG_DEVICE = "cuda"
+DIAG_BUDGET_S = 60.0
+DIAG_CPU_THREADS = 1
+DIAG_FUSED = ["--override", "use_pallas_inner_update=true"]
+DIAG_PRECISION = ["20", "--k-shot", "5", "--batch-size", str(CROSS_TASKS), "--learnable", *DIAG_FUSED]
+DIAG_EVAL_BATCHES = 2  # validation batches per checkpoint of the autopsy
+DIAG_CPU_CHECKPOINT = "0"  # the checkpoint the CPU also evaluates, and the replay starts from
+DIAG_REPLAY_STEPS = 2
+DIAG_DESCENT = ["20", "6", "0", "2"]  # N_WAY STEPS UNROLL N_BATCHES: the JAX script's 1-shot, meta-batch 4
+DIAG_DONATION = ["3", "20", "5", "8"]  # N_STEPS N_WAY K_SHOT BATCH_SIZE
+DIAG_IMAGENET = {"classes": 32, "per_class": 20, "assembly_batches": 10, "steps": 2}
+# the autopsy's card and CPU accuracies on one checkpoint: a fault of the
+# card's execution moves them far apart; float32 noise flips a few of the
+# 320 predictions
+DIAG_ACCURACY_GAP = 0.05
+SWEEP_JOB = 0  # omniglot.5.1.vgg.gd.0
+
+
+# The CPU twin: one process, started after phase device, runs the CPU
+# halves of the card-against-CPU checks of phases slice, train and
+# strategies (TWIN_JOBS, on TWIN_THREADS threads) while the card runs the
+# phases up to fleet (phase cross and phase strategies compare them), then
+# phase diagnostics' precision save; then, once
+# release_cpu_twin writes its gate, the diagnostics' CPU autopsy on
+# DIAG_CPU_THREADS threads. Each job writes its result (a pickle) and then
+# a status file. (argv: one JSON object)
+TWIN_JOBS = ("slice", "train", "strategies")
+TWIN_THREADS = 3
+TWIN_WAIT_S = 300.0
+_CPU_TWIN = r"""
+import json, os, pickle, sys, time
+parent = os.getppid()
+spec = json.loads(sys.argv[1])
+import torch
+torch.set_num_threads(spec["threads"])
+import chip_smoke
+from howtotrainyourmamlpytorch_tpu_torch.scripts import checkpoint_autopsy, grad_precision_probe
+
+
+def done(name, rc, t0, result=None):
+    if result is not None:
+        with open(spec[name] + ".pkl", "wb") as f:
+            pickle.dump(result, f)
+    with open(spec[name] + ".tmp", "w") as f:
+        json.dump({"rc": rc, "seconds": time.perf_counter() - t0}, f)
+    os.replace(spec[name] + ".tmp", spec[name])
+
+
+for name in spec["jobs"]:
+    t0 = time.perf_counter()
+    done(name, 0, t0, chip_smoke.twin_job(name, spec["seed"]))
+t0 = time.perf_counter()
+done("saved", grad_precision_probe.main(spec["save"]), t0)
+torch.set_num_threads(spec["autopsy_threads"])
+while not os.path.exists(spec["gate"]):
+    if os.getppid() != parent:
+        sys.exit(3)
+    time.sleep(0.05)
+with open(spec["gate"]) as f:
+    argv = json.load(f)
+t0 = time.perf_counter()
+done("autopsied", checkpoint_autopsy.main(argv), t0)
+"""
+
+
+def twin_job(name: str, seed: int) -> dict:
+    """One job of TWIN_JOBS, in the CPU twin -> its result."""
+    if name == "slice":
+        return slice_cpu(seed)
+    return cross_check_twin(seed, ["strategy=anil"] if name == "strategies" else [])
+
+
+def prestart_cpu_twin(seed: int, tmp: str) -> dict:
+    """Start the CPU twin (:data:`_CPU_TWIN`) after phase ``device``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmp, "diagnostics")
+    os.makedirs(work, exist_ok=True)
+    spec = {"seed": seed, "jobs": list(TWIN_JOBS), "threads": TWIN_THREADS, "autopsy_threads": DIAG_CPU_THREADS,
+            **{name: os.path.join(work, f"twin_{name}.json") for name in TWIN_JOBS},
+            "saved": os.path.join(work, "saved.json"), "autopsied": os.path.join(work, "autopsied.json"),
+            "gate": os.path.join(work, "cpu_autopsy.gate"), "npz": os.path.join(work, "grads_cpu.npz"),
+            "autopsy_json": os.path.join(work, "autopsy_cpu.json"), "log": os.path.join(work, "cpu.log")}
+    spec["save"] = ["save", spec["npz"], *DIAG_PRECISION, "--device", "cpu"]
+    log = open(spec["log"], "ab")
+    proc = subprocess.Popen([sys.executable, "-c", _CPU_TWIN, json.dumps(spec)], cwd=root, stdout=log,
+                            stderr=subprocess.STDOUT,
+                            env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS=str(TWIN_THREADS)))
+    log.close()
+    return {**spec, "proc": proc}
+
+
+def release_cpu_twin(pre: dict, runner: dict) -> None:
+    """Hand the CPU twin the autopsy of phase runner's checkpoint
+    DIAG_CPU_CHECKPOINT (it runs during the phases after runner)."""
+    argv = [runner["run_dir"], DIAG_CPU_CHECKPOINT, "--index-cache-dir", runner["index_cache_dir"],
+            "--eval-batches", str(DIAG_EVAL_BATCHES), "--device", "cpu", "--json", pre["autopsy_json"]]
+    with open(pre["gate"] + ".tmp", "w") as f:
+        json.dump(argv, f)
+    os.replace(pre["gate"] + ".tmp", pre["gate"])
+
+
+def _wait_status(path: str, proc, timeout_s: float, what: str, phase: str = "diagnostics", log=None) -> dict:
+    t0 = time.perf_counter()
+
+    def tail():
+        if log is None or not os.path.exists(log):
+            return ""
+        with open(log, "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+
+    while not os.path.exists(path):
+        if proc.poll() is not None or time.perf_counter() - t0 >= timeout_s:
+            check(False, phase, what, rc=proc.poll(), waited_s=time.perf_counter() - t0, log_tail=tail())
+        time.sleep(0.05)
+    with open(path) as f:
+        status = json.load(f)
+    check(status["rc"] == 0, phase, what, status=status, log_tail=tail())
+    return {**status, "waited_s": time.perf_counter() - t0}
+
+
+def twin_result(twin: dict, name: str, phase: str) -> dict:
+    """The CPU twin's result of job ``name`` (waiting for it), with
+    ``waited_s``: the seconds this process waited."""
+    status = _wait_status(twin[name], twin["proc"], TWIN_WAIT_S, f"the CPU twin's {name} half", phase, twin["log"])
+    with open(twin[name] + ".pkl", "rb") as f:
+        return dict(pickle.load(f), waited_s=status["waited_s"])
+
+
+def sweep_job_overrides(tmp: str) -> list:
+    """The selected job on phase runner's folder and index, 1 epoch of 1
+    step, one evaluation batch, images from disk, the fused update."""
+    return [f"dataset.path={os.path.join(tmp, 'omniglot_dataset')}", f"index_cache_dir={os.path.join(tmp, 'index')}",
+            f"experiment_root={os.path.join(tmp, 'sweep')}", "total_epochs=1", "total_iter_per_epoch=1",
+            f"num_evaluation_tasks={TASKS}", "load_into_memory=false", "use_pallas_inner_update=true"]
+
+
+def prestart_sweep_job(tmp: str) -> "GatedCli":
+    """The sweep launcher's job SWEEP_JOB (``launch_all --select``, run in
+    its process with ``--in-process``) started before phase ``programs``
+    behind a gate, released before phase ``prewarm``: it runs beside that
+    phase, and phase ``diagnostics`` reads its run."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("HTYMP_FAULTS", None)
+    return GatedCli(["--select", str(SWEEP_JOB), "--in-process", "--device", DIAG_DEVICE, *sweep_job_overrides(tmp)],
+                    env, os.path.join(tmp, "sweep.gate"), main_module="howtotrainyourmamlpytorch_tpu_torch.launch_all")
+
+
+def phase_diagnostics(seed: int, tmp: str, runner: dict, cpu: dict, sweep: "GatedCli"):
+    """The card-against-CPU diagnostics, the sweep and the data path at
+    scale, each through its tool's ``main(argv)`` in this process (its
+    printed tables to a log), on phase ``runner``'s run directory and image
+    folder: the precision probe's ``compare`` of the card's meta-gradient
+    (20-way 5-shot at CROSS_TASKS tasks, the class-structured batch) under
+    ``highest`` and ``high`` against the CPU's ``save`` (whole-vector
+    cosine under ``highest`` >= GRAD_COSINE, ``high``'s reported); the
+    autopsy of every checkpoint on the card (finite, the statistics of the
+    Adam moments present) and of DIAG_CPU_CHECKPOINT on the CPU (the
+    accuracies within DIAG_ACCURACY_GAP); the stream replay on the card
+    from checkpoint DIAG_CPU_CHECKPOINT for DIAG_REPLAY_STEPS steps, whose
+    batch digests must equal those of the batches the runner consumed after
+    it (its losses reported beside the runner's); the descent probe on the
+    folder (its loss falls: the end mean below the first two steps');
+    the donation probe's A/B (``clean``); ``imagenet_at_scale`` at 84x84x3
+    with ResNet-12 5-way 5-shot on a tree of DIAG_IMAGENET's size; the
+    sweep launcher's ``--dry-run`` (the 324 jobs of ``launch_all.jobs()``)
+    and job SWEEP_JOB run on the card (rc 0, its run directory), then
+    ``summarize_run`` on it. B1 and B2 launch the counts each tool's steps
+    imply. Under DIAG_BUDGET_S (checked after ``timing``). ``sweep`` may be
+    released already (``main`` releases it before phase ``prewarm``)."""
+    import contextlib
+    import io
+
+    from howtotrainyourmamlpytorch_tpu_torch import launch_all
+    from howtotrainyourmamlpytorch_tpu_torch.core.maml import apply_matmul_precision
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.scripts import (checkpoint_autopsy, descent_probe, donation_probe,
+                                                             grad_precision_probe, imagenet_at_scale,
+                                                             stream_replay_probe, summarize_run)
+
+    t_phase = time.perf_counter()
+    if sweep.t0 is None:
+        sweep.release()
+    work = os.path.join(tmp, "diagnostics")
+    run_dir, index = runner["run_dir"], runner["index_cache_dir"]
+    K = 5  # every tool's config: number_of_training_steps_per_iter and _evaluation_
+    tools, launches = {}, {}
+    log = open(os.path.join(work, "tools.log"), "w")
+
+    def run(name, module, argv, want):
+        """``module.main(argv)`` with its report at ``work/name.json`` ->
+        the report; B1/B2 launches against ``want``."""
+        path = os.path.join(work, f"{name}.json")
+        fu.reset_launch_counts()  # this tool's path starts here
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = module.main([*argv, "--json" if module is not imagenet_at_scale else "--out", path])
+        seconds = time.perf_counter() - t0
+        got = dict(fu.launch_counts)  # and ends here
+        check(rc == 0, "diagnostics", f"{name} exited {rc}")
+        check(got == want, "diagnostics", f"{name}'s kernel launches", launches=got, want=want)
+        launches[name] = got
+        with open(path) as f:
+            report = json.load(f)
+        tools[name] = {"seconds": seconds, "launches": got}
+        return report
+
+    # the precision probe against the CPU's save (2 meta-gradients under
+    # remat full: B1 2K, B2 K each)
+    saved = _wait_status(cpu["saved"], cpu["proc"], TWIN_WAIT_S, "the CPU save of the precision probe",
+                         log=cpu["log"])
+    try:
+        prec = run("grad_precision_probe", grad_precision_probe,
+                   ["compare", cpu["npz"], *DIAG_PRECISION, "--precision", "highest", "high"],
+                   {"fused_sgd": 2 * 2 * K, "fused_sgd_bwd": 2 * K})
+    finally:
+        apply_matmul_precision("highest")
+    cosines = {p: {"global": a["global_cosine"], "worst_tensor": a["worst_cosine"]} for p, a in prec["arms"].items()}
+    check(cosines["highest"]["global"] >= GRAD_COSINE, "diagnostics", "the card's meta-gradient against the CPU's",
+          cosines=cosines, bound=GRAD_COSINE)
+    tools["grad_precision_probe"].update(cosines=cosines, cpu_save_s=saved["seconds"], waited_s=saved["waited_s"])
+
+    # the autopsy of every checkpoint on the card (K eval steps per batch)
+    names = [str(e) for e in sorted(int(n.split("_")[-1]) for n in os.listdir(os.path.join(run_dir, "saved_models"))
+                                    if n.split("_")[-1].isdigit())] + ["best"]
+    aut = run("checkpoint_autopsy", checkpoint_autopsy,
+              [run_dir, "--index-cache-dir", index, "--eval-batches", str(DIAG_EVAL_BATCHES)],
+              {"fused_sgd": len(names) * DIAG_EVAL_BATCHES * K, "fused_sgd_bwd": 0})
+    card_evals = {idx: e["eval"]["card"] for idx, e in aut["checkpoints"].items()}
+    check(sorted(aut["checkpoints"]) == sorted(names) and all(_finite(e["loss"]) for e in card_evals.values()),
+          "diagnostics", "the autopsy's checkpoints", names=sorted(aut["checkpoints"]), evals=card_evals)
+    check(all(any(r["norm"] > 0 for r in e["stats"]["outer adam nu"]) for e in aut["checkpoints"].values()),
+          "diagnostics", "the autopsy read no Adam moments")
+    tools["checkpoint_autopsy"]["evals"] = card_evals
+
+    # the stream replay from the runner's epoch-0 checkpoint (remat off: K
+    # of each per step)
+    rep = run("stream_replay_probe", stream_replay_probe,
+              [run_dir, DIAG_CPU_CHECKPOINT, str(DIAG_REPLAY_STEPS), "1", "--index-cache-dir", index],
+              {"fused_sgd": DIAG_REPLAY_STEPS * K, "fused_sgd_bwd": DIAG_REPLAY_STEPS * K})
+    digests = [st["digest"] for st in rep["steps"]]
+    check(digests == runner["epoch1_batches"][:DIAG_REPLAY_STEPS], "diagnostics",
+          "the replay did not see the batches the runner consumed", replay=[d[:16] for d in digests],
+          runner=[d[:16] for d in runner["epoch1_batches"]])
+    replay_losses = [st["loss"] for st in rep["steps"]]
+    check(_finite(*replay_losses), "diagnostics", "non-finite replay loss", losses=replay_losses)
+    tools["stream_replay_probe"].update(cursor=rep["cursor"], losses=replay_losses,
+                                        runner_losses=runner["epoch1_losses"][:DIAG_REPLAY_STEPS])
+
+    # the descent probe (remat off: K of each per step, and per end batch)
+    n_batches, steps = int(DIAG_DESCENT[3]), int(DIAG_DESCENT[1])
+    des = run("descent_probe", descent_probe,
+              ["0", *DIAG_DESCENT, "--dataset-path", os.path.join(tmp, "omniglot_dataset"), "--index-cache-dir",
+               index, *DIAG_FUSED],
+              {"fused_sgd": (steps + n_batches) * K, "fused_sgd_bwd": (steps + n_batches) * K})
+    first = statistics.mean(st["loss"] for st in des["steps"][:n_batches])
+    end = statistics.mean(f["loss"] for f in des["final"])
+    check(end < first, "diagnostics", "the descent probe did not descend", first=first, end=end)
+    tools["descent_probe"].update(first_loss_mean=first, end_loss_mean=end,
+                                  end_accuracy_mean=statistics.mean(f["accuracy"] for f in des["final"]))
+
+    # the donation probe: two arms of N steps (remat off; each arm steps
+    # under the deterministic algorithms, observability/donation.py)
+    don = run("donation_probe", donation_probe, [*DIAG_DONATION, *DIAG_FUSED],
+              {"fused_sgd": 2 * int(DIAG_DONATION[0]) * K, "fused_sgd_bwd": 2 * int(DIAG_DONATION[0]) * K})
+    check(don["verdict"] == "clean", "diagnostics", "the donation probe's verdict", result=don)
+    tools["donation_probe"].update({k: don[k] for k in ("verdict", "max_loss_dev", "global_param_rel")})
+
+    # the Mini-ImageNet data path with 2 ResNet-12 steps (remat full: B1 2K)
+    d = DIAG_IMAGENET
+    img = run("imagenet_at_scale", imagenet_at_scale,
+              ["--root", os.path.join(work, "mini_imagenet"), "--classes", str(d["classes"]), "--per-class",
+               str(d["per_class"]), "--assembly-batches", str(d["assembly_batches"]), "--steps", str(d["steps"]),
+               "--net", "resnet-12", *DIAG_FUSED],
+              {"fused_sgd": d["steps"] * 2 * K, "fused_sgd_bwd": d["steps"] * K})
+    check(img["ram_cache_images"] == d["classes"] * d["per_class"] and img["ram_cache_classes"] == img["split"]
+          and img["episode_shapes"]["x_support"] == [8, 5, 5, 84, 84, 3] and img["meta_steps"]["finite"]
+          and img["loader_stats"]["numpy_batches"] == 0, "diagnostics", "the Mini-ImageNet data path", report=img)
+    tools["imagenet_at_scale"].update(stages=img["stages"], meta_steps=img["meta_steps"],
+                                      episodes_per_s=img["assembly_episodes_per_s"])
+
+    # the sweep: the dry run's grid, then the selected job and its row
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(launch_all.main(["--dry-run"]) == 0, "diagnostics", "the sweep's dry run")
+    listed = [line.split(": ")[0].split("] ")[1] for line in buf.getvalue().splitlines()]
+    check(listed == [name for name, _ in launch_all.jobs()] and len(listed) == 324, "diagnostics",
+          "the sweep's dry run lists other jobs", listed=len(listed))
+    t0 = time.perf_counter()
+    try:
+        sweep.proc.wait(timeout=300)
+    finally:
+        sweep.stop()
+    rc, _, stdout, stderr = sweep.result()
+    job_name = listed[SWEEP_JOB]
+    job_dir = os.path.join(tmp, "sweep", job_name)
+    check(rc == 0 and os.path.exists(os.path.join(job_dir, "logs", "test_summary.csv")), "diagnostics",
+          "the sweep's selected job", rc=rc, tail=(stdout[-2000:], stderr[-2000:]))
+    row = summarize_run.row(job_dir)
+    check(row.startswith(f"| {job_name} |") and "%" in row, "diagnostics", "summarize_run's row", row=row)
+    tools["sweep"] = {"jobs": len(listed), "selected": job_name, "waited_s": time.perf_counter() - t0, "row": row}
+
+    # the CPU autopsy of one checkpoint, beside the card's
+    autopsied = _wait_status(cpu["autopsied"], cpu["proc"], TWIN_WAIT_S, "the CPU autopsy", log=cpu["log"])
+    with open(cpu["autopsy_json"]) as f:
+        cpu_eval = json.load(f)["checkpoints"][DIAG_CPU_CHECKPOINT]["eval"]["cpu"]
+    card_eval = card_evals[DIAG_CPU_CHECKPOINT]
+    gap = abs(cpu_eval["accuracy"] - card_eval["accuracy"])
+    check(_finite(cpu_eval["loss"]) and gap <= DIAG_ACCURACY_GAP, "diagnostics",
+          "the checkpoint's CPU and card evaluations disagree", cpu=cpu_eval, card=card_eval)
+    tools["cpu_autopsy"] = {"checkpoint": DIAG_CPU_CHECKPOINT, "cpu": cpu_eval, "card": card_eval, "accuracy_gap": gap,
+                            "cpu_s": autopsied["seconds"], "waited_s": autopsied["waited_s"]}
+    log.close()
+    total = {name: sum(t[name] for t in launches.values()) for name in ("fused_sgd", "fused_sgd_bwd")}
+    result = {"phase": "diagnostics", "ok": True, "tools": tools, "launches": total,
+              "seconds": round(time.perf_counter() - t_phase, 1), "budget_s": DIAG_BUDGET_S}
+    emit(result)
+    return result
+
+
 def kernel_entry(name, source, replaces, launches_by_path, phase, in_graph=None):
     """One kernel's entry of the ``kernels`` line: float32 at the VGG-64
     tree under the write flush (the yardstick of the earlier slices) in the
@@ -5094,26 +5706,35 @@ def main() -> int:
         return out
 
     smi, parent = timed("device", phase_device, args.parent_kernels)
-    kernel = timed("kernel", phase_kernel, args.seed, parent)
-    kernel_bwd = timed("kernel_bwd", phase_kernel_bwd, args.seed, parent)
-    # phase http's first server imports and starts the card from here on
-    http_pre = prestart_http()
-    timed("small", phase_small, args.seed)
-    sl = timed("slice", phase_slice, args.seed)
-    tr, system, trained = timed("train", phase_train, args.seed)
-    served = timed("serve_trained", phase_serve_trained, args.seed, system, trained)
-    http = timed("http", phase_http, args.seed, system, trained, http_pre)
-    # the fleet's two first backends import and start the card during tenancy
-    fleet_pre = prestart_fleet(system, trained)
-    tn = timed("tenancy", phase_tenancy, args.seed, system, trained, http["alone_bound"])
-    fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"], fleet_pre)
-    st = timed("strategies", phase_strategies, args.seed, tr["train_step_ms_median"])
-    timed("precision", phase_precision, args.seed)
-    # phase runner's image folder and index cache serve the phases after it
+    # phase runner's image folder and index cache serve the phases after it;
+    # the folder, its index and the CPU twin start now, in processes of
+    # their own
     data_tmp = tempfile.mkdtemp(prefix="chip_smoke_runner_")
-    prewarm_legs = []
+    early, prewarm_legs = [], []
     try:
-        rn = timed("runner", phase_runner, args.seed, tr["train_step_ms_median"], data_tmp)
+        runner_data = prestart_runner_data(args.seed, data_tmp)
+        twin = prestart_cpu_twin(args.seed, data_tmp)
+        early += [runner_data["proc"], twin["proc"]]
+        kernel = timed("kernel", phase_kernel, args.seed, parent)
+        kernel_bwd = timed("kernel_bwd", phase_kernel_bwd, args.seed, parent)
+        # phase http's first server imports and starts the card from here on
+        http_pre = prestart_http()
+        timed("small", phase_small, args.seed)
+        sl, slice_pending = timed("slice", phase_slice, args.seed)
+        tr, system, trained, train_pending = timed("train", phase_train, args.seed)
+        served = timed("serve_trained", phase_serve_trained, args.seed, system, trained)
+        http = timed("http", phase_http, args.seed, system, trained, http_pre)
+        # the fleet's two first backends import and start the card during tenancy
+        fleet_pre = prestart_fleet(system, trained)
+        tn = timed("tenancy", phase_tenancy, args.seed, system, trained, http["alone_bound"])
+        fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"], fleet_pre)
+        # the CPU twin's halves of the slice's and train's checks are ready by now
+        timed("cross", phase_cross, twin, slice_pending, train_pending)
+        st = timed("strategies", phase_strategies, args.seed, tr["train_step_ms_median"], twin)
+        timed("precision", phase_precision, args.seed)
+        rn = timed("runner", phase_runner, args.seed, tr["train_step_ms_median"], data_tmp, runner_data)
+        # the CPU autopsy of one of the runner's checkpoints runs from here on
+        release_cpu_twin(twin, rn)
         el = timed("elastic", phase_elastic, args.seed, data_tmp)
         # operations' strict serve CLI imports and starts the card during
         # phase tensor_parallel
@@ -5121,15 +5742,24 @@ def main() -> int:
         tp = timed("tensor_parallel", phase_tensor_parallel, args.seed, data_tmp, el["reference"])
         ops = timed("operations", phase_operations, args.seed, data_tmp, ops_pre)
         rs = timed("resnet", phase_resnet, args.seed)
-        # phase prewarm's three CLI legs import and start the card during
-        # phase programs
+        # phase prewarm's three CLI legs and phase diagnostics' sweep job
+        # import and start the card during phase programs
         prewarm_legs = prestart_prewarm(args.seed, data_tmp)
+        sweep_job = prestart_sweep_job(data_tmp)
         pg = timed("programs", phase_programs, args.seed, data_tmp)
+        # the sweep's job runs during phase prewarm (its result is read in
+        # phase diagnostics)
+        sweep_job.release()
         pw = timed("prewarm", phase_prewarm, args.seed, data_tmp, prewarm_legs)
+        dg = timed("diagnostics", phase_diagnostics, args.seed, data_tmp, rn, twin, sweep_job)
     finally:
         GatedCli.stop_all()
         for leg in prewarm_legs:
             _stop_leg(leg)
+        for proc in early:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(data_tmp, ignore_errors=True)
     rm = timed("remat", phase_remat, args.seed)
     br = timed("breadth", phase_breadth, args.seed)
@@ -5137,12 +5767,12 @@ def main() -> int:
     emit({"phase": "timing", "seconds": seconds, "total_s": total_s,
           "budget_s": {"elastic": ELASTIC_BUDGET_S, "tensor_parallel": TENSOR_PARALLEL_BUDGET_S,
                        "operations": OPERATIONS_BUDGET_S, "programs": PROGRAMS_BUDGET_S,
-                       "prewarm": PREWARM_BUDGET_S, "run": RUN_BUDGET_S}})
+                       "prewarm": PREWARM_BUDGET_S, "diagnostics": DIAG_BUDGET_S, "run": RUN_BUDGET_S}})
     check(seconds["elastic"] < ELASTIC_BUDGET_S and seconds["tensor_parallel"] < TENSOR_PARALLEL_BUDGET_S
           and seconds["operations"] < OPERATIONS_BUDGET_S
           and seconds["programs"] < PROGRAMS_BUDGET_S and seconds["prewarm"] < PREWARM_BUDGET_S
-          and total_s < RUN_BUDGET_S, "timing",
-          "phase elastic, tensor_parallel, operations, programs or prewarm, or the run over its budget",
+          and seconds["diagnostics"] < DIAG_BUDGET_S and total_s < RUN_BUDGET_S, "timing",
+          "phase elastic, tensor_parallel, operations, programs, prewarm or diagnostics, or the run over its budget",
           seconds=seconds, total_s=total_s)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
                  "http_serving": http["launches"], "tenancy": tn["launches"], "fleet": fl["launches"],
@@ -5153,7 +5783,8 @@ def main() -> int:
                  "resnet_bf16": rs["bf16_inner"]["launches"]["fused_sgd"], "remat": rm["launches"]["fused_sgd"],
                  "breadth": br["launches"]["fused_sgd"], "programs": pg["launches"]["fused_sgd"],
                  "prewarm": pw["launches"]["fused_sgd"], "mesh_programs": pw["launches_mesh"]["fused_sgd"],
-                 "tensor_parallel": tp["launches"]["fused_sgd"], "tp_programs": tp["launches_graph"]["fused_sgd"]}
+                 "tensor_parallel": tp["launches"]["fused_sgd"], "tp_programs": tp["launches_graph"]["fused_sgd"],
+                 "diagnostics": dg["launches"]["fused_sgd"]}
     bwd_paths = {"train": tr["launches"]["fused_sgd_bwd"], "anil_train": st["train_launches"]["fused_sgd_bwd"],
                  "anil_remat": st["remat_full"]["launches"]["fused_sgd_bwd"],
                  "runner": rn["launches"]["fused_sgd_bwd"], "elastic": el["launches"]["fused_sgd_bwd"],
@@ -5163,7 +5794,8 @@ def main() -> int:
                  "programs": pg["launches"]["fused_sgd_bwd"], "prewarm": pw["launches"]["fused_sgd_bwd"],
                  "mesh_programs": pw["launches_mesh"]["fused_sgd_bwd"],
                  "tensor_parallel": tp["launches"]["fused_sgd_bwd"],
-                 "tp_programs": tp["launches_graph"]["fused_sgd_bwd"]}
+                 "tp_programs": tp["launches_graph"]["fused_sgd_bwd"],
+                 "diagnostics": dg["launches"]["fused_sgd_bwd"]}
     for paths in (fwd_paths, bwd_paths):
         check(all(n > 0 for n in paths.values()), "kernels", "a path launched a kernel no time", paths=paths)
     emit({"kernels": [

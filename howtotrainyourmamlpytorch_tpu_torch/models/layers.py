@@ -23,6 +23,12 @@ Initializers draw from the JAX package's distribution families (torch's
 defaults: kaiming-uniform with a=sqrt(5) for conv and linear weights, fan-in
 uniform biases; kaiming-normal fan_out for ResNet's convs and fan_in for
 DenseNet's) with an explicit ``torch.Generator``.
+
+Every convolution and matrix product runs through :func:`_dot`: inside a
+selective remat step it enters that step's record or replay mode
+(``core/remat.py::dot``), and where :data:`OPERAND_ROUNDING` is set its
+operands are rounded first (``scripts/grad_precision_probe.py``'s
+emulation of a reduced-precision product accumulated in float32).
 """
 
 import math
@@ -30,7 +36,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.remat import dot
 from ..parallel.mesh import shard_blocks
+
+#: ``round(t) -> t``, applied to the input and the weight of every
+#: convolution and matrix product (not the bias), or None
+OPERAND_ROUNDING = None
 
 # ---------------------------------------------------------------------------
 # Initializers (torch-default distributions)
@@ -78,6 +89,17 @@ def init_batch_norm(c):
 # ---------------------------------------------------------------------------
 
 
+def _dot(fn, x, w, b, **kwargs):
+    rnd = OPERAND_ROUNDING
+    if rnd is not None:
+        x, w = rnd(x), rnd(w)
+    return dot(fn, x, w, b, **kwargs)
+
+
+def _conv(x, w, b, stride, padding):
+    return _dot(F.conv2d, x, w, b, bias_view=(-1, 1, 1), conv=True, stride=stride, padding=padding)
+
+
 def _column_parallel(fn, x, blocks, b, dim):
     """``fn(x, w_block, b_slice)`` per block of output channels, each on
     its block's device, concatenated along ``dim`` on ``x``'s device."""
@@ -95,15 +117,15 @@ def conv2d(params, x, stride=1, padding=0):
         raise TypeError(f"conv2d supports symmetric int padding only, got {padding!r}")
     w, b = params["w"], params.get("b")
     if isinstance(w, dict):
-        return _column_parallel(lambda xs, ws, bs: F.conv2d(xs, ws, bs, stride=stride, padding=padding), x, w, b, 1)
-    return F.conv2d(x, w, b, stride=stride, padding=padding)
+        return _column_parallel(lambda xs, ws, bs: _conv(xs, ws, bs, stride, padding), x, w, b, 1)
+    return _conv(x, w, b, stride, padding)
 
 
 def linear(params, x):
     w, b = params["w"], params["b"]
     if isinstance(w, dict):
-        return _column_parallel(F.linear, x, w, b, -1)
-    return F.linear(x, w, b)
+        return _column_parallel(lambda xs, ws, bs: _dot(F.linear, xs, ws, bs), x, w, b, -1)
+    return _dot(F.linear, x, w, b)
 
 
 # ---------------------------------------------------------------------------

@@ -136,19 +136,28 @@ def donation_audit(cfg, state, batch: Optional[Any] = None) -> Dict[str, Any]:
 def run_donation_arm(cfg, n_steps: int, n_batches: int = 16, system=None, device=None) -> Tuple[List[float], Any]:
     """One arm of the A/B: ``n_steps`` eager train steps, each on a fresh
     device copy of a (cycled) synthetic batch, as the runner's loader
-    feeds them. -> (per-step losses, the final params as host arrays)."""
+    feeds them. -> (per-step losses, the final params as host arrays).
+
+    The steps run under the deterministic algorithms
+    (``utils/seeding.py::deterministic_algorithms``): with cuDNN's default
+    convolutions two runs of one plain arm at 20-way 5-shot differed by
+    1.37e-2 in a first step's loss on an H100, past
+    :data:`EARLY_LOSS_TOL`, so the verdict would read kernel choice as
+    corruption."""
     from ..core.maml import MAMLSystem
     from ..data.synthetic import synthetic_batch
+    from ..utils.seeding import deterministic_algorithms
 
     system = system or MAMLSystem(cfg, device=device)
     state = system.init_train_state()
     losses: List[float] = []
-    for i in range(n_steps):
-        host = synthetic_batch(cfg.batch_size, cfg.num_classes_per_set, cfg.num_samples_per_class,
-                               cfg.num_target_samples, cfg.image_shape, seed=i % n_batches)
-        batch = {k: torch.as_tensor(np.asarray(v)).to(system.device) for k, v in host.items()}
-        state, out = system.train_step(state, batch, epoch=0)
-        losses.append(float(out.loss))
+    with deterministic_algorithms(True):
+        for i in range(n_steps):
+            host = synthetic_batch(cfg.batch_size, cfg.num_classes_per_set, cfg.num_samples_per_class,
+                                   cfg.num_target_samples, cfg.image_shape, seed=i % n_batches)
+            batch = {k: torch.as_tensor(np.asarray(v)).to(system.device) for k, v in host.items()}
+            state, out = system.train_step(state, batch, epoch=0)
+            losses.append(float(out.loss))
     return losses, tree_map(lambda t: t.detach().cpu().numpy().copy(), state.params)
 
 

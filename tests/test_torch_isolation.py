@@ -4,6 +4,7 @@ to the CPU on their own."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -94,3 +95,52 @@ def test_no_device_means_the_card_and_raises_without_one(monkeypatch):
         AdaptationEngine.from_run_dir(os.path.join(_ROOT, "no_such_run"), cfg=Config())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ExperimentRunner(Config())
+
+
+# a JAX package path, or a root script that imports it (the port's own
+# counterparts live in the package)
+_JAX_PATHS = re.compile(
+    r"howtotrainyourmamlpytorch_tpu(?!_torch)|train_maml_system|launch_all\.py|"
+    r"scripts[/\\](?:grad_precision_probe|checkpoint_autopsy|stream_replay_probe|descent_probe|donation_probe|"
+    r"imagenet_at_scale|summarize_run)\.py"
+)
+
+
+def test_no_source_names_a_jax_package_file():
+    """No string in the port (docstrings aside) names a file of the JAX
+    package or a root script that imports it, so nothing loads one by
+    path."""
+    offenders = []
+    for path in _sources():
+        if path.endswith("chip_smoke.py"):
+            continue  # its kernels line names the TPU kernels it replaces
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        docstrings = {id(node.value) for node in ast.walk(tree)
+                      if isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)}
+        offenders += [(os.path.relpath(path, _ROOT), node.lineno) for node in ast.walk(tree)
+                      if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                      and id(node) not in docstrings and _JAX_PATHS.search(node.value)]
+    assert offenders == []
+
+
+def test_the_diagnostic_scripts_and_the_sweep_load_no_jax():
+    code = (
+        "import sys\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import launch_all\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.scripts import (checkpoint_autopsy, descent_probe, donation_probe,\n"
+        "    grad_precision_probe, imagenet_at_scale, stream_replay_probe, summarize_run)\n"
+        "for module in (checkpoint_autopsy, descent_probe, donation_probe, grad_precision_probe, imagenet_at_scale,\n"
+        "               stream_replay_probe, launch_all):\n"
+        "    try:\n"
+        "        module.main(['--help'])\n"
+        "    except SystemExit as exc:\n"
+        "        assert exc.code == 0, module\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'howtotrainyourmamlpytorch_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "drops" in proc.stdout or "Dropped" in proc.stdout or "ignored" in proc.stdout

@@ -22,6 +22,7 @@ second order).
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from howtotrainyourmamlpytorch_tpu_torch.core.maml import MAMLSystem
 from howtotrainyourmamlpytorch_tpu_torch.core.remat import apply_remat_policy
@@ -201,3 +202,121 @@ def test_bf16_inner_matches_jax_bf16_inner(jax_reference):
     assert _cosine(got, want) >= 0.99
     assert _cosine(got, exact) >= 0.995
     assert _cosine(want, exact) >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# the selective policies' mechanism: a dispatch mode at the dot call sites
+# ---------------------------------------------------------------------------
+
+
+class _CountOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = self.dots = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from howtotrainyourmamlpytorch_tpu_torch.core.remat import DOT_OPS
+
+        self.ops += 1
+        self.dots += func in DOT_OPS
+        return func(*args, **(kwargs or {}))
+
+
+def test_dot_mode_sees_only_the_dot_call_sites(jax_reference, monkeypatch):
+    """One ``dots_saveable`` meta-gradient. The recompute's mode sees
+    exactly the ops dispatched inside the convolution and matrix-product
+    call sites (``models/layers.py``: each dot and the views and copy of
+    ``vmap``'s batching rule around it), none of the step's other ops; the
+    forward's mode sees only the matrix-product sites' (a convolution's
+    output is recorded below the functorch wrappers, without the mode). The
+    forward keeps exactly the dot ops its sites dispatch, and the recompute
+    replays all of them. The whole step dispatches over five times as many
+    ops as the modes see (23x at this 2-stage VGG)."""
+    from howtotrainyourmamlpytorch_tpu_torch.core import remat
+    from howtotrainyourmamlpytorch_tpu_torch.models import layers
+
+    modes = []
+    at_sites = {phase: {"ops": 0, "dots": 0, "mode_ops": 0} for phase in ("record", "replay")}
+    init, dispatch = remat._Dots.__init__, remat._Dots.__torch_dispatch__
+
+    def tracked_init(self, saved=None):
+        init(self, saved)
+        modes.append(self)
+
+    real_dot = layers.dot
+
+    def counted_dot(fn, x, w, b, conv=False, **kwargs):
+        dots = remat._SITE.dots
+        if dots is None:
+            return real_dot(fn, x, w, b, conv=conv, **kwargs)
+        site = at_sites["replay" if dots.replaying else "record"]
+
+        def counted(*a, **k):
+            count = _CountOps()
+            with count:  # entered inside the site's mode, so above it: sees every op the site dispatches
+                out = fn(*a, **k)
+            site["ops"] += count.ops
+            site["dots"] += count.dots
+            site["mode_ops"] += count.ops if dots.replaying or not conv else 0
+            return out
+
+        return real_dot(counted, x, w, b, conv=conv, **kwargs)
+
+    monkeypatch.setattr(remat._Dots, "__init__", tracked_init)
+    monkeypatch.setattr(layers, "dot", counted_dot)
+    tsys, tstate = port(jax_reference[False][0], "dots_saveable", fused=True)
+    whole = _CountOps()
+    with whole:
+        tsys.meta_gradients(tstate, jax_reference["batch"], epoch=0)
+    K = tsys.cfg.number_of_training_steps_per_iter
+    records = [m for m in modes if not m.replaying]
+    replays = [m for m in modes if m.replaying]
+    assert len(records) == len(replays) == K
+    assert sum(m.ops for m in replays) == at_sites["replay"]["ops"] == at_sites["replay"]["mode_ops"]
+    assert 0 < sum(m.ops for m in records) == at_sites["record"]["mode_ops"] < at_sites["record"]["ops"]
+    saved = sum(len(m.saved) for m in records)
+    assert saved == at_sites["record"]["dots"] == at_sites["replay"]["dots"] == sum(m.i for m in replays) > 0
+    assert all(func in remat.DOT_OPS for m in records for func, _ in m.saved)
+    assert whole.ops > 5 * sum(m.ops for m in modes)
+
+
+@pytest.mark.parametrize("msl", [True, False], ids=["msl", "final_step"])
+def test_dots_saveable_saved_sets_equal_none_and_jax(jax_reference, msl):
+    """The saved forward dots give ``none``'s loss bit-equal and its
+    meta-gradient within 1e-6 of the largest |g|; with MSL, JAX's
+    ``lax.scan`` program's meta-gradient at atol 1e-5."""
+    jstate, jloss, jgrads = jax_reference[False]
+    b = jax_reference["batch"]
+    out = {}
+    for pol in ("none", "dots_saveable"):
+        tsys, tstate = port(jstate, pol, fused=True, use_multi_step_loss_optimization=msl)
+        out[pol] = tsys.meta_gradients(tstate, b, epoch=0)
+    (loss_ref, _, g_ref), (loss, _, g) = out["none"], out["dots_saveable"]
+    assert torch.equal(loss, loss_ref)
+    scale = max(float(t.abs().max()) for t in tree_leaves(g_ref))
+    for a, r in zip(tree_leaves(g), tree_leaves(g_ref)):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=0, atol=1e-6 * scale)
+    if msl:
+        np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
+        _close(trainables_to_jax(g, tsys.model.feature_shape), jgrads, atol=ATOL)
+
+
+def test_replay_raises_on_another_dot_sequence():
+    """A recompute that meets another dot op, or fewer or more of them,
+    than the forward recorded raises."""
+    from howtotrainyourmamlpytorch_tpu_torch.core import remat
+
+    x, w = torch.randn(2, 3), torch.randn(3, 3)
+    record = remat._Dots()
+    with record:
+        torch.mm(x, w)
+    replay = remat._Dots(record.saved)
+    with pytest.raises(RuntimeError, match="where the forward met"):
+        with replay:
+            torch.bmm(x[None], w[None])
+    replay = remat._Dots(record.saved)
+    with replay:
+        assert torch.equal(torch.mm(x, w), record.saved[0][1])
+    with pytest.raises(RuntimeError, match="more dot ops"):
+        with replay:
+            torch.mm(x, w)
