@@ -30,7 +30,8 @@ Run from the repository root. Phases, one JSON line each:
    the kernel's summation tree from a float64 sum, and bit-equal across
    launches; its times likewise; then the ``FusedSGD``
    gradients on the card against the same Function on the CPU.
-4. ``small``: the serving engine with the kernel against the same engine on
+4. ``small`` (in the side process): the serving engine with the kernel
+   against the same engine on
    the CPU at a small size (2 stages, 8 filters, 3-way), within 1e-5.
 5. ``slice``: the serving path at ``configs/default.yaml`` with
    ``use_pallas_inner_update=true`` (Omniglot 20-way 5-shot, Conv-4 VGG with
@@ -123,7 +124,7 @@ Run from the repository root. Phases, one JSON line each:
    8 x 40 queries (finite probabilities whose rows sum to 1); maml++ and
    fomaml bit-equal; protonet's adapt flush faster than maml++'s; one
    refine flush each for maml++ and anil, K launches of B1.
-12. ``precision``: the default config's train step under
+12. ``precision`` (in the side process): the default config's train step under
    ``matmul_precision`` ``highest`` (IEEE float32) and ``high`` (TF32
    matmuls and convolutions): the flags read back, the first step's loss
    and the median step of each.
@@ -173,8 +174,8 @@ Run from the repository root. Phases, one JSON line each:
    same settings with ``HTYMP_FAULTS=checkpoint.write=sigterm:nth=2``
    (SIGTERM on the writer thread during an async 2-shard save) exits 75,
    and a clean CLI resume from its ``latest`` exits 0 and finishes the
-   run. The three CLI processes start together after the timed steps and
-   the shrink and the resume wait behind gates until their turn. It
+   run. The three CLI processes start before phase ``runner`` and wait
+   behind gates until their turn. It
    reports the per-width loss, cosine and
    step times with their ratios, the floor, the launches, the shard files'
    bytes, the events, the rcs and the phase's seconds (under 90 s, the run
@@ -233,25 +234,28 @@ Run from the repository root. Phases, one JSON line each:
    support 100) in one engine, the settings toggled between flushes: both
    medians and ranges, the cost of the deterministic algorithms. It
    reports the phase's seconds (under 240 s, checked after ``timing``).
-16. ``resnet``: the slice's full-width model, ResNet-12 at the fleet row
+16. ``resnet`` (in the side process): the slice's full-width model,
+   ResNet-12 at the fleet row
    ``omniglot.20.1.resnet-12.gd`` (28x28x1, 20-way 1-shot, meta-batch 8,
    K=5, second order, MSL on, fused, remat off): 5 train steps, an eval
    step and the engine serving the trained state, B1 and B2 over the
    86-leaf tree on every inner step; the first step against the CPU and
    float64 as in ``train``; then one bf16_inner train step (B1 and B2 in
    bfloat16).
-17. ``remat``: ``configs/mini_imagenet_5way_5shot.yaml`` with
+17. ``remat`` (in the side process): ``configs/mini_imagenet_5way_5shot.yaml`` with
     ``net=resnet-12`` (84x84x3, 5-way 5-shot) under the remat policies
     none, full and dots_saveable: the first step's loss and meta-gradient
     equal across them, dots_saveable's peak memory between full's and
-    none's; one eager step per policy, wall and host CPU ms; a chunk of 3
-    steps replayed from a CUDA graph under dots_saveable; the default
+    none's, no Python dispatch call under dots_saveable; one eager step per
+    policy, wall and host CPU ms; a chunk of 3 steps replayed from a CUDA
+    graph under dots_saveable; the default
     config's VGG at none and full, peak memory.
-18. ``breadth``: ``train_step`` for DenseNet-8 and DenseNet-12 (fused),
+18. ``breadth`` (in the side process): ``train_step`` for DenseNet-8 and
+    DenseNet-12 (fused),
     inner Adam with learnable betas and the warm start, inner Rprop, and
     ``lslr_per_step`` (fused; its per-step lr meta-gradient against the
     CPU).
-19. ``programs`` (after ``resnet``, on phase ``runner``'s image folder):
+19. ``programs`` (after ``operations``, on phase ``runner``'s image folder):
     the program layer. B1 and B2 captured in one CUDA graph at the VGG-64
     and ResNet-12 trees, replayed on changed operands: bit-equal to their
     twins (``dlr`` within its bound). (a) The VGG train cell (the default
@@ -318,11 +322,21 @@ Run from the repository root. Phases, one JSON line each:
 
 Fresh processes start early, behind gate files, so that their imports and
 card start (10-25 s each) overlap the phases before them: phase ``http``'s
-first server from phase ``small`` on, ``fleet``'s first two backends during
-``tenancy``, ``operations``' strict serve CLI during ``tensor_parallel``,
+two servers and the side process from phase ``slice`` on, ``fleet``'s
+first two backends during ``tenancy``, ``elastic``'s three CLI legs during
+``runner``, ``operations``' strict serve CLI during ``tensor_parallel``,
 ``prewarm``'s three CLI legs and ``diagnostics``' sweep job during
-``programs`` (and, as before, the runner's and ``elastic``'s CLI legs
-within their phases). Each is released where its phase used to start it; a
+``programs`` (and the runner's CLI legs within their phase). The side
+process runs phases ``small`` and ``resnet`` on the card beside phases
+``http`` and ``tenancy``, then ``remat``, ``breadth`` and ``precision``
+beside phase ``runner`` (SIDE_BATCHES: card-bound, gating no time, needing
+nothing of the phases before them; ``http``, ``tenancy`` and ``runner``
+have no time budget, and their card mostly waits on processes, sockets and
+the loader); this process waits for each batch before phases ``fleet``
+and ``elastic``, and prints the side's lines when it ends. Phase ``operations``' training fleet (its
+leg 4: child processes behind the card gate) starts before phase
+``elastic`` on a thread of this process and runs beside ``elastic`` and
+``tensor_parallel``; ``operations`` checks it. Each is released where its phase used to start it; a
 process whose parent is gone exits. Two processes start after phase
 ``device`` and work at once: the runner's image folder and index, and
 the CPU twin, which makes the CPU halves of the cross-checks of phases
@@ -331,7 +345,9 @@ to ``fleet``, then ``diagnostics``' CPU half (its autopsy waits for the
 runner's checkpoints).
 
 A ``timing`` line before the ``kernels`` line gives each phase's wall
-seconds. Then the card's ``nvidia-smi`` name and power limit, and last
+seconds and the run's wall time (``total_s``, from phase ``device`` to the
+side process's end: the side phases overlap others, so it is not their
+sum), which the run's budget holds. Then the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Matmuls and convolutions run in IEEE float32 (no TF32)
 throughout but in phase ``precision``: ``MAMLSystem`` applies the config's
@@ -1601,14 +1617,18 @@ def _serve_argv(run_dir: str, port: int, overrides):
 
 
 def prestart_http() -> dict:
-    """Phase ``http``'s first server, started before phase ``small`` behind
-    a gate on a run directory that phase ``http`` fills (the trained
-    state) before it releases it: its imports and card start overlap the
-    phases between."""
+    """Phase ``http``'s first server and its restart, started before phase
+    ``small`` behind gates on a run directory that phase ``http`` fills
+    (the trained state) before it releases the first: their imports and
+    card start overlap the phases between. The restart is released after
+    the first server's drain, so it reads the sessions that drain spilled."""
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_http_")
-    port, gate, log_path = _free_port(), os.path.join(run_dir, "serve.gate"), os.path.join(run_dir, "serve.log")
-    return {"run_dir": run_dir, "port": port, "gate": gate, "log_path": log_path,
-            "proc": start_gated_server(_serve_argv(run_dir, port, HTTP_SERVE_OVERRIDES), log_path, gate)}
+    servers = {}
+    for name in ("serve", "restart"):
+        port, gate, log_path = _free_port(), os.path.join(run_dir, f"{name}.gate"), os.path.join(run_dir, f"{name}.log")
+        servers[name] = {"port": port, "gate": gate, "log_path": log_path,
+                         "proc": start_gated_server(_serve_argv(run_dir, port, HTTP_SERVE_OVERRIDES), log_path, gate)}
+    return {"run_dir": run_dir, **servers["serve"], "restart": servers["restart"]}
 
 
 def start_server(run_dir: str, log_path: str, overrides=HTTP_SERVE_OVERRIDES, phase: str = "http",
@@ -1818,9 +1838,12 @@ def phase_http(seed: int, system, trained, pre: dict):
             check(rc == 0 and f"{entries} session(s) spilled" in log and spilled == entries, "http",
                   "SIGTERM drain", rc=rc, entries=entries, spilled_files=spilled, log=log[-2000:])
 
-            # the in-process references below run while the restart starts
-            proc, base, _ = start_server(run_dir, log_path, while_starting=lambda: alone.update(
-                zip(("devs", "floors", "wrong"), _alone_references(engine, supports[:n], queries[:n], probs, seed))))
+            # the in-process references below run while the restart (started
+            # behind its gate with the first server) reads the spilled sessions
+            proc, base, _ = start_server(run_dir, pre["restart"]["log_path"], gated=pre["restart"],
+                                         while_starting=lambda: alone.update(zip(
+                                             ("devs", "floors", "wrong"),
+                                             _alone_references(engine, supports[:n], queries[:n], probs, seed))))
             again = _http(base, "/metrics")[1]
             status, hit2, _ = _http(base, "/adapt", support_body[1])
             status_p, pred2, _ = _http(base, "/predict", predict_body[1])
@@ -1834,6 +1857,7 @@ def phase_http(seed: int, system, trained, pre: dict):
             stop_server(proc)
     finally:
         stop_server(pre["proc"])
+        stop_server(pre["restart"]["proc"])
         shutil.rmtree(run_dir, ignore_errors=True)
 
     devs, floors, wrong = alone["devs"], alone["floors"], alone["wrong"]
@@ -3011,11 +3035,45 @@ def _last_cold_start(run_dir: str):
     return starts[-1] if starts else None
 
 
-def phase_elastic(seed: int, tmp: str):
+def elastic_overrides(seed: int, tmp: str) -> tuple:
+    """Phase ``elastic``'s run settings on phase ``runner``'s folder and
+    index cache -> (the dp=2 run's overrides, the fault run's, the CLI
+    legs' environment)."""
+    from howtotrainyourmamlpytorch_tpu_torch.config import load_config
+
+    data = os.path.join(tmp, "omniglot_dataset")
+    overrides = [
+        "use_pallas_inner_update=true", "remat_inner_steps=false", f"dataset.path={data}",
+        f"index_cache_dir={os.path.join(tmp, 'index')}", f"experiment_root={os.path.join(tmp, 'elastic')}",
+        "experiment_name=elastic", f"total_iter_per_epoch={ELASTIC_ITERS}",
+        f"num_evaluation_tasks={load_config(DEFAULT_CONFIG).batch_size}",
+        "load_into_memory=false", f"seed={seed}", "parallel.dp=2", "checkpoint_async=true", "checkpoint_shards=0",
+    ]
+    fault_args = overrides + ["experiment_name=elastic_fault", f"total_epochs={ELASTIC_FAULT_EPOCHS}",
+                              "checkpoint_shards=2"]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("HTYMP_FAULTS", None)
+    return overrides, fault_args, env
+
+
+def prestart_elastic(seed: int, tmp: str) -> dict:
+    """Phase ``elastic``'s three CLI legs, started before phase ``runner``:
+    the fault run, its resume and the shrink each import and start the
+    card behind a gate while the phases before them run."""
+    overrides, fault_args, env = elastic_overrides(seed, tmp)
+    gates = os.path.join(tmp, "elastic_gates")
+    os.makedirs(gates, exist_ok=True)
+    return {"fault": _elastic_leg(fault_args, dict(env, HTYMP_FAULTS=ELASTIC_FAULT), os.path.join(gates, "fault")),
+            "resume": _elastic_leg(fault_args, env, os.path.join(gates, "resume")),
+            "shrink": _elastic_leg(overrides + ["total_epochs=2"], env, os.path.join(gates, "shrink"))}
+
+
+def phase_elastic(seed: int, tmp: str, legs: dict):
     """Elastic data-parallel training on the card at configs/default.yaml
     (fused update, remat off), on phase ``runner``'s image folder and index
     cache; see the module docstring. The mesh names cuda:0 several times:
-    the dp=2 and dp=4 code paths on the one card."""
+    the dp=2 and dp=4 code paths on the one card. ``legs``: the three CLI
+    legs (:func:`prestart_elastic`)."""
     from howtotrainyourmamlpytorch_tpu_torch.config import ParallelConfig, load_config
     from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
     from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentRunner
@@ -3069,32 +3127,16 @@ def phase_elastic(seed: int, tmp: str):
     steps_s = time.perf_counter() - t_phase
 
     # 2. write under dp=2 in this process (async, one shard per mesh entry)
-    data = os.path.join(tmp, "omniglot_dataset")
-    overrides = [
-        "use_pallas_inner_update=true", "remat_inner_steps=false", f"dataset.path={data}",
-        f"index_cache_dir={os.path.join(tmp, 'index')}", f"experiment_root={os.path.join(tmp, 'elastic')}",
-        "experiment_name=elastic", f"total_iter_per_epoch={ELASTIC_ITERS}", f"num_evaluation_tasks={cfg.batch_size}",
-        "load_into_memory=false", f"seed={seed}", "parallel.dp=2", "checkpoint_async=true", "checkpoint_shards=0",
-    ]
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    env.pop("HTYMP_FAULTS", None)
+    overrides, fault_args, env = elastic_overrides(seed, tmp)
     eval_launch = lambda dp, evals: dp * K_eval * evals  # noqa: E731
     run_cfg = load_config(DEFAULT_CONFIG, overrides + ["total_epochs=1"])
 
     # 5 (beside 2-4, a run of its own): SIGTERM on the writer thread during
-    # an async 2-shard save, then a clean resume (its two CLI processes
-    # overlap the chain below instead of following it)
-    fault_args = overrides + ["experiment_name=elastic_fault", f"total_epochs={ELASTIC_FAULT_EPOCHS}",
-                              "checkpoint_shards=2"]
+    # an async 2-shard save, then a clean resume (its two CLI processes,
+    # like the shrink's (3 below), started before phase runner, overlap the
+    # chain below instead of following it)
     fault_dir = load_config(DEFAULT_CONFIG, fault_args).run_dir()
     fault_legs = {}
-    # the three CLI legs start now: the resume and the shrink (3 below) wait
-    # behind their gates, so that their starts overlap the work before them
-    gates = os.path.join(tmp, "elastic_gates")
-    os.makedirs(gates, exist_ok=True)
-    legs = {"fault": _elastic_leg(fault_args, dict(env, HTYMP_FAULTS=ELASTIC_FAULT), os.path.join(gates, "fault")),
-            "resume": _elastic_leg(fault_args, env, os.path.join(gates, "resume")),
-            "shrink": _elastic_leg(overrides + ["total_epochs=2"], env, os.path.join(gates, "shrink"))}
 
     def fault_chain():
         fault_legs["fault"] = _elastic_run(legs["fault"])
@@ -3772,10 +3814,12 @@ class _TimedChild:
         return getattr(self.proc, name)
 
 
-def ops_fleet(seed: int, tmp: str) -> dict:
+def ops_fleet(seed: int, tmp: str, handle: dict) -> dict:
     """Leg 4: the training fleet on the card through the port's
     ``FleetScheduler``, its real card gate and its real launcher, wrapped
-    to fault the first attempt of one cell; then ``fleet_run --dry-run``."""
+    to fault the first attempt of one cell (``handle["launched"]`` is set
+    once that attempt has started; every process it starts is added to
+    ``handle["procs"]``); then ``fleet_run --dry-run``."""
     from howtotrainyourmamlpytorch_tpu_torch.resilience import fleet as fleet_mod
 
     data = os.path.join(tmp, "omniglot_dataset")
@@ -3806,6 +3850,9 @@ def ops_fleet(seed: int, tmp: str) -> dict:
             os.environ.pop("HTYMP_FAULTS", None)
             if prior is not None:
                 os.environ["HTYMP_FAULTS"] = prior
+            if cell.name == faulted:
+                handle["launched"].set()
+        handle["procs"].append(proc)
         child = _TimedChild(proc, cell.name)
         children.append(child)
         return child, out_path
@@ -3818,6 +3865,7 @@ def ops_fleet(seed: int, tmp: str) -> dict:
          "--dry-run", "--job", " ".join(["vgg"] + overrides), "--seeds", "0,1", "--exps-root",
          os.path.join(tmp, "ops_fleet_plan")],
         cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    handle["procs"].append(dry)
     try:
         report = fleet_mod.FleetScheduler(spec, launcher=launcher, gate=gate, log=lambda m: None).run()
     finally:
@@ -3841,6 +3889,49 @@ def ops_fleet(seed: int, tmp: str) -> dict:
         "obs": {n: c["obs"] for n, c in cells.items()}, "fault": OPS_FLEET_FAULT, "cuts": OPS_FLEET_DEPTH,
         "dry_run_rc": dry.returncode, "elapsed_s": report["elapsed_s"],
     }
+
+
+def start_ops_fleet(seed: int, tmp: str) -> dict:
+    """Leg 4 of phase ``operations`` (:func:`ops_fleet`) on a thread, from
+    before phase ``elastic`` on: its children and their gates run beside
+    ``elastic`` and ``tensor_parallel``. Returns once the faulted cell's
+    first attempt has started, so that no other process starts while the
+    launcher sets ``HTYMP_FAULTS`` in this process's environment."""
+    handle = {"launched": threading.Event(), "procs": [], "t0": time.perf_counter()}
+
+    def run():
+        try:
+            handle["result"] = ops_fleet(seed, tmp, handle)
+        except BaseException as exc:  # re-raised by finish_ops_fleet
+            handle["error"] = exc
+        finally:
+            handle["launched"].set()
+            handle["seconds"] = round(time.perf_counter() - handle["t0"], 3)
+
+    handle["thread"] = threading.Thread(target=run, name="ops-fleet", daemon=True)
+    handle["thread"].start()
+    handle["launched"].wait(timeout=120.0)
+    return handle
+
+
+def stop_ops_fleet(handle: dict) -> None:
+    """Kill what :func:`start_ops_fleet`'s thread started and still runs
+    (a run that failed before phase ``operations``)."""
+    for proc in handle["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_ops_fleet(handle: dict) -> dict:
+    """Wait for :func:`start_ops_fleet`'s thread -> leg 4's result, with
+    its own seconds and how long phase ``operations`` waited for it."""
+    t0 = time.perf_counter()
+    handle["thread"].join(timeout=600.0)
+    check(not handle["thread"].is_alive(), "operations", "the training fleet did not end")
+    if "error" in handle:
+        raise handle["error"]
+    return {**handle["result"], "seconds": handle["seconds"], "waited_s": round(time.perf_counter() - t0, 3)}
 
 
 def deterministic_algorithms(on: bool = True):
@@ -3917,10 +4008,12 @@ def ops_determinism(seed: int) -> dict:
             "support": int(x_s.shape[0] * x_s.shape[1]), "queries": int(x_q.shape[0]), "flush_cost": cost}
 
 
-def phase_operations(seed: int, tmp: str, frontend_pre: dict):
+def phase_operations(seed: int, tmp: str, frontend_pre: dict, fleet_handle: dict):
     """The operations layer on the card (see the module docstring), on
     phase ``runner``'s image folder and index cache in ``tmp``;
-    ``frontend_pre``: leg 2's gated serve CLI (:func:`prestart_ops_frontend`)."""
+    ``frontend_pre``: leg 2's gated serve CLI (:func:`prestart_ops_frontend`);
+    ``fleet_handle``: leg 4, running since before phase ``elastic``
+    (:func:`start_ops_fleet`)."""
     t_phase = time.perf_counter()
     seconds = {}
 
@@ -3933,7 +4026,7 @@ def phase_operations(seed: int, tmp: str, frontend_pre: dict):
     campaign = leg("campaign", ops_campaign, seed, tmp)
     frontend = leg("frontend", ops_frontend, seed, tmp, frontend_pre)
     runner = leg("runner", ops_runner, seed, tmp)
-    fleet = leg("fleet", ops_fleet, seed, tmp)
+    fleet = leg("fleet", finish_ops_fleet, fleet_handle)
     determinism = leg("determinism", ops_determinism, seed)
     launches = {"fused_sgd": frontend["launches"] + runner["armed"]["launches"]["fused_sgd"],
                 "fused_sgd_bwd": runner["armed"]["launches"]["fused_sgd_bwd"]}
@@ -4114,7 +4207,9 @@ def phase_remat(seed: int):
     capture's seconds and the replayed chunk's ms per step. The first
     step's loss must be equal across policies, the meta-gradient within
     REMAT_GRAD_RTOL of its largest element, the peak memory of
-    dots_saveable between full's and none's; B1 launches K times per
+    dots_saveable between full's and none's, and dots_saveable's record
+    and replay (the C++ dispatch hook) make no ``__torch_dispatch__`` call
+    in one more train step under the profiler's Python tracer; B1 launches K times per
     meta-gradient without remat and 2 K with it (the recompute), B2 K, and
     the chunk's warmup and replays REMAT_CHUNK + 1 times that. Times are
     reported, not gated (``scripts/remat_probe.py`` times the policies
@@ -4125,6 +4220,7 @@ def phase_remat(seed: int):
 
     from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.scripts.remat_probe import dispatch_host_ms
 
     out, first, launches_total = {}, {}, {"fused_sgd": 0, "fused_sgd_bwd": 0}
     graphed, batch = None, None
@@ -4173,11 +4269,18 @@ def phase_remat(seed: int):
                   loss=first[policy][0], step_loss=float(step_out.loss))
             add(launches)
             add(step_launches)
-            if policy == "dots_saveable":
-                graphed = (system, state, per)
             out[policy] = {"max_memory_allocated": peak, "first_meta_gradient_ms": grad_ms,
                            "first_loss": first[policy][0], "launches": launches, "step_ms": step_ms,
                            "host_cpu_ms": host_ms, "step_loss": float(step_out.loss)}
+            if policy == "dots_saveable":
+                graphed = (system, state, per)
+                # the record and replay are the C++ hook's: no op of a step
+                # reaches Python (one more step, under the profiler's tracer)
+                fu.reset_launch_counts()
+                calls = dispatch_host_ms(system, state, batch)
+                add(fu.launch_counts)
+                check(calls["calls"] == 0, "remat", "dots_saveable's step made Python dispatch calls", calls=calls)
+                out[policy]["torch_dispatch"] = calls
             del system, state
         check(len(first) >= 2, "remat", "fewer than two policies ran", out=out)
         ref_policy = next(iter(first))
@@ -5254,19 +5357,25 @@ def phase_prewarm(seed: int, tmp: str, spawned: list):
     lines. (b) The prewarmed leg again on its run directory for a third
     epoch: the manifest promises a warm start, every ``nvcc/*`` line is a
     cache hit, and the captures it pays again are printed. (c) The mesh
-    (:func:`prewarm_mesh`), first; then each leg runs alone, released when
-    the one before it has ended. The legs' processes (``spawned``,
+    (:func:`prewarm_mesh`) runs in this process while the cold and the
+    prewarmed legs run beside each other; the restart is released when the
+    prewarmed leg has ended. The legs' processes (``spawned``,
     :func:`prestart_prewarm`) imported and started the card during phase
     ``programs``."""
     t_phase = time.perf_counter()
     legs = {}
     try:
+        first = [leg for leg in spawned if leg["name"] != "restart"]
+        restart = next(leg for leg in spawned if leg["name"] == "restart")
+        for leg in first:
+            _release_leg(leg)
         t_mesh = time.perf_counter()
         mesh = prewarm_mesh(seed)
         mesh_s = time.perf_counter() - t_mesh
-        for leg in spawned:
-            _release_leg(leg)
+        for leg in first:
             legs[leg["name"]] = _finish_leg(leg)
+        _release_leg(restart)
+        legs["restart"] = _finish_leg(restart)
     finally:
         for leg in spawned:
             _stop_leg(leg)
@@ -5384,6 +5493,136 @@ with open(spec["gate"]) as f:
 t0 = time.perf_counter()
 done("autopsied", checkpoint_autopsy.main(argv), t0)
 """
+
+
+#: the phases a second process on the card runs in two batches: the first
+#: beside phases http and tenancy, the second beside phase runner (phases
+#: whose card mostly waits on processes, sockets and the loader, and which
+#: have no time budget of their own); this process waits for each batch to
+#: end before the phase after that window (fleet, elastic: budgeted). Side
+#: phases are card-bound, gate no time and need nothing the phases before
+#: them make. Their seconds are their own; the run's total is its wall time.
+SIDE_BATCHES = (("small", "resnet"), ("remat", "breadth", "precision"))
+SIDE_PHASES = tuple(name for batch in SIDE_BATCHES for name in batch)
+SIDE_WAIT_S = 600.0
+_SIDE = r"""
+import json, sys
+spec = json.loads(sys.argv[1])
+import torch
+import chip_smoke
+spec["remat_hook_s"] = chip_smoke.side_ready()
+sys.exit(chip_smoke.side_main(spec))
+"""
+
+
+def side_ready() -> float:
+    """The side process's card start, before its first gate: the precision
+    main sets, the card, and the g++ build of the selective remat
+    policies' dispatch hook (``csrc/remat_dots.cpp``, host C++; phase
+    ``remat`` runs here) -> the hook's seconds."""
+    from howtotrainyourmamlpytorch_tpu_torch.core import remat
+    from howtotrainyourmamlpytorch_tpu_torch.core.maml import apply_matmul_precision
+
+    apply_matmul_precision("highest")
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    t0 = time.perf_counter()
+    remat.dot_hook()
+    return time.perf_counter() - t0
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def side_main(spec: dict) -> int:
+    """Run SIDE_BATCHES, each after its gate file appears (an orphan
+    exits); each batch's end is marked in ``spec["done"][i]``. The phase
+    lines go to this process's stdout, the results and seconds (or the
+    check that failed) to ``spec["result"]``."""
+    parent = os.getppid()
+    phases = {"small": phase_small, "resnet": phase_resnet, "remat": phase_remat, "breadth": phase_breadth,
+              "precision": phase_precision}
+    results, seconds, failed = {}, {}, None
+    for batch, gate, done in zip(SIDE_BATCHES, spec["gates"], spec["done"]):
+        while not os.path.exists(gate):
+            if os.getppid() != parent:
+                return 3
+            time.sleep(0.05)
+        try:
+            for name in batch:
+                t0 = time.monotonic()
+                results[name] = phases[name](spec["seed"])
+                seconds[name] = round(time.monotonic() - t0, 1)
+                print(f"chip_smoke: phase {name} took {seconds[name]} s (side process)", file=sys.stderr, flush=True)
+        except CheckFailed as exc:
+            failed = str(exc)
+        _write_json(done, {"failed": failed})
+        if failed:
+            break
+    _write_json(spec["result"], {"results": results, "seconds": seconds, "failed": failed,
+                                 "remat_hook_s": spec["remat_hook_s"]})
+    return 0 if failed is None else 1
+
+
+def prestart_side(seed: int, tmp: str) -> dict:
+    """Start the side process (:data:`_SIDE`): its imports and card start
+    overlap the phases before ``http``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = {"seed": seed, "result": os.path.join(tmp, "side.json"), "stdout": os.path.join(tmp, "side.out"),
+            "gates": [os.path.join(tmp, f"side{i}.gate") for i in range(len(SIDE_BATCHES))],
+            "done": [os.path.join(tmp, f"side{i}.done") for i in range(len(SIDE_BATCHES))]}
+    out = open(spec["stdout"], "w")
+    proc = subprocess.Popen([sys.executable, "-c", _SIDE, json.dumps(spec)], cwd=root, stdout=out,
+                            env=dict(os.environ, PYTHONPATH=root))
+    out.close()
+    return {**spec, "proc": proc, "waited_s": []}
+
+
+def release_side(side: dict, batch: int) -> None:
+    open(side["gates"][batch], "w").close()
+
+
+def wait_side(side: dict, batch: int) -> None:
+    """Wait for the side process's ``batch`` to end (its seconds waited
+    are noted); a batch that failed fails the run here."""
+    t0 = time.monotonic()
+    done = side["done"][batch]
+    while not os.path.exists(done) and side["proc"].poll() is None:
+        check(time.monotonic() - t0 < SIDE_WAIT_S, "side", f"batch {batch} of the side process did not end",
+              timeout_s=SIDE_WAIT_S)
+        time.sleep(0.05)
+    side["waited_s"].append(round(time.monotonic() - t0, 1))
+    failed = None
+    if os.path.exists(done):
+        with open(done) as f:
+            failed = json.load(f)["failed"]
+    if failed or not os.path.exists(done):
+        finish_side(side)
+
+
+def finish_side(side: dict) -> tuple:
+    """Wait for the side process to exit: its phase lines onto this
+    stdout, then (results, seconds, what the timing line reports). Fails
+    the run where a side phase failed."""
+    try:
+        rc = side["proc"].wait(timeout=SIDE_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    with open(side["stdout"]) as f:
+        for line in f:
+            print(line, end="", flush=True)
+    got = {}
+    if os.path.exists(side["result"]):
+        with open(side["result"]) as f:
+            got = json.load(f)
+    if got.get("failed"):
+        raise CheckFailed(got["failed"])
+    check(rc == 0 and set(got.get("results", {})) == set(SIDE_PHASES), "side", "the side process failed", rc=rc,
+          phases=sorted(got.get("results", {})))
+    return got["results"], got["seconds"], {"waited_s": side["waited_s"], "remat_hook_s": got["remat_hook_s"]}
 
 
 def twin_job(name: str, seed: int) -> dict:
@@ -5693,8 +5932,9 @@ def main() -> int:
     apply_matmul_precision("highest")
     torch.cuda.set_device(0)
 
-    # each phase's wall seconds, for the run's time budget
+    # each phase's wall seconds, and the run's wall time, for the time budget
     seconds = {}
+    t_run = time.monotonic()
 
     def timed(name, fn, *fn_args):
         t0 = time.monotonic()
@@ -5710,38 +5950,49 @@ def main() -> int:
     # the folder, its index and the CPU twin start now, in processes of
     # their own
     data_tmp = tempfile.mkdtemp(prefix="chip_smoke_runner_")
-    early, prewarm_legs = [], []
+    early, prewarm_legs, ops_fleet_handle = [], [], None
     try:
         runner_data = prestart_runner_data(args.seed, data_tmp)
         twin = prestart_cpu_twin(args.seed, data_tmp)
         early += [runner_data["proc"], twin["proc"]]
         kernel = timed("kernel", phase_kernel, args.seed, parent)
         kernel_bwd = timed("kernel_bwd", phase_kernel_bwd, args.seed, parent)
-        # phase http's first server imports and starts the card from here on
+        # phase http's two servers and the side process (SIDE_PHASES)
+        # import and start the card from here on
         http_pre = prestart_http()
-        timed("small", phase_small, args.seed)
+        side = prestart_side(args.seed, data_tmp)
+        early.append(side["proc"])
         sl, slice_pending = timed("slice", phase_slice, args.seed)
         tr, system, trained, train_pending = timed("train", phase_train, args.seed)
         served = timed("serve_trained", phase_serve_trained, args.seed, system, trained)
+        # the side process's first batch runs beside http and tenancy
+        release_side(side, 0)
         http = timed("http", phase_http, args.seed, system, trained, http_pre)
         # the fleet's two first backends import and start the card during tenancy
         fleet_pre = prestart_fleet(system, trained)
         tn = timed("tenancy", phase_tenancy, args.seed, system, trained, http["alone_bound"])
+        wait_side(side, 0)
         fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"], fleet_pre)
         # the CPU twin's halves of the slice's and train's checks are ready by now
         timed("cross", phase_cross, twin, slice_pending, train_pending)
         st = timed("strategies", phase_strategies, args.seed, tr["train_step_ms_median"], twin)
-        timed("precision", phase_precision, args.seed)
+        # phase elastic's three CLI legs import and start the card during
+        # phase runner
+        elastic_legs = prestart_elastic(args.seed, data_tmp)
+        # the side process's second batch runs beside runner
+        release_side(side, 1)
         rn = timed("runner", phase_runner, args.seed, tr["train_step_ms_median"], data_tmp, runner_data)
+        wait_side(side, 1)
         # the CPU autopsy of one of the runner's checkpoints runs from here on
         release_cpu_twin(twin, rn)
-        el = timed("elastic", phase_elastic, args.seed, data_tmp)
+        # phase operations' training fleet runs beside elastic and tensor_parallel
+        ops_fleet_handle = start_ops_fleet(args.seed, data_tmp)
+        el = timed("elastic", phase_elastic, args.seed, data_tmp, elastic_legs)
         # operations' strict serve CLI imports and starts the card during
         # phase tensor_parallel
         ops_pre = prestart_ops_frontend(args.seed, data_tmp)
         tp = timed("tensor_parallel", phase_tensor_parallel, args.seed, data_tmp, el["reference"])
-        ops = timed("operations", phase_operations, args.seed, data_tmp, ops_pre)
-        rs = timed("resnet", phase_resnet, args.seed)
+        ops = timed("operations", phase_operations, args.seed, data_tmp, ops_pre, ops_fleet_handle)
         # phase prewarm's three CLI legs and phase diagnostics' sweep job
         # import and start the card during phase programs
         prewarm_legs = prestart_prewarm(args.seed, data_tmp)
@@ -5752,8 +6003,11 @@ def main() -> int:
         sweep_job.release()
         pw = timed("prewarm", phase_prewarm, args.seed, data_tmp, prewarm_legs)
         dg = timed("diagnostics", phase_diagnostics, args.seed, data_tmp, rn, twin, sweep_job)
+        side_results, side_seconds, side_report = finish_side(side)
     finally:
         GatedCli.stop_all()
+        if ops_fleet_handle is not None:
+            stop_ops_fleet(ops_fleet_handle)
         for leg in prewarm_legs:
             _stop_leg(leg)
         for proc in early:
@@ -5761,10 +6015,11 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(data_tmp, ignore_errors=True)
-    rm = timed("remat", phase_remat, args.seed)
-    br = timed("breadth", phase_breadth, args.seed)
-    total_s = round(sum(seconds.values()), 1)
+    seconds.update(side_seconds)
+    rs, rm, br = (side_results[name] for name in ("resnet", "remat", "breadth"))
+    total_s = round(time.monotonic() - t_run, 1)
     emit({"phase": "timing", "seconds": seconds, "total_s": total_s,
+          "side": {"batches": SIDE_BATCHES, "beside": [["http", "tenancy"], ["runner"]], **side_report},
           "budget_s": {"elastic": ELASTIC_BUDGET_S, "tensor_parallel": TENSOR_PARALLEL_BUDGET_S,
                        "operations": OPERATIONS_BUDGET_S, "programs": PROGRAMS_BUDGET_S,
                        "prewarm": PREWARM_BUDGET_S, "diagnostics": DIAG_BUDGET_S, "run": RUN_BUDGET_S}})

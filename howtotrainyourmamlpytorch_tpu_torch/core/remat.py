@@ -14,126 +14,132 @@ Inside the recompute the step's own second-order graph is built as in a
 step without remat, so the meta-gradient is the same function.
 
 The selective policies keep the outputs of the convolutions and matrix
-products (:data:`DOT_OPS`). A dispatch mode (:class:`_Dots`) records them in
-the forward, and in the recompute the same ops, met in the same order,
-return the recorded tensors instead of computing again (autograd above the
-mode still records each op, with its inputs). A recompute that meets
-another op sequence raises. The mode is entered only at the call sites of
-the convolutions and matrix products (:func:`dot`, which
-``models/layers.py`` calls around each), never around the whole step: so
-it sees the dot op and the views and copy the batching rule of ``vmap``
-makes around it, and no other op of the step. A convolution's output is
-recorded without the mode: it is the base of the view the site returns,
-below the wrappers of ``vmap`` and ``grad``, so only the recompute enters
-the mode at a convolution. The outputs of the support gradient's VJP
+products (:data:`DOT_OPS`). A C++ dispatch hook (``csrc/remat_dots.cpp``, on
+the ``ADInplaceOrView`` key of those four ops alone: below autograd and
+below ``vmap``'s batching rule) records them in the forward, and in the
+recompute the same ops, met in the same order, return the recorded tensors
+instead of computing again (autograd above the hook still records each op,
+with its inputs). A recompute that meets another op sequence raises. The
+hook acts only inside the convolution and matrix-product call sites
+(:func:`dot`, which ``models/layers.py`` calls around each; a ctypes call
+arms and disarms the site), never on the step's other dots. No op of the
+step reaches Python. The outputs of the support gradient's VJP
 (``aten.convolution_backward``), which JAX's ``dots_saveable`` keeps too,
-are recomputed: keeping them cost more memory and was no faster.
+are recomputed: keeping them cost more memory and was no faster. The hook is
+built with g++ at first use (:func:`dot_hook`); a selective policy raises
+where it cannot be built.
 """
 
+import ctypes
 import functools
+import hashlib
+import os
 import threading
-from typing import Callable, List, Optional
+from typing import Callable, Optional
 
 import torch
-from torch._C import _functorch
 from torch.utils import _pytree as pytree
-from torch.utils._python_dispatch import TorchDispatchMode
 
 #: the ops whose outputs the two selective policies keep: the
-#: convolutions and matrix products (XLA's "dots")
+#: convolutions and matrix products (XLA's "dots"), in the order of
+#: ``csrc/remat_dots.cpp``'s op codes
 DOT_OPS = (
     torch.ops.aten.convolution.default,
     torch.ops.aten.mm.default,
     torch.ops.aten.addmm.default,
     torch.ops.aten.bmm.default,
 )
-_DOT_SET = frozenset(DOT_OPS)
-_CONV = torch.ops.aten.convolution.default
 POLICIES = ("none", "full", "dots_saveable", "dots_with_no_batch_dims_saveable")
+
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HOOK_SOURCE = os.path.join(_PACKAGE, "csrc", "remat_dots.cpp")
+HOOK_CFLAGS = ("-O2",)
+_hook_lock = threading.Lock()
+_hook: Optional[Callable[[int], None]] = None
+
+
+def _hook_name() -> str:
+    """The hook's library name, and its build directory's under the
+    package's ``build/`` (listed in ``.gitignore``): it hashes the source,
+    the flags and torch's version, so a library built against another torch
+    is never loaded."""
+    digest = hashlib.sha256(" ".join((torch.__version__, *HOOK_CFLAGS)).encode())
+    with open(HOOK_SOURCE, "rb") as f:
+        digest.update(f.read())
+    return f"remat_dots_{digest.hexdigest()[:16]}"
+
+
+def dot_hook() -> Callable[[int], None]:
+    """The dispatch hook of ``csrc/remat_dots.cpp``, built with g++ at the
+    first call in a process (``torch.utils.cpp_extension``: some seconds;
+    later processes load the built library) and loaded once. Returns the
+    site switch (``remat_dots_site(on)``, through ctypes). Raises
+    ``RuntimeError`` where the hook cannot be built or loaded."""
+    global _hook
+    with _hook_lock:
+        if _hook is None:
+            name = _hook_name()
+            build_dir = os.path.join(_PACKAGE, "build", name)
+            try:
+                from torch.utils import cpp_extension
+
+                os.makedirs(build_dir, exist_ok=True)
+                path = cpp_extension.load(name=name, sources=[HOOK_SOURCE], build_directory=build_dir,
+                                          extra_cflags=list(HOOK_CFLAGS), is_python_module=False, verbose=False)
+                site = ctypes.CDLL(path).remat_dots_site
+            except Exception as exc:  # a missing compiler, a failed build or load: nothing else computes the policy
+                raise RuntimeError(f"remat: the selective policies run through the C++ dispatch hook "
+                                   f"{HOOK_SOURCE}, which could not be built or loaded in {build_dir} "
+                                   f"(g++ and ninja, at first use): {exc}") from exc
+            site.argtypes, site.restype = [ctypes.c_int], None
+            _hook = site
+    return _hook
 
 
 class _Site(threading.local):
-    """The record or replay mode of the step this thread runs, if any."""
+    """The site switch of the record or replay this thread runs, if any."""
 
-    dots: Optional["_Dots"] = None
+    site: Optional[Callable[[int], None]] = None
 
 
 _SITE = _Site()
 
 
-class _Dots(TorchDispatchMode):
-    """Records (``saved`` None) or replays the outputs of :data:`DOT_OPS`
-    met while it is entered; any other op (a view of ``vmap``'s batching
-    rule) runs as it is. ``ops`` counts every op it saw."""
-
-    def __init__(self, saved: Optional[List] = None):
-        super().__init__()
-        self.replaying = saved is not None
-        self.saved = [] if saved is None else saved
-        self.i = 0
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops += 1
-        if not self.replaying:
-            out = func(*args, **(kwargs or {}))
-            if func in _DOT_SET:
-                self.saved.append((func, out))
-            return out
-        if func not in _DOT_SET:
-            return func(*args, **(kwargs or {}))
-        if self.i >= len(self.saved):
-            raise RuntimeError(f"remat: the recompute met more dot ops than the forward ({func})")
-        recorded, out = self.saved[self.i]
-        if recorded is not func:
-            raise RuntimeError(f"remat: the recompute met {func} where the forward met {recorded}")
-        if func is _CONV and tuple(out.shape) != _conv_shape(*args):
-            raise RuntimeError(f"remat: a recorded convolution has shape {tuple(out.shape)}, the recompute's "
-                               f"{_conv_shape(*args)}")
-        self.i += 1
-        return out
-
-
-def _conv_shape(x, w, b, stride, padding, dilation, transposed, output_padding, groups):
-    """``aten.convolution``'s output shape (not transposed)."""
-    spatial = [(n + 2 * p - d * (k - 1) - 1) // s + 1
-               for n, k, s, p, d in zip(x.shape[2:], w.shape[2:], stride, padding, dilation)]
-    return (x.shape[0], w.shape[0], *spatial)
-
-
-def _dispatched(t: torch.Tensor) -> torch.Tensor:
-    """The tensor below the wrappers of ``vmap`` and ``grad``."""
-    while _functorch.is_functorch_wrapped_tensor(t):
-        t = _functorch.get_unwrapped(t)
-    return t
-
-
-def dot(fn: Callable, x, w, b, bias_view=(-1,), conv: bool = False, **kwargs):
-    """A convolution (``conv``) or matrix product ``fn(x, w, b,
-    **kwargs)``, inside the record or replay mode of a selective remat step
-    where this thread runs one (a global lookup otherwise). There the bias
-    is added after ``fn`` (``b.reshape(bias_view)``), outside the mode:
-    ``vmap``'s batching rules add a batched bias in a separate op in any
-    case, so the values are the same, and the mode sees fewer ops."""
-    dots = _SITE.dots
-    if dots is None:
+def dot(fn: Callable, x, w, b, bias_view=(-1,), **kwargs):
+    """A convolution or matrix product ``fn(x, w, b, **kwargs)``, at an
+    armed call site of the dispatch hook where this thread records or
+    replays a selective remat step (a thread-local lookup otherwise). There
+    the bias is added after ``fn`` (``b.reshape(bias_view)``), outside the
+    site: ``vmap``'s batching rules add a batched bias in a separate op in
+    any case, so the values are the same."""
+    site = _SITE.site
+    if site is None:
         return fn(x, w, b, **kwargs)
-    if conv and not dots.replaying:
+    site(1)
+    try:
         out = fn(x, w, None, **kwargs)
-        plain = _dispatched(out)
-        dots.saved.append((_CONV, plain if plain._base is None else plain._base))
-    else:
-        with dots:
-            out = fn(x, w, None, **kwargs)
+    finally:
+        site(0)
     return out if b is None else out + b.reshape(bias_view)
 
 
-def _run_at_sites(dots: _Dots, run, inputs):
-    outer, _SITE.dots = _SITE.dots, dots
+def _run_at_sites(run, inputs, tape=None):
+    """``run(inputs)`` recording this thread's dots at their sites
+    (``tape`` None) or replaying ``tape``. Returns the outputs, the tape
+    (the recorded outputs and their op codes; empty after a replay) and
+    how many entries it recorded or replayed."""
+    site, hook = dot_hook(), torch.ops.remat_dots
+    if tape is None:
+        hook.record()
+    else:
+        hook.replay(*tape)
+    _SITE.site = site
     try:
-        return run(inputs)
+        outs = run(inputs)
     finally:
-        _SITE.dots = outer
+        _SITE.site = None
+        outs_t, kinds, count = hook.finish()
+    return outs, (outs_t, kinds), count
 
 
 class _Recompute(torch.autograd.Function):
@@ -144,12 +150,11 @@ class _Recompute(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, run, dots, *inputs):
-        ctx.run = run
-        ctx.record = _Dots() if dots else None
-        if ctx.record is None:
+        ctx.run, ctx.tape = run, None
+        if not dots:
             outs = run(list(inputs))
         else:
-            outs = _run_at_sites(ctx.record, run, list(inputs))
+            outs, ctx.tape, _ = _run_at_sites(run, list(inputs))
         ctx.save_for_backward(*inputs)
         return tuple(outs)
 
@@ -157,12 +162,11 @@ class _Recompute(torch.autograd.Function):
     def backward(ctx, *cts):
         inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
         with torch.enable_grad():
-            if ctx.record is None:
+            if ctx.tape is None:
                 outs = ctx.run(inputs)
             else:
-                replay = _Dots(ctx.record.saved)
-                outs = _run_at_sites(replay, ctx.run, inputs)
-                if replay.i != len(replay.saved):
+                outs, _, replayed = _run_at_sites(ctx.run, inputs, ctx.tape)
+                if replayed != len(ctx.tape[1]):
                     raise RuntimeError("remat: the recompute met fewer dot ops than the forward")
         pairs = [(o, c) for o, c in zip(outs, cts) if c is not None and o.requires_grad]
         wanted = [t for t in inputs if t.requires_grad]
@@ -193,6 +197,8 @@ def apply_remat_policy(step: Callable, policy: str) -> Callable:
     if policy == "none":
         return step
     dots = policy != "full"
+    if dots:
+        dot_hook()  # built (or refused) here, before the first step
 
     @functools.wraps(step)
     def remat_step(*args):

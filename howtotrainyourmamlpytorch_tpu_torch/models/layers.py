@@ -97,7 +97,7 @@ def _dot(fn, x, w, b, **kwargs):
 
 
 def _conv(x, w, b, stride, padding):
-    return _dot(F.conv2d, x, w, b, bias_view=(-1, 1, 1), conv=True, stride=stride, padding=padding)
+    return _dot(F.conv2d, x, w, b, bias_view=(-1, 1, 1), stride=stride, padding=padding)
 
 
 def _column_parallel(fn, x, blocks, b, dim):

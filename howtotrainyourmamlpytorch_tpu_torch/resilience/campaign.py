@@ -1135,10 +1135,42 @@ def _child_env() -> Dict[str, str]:
     return env
 
 
+def spawn_logged(argv: List[str], log_path: str, **popen_kwargs):
+    """``Popen(argv)`` from the repository root with stdout and stderr
+    appended to ``log_path`` (pipe-fill-proof); the process keeps the
+    path as ``log_path``, so that a wait that finds it dead reports the
+    log's tail (:func:`child_died`)."""
+    with open(log_path, "ab") as log_handle:  # the child holds its own descriptor
+        proc = subprocess.Popen(argv, cwd=_REPO_ROOT, stdout=log_handle, stderr=subprocess.STDOUT,
+                                **popen_kwargs)
+    proc.log_path = log_path
+    return proc
+
+
+#: the lines of a dead child's log that its error carries
+LOG_TAIL_LINES = 40
+
+
+def child_died(proc, what: str) -> RuntimeError:
+    """The error for a child process that exited where it should run:
+    ``what``, its rc and the last :data:`LOG_TAIL_LINES` lines of its log
+    (the children run with ``-X faulthandler``, so a child killed by a
+    signal such as SIGABRT leaves its Python stack there)."""
+    message = f"{what} (rc {proc.returncode})"
+    log_path = getattr(proc, "log_path", None)
+    if log_path:
+        try:
+            with open(log_path, "rb") as f:
+                lines = f.read().decode(errors="replace").splitlines()[-LOG_TAIL_LINES:]
+            message += f"; the end of its log {log_path}:\n" + "\n".join(lines)
+        except OSError as exc:
+            message += f"; its log {log_path} is unreadable: {exc}"
+    return RuntimeError(message)
+
+
 def spawn_serve_backend(run_dir: str, port: int = 0, env_extra=None, device: str = "cuda"):
     """Fork one serving backend over ``run_dir`` on ``device``; returns
-    (proc, port_file). stdout/stderr land in <run_dir>/serve_stdout.log
-    (pipe-fill-proof)."""
+    (proc, port_file). stdout/stderr land in <run_dir>/serve_stdout.log."""
     port_file = os.path.join(run_dir, "serve_port")
     try:
         os.remove(port_file)
@@ -1146,24 +1178,18 @@ def spawn_serve_backend(run_dir: str, port: int = 0, env_extra=None, device: str
         pass
     env = _child_env()
     env.update(env_extra or {})
-    log_handle = open(os.path.join(run_dir, "serve_stdout.log"), "ab")
-    proc = subprocess.Popen(
-        backend_spawn_argv(run_dir, port, device),
-        cwd=_REPO_ROOT,
-        env=env,
-        stdout=log_handle,
-        stderr=subprocess.STDOUT,
-    )
-    log_handle.close()  # the child holds its own descriptor
+    proc = spawn_logged(backend_spawn_argv(run_dir, port, device), os.path.join(run_dir, "serve_stdout.log"),
+                        env=env)
     return proc, port_file
 
 
 def backend_spawn_argv(run_dir: str, port: int, device: str = "cuda") -> List[str]:
     """The respawn command a rolling restart or the supervisor gets for one
     drill backend (the entry :func:`spawn_serve_backend` forks), with its
-    device explicit: every respawn lands where the first spawn did."""
+    device explicit: every respawn lands where the first spawn did. The
+    child runs with ``faulthandler`` on."""
     return [
-        sys.executable, "-c", _CHILD_SERVE, run_dir,
+        sys.executable, "-X", "faulthandler", "-c", _CHILD_SERVE, run_dir,
         os.path.join(run_dir, "serve_port"), str(port), device,
     ]
 
@@ -1172,9 +1198,7 @@ def _wait_port_file(port_file: str, proc, timeout_s: float = 240.0) -> int:
     end = time.monotonic() + timeout_s
     while time.monotonic() < end:
         if proc is not None and proc.poll() is not None:
-            raise RuntimeError(
-                f"backend died (rc {proc.returncode}) before binding"
-            )
+            raise child_died(proc, "backend died before binding")
         if os.path.exists(port_file):
             with open(port_file) as f:
                 text = f.read().strip()
@@ -1216,7 +1240,7 @@ def _wait_http_ok(url: str, timeout_s: float, proc=None) -> None:
     last = None
     while time.monotonic() < end:
         if proc is not None and proc.poll() is not None:
-            raise RuntimeError(f"process died (rc {proc.returncode}) warming up")
+            raise child_died(proc, "process died warming up")
         try:
             code, _, _ = _http_json(url, timeout_s=5.0)
             last = code
@@ -1238,7 +1262,7 @@ def spawn_gateway(backend_urls: List[str], log_dir: str, **knobs):
     except FileNotFoundError:
         pass
     argv = [
-        sys.executable, os.path.join(_SCRIPTS, "gateway.py"),
+        sys.executable, "-X", "faulthandler", os.path.join(_SCRIPTS, "gateway.py"),
         "--backends", ",".join(backend_urls),
         "--port", "0", "--port-file", port_file, "--log-dir", log_dir,
         "--health-interval-s", str(knobs.get("health_interval_s", 0.25)),
@@ -1246,11 +1270,7 @@ def spawn_gateway(backend_urls: List[str], log_dir: str, **knobs):
         "--pass-threshold", str(knobs.get("pass_threshold", 1)),
         "--request-timeout-s", str(knobs.get("request_timeout_s", 120.0)),
     ]
-    log_handle = open(os.path.join(log_dir, "gateway_stdout.log"), "ab")
-    proc = subprocess.Popen(
-        argv, cwd=_REPO_ROOT, stdout=log_handle, stderr=subprocess.STDOUT
-    )
-    log_handle.close()
+    proc = spawn_logged(argv, os.path.join(log_dir, "gateway_stdout.log"))
     port = _wait_port_file(port_file, proc, timeout_s=30.0)
     return proc, f"http://127.0.0.1:{port}"
 
@@ -1852,7 +1872,7 @@ def _spawn_fleet_supervisor(
     except FileNotFoundError:
         pass
     argv = [
-        sys.executable, os.path.join(_SCRIPTS, "fleet_serve.py"),
+        sys.executable, "-X", "faulthandler", os.path.join(_SCRIPTS, "fleet_serve.py"),
         "--state", state_path, "--gateway-url", gw_url,
         "--events", events_path, "--metrics-port", "0",
         "--port-file", port_file,
@@ -1861,12 +1881,7 @@ def _spawn_fleet_supervisor(
         argv += ["--slots", slots_path]
     for knob, val in knobs.items():
         argv += ["--" + knob.replace("_", "-"), str(val)]
-    log_handle = open(os.path.join(root, f"{name}_stdout.log"), "ab")
-    proc = subprocess.Popen(
-        argv, cwd=_REPO_ROOT, env=_child_env(),
-        stdout=log_handle, stderr=subprocess.STDOUT,
-    )
-    log_handle.close()
+    proc = spawn_logged(argv, os.path.join(root, f"{name}_stdout.log"), env=_child_env())
     procs.append(proc)
     port = _wait_port_file(port_file, proc, timeout_s=60.0)
     return proc, f"http://127.0.0.1:{port}"

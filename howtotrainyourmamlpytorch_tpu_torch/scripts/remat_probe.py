@@ -2,8 +2,9 @@
 """What each remat policy costs on the card: one model and batch under the
 policies, eager train steps with the arms in turn (a host that drifts
 moves every arm alike), wall and host CPU ms per step, peak memory, the
-host time the profiler puts in dispatch modes' ``__torch_dispatch__``, and
-a chunk of steps replayed from a CUDA graph per policy.
+host time the profiler puts in dispatch modes' ``__torch_dispatch__`` (none
+under the C++ hook of the selective policies), and a chunk of steps
+replayed from a CUDA graph per policy.
 
 Usage:
     python -m howtotrainyourmamlpytorch_tpu_torch.scripts.remat_probe \\
@@ -14,7 +15,9 @@ Usage:
 Arms: a policy name (``core/remat.py``), ``full+passthrough`` (``full`` with a dispatch mode that records
 nothing entered around the whole inner step: the Python cost of such a
 mode) and, with ``--parent-remat FILE`` (a ``core/remat.py`` of another
-revision, from git history), ``parent`` (that file's ``dots_saveable``).
+revision, from git history), ``parent`` (that file's ``dots_saveable``, with
+its ``dot`` at the call sites of ``models/layers.py``; a convolution's site
+passes ``conv=True``, as the Python dispatch mode of that revision expects).
 Every arm starts from the same state and batch (seeded), under cuDNN's
 deterministic algorithms, so the first losses must agree. ``--chunk 0``
 skips the graphs.
@@ -59,8 +62,9 @@ def _load_remat(path: str):
 def arm_context(arm: str, parent=None):
     """The ``apply_remat_policy`` of ``arm``, for the steps run inside."""
     from howtotrainyourmamlpytorch_tpu_torch.core import maml
+    from howtotrainyourmamlpytorch_tpu_torch.models import layers
 
-    apply = maml.apply_remat_policy
+    apply, dot, conv = maml.apply_remat_policy, layers.dot, layers._conv
     if arm == "full+passthrough":
         def policy(step, name):
             def in_mode(*args):
@@ -71,11 +75,13 @@ def arm_context(arm: str, parent=None):
 
         maml.apply_remat_policy = policy
     elif arm == "parent":
-        maml.apply_remat_policy = parent.apply_remat_policy
+        maml.apply_remat_policy, layers.dot = parent.apply_remat_policy, parent.dot
+        layers._conv = lambda x, w, b, stride, padding: layers._dot(
+            torch.nn.functional.conv2d, x, w, b, bias_view=(-1, 1, 1), conv=True, stride=stride, padding=padding)
     try:
         yield
     finally:
-        maml.apply_remat_policy = apply
+        maml.apply_remat_policy, layers.dot, layers._conv = apply, dot, conv
 
 
 def policy_of(arm: str) -> str:

@@ -9,9 +9,11 @@ Usage::
         [--deadline-s 3600] [--probe-timeout-s 90] [--max-wedged-probes 5] \\
         [--probe-interval-s 30]
 
-Each probe is a separate python child (``import torch``,
-``torch.cuda.is_available()``, one small tensor op on ``cuda:0``,
-synchronised), killed on timeout. A probe that finds no card counts as
+Each probe is a separate python child, killed on timeout: through the
+CUDA driver API (``libcuda`` by ``ctypes``, no torch import, so a probe of
+a card that is up takes well under a second where importing torch takes
+seconds) it counts the cards, makes a context on card 0, fills 256 floats
+with 2.0 there, synchronises and reads them back (their sum must be 512). A probe that finds no card counts as
 down: the gate never falls back to the CPU. Exit codes:
 
 - **0**: the card is up;
@@ -53,13 +55,34 @@ def _load_exit_codes():
 exit_codes = _load_exit_codes()
 
 #: the probe: a card must be visible AND run a synchronised op
-PROBE_CARD = (
-    "import torch; "
-    "assert torch.cuda.is_available(), 'no CUDA card visible'; "
-    "x = torch.ones(256, device='cuda:0'); s = float((x * 2).sum()); torch.cuda.synchronize(0); "
-    "assert s == 512.0, s; "
-    "print('CARD_OK', torch.cuda.device_count(), torch.cuda.get_device_name(0))"
-)
+PROBE_CARD = """
+import ctypes, struct
+try:
+    cu = ctypes.CDLL("libcuda.so.1")
+except OSError as exc:
+    raise SystemExit(f"no CUDA card visible: {exc}")
+def ok(rc, what):
+    assert rc == 0, f"{what}: CUDA driver error {rc}"
+n, dev, ctx, ptr = ctypes.c_int(), ctypes.c_int(), ctypes.c_void_p(), ctypes.c_uint64()
+ok(cu.cuInit(0), "cuInit")
+ok(cu.cuDeviceGetCount(ctypes.byref(n)), "cuDeviceGetCount")
+assert n.value > 0, "no CUDA card visible"
+ok(cu.cuDeviceGet(ctypes.byref(dev), 0), "cuDeviceGet")
+name = ctypes.create_string_buffer(256)
+ok(cu.cuDeviceGetName(name, 256, dev), "cuDeviceGetName")
+ok(cu.cuCtxCreate_v2(ctypes.byref(ctx), 0, dev), "cuCtxCreate")
+ok(cu.cuMemAlloc_v2(ctypes.byref(ptr), ctypes.c_size_t(1024)), "cuMemAlloc")
+two = struct.unpack("<I", struct.pack("<f", 2.0))[0]
+ok(cu.cuMemsetD32_v2(ptr, ctypes.c_uint(two), ctypes.c_size_t(256)), "cuMemsetD32")
+ok(cu.cuCtxSynchronize(), "cuCtxSynchronize")
+host = (ctypes.c_float * 256)()
+ok(cu.cuMemcpyDtoH_v2(host, ptr, ctypes.c_size_t(1024)), "cuMemcpyDtoH")
+s = sum(host)
+assert s == 512.0, s
+cu.cuMemFree_v2(ptr)
+cu.cuCtxDestroy_v2(ctx)
+print("CARD_OK", n.value, name.value.decode())
+"""
 
 RC_UP = exit_codes.OK
 RC_DEADLINE = exit_codes.TPU_WAIT_DEADLINE

@@ -501,9 +501,9 @@ def test_entry_points_need_the_card_unless_the_cpu_is_asked_for(entry, port_run,
 
 def test_remat_probe_arms_agree_and_count_the_dispatch_modes(tmp_path):
     """The probe's arms from one state and batch give one first loss; the
-    profiler sees no ``__torch_dispatch__`` under ``full``, one per op of
-    the dot call sites under ``dots_saveable`` and one per op of the whole
-    step under the pass-through arm (over five times as many)."""
+    profiler sees no ``__torch_dispatch__`` under ``none``, ``full`` and
+    ``dots_saveable`` (whose record and replay are the C++ hook's), and one
+    per op of the whole step under the pass-through arm."""
     from howtotrainyourmamlpytorch_tpu_torch.scripts import remat_probe
 
     path = str(tmp_path / "report.json")
@@ -519,6 +519,5 @@ def test_remat_probe_arms_agree_and_count_the_dispatch_modes(tmp_path):
         arms = json.load(f)["arms"]
     assert len({a["first_loss"] for a in arms.values()}) == 1
     calls = {name: a["torch_dispatch"]["calls"] for name, a in arms.items()}
-    assert calls["none"] == calls["full"] == 0
-    assert 0 < calls["dots_saveable"] < calls["full+passthrough"] / 5
+    assert calls["none"] == calls["full"] == calls["dots_saveable"] == 0 < calls["full+passthrough"]
     assert all(len(a["wall_ms"]) == 1 and a["wall_ms_median"] > 0 for a in arms.values())

@@ -23,6 +23,7 @@ guard), in the port's config and checkpoint format.
 """
 
 import os
+import sys
 
 import jax
 import numpy as np
@@ -35,8 +36,12 @@ from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint as ckpt
 from howtotrainyourmamlpytorch_tpu_torch.resilience.campaign import (
     Episode,
     _run_gateway_episode,
+    _wait_http_ok,
+    _wait_port_file,
+    backend_spawn_argv,
     make_serving_run_dir,
     run_campaign,
+    spawn_logged,
     tiny_serving_system,
 )
 from howtotrainyourmamlpytorch_tpu_torch.utils.interop import state_from_jax
@@ -90,6 +95,28 @@ def test_cross_process_sigterm_drain_spill_rehydrate(tmp_path, fleet_template):
 
 def test_cross_process_rolling_restart_under_load(tmp_path, fleet_template):
     run_drill("gateway-rolling-restart", tmp_path, fleet_template)
+
+
+@pytest.mark.parametrize("wait", ["port_file", "http_ok"])
+def test_a_child_that_aborts_raises_with_its_log_tail_and_stack(tmp_path, wait):
+    """A drill child that dies before it binds, or while it warms up, is
+    reported with its rc and the end of its log: what it printed and, as
+    the drills' children run with ``-X faulthandler`` (the serving backend's
+    spawn command among them), the Python stack of the frame that
+    aborted."""
+    assert backend_spawn_argv(str(tmp_path), 0, "cpu")[:3] == [sys.executable, "-X", "faulthandler"]
+    code = "import os\ndef warm():\n    print('warming the engine', flush=True)\n    os.abort()\nwarm()\n"
+    proc = spawn_logged([sys.executable, "-X", "faulthandler", "-c", code], str(tmp_path / "child.log"))
+    with pytest.raises(RuntimeError) as err:
+        if wait == "port_file":
+            _wait_port_file(str(tmp_path / "port"), proc, timeout_s=60.0)
+        else:
+            _wait_http_ok("http://127.0.0.1:9/healthz", timeout_s=60.0, proc=proc)
+    message = str(err.value)
+    what = "backend died before binding" if wait == "port_file" else "process died warming up"
+    assert message.startswith(f"{what} (rc -6); the end of its log {tmp_path / 'child.log'}:")
+    assert "warming the engine" in message and "Fatal Python error: Aborted" in message
+    assert 'line 4 in warm' in message
 
 
 def test_training_episodes_and_the_campaign_raise_naming_a9(tmp_path):
