@@ -56,6 +56,25 @@ Run from the repository root. Phases, one JSON line each:
    ``torch.profiler`` breakdown of one step.
 7. ``serve_trained``: the trained state saved with ``save_checkpoint``,
    loaded by ``AdaptationEngine.from_run_dir`` and served one flush.
+7b. ``serve_programs``: the serving programs (``core/programs.py``
+   ``ServingCall``: each flush ``(kind, strategy, bucket, batch)`` one
+   CUDA graph) at the slice's config (budget 120 s). (a) Under the
+   deterministic algorithms, for maml++, fomaml, anil and protonet an
+   adapt flush of 8 requests at support 100 and its predictions on 8 x 40
+   queries, and a refine flush but for protonet, each replayed (the
+   program's second flush) against the system's eager call on the same
+   inputs: bit-equal; each adapt and refine replay adds its graph's B1
+   tally (5) to the replayed launches, a predict replay none; two tenants
+   alternating through one program (a pager that holds one master, so
+   each turn re-pages) against the eager calls on their own masters:
+   bit-equal. (b) The strict engine at the config's grid with refine (48
+   programs) prewarmed: every program captured, each one's capture
+   seconds, the pool's bytes; then 50 requests at planned keys (flushes
+   of 1 to 8 over every bucket, half of them refined): no ledger entry
+   outside ``phase="prewarm"``, no program built, B1 5 times per adapt
+   and refine flush, all replayed. (c) Adapt, refine and predict flushes
+   at the VGG cell (8 requests at support 100), eager against replayed,
+   20 of each in turns (the default algorithms): the medians.
 8. ``http``: the trained state served over HTTP by ``python -m
    howtotrainyourmamlpytorch_tpu_torch.serve RUN_DIR`` in a subprocess on
    the card, with ``serving.refine_enabled=true``: 8 client threads of 4
@@ -231,7 +250,8 @@ Run from the repository root. Phases, one JSON line each:
    ``torch.use_deterministic_algorithms`` and ``cudnn.deterministic``:
    bit-equality, the largest difference and the adapt flush ms of each;
    then 6 pairs of adapt flushes at the VGG serving cell (8 requests at
-   support 100) in one engine, the settings toggled between flushes: both
+   support 100), the settings toggled between flushes, an engine per
+   setting (a replay runs what its capture ran under): both
    medians and ranges, the cost of the deterministic algorithms. It
    reports the phase's seconds (under 240 s, checked after ``timing``).
 16. ``resnet`` (in the side process): the slice's full-width model,
@@ -1546,6 +1566,263 @@ def phase_serve_trained(seed: int, system, trained):
     return launches
 
 
+SERVE_PROGRAM_REPS = 20  # timed flushes per arm (eager, replayed), in turns, after one untimed each
+SERVE_PROGRAM_MIXED = 50  # requests at planned keys after the prewarm
+SERVE_PROGRAMS_BUDGET_S = 120.0
+
+
+def _tree_equal(a, b) -> bool:
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _rows(stacked, n: int):
+    """A stacked tree's first ``n`` task rows, one tree each."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
+
+    return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
+
+
+def serve_programs_replay_vs_eager(cfg, system, state, req) -> dict:
+    """Under the deterministic algorithms: per strategy, an adapt flush (8
+    requests at support 100), its predictions (8 x 40 queries) and, but
+    for protonet, a refine flush, each replayed from its program's graph
+    (the program's second flush: its first is the warmup) against the same
+    call made eagerly on the system from the same inputs: bit-equal. Each
+    adapt and refine replay adds its graph's B1 tally (adapt steps) to the
+    replayed launches, a predict replay none. Then two tenants alternate
+    through one program (each evicted before its next turn, so re-paged)
+    against the eager calls on their own masters."""
+    import dataclasses
+
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+    from howtotrainyourmamlpytorch_tpu_torch.serving.registry import synthetic_registry
+    from howtotrainyourmamlpytorch_tpu_torch.serving.tenancy import master_bytes
+
+    serving = dataclasses.replace(cfg.serving, strategies=list(STRATEGIES), refine_enabled=True)
+    engine = AdaptationEngine(system, state, serving_cfg=serving)
+    steps = engine.num_steps
+    xs, ys, ws = engine._support_flush(req["a"])[:3]
+    q = np.stack(req["qa"])
+    qw = np.ones(q.shape[:2], np.float32)
+    n = len(req["a"])
+    rows, tallies = {}, {}
+
+    def replayed(name, call):
+        call()  # the program's first flush: its build
+        before = fu.replayed_counts["fused_sgd"]
+        out = call()
+        tallies[name] = fu.replayed_counts["fused_sgd"] - before
+        return out
+
+    for strategy in STRATEGIES:
+        if strategy == "protonet":
+            eager_fw = system.protonet_adapt(state, xs, ys, support_weight=ws)
+            eager_probs = torch.softmax(system.protonet_predict_logits(state.params, state.bn_state, eager_fw, q, qw),
+                                        -1)
+        else:
+            eager_fw = system.adapt_fast_weights(state, xs, ys, num_steps=steps, support_weight=ws, strategy=strategy)
+            eager_probs = torch.softmax(system.predict_logits(eager_fw, state.bn_state, q, qw), -1)
+        fws = replayed(strategy, lambda: engine.adapt_batch(req["a"], strategy=strategy))
+        adapt_equal = all(_tree_equal(g, w) for g, w in zip(fws, _rows(eager_fw, n)))
+        probs = replayed(f"{strategy}/predict",
+                         lambda: engine.predict_batch(list(zip(_rows(eager_fw, n), req["qa"])), strategy=strategy))
+        predict_equal = all(np.array_equal(p, w) for p, w in zip(probs, eager_probs.cpu().numpy()))
+        rows[strategy] = {"adapt_bit_equal": adapt_equal, "predict_bit_equal": predict_equal}
+        if strategy != "protonet":
+            eager_ref = system.refine_fast_weights(state, eager_fw, xs, ys, num_steps=steps, support_weight=ws,
+                                                   strategy=strategy)
+            refined = replayed(f"{strategy}/refine", lambda: engine.refine_batch([(fw, x, y) for fw, (x, y) in
+                                                            zip(_rows(eager_fw, n), req["a"])], strategy=strategy))
+            rows[strategy]["refine_bit_equal"] = all(_tree_equal(g, w) for g, w in zip(refined, _rows(eager_ref, n)))
+    check(all(all(v for v in row.values()) for row in rows.values()), "serve_programs",
+          "a replay differs from the eager call under the deterministic algorithms", rows=rows)
+    want = {name: 0 if "predict" in name or name == "protonet" else steps for name in tallies}
+    check(tallies == want, "serve_programs", "a replay's B1 tally", tallies=tallies, want=want)
+
+    # two tenants through one program: a pager that holds one master
+    tenant_ids = list(TENANT_IDS[:2])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_programs_") as root:
+        registry = synthetic_registry(tenant_ids, state, root, seed=1, feature_shape=system.model.feature_shape)
+        tenants = AdaptationEngine(system, state, registry=registry)
+        tenants.pager.budget_bytes = master_bytes(state)
+        x, y = req["a"][0]
+        want_probs = {}
+        for tenant in tenant_ids:
+            host, _ = registry.host_state(tenant)
+            own = host._replace(params=_to_card(host.params), bn_state=_to_card(host.bn_state),
+                                inner_hparams=_to_card(host.inner_hparams), opt_state=None)
+            one_x, one_y, one_w = engine._support_flush([(x, y)])[:3]
+            adapted = system.adapt_fast_weights(own, one_x, one_y, num_steps=steps, support_weight=one_w)
+            q_one = req["qa"][0][None]
+            logits = system.predict_logits(adapted, own.bn_state, q_one, np.ones(q_one.shape[:2], np.float32))
+            want_probs[tenant] = torch.softmax(logits, -1)[0].cpu().numpy()
+        turns = []
+        for turn in range(4):
+            tenant = tenant_ids[turn % 2]
+            got = tenants.predict(tenants.adapt(x, y, tenant=tenant), req["qa"][0], tenant=tenant)
+            turns.append({"tenant": tenant, "bit_equal": bool(np.array_equal(got, want_probs[tenant])),
+                          "max_abs": float(np.abs(got - want_probs[tenant]).max())})
+        counts = tenants.compile_counts()
+        stats = tenants.pager.stats()
+    check(all(t["bit_equal"] for t in turns) and (counts["adapt_programs"], counts["predict_programs"]) == (1, 1)
+          and stats["evictions"] >= 3, "serve_programs", "two tenants through one program",
+          turns=turns, counts=counts, pager=stats)
+    return {"strategies": rows, "replay_b1_tally": tallies, "tenants": {"turns": turns, "pager": stats,
+                                                                        "adapt_programs": counts["adapt_programs"]}}
+
+
+def _to_card(tree):
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
+
+    return tree_map(lambda t: t.to("cuda"), tree)
+
+
+def serve_programs_timing(cfg, system, state, req) -> dict:
+    """At the VGG default cell (8 requests at support 100, 8 x 40 queries,
+    5 steps): each flush eager (the system's call from the padded host
+    arrays, then the split into requests or the copy to the host) against
+    the engine's replay, in turns after one untimed each, SERVE_PROGRAM_REPS
+    each; host clock to a card synchronize. The default algorithms."""
+    import dataclasses
+
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+
+    engine = AdaptationEngine(system, state, serving_cfg=dataclasses.replace(cfg.serving, refine_enabled=True))
+    steps, n = engine.num_steps, len(req["a"])
+    fws = engine.adapt_batch(req["a"])
+    items = [(fw, x, y) for fw, (x, y) in zip(fws, req["a"])]
+
+    def eager_adapt():
+        xs, ys, ws, _, _ = engine._support_flush(req["a"])
+        return engine._split(system.adapt_fast_weights(state, xs, ys, num_steps=steps, support_weight=ws), n)
+
+    def eager_refine():
+        xs, ys, ws, _, _ = engine._support_flush(req["a"])
+        return engine._split(system.refine_fast_weights(state, _stack(fws), xs, ys, num_steps=steps,
+                                                        support_weight=ws), n)
+
+    def eager_predict():
+        q = np.stack(req["qa"])
+        logits = system.predict_logits(_stack(fws), state.bn_state, q, np.ones(q.shape[:2], np.float32))
+        return torch.softmax(logits, -1).cpu().numpy()
+
+    arms = {
+        "adapt": (eager_adapt, lambda: engine.adapt_batch(req["a"])),
+        "refine": (eager_refine, lambda: engine.refine_batch(items)),
+        "predict": (eager_predict, lambda: engine.predict_batch(list(zip(fws, req["qa"])))),
+    }
+    out = {}
+    for kind, (eager, replay) in arms.items():
+        ms = {"eager": [], "replayed": []}
+        for turn in range(SERVE_PROGRAM_REPS + 1):
+            for arm, fn in (("eager", eager), ("replayed", replay)) if turn % 2 else (("replayed", replay),
+                                                                                     ("eager", eager)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if turn:
+                    ms[arm].append((time.perf_counter() - t0) * 1e3)
+        medians = {arm: statistics.median(v) for arm, v in ms.items()}
+        out[kind] = {"ms": ms, "median_ms": medians, "eager_over_replayed": medians["eager"] / medians["replayed"]}
+    out["cell"] = {"requests": n, "support": 100, "queries": 40, "steps": steps, "reps": SERVE_PROGRAM_REPS}
+    return out
+
+
+def _stack(trees):
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
+
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def serve_programs_prewarmed(cfg, system, state, seed: int) -> dict:
+    """The strict engine at the config's serving grid with refine, prewarmed
+    (every program captured), then SERVE_PROGRAM_MIXED requests at planned
+    keys, flushes of 1 to 8 requests over every support and query bucket
+    and kind: no program built, no ledger entry outside the prewarm, no
+    guard violation, and the B1 launches the flushes imply."""
+    import dataclasses
+
+    from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
+    from howtotrainyourmamlpytorch_tpu_torch.observability.compile_ledger import CompileLedger
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+
+    n_way, img = cfg.num_classes_per_set, cfg.image_shape
+    engine = AdaptationEngine(system, state, serving_cfg=dataclasses.replace(cfg.serving, refine_enabled=True),
+                              strict=True)
+    ledger, entries = CompileLedger(), []
+    ledger.on_entry = entries.append
+    engine.compile_ledger = ledger
+    summary = engine.prewarm()
+    check(summary["errors"] == 0 and all(row.get("graph") for row in summary["by_program"].values()),
+          "serve_programs", "the prewarm did not capture every program", summary=summary)
+    built = dict(engine.compile_counts())
+    n_prewarm = len(entries)
+    rng = np.random.RandomState(seed)
+    fu.reset_launch_counts()  # the prewarmed serving path starts here
+    served, flushes, adapt_flushes = 0, [], 0
+    while served < SERVE_PROGRAM_MIXED:
+        k = int(min(rng.randint(1, 9), SERVE_PROGRAM_MIXED - served))
+        bucket = cfg.serving.support_buckets[rng.randint(len(cfg.serving.support_buckets))]
+        query = cfg.serving.query_buckets[rng.randint(len(cfg.serving.query_buckets))]
+        batch = learnable_synthetic_batch(k, n_way, bucket // n_way, max(1, query // n_way), img,
+                                          seed=seed + 500 + served)
+        supports = [(batch["x_support"][i], batch["y_support"][i]) for i in range(k)]
+        queries = [batch["x_target"][i].reshape((-1,) + tuple(img))[:query] for i in range(k)]
+        fws = engine.adapt_batch(supports)
+        probs = engine.predict_batch(list(zip(fws, queries)))
+        _check_probs("serve_programs", f"mixed {bucket}/{k}", probs, [q.shape[0] for q in queries], n_way)
+        flushes.append((bucket, query, k))
+        adapt_flushes += 1
+        if rng.rand() < 0.5:
+            engine.refine_batch([(fw, x, y) for fw, (x, y) in zip(fws, supports)])
+            adapt_flushes += 1
+        served += k
+    torch.cuda.synchronize()
+    launches = fu.launch_counts["fused_sgd"]  # and ends here
+    after = engine.compile_counts()
+    outside = entries[n_prewarm:]
+    guard = after["recompile_guard"]
+    check(outside == [] and all(e.get("phase") == "prewarm" for e in entries)
+          and all(after[k] == built[k] for k in ("adapt_programs", "predict_programs", "refine_programs"))
+          and guard["violations"] == [], "serve_programs", "a planned key built a program after the prewarm",
+          outside=outside[:3], built=built, after={k: after[k] for k in built if k.endswith("_programs")})
+    want = engine.num_steps * adapt_flushes
+    check(launches == want and fu.replayed_counts["fused_sgd"] == launches, "serve_programs",
+          "B1 launches != 5 x (adapt + refine flushes), all replayed", launches=launches, want=want,
+          replayed=fu.replayed_counts["fused_sgd"])
+    by_program = {name: {"seconds": row["seconds"], "capture_s": row["total_s"]}
+                  for name, row in summary["by_program"].items()}
+    capture = sorted(row["total_s"] for row in summary["by_program"].values())
+    return {"programs": summary["programs"], "prewarm_s": summary["seconds"], "pool_bytes": summary["pool_bytes"],
+            "static_bytes": summary["static_bytes"], "capture_s": {"min": capture[0], "median": statistics.median(capture),
+                                                                "max": capture[-1], "sum": sum(capture)},
+            "by_program": by_program, "requests": served, "flushes": len(flushes), "adapt_flushes": adapt_flushes,
+            "launches": launches, "counts": {k: after[k] for k in built if k.endswith("_programs")}}
+
+
+def phase_serve_programs(seed: int):
+    """The serving programs on the card at the VGG default cell: replays
+    against eager calls under the deterministic algorithms (and two
+    tenants through one program), the prewarmed grid under mixed traffic,
+    eager against replayed flush times."""
+    cfg, system, state = full_width_system(seed)
+    req = slice_requests(cfg, seed)
+    with deterministic_algorithms():
+        exact = serve_programs_replay_vs_eager(cfg, system, state, req)
+    prewarmed = serve_programs_prewarmed(cfg, system, state, seed)
+    timing = serve_programs_timing(cfg, system, state, req)
+    out = {"phase": "serve_programs", "ok": True, "config": "configs/default.yaml + use_pallas_inner_update=true",
+           "exact": exact, "prewarmed": prewarmed, "timing": timing}
+    emit(out)
+    return out
+
+
 def _http(base: str, path: str, body=None, headers: bool = False):
     """One HTTP call -> (status, decoded JSON body, wall ms), and the
     response headers with ``headers``. ``body`` is the request's bytes
@@ -2105,7 +2382,10 @@ def tenancy_in_process(system, trained, registry, supports, queries, control_dir
     evicted and adapted cold, then adapted again resident (host clock
     around work that ends in a synchronize; the page-in's own time from
     the pager), the first eviction's drop in ``memory_allocated``; an
-    eviction through the watermark; ``clone_for_device`` on ``cuda:0``."""
+    eviction through the watermark; ``clone_for_device`` on ``cuda:0``.
+    cuDNN's deterministic algorithms are on from the engine's first flush:
+    a replay runs the algorithms its program was captured under, and the
+    control and the clone are compared with the engine's replays."""
     from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update as fu
     from howtotrainyourmamlpytorch_tpu_torch.serving import ServingFrontend
     from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
@@ -2115,6 +2395,7 @@ def tenancy_in_process(system, trained, registry, supports, queries, control_dir
     x, y = supports[0]
     q = queries[0]
     adapts = 0
+    torch.backends.cudnn.deterministic = True
     fu.reset_launch_counts()
     try:
         cold, warm, drops = [], [], []
@@ -2149,21 +2430,17 @@ def tenancy_in_process(system, trained, registry, supports, queries, control_dir
               and memory["available_devices"] == 1 and memory["headroom_frac_min"] < 1.0,
               "tenancy", "the watermark eviction", resilience=metrics["resilience"],
               pager=metrics["tenants"]["pager"], memory=memory)
-        # with cuDNN deterministic: a tenant against its control, and a
-        # clone on the engine's own card against the engine
-        torch.backends.cudnn.deterministic = True
-        try:
-            ctrl = AdaptationEngine.from_run_dir(control_dir, "latest", cfg=system.cfg, system=system)
-            paged = engine.predict(engine.adapt(x, y, tenant=TENANT_IDS[3]), q, tenant=TENANT_IDS[3])
-            control_dev = float(abs(paged - ctrl.predict(ctrl.adapt(x, y), q)).max())
-            clone = engine.clone_for_device(torch.device("cuda:0"), 1)
-            mine = engine.predict(engine.adapt(x, y), q)
-            theirs = clone.predict(clone.adapt(x, y), q)
-            tmine = engine.predict(engine.adapt(x, y, tenant=TENANT_IDS[2]), q, tenant=TENANT_IDS[2])
-            ttheirs = clone.predict(clone.adapt(x, y, tenant=TENANT_IDS[2]), q, tenant=TENANT_IDS[2])
-            adapts += 6
-        finally:
-            torch.backends.cudnn.deterministic = False
+        # a tenant against its control, and a clone on the engine's own card
+        # against the engine
+        ctrl = AdaptationEngine.from_run_dir(control_dir, "latest", cfg=system.cfg, system=system)
+        paged = engine.predict(engine.adapt(x, y, tenant=TENANT_IDS[3]), q, tenant=TENANT_IDS[3])
+        control_dev = float(abs(paged - ctrl.predict(ctrl.adapt(x, y), q)).max())
+        clone = engine.clone_for_device(torch.device("cuda:0"), 1)
+        mine = engine.predict(engine.adapt(x, y), q)
+        theirs = clone.predict(clone.adapt(x, y), q)
+        tmine = engine.predict(engine.adapt(x, y, tenant=TENANT_IDS[2]), q, tenant=TENANT_IDS[2])
+        ttheirs = clone.predict(clone.adapt(x, y, tenant=TENANT_IDS[2]), q, tenant=TENANT_IDS[2])
+        adapts += 6
         check(control_dev <= ALONE_TOLERANCE["maml++"], "tenancy",
               "a tenant's answer differs from its control under deterministic cuDNN", max_abs=control_dev)
         clone_dev = max(float(abs(mine - theirs).max()), float(abs(tmine - ttheirs).max()))
@@ -2174,6 +2451,7 @@ def tenancy_in_process(system, trained, registry, supports, queries, control_dir
         check(launches == system.cfg.number_of_evaluation_steps_per_iter * adapts, "tenancy",
               "in-process B1 launches != 5 x adapts", launches=launches, adapts=adapts)
     finally:
+        torch.backends.cudnn.deterministic = False
         frontend.close()
     p50, p99 = np.percentile(np.asarray(samples, np.float64), [50, 99])
     return {
@@ -3951,9 +4229,10 @@ def ops_determinism(seed: int) -> dict:
     ``cudnn.deterministic``: bit-equality of the two engines'
     probabilities, their largest difference, and each engine's adapt flush
     ms (after one untimed flush). Then the cost: DETERMINISM_PAIRS pairs of
-    adapt flushes at the VGG serving cell (8 requests at support 100) in
-    one engine, the settings toggled between flushes, after one untimed
-    flush of each: both medians, their ranges and the ratio."""
+    adapt flushes at the VGG serving cell (8 requests at support 100), the
+    settings toggled between flushes, each setting in an engine of its own
+    (a flush replays the graph captured under its setting), after one
+    untimed flush of each: both medians, their ranges and the ratio."""
     import warnings
 
     from howtotrainyourmamlpytorch_tpu_torch.data.synthetic import learnable_synthetic_batch
@@ -3988,14 +4267,16 @@ def ops_determinism(seed: int) -> dict:
     flush = learnable_synthetic_batch(TASKS, cfg.num_classes_per_set, cfg.num_samples_per_class,
                                       cfg.num_target_samples, cfg.image_shape, seed=seed + 4)
     requests = [(flush["x_support"][i], flush["y_support"][i]) for i in range(TASKS)]
-    engine = AdaptationEngine(system, state)
+    # an engine per setting: a flush replays the graph its program captured,
+    # with the algorithms the capture ran under
+    engines = {name: AdaptationEngine(system, state) for name in ("default", "deterministic")}
     ms = {"default": [], "deterministic": []}
     for turn in range(DETERMINISM_PAIRS + 1):
         for name in ("default", "deterministic"):
             with deterministic_algorithms(name == "deterministic"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                engine.adapt_batch(requests)
+                engines[name].adapt_batch(requests)
                 torch.cuda.synchronize()
                 if turn:  # the first turn is each setting's untimed flush
                     ms[name].append((time.perf_counter() - t0) * 1e3)
@@ -5965,6 +6246,7 @@ def main() -> int:
         sl, slice_pending = timed("slice", phase_slice, args.seed)
         tr, system, trained, train_pending = timed("train", phase_train, args.seed)
         served = timed("serve_trained", phase_serve_trained, args.seed, system, trained)
+        sp = timed("serve_programs", phase_serve_programs, args.seed)
         # the side process's first batch runs beside http and tenancy
         release_side(side, 0)
         http = timed("http", phase_http, args.seed, system, trained, http_pre)
@@ -6020,16 +6302,20 @@ def main() -> int:
     total_s = round(time.monotonic() - t_run, 1)
     emit({"phase": "timing", "seconds": seconds, "total_s": total_s,
           "side": {"batches": SIDE_BATCHES, "beside": [["http", "tenancy"], ["runner"]], **side_report},
-          "budget_s": {"elastic": ELASTIC_BUDGET_S, "tensor_parallel": TENSOR_PARALLEL_BUDGET_S,
+          "budget_s": {"serve_programs": SERVE_PROGRAMS_BUDGET_S, "elastic": ELASTIC_BUDGET_S,
+                       "tensor_parallel": TENSOR_PARALLEL_BUDGET_S,
                        "operations": OPERATIONS_BUDGET_S, "programs": PROGRAMS_BUDGET_S,
                        "prewarm": PREWARM_BUDGET_S, "diagnostics": DIAG_BUDGET_S, "run": RUN_BUDGET_S}})
-    check(seconds["elastic"] < ELASTIC_BUDGET_S and seconds["tensor_parallel"] < TENSOR_PARALLEL_BUDGET_S
+    check(seconds["serve_programs"] < SERVE_PROGRAMS_BUDGET_S
+          and seconds["elastic"] < ELASTIC_BUDGET_S and seconds["tensor_parallel"] < TENSOR_PARALLEL_BUDGET_S
           and seconds["operations"] < OPERATIONS_BUDGET_S
           and seconds["programs"] < PROGRAMS_BUDGET_S and seconds["prewarm"] < PREWARM_BUDGET_S
           and seconds["diagnostics"] < DIAG_BUDGET_S and total_s < RUN_BUDGET_S, "timing",
-          "phase elastic, tensor_parallel, operations, programs, prewarm or diagnostics, or the run over its budget",
+          "phase serve_programs, elastic, tensor_parallel, operations, programs, prewarm or diagnostics, "
+          "or the run over its budget",
           seconds=seconds, total_s=total_s)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,
+                 "serve_programs": sp["prewarmed"]["launches"],
                  "http_serving": http["launches"], "tenancy": tn["launches"], "fleet": fl["launches"],
                  "anil_train": st["launches_with_eval"]["fused_sgd"],
                  "anil_remat": st["remat_full"]["launches"]["fused_sgd"], "strategies_serving": st["launches"],

@@ -247,24 +247,33 @@ def prewarm_serving(
     image_shape: Optional[Tuple[int, int, int]] = None,
     on_program: Optional[Callable[[str], None]] = None,
 ) -> Dict[str, Any]:
-    """Dispatch the full serving grid once before the first request: the
-    exact ``serving_planned_programs`` set the strict guard pins, (adapt |
+    """Build the full serving grid before the first request: the exact
+    ``serving_planned_programs`` set the strict guard pins, (adapt |
     refine | predict) x shape bucket x task-batch bucket, each on zero
-    inputs of its planned shapes through the engine's own flush functions
-    (``AdaptationEngine._prewarm_jobs``). Nothing is kept: no result, no
-    cache or session entry, no change to the engine's state; the fault
-    seams do not fire and no dispatch span is recorded. Then the guard is
+    inputs of its planned shapes through the engine's own program tables
+    (``AdaptationEngine._prewarm_jobs``). On the card each program is
+    captured as a CUDA graph (its warmup runs once); on the CPU each runs
+    once. Nothing is kept: no result, no cache or session entry, no change
+    to the engine's state; the fault seams do not fire and no dispatch span
+    is recorded. Attaches a collect-only compile ledger where the engine
+    has none, as JAX's does: each program is an entry with
+    ``phase="prewarm"``, priced by the flop counter. Then the guard is
     sealed. ``image_shape`` overrides the config's dataset shape for
-    engines serving hand-built models. Returns the JAX summary keys, each
-    program's dispatch seconds in ``by_program``; the cache counters stay
-    0. ``max_workers`` and ``compile_timeout_s`` are ignored (module
-    docstring)."""
+    engines serving hand-built models. Returns the JAX summary keys (each
+    program's wall seconds and the ledger's ``total_s`` in
+    ``by_program``; the cache counters stay 0) and the engine's program
+    memory (``pool_bytes``, ``static_bytes``). ``max_workers`` and
+    ``compile_timeout_s`` are ignored (module docstring)."""
+    from ..observability.compile_ledger import CompileLedger
+
     del max_workers, compile_timeout_s
-    jobs = [(name, lambda job=job: engine._warm_one(job)) for name, job in engine._prewarm_jobs(image_shape)]
-    summary = _run_jobs(jobs, None, engine.recompile_guard, torch.device("cpu"), on_program)
+    if engine.compile_ledger is None:
+        engine.compile_ledger = CompileLedger()
+    summary = _run_jobs(engine._prewarm_jobs(image_shape), engine.compile_ledger, engine.recompile_guard,
+                        torch.device("cpu"), on_program)
     for row in summary["by_program"].values():
-        row["total_s"] = row.pop("seconds")
         del row["signature"]
+    summary.update(engine.program_memory())
     return summary
 
 
@@ -284,6 +293,7 @@ def prewarm_pool(pool, **kwargs) -> Dict[str, Any]:
         "store_hits": sum(s.get("store_hits", 0) for s in summaries),
         "errors": sum(s.get("errors", 0) for s in summaries),
         "by_program": {k: v for s in summaries for k, v in s.get("by_program", {}).items()},
+        "pool_bytes": sum(s.get("pool_bytes") or 0 for s in summaries),
     }
     per_replica = []
     for replica in pool.replicas:
@@ -296,6 +306,7 @@ def prewarm_pool(pool, **kwargs) -> Dict[str, Any]:
             "programs": s.get("programs", 0),
             "seconds": s.get("seconds", 0.0),
             "errors": s.get("errors", 0),
+            "pool_bytes": s.get("pool_bytes"),
         })
     merged["replicas"] = per_replica
     return merged

@@ -15,7 +15,10 @@ Python. :class:`CapturedStep` is one graph of one step callable
 - one warmup run on a side stream, on a throwaway copy of the state (the
   real state does not advance), under ``torch.cuda.set_sync_debug_mode("error")``
   so that a hidden host sync raises there instead of breaking the capture.
-  The warmup is priced by the flop counter (``observability/costs.py``);
+  That mode is one setting for the whole process, so a warmup holds
+  :data:`SYNC_GATE` alone and the host syncs that may run beside one (a
+  server's other threads) hold it shared. The warmup is priced by the flop
+  counter (``observability/costs.py``);
 - the capture, with the garbage collector paused (a dead graph destroyed
   inside a capture would invalidate it), into a memory pool and on a
   stream the caller passes
@@ -49,7 +52,16 @@ to 0 by itself, so replays on one stream are sound; two B2 launches at once
 on two streams were already unsafe before graphs (a replay beside a serving
 flush on another stream is such a pair) and stay so.
 
-A failed capture raises: nothing falls back to eager. On the CPU no graph
+:class:`ServingCall` is the serving engine's counterpart (the JAX
+engine's jitted bucket programs): one graph of one flush ``fn(master,
+inputs) -> outputs`` with no state to advance, whose master, inputs and
+outputs are :class:`StaticBuffers` the engine shares among its programs
+(``serving/engine.py``); it captures with ``capture_error_mode=
+"thread_local"``, since a server's other threads use the card meanwhile,
+and the flush that builds it returns its warmup's outputs.
+
+A failed capture raises: nothing falls back to eager (but for the serving
+engine's unplanned keys, ``serving/engine.py``). On the CPU no graph
 is captured; ``core/maml.py`` runs the K eager steps instead. On a mesh of
 ``[cuda:0] * (dp * mp)`` (``parallel/mesh.py``) the graph holds the sharded
 step (the dp x mp step where the state is split over ``mp``: B1 and B2
@@ -62,9 +74,11 @@ and records each capture in the compile ledger
 (``observability/compile_ledger.py``).
 """
 
+import contextlib
 import gc
+import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -124,6 +138,89 @@ def _copy_into(dsts, srcs) -> None:
             d.copy_(s)
 
 
+class SyncGate:
+    """The process's sync-debug mode against its host syncs.
+    ``torch.cuda.set_sync_debug_mode`` is one setting for the whole
+    process: while a warmup runs under ``"error"``, a host sync in any other
+    thread raises. So a warmup holds the gate alone (:meth:`checked`), and a
+    host sync that may run beside one (a serving flush's copy to the host,
+    the tenant pager's page-in, a capture's own synchronisation) holds it
+    shared (:meth:`host_sync`), with any number of other syncs. A thread
+    holding either side takes neither again."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._syncs = 0
+        self._checking = False
+
+    @contextlib.contextmanager
+    def host_sync(self) -> Iterator[None]:
+        with self._cond:
+            self._cond.wait_for(lambda: not self._checking)
+            self._syncs += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._syncs -= 1
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def checked(self) -> Iterator[None]:
+        """The block under ``set_sync_debug_mode("error")``, alone."""
+        with self._cond:
+            self._cond.wait_for(lambda: not self._checking and self._syncs == 0)
+            self._checking = True
+        previous = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+            with self._cond:
+                self._checking = False
+                self._cond.notify_all()
+
+
+#: the gate of the process's one sync-debug mode
+SYNC_GATE = SyncGate()
+
+
+def warm_up(fn: Callable, device, stream, *args):
+    """``fn(*args)`` once on ``stream`` under the sync gate's ``"error"``
+    mode, priced by the flop counter -> ``(outputs, cost)``, the card
+    synchronised after it."""
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with SYNC_GATE.checked(), torch.cuda.stream(stream):
+        outputs, cost = priced_call(fn, *args)
+    with SYNC_GATE.host_sync():
+        torch.cuda.current_stream(device).wait_stream(stream)
+        torch.cuda.synchronize(device)
+    return outputs, cost
+
+
+def capture_graph(fn: Callable, device, pool, stream, capture_error_mode: str = "global"):
+    """``fn()`` captured into a new CUDA graph on ``stream``, its memory
+    from ``pool`` -> ``(graph, fn's outputs, the fused update's launches
+    per replay)``. The garbage collector is paused: a dead graph (a dropped
+    system's) destroyed inside a capture is a CUDA call the capture does
+    not permit, and it invalidates the capture. The capture's
+    synchronisations hold the sync gate's shared side."""
+    graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with SYNC_GATE.host_sync(), fused_update.capture_tally(stream) as tally, \
+                torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode=capture_error_mode):
+            outputs = fn()
+    finally:
+        if collecting:
+            gc.enable()
+    with SYNC_GATE.host_sync():
+        torch.cuda.synchronize(device)
+    return graph, outputs, dict(tally)
+
+
 class CapturedStep:
     """One CUDA graph of ``step(state, batch) -> (new_state or None,
     outputs)`` at one batch shape. :meth:`build` warms up and captures;
@@ -151,36 +248,17 @@ class CapturedStep:
 
     def build(self) -> "CapturedStep":
         device = self.device
-        stream = self.stream
-        stream.wait_stream(torch.cuda.current_stream(device))
         t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            previous = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                _, self.cost = priced_call(self.step, clone_tree(self.state), self.batch)
-            finally:
-                torch.cuda.set_sync_debug_mode(previous)
-        torch.cuda.current_stream(device).wait_stream(stream)
-        torch.cuda.synchronize(device)
+        _, self.cost = warm_up(self.step, device, self.stream, clone_tree(self.state), self.batch)
         t1 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        before = dict(fused_update.captured_counts)
-        # no garbage collection inside the capture: a dead graph (a dropped
-        # system's) destroyed there is a CUDA call the capture does not
-        # permit, and it invalidates the capture
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-                new_state, outputs = self.step(self.state, self.batch)
-                if new_state is not None:
-                    _copy_into(self._state_leaves, tree_leaves_any(new_state))
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.synchronize(device)
-        self.launches = {k: n - before[k] for k, n in fused_update.captured_counts.items()}
+
+        def capture():
+            new_state, outputs = self.step(self.state, self.batch)
+            if new_state is not None:
+                _copy_into(self._state_leaves, tree_leaves_any(new_state))
+            return outputs
+
+        graph, outputs, self.launches = capture_graph(capture, device, self.pool, self.stream)
         self.compile_s = time.perf_counter() - t1
         self.lower_s = t1 - t0
         self.memory = program_memory(pool_bytes(device, self.pool))
@@ -337,3 +415,106 @@ class GraphProgram:
         back to the shared pool for the next capture)."""
         self._captured.clear()
         self._eager_seen.clear()
+
+
+class StaticBuffers:
+    """Tensors made outside any capture, one per ``(role, shape, dtype)``,
+    shared by every program of one owner (a serving engine): the programs
+    of one shape read their inputs from, and write their outputs to, the
+    same memory, which they never use at once. A tree gets one buffer per
+    leaf, keyed by the leaf's position, so that no two leaves of one tree
+    share."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._by_key: Dict[Any, torch.Tensor] = {}
+
+    def get(self, role: str, shape, dtype) -> torch.Tensor:
+        key = (role, tuple(shape), dtype)
+        buf = self._by_key.get(key)
+        if buf is None:
+            buf = self._by_key[key] = torch.zeros(tuple(shape), dtype=dtype, device=self.device)
+        return buf
+
+    def like(self, role: str, tree, lead=()):
+        """A tree of buffers shaped as ``tree``'s tensor leaves with
+        ``lead`` in front (other leaves as they are)."""
+        index = iter(range(len(tree_leaves_any(tree))))
+        return tree_map_any(
+            lambda t: self.get(f"{role}/{next(index)}", tuple(lead) + tuple(t.shape), t.dtype)
+            if torch.is_tensor(t) else t, tree)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self._by_key.values())
+
+
+class ServingCall:
+    """One serving flush ``fn(state, inputs) -> outputs`` as one CUDA graph
+    (the port's counterpart of the JAX engine's jitted bucket programs):
+    :class:`CapturedStep`'s parts, with no state to advance.
+
+    ``state`` (the master) and ``inputs`` are static buffers that the
+    caller fills before each run (``serving/engine.py`` shares them among
+    its programs); the outputs are copied, in the graph, into static outputs
+    from ``buffers`` shaped as the warmup's, so that the pool keeps no
+    block of a program's own past its capture. :meth:`build` runs the
+    warmup on the filled inputs, on ``stream`` under the sync gate's
+    ``"error"`` mode and priced by the flop counter, then captures in
+    ``capture_error_mode="thread_local"`` (a server's other threads touch
+    the card meanwhile); the warmup's outputs are the flush's that built
+    the program. :meth:`run` replays. ``lower_s`` is the warmup's seconds,
+    ``compile_s`` the capture's, ``memory`` the pool's bytes after it,
+    ``launches`` the fused update's kernels per replay.
+
+    On the CPU nothing is captured: :meth:`build` is the first run, priced,
+    and :meth:`run` calls ``fn`` on the static buffers and copies its
+    outputs into the static ones, the same buffer path without a graph."""
+
+    def __init__(self, fn: Callable, state, inputs, buffers: StaticBuffers, device, pool=None, stream=None):
+        self.fn = fn
+        self.state = state
+        self.inputs = inputs
+        self.buffers = buffers
+        self.device = torch.device(device)
+        self.pool = pool
+        self.stream = stream
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs = None
+        self.cost: Dict[str, Any] = {}
+        self.memory: Dict[str, Any] = {}
+        self.lower_s = self.compile_s = None
+        self.launches: Dict[str, int] = {}
+
+    def _keep(self, outputs) -> None:
+        if self.outputs is None:
+            self.outputs = self.buffers.like("out", outputs)
+        _copy_into(tree_leaves_any(self.outputs), tree_leaves_any(outputs))
+
+    def build(self) -> "ServingCall":
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":
+            outputs, self.cost = priced_call(self.fn, self.state, self.inputs)
+            self._keep(outputs)
+            self.lower_s = time.perf_counter() - t0
+            return self
+        outputs, self.cost = warm_up(self.fn, self.device, self.stream, self.state, self.inputs)
+        self._keep(outputs)
+        del outputs
+        t1 = time.perf_counter()
+        self.graph, _, self.launches = capture_graph(
+            lambda: self._keep(self.fn(self.state, self.inputs)), self.device, self.pool, self.stream,
+            capture_error_mode="thread_local")
+        self.compile_s = time.perf_counter() - t1
+        self.lower_s = t1 - t0
+        self.memory = program_memory(pool_bytes(self.device, self.pool))
+        return self
+
+    def run(self):
+        """One run on the static inputs -> the static outputs (overwritten
+        by the next run of any program that shares them)."""
+        if self.graph is None:
+            self._keep(self.fn(self.state, self.inputs))
+        else:
+            self.graph.replay()
+            fused_update.count_replay(self.launches)
+        return self.outputs

@@ -203,7 +203,10 @@ def protonet_prototypes(system, params, bn_state, x_support, y_support, support_
     ``support_weight`` masks padded samples out of the means and of the BN
     statistics, so padding never changes the table."""
     z = _embed_tasks(system, params, bn_state, x_support, support_weight)
-    one_hot = torch.nn.functional.one_hot(y_support, system.cfg.num_classes_per_set).to(z.dtype)
+    # a comparison, not F.one_hot, which may read the labels' range back to
+    # the host: the table is built inside a serving program's CUDA graph
+    classes = torch.arange(system.cfg.num_classes_per_set, device=y_support.device)
+    one_hot = (y_support[..., None] == classes).to(z.dtype)
     if support_weight is not None:
         one_hot = one_hot * support_weight[..., None].to(z.dtype)
     counts = one_hot.sum(1)  # [T, n_way]

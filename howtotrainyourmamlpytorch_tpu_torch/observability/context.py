@@ -78,6 +78,7 @@ class RequestContext:
     flush_batch: Optional[int] = None  # requests sharing the flush
     queue_wait_s: Optional[float] = None  # submit -> worker pickup
     dispatch_s: Optional[float] = None  # engine device dispatch
+    program: Optional[str] = None  # the engine program the flush ran ("serve_adapt/100/8")
     cache_hit: Optional[bool] = None  # adapted-weight cache verdict
     access_logged: bool = False  # the double-log guard (HTTP layer)
 
@@ -224,6 +225,7 @@ class AccessLog:
             "replica": ctx.replica,
             "flush_batch": ctx.flush_batch,
             "cache_hit": ctx.cache_hit,
+            "program": ctx.program,
             **ctx.timing_ms(total_s),
         }
         rec.update(fields)

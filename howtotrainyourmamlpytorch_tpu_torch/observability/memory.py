@@ -8,14 +8,19 @@ device, so a process that is *about* to run out of device memory says so in
 ``events.jsonl`` while it can still speak. The tenant pager
 (``serving/tenancy.py``) reads the same snapshot as its eviction signal.
 
-Per card: bytes in use are ``torch.cuda.memory_allocated``, the peak
+Per card: bytes in use are ``torch.cuda.memory_allocated`` (and the graph
+pools' free blocks, below), the peak
 ``torch.cuda.max_memory_allocated``, the limit the card's
 ``total_memory``, and ``headroom_frac`` is ``1 - in_use / limit``, unrounded:
 on an 80 GB card a 4-digit round would hide 8 MB, more than a tenant master.
 Reserved bytes (``memory_reserved``, ``mem_get_info``) are not read: the
 caching allocator keeps a freed block reserved, so a watermark over
 reserved bytes would never recover after a tenant's eviction, and a
-headroom-floor sweeper would evict every tenant in turn.
+headroom-floor sweeper would evict every tenant in turn. The one exception
+is a CUDA graph's pool (``core/programs.py``): its free blocks are the
+working set every replay writes, which no other allocation may take, so
+bytes in use count them (``graph_pool_free_bytes``) and the tenant pager
+never pages a master into memory the serving programs need.
 
 Without a card every path yields an explicit ``{"available": false,
 "reason": ...}`` row rather than a guessed number, and nothing here raises:
@@ -28,13 +33,29 @@ from typing import Any, Callable, Dict, List
 import torch
 
 
+def graph_pool_free_bytes() -> Dict[int, int]:
+    """Card index -> the free bytes of its CUDA graph pools (the caching
+    allocator's segments of a private pool, less their allocated bytes),
+    from ``torch.cuda.memory_snapshot()``."""
+    free: Dict[int, int] = {}
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0):
+            d = int(seg["device"])
+            free[d] = free.get(d, 0) + int(seg["total_size"]) - int(seg["allocated_size"])
+    return free
+
+
 def _device_rows(indices) -> List[Dict[str, Any]]:
     rows: List[Dict[str, Any]] = []
+    try:
+        pools = graph_pool_free_bytes()
+    except Exception:  # noqa: BLE001 — never raise into the watched process
+        pools = {}
     for d in indices:
         row: Dict[str, Any] = {"device": int(d), "kind": "?"}
         try:
             row["kind"] = torch.cuda.get_device_name(d)
-            in_use = int(torch.cuda.memory_allocated(d))
+            in_use = int(torch.cuda.memory_allocated(d)) + pools.get(int(d), 0)
             peak = int(torch.cuda.max_memory_allocated(d))
             limit = int(torch.cuda.get_device_properties(d).total_memory)
         except Exception as exc:  # noqa: BLE001 — never raise into the watched process
@@ -45,6 +66,7 @@ def _device_rows(indices) -> List[Dict[str, Any]]:
             {
                 "available": True,
                 "bytes_in_use": in_use,
+                "graph_pool_free_bytes": pools.get(int(d), 0),
                 "peak_bytes_in_use": peak,
                 "bytes_limit": limit,
                 "headroom_frac": (limit - in_use) / limit if limit else None,

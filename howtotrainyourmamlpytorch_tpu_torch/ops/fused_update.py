@@ -52,8 +52,9 @@ layer's backward gives its weight) is copied first and counted in
 ``contiguous_copies``.
 """
 
+import contextlib
 import threading
-from typing import List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -80,7 +81,7 @@ launch_counts = {"fused_sgd": 0, "fused_sgd_bwd": 0}
 replayed_counts = {"fused_sgd": 0, "fused_sgd_bwd": 0}
 #: launches recorded into CUDA graphs under capture, ever (a capture
 #: launches nothing: its launches run at each replay). ``core/programs.py``
-#: reads it before and after a capture for that graph's own tally.
+#: takes each graph's own tally through :func:`capture_tally`.
 captured_counts = {"fused_sgd": 0, "fused_sgd_bwd": 0}
 #: non-contiguous leaves the CUDA wrappers copied before a launch, since the
 #: last :func:`reset_launch_counts`
@@ -88,6 +89,8 @@ contiguous_copies = 0
 # the counts are updated under this lock: a server's batcher workers
 # launch from several threads
 _count_lock = threading.Lock()
+# capture stream -> the launches recorded into its graph (:func:`capture_tally`)
+_tallies: Dict[int, Dict[str, int]] = {}
 
 
 def reset_launch_counts() -> None:
@@ -98,11 +101,31 @@ def reset_launch_counts() -> None:
         contiguous_copies = 0
 
 
+@contextlib.contextmanager
+def capture_tally(stream) -> Iterator[Dict[str, int]]:
+    """-> name -> the launches recorded into the graph captured on
+    ``stream`` inside the block: one graph's tally, whatever is captured
+    meanwhile on other streams (an engine per card captures on its own).
+    Keyed by the stream, not the thread: autograd runs a captured
+    backward's launches (B2, a remat recompute's B1) on its own thread."""
+    tally = {name: 0 for name in captured_counts}
+    with _count_lock:
+        _tallies[stream.cuda_stream] = tally
+    try:
+        yield tally
+    finally:
+        with _count_lock:
+            del _tallies[stream.cuda_stream]
+
+
 def _count_launch(name: str) -> None:
     with _count_lock:
         # a torch without CUDA has no capture to ask about
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
             captured_counts[name] += 1
+            tally = _tallies.get(torch.cuda.current_stream().cuda_stream)
+            if tally is not None:
+                tally[name] += 1
         else:
             launch_counts[name] += 1
 

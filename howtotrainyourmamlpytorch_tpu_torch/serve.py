@@ -89,14 +89,14 @@ def _serve(args) -> int:
 
     frontend = build_frontend(args.run_dir, args.checkpoint, args.overrides, replicas=args.replicas,
                               device=None if args.device == "cuda" else args.device)
-    # the serving prewarm (Config.aot): the frontend is already dispatching
-    # the full (bucket x batch-bucket) grid; /healthz answers 503 "warming"
-    # until it finishes, and the frontend prints "serving prewarm: warm in
-    # <s>s" when it lands
+    # the serving prewarm (Config.aot): the frontend is already building
+    # the full (bucket x batch-bucket) grid, each program a CUDA graph on
+    # the card; /healthz answers 503 "warming" until the captures are done,
+    # and the frontend prints "serving prewarm: warm in <s>s" when it lands
     aot_cfg = frontend.engine.cfg.aot
     if aot_cfg.enabled:
         mode = "background" if aot_cfg.serving_background else "blocking"
-        print(f"prewarm: dispatching the planned serving grid ({mode}); /healthz reports 'warming' until warm",
+        print(f"prewarm: building the planned serving programs ({mode}); /healthz reports 'warming' until warm",
               flush=True)
     serving = frontend.serving
     host = args.host if args.host is not None else serving.host

@@ -12,7 +12,7 @@ support loss and of the transductive-BN statistics, so bucketing never
 changes predictions), and the task batch up to a power of two (by repeating
 the last request). One flush is one task-batched call of ``MAMLSystem``, so
 with ``use_pallas_inner_update`` every inner step of a flush is one launch
-of the fused-update kernel.
+of the fused-update kernel (inside the program's graph on a card).
 
 Strategies (``core/strategies.py``): a request names one of
 ``serving.strategies`` (``None``: the first). ``maml++`` and ``fomaml``
@@ -35,24 +35,44 @@ Fault seams (``resilience/faults.py``): ``serving.dispatch`` fires at the
 top of every adapt and predict flush, ``serving.refine`` at every refine
 flush (``nan-loss`` there hands the frontend's guard non-finite weights).
 
-PyTorch runs eagerly and compiles nothing, so the buckets here bound the
-set of shapes the card sees: the first dispatch of a shape pays cuDNN's
-algorithm choice and the allocator's first blocks. Strict mode
-(``Config.strict_recompile_guard`` or ``strict=True``;
+Programs (the JAX engine's ``_compiled_adapt``, ``_compiled_refine`` and
+``_compiled_predict``): each flush ``(kind, strategy, support/query bucket,
+task-batch bucket)`` runs one program of the engine's three tables
+(``_adapt_programs``, ``_refine_programs``, ``_predict_programs``, keyed
+``(strategy, bucket, b)`` as JAX's jit caches are), a
+``core/programs.py::ServingCall``. On a card a program is one CUDA graph,
+captured at the key's first flush (whose result is its warmup's) and
+replayed after, so a flush is one replay: the flush's host arrays are
+staged through page-locked memory into the program's static inputs, the
+flush's master is copied into the static master unless it is the one
+loaded last (tenant mode: every tenant runs the same programs, as the
+master is a JAX program argument), and the outputs are copied out before
+another flush may run (the adapted trees each own their memory; predict's
+probabilities go to the host). The programs of one engine share one graph
+pool, one capture stream and their static buffers (one per shape), and
+one lock covers their builds and runs. A failed capture raises; only a key
+outside the plan, first seen beside live traffic, runs eagerly after its
+capture failed, with the reason in the ledger and in ``compile_counts()``.
+On the CPU nothing is captured: the same programs run their static-buffer
+path eagerly.
+
+Strict mode (``Config.strict_recompile_guard`` or ``strict=True``;
 ``utils/strictmode.py``) notes every flush's ``(kind, bucket, batch)``
-before it dispatches and raises on a key outside
-``serving_planned_programs``. :meth:`AdaptationEngine.prewarm` dispatches
-the whole planned grid once, on zero inputs, and seals the guard, after
-which any first-seen key is a violation. With a compile ledger
-(``compile_ledger=``, or the frontend's), the first dispatch of each planned
-``(kind, bucket, batch)`` is a ledger entry of its seconds, total only, as
-the JAX ledger's guard-fed entries are: ``serve_adapt``, ``serve_refine``,
-``serve_predict`` under ``strategy_kind``'s spelling, with the replica's tag.
+before it runs and raises on a key outside ``serving_planned_programs``.
+:meth:`AdaptationEngine.prewarm` builds (on a card: captures) the whole
+planned grid on zero inputs and seals the guard, after which any
+first-seen key is a violation. With a compile ledger (``compile_ledger=``,
+or the frontend's), each program's build is an entry priced by the flop
+counter: ``serve_adapt``, ``serve_refine``, ``serve_predict`` under
+``strategy_kind``'s spelling, with the replica's tag, its warmup and
+capture seconds and the pool's bytes on a card.
 Refine sessions (the guard, lineage and spill) live in the frontend
 (``serving/server.py``).
 """
 
+import contextlib
 import os
+import sys
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -61,14 +81,19 @@ import torch
 
 from ..config import Config, ServingConfig, kind_base, kind_strategy, load_config, strategy_kind
 from ..core.maml import MAMLSystem
+from ..core.programs import SYNC_GATE, ServingCall, StaticBuffers, _copy_into, tree_leaves_any
 from ..core.strategies import validate_request_strategy
 from ..core.train_state import TrainState
 from ..experiment import checkpoint as ckpt
+from ..observability.compile_ledger import program_name
 from ..observability.context import flow_end
+from ..observability.costs import pool_bytes
 from ..observability.trace import NULL_TRACER
 from ..ops import fused_update
 from ..resilience.faults import injector_from
 from ..utils.interop import state_from_jax
+from ..utils.locks import san_lock
+from ..utils.strictmode import serving_planned_programs
 from ..utils.trees import tree_map
 from .registry import TenantRegistry
 from .tenancy import WeightPager
@@ -167,14 +192,30 @@ class AdaptationEngine:
             )
         self.num_steps = self.serving.adapt_steps or self.cfg.number_of_evaluation_steps_per_iter
         self.num_classes = self.cfg.num_classes_per_set
-        # (strategy, padded size, task-batch bucket) shapes served so far
-        self._adapt_shapes = set()
-        self._predict_shapes = set()
-        self._refine_shapes = set()
+        # the program tables (JAX's _adapt_jit, _refine_jit, _predict_jit):
+        # (strategy, padded size, task-batch bucket) -> ServingCall. One lock
+        # covers a program's build and every run: the programs share the
+        # static buffers, the graph pool and the capture stream, and the
+        # batcher workers flush from several threads
+        self._adapt_programs: Dict[Tuple[str, int, int], ServingCall] = {}
+        self._predict_programs: Dict[Tuple[str, int, int], ServingCall] = {}
+        self._refine_programs: Dict[Tuple[str, int, int], ServingCall] = {}
+        self._tables = {"adapt": self._adapt_programs, "predict": self._predict_programs,
+                        "refine": self._refine_programs}
+        self._program_lock = san_lock("AdaptationEngine._program_lock")
+        self._buffers = StaticBuffers(self.device)
+        self._graph_pool = self._graph_stream = None
+        # the static master every program reads, and the identity of the
+        # master loaded into it (AdaptationEngine._load_master)
+        self._static_master = None
+        self._loaded = self._loaded_own = None
+        self._planned = serving_planned_programs(self.serving)
+        # program name -> why it runs eagerly on the card
+        self._eager: Dict[str, str] = {}
         # compile ledger (observability/compile_ledger.py): when set (ctor
         # parameter, or attribute assignment before the first request: the
         # frontend attaches a collector-only ledger when telemetry is on),
-        # each planned shape's first dispatch is timed into it
+        # each program's build is an entry in it
         self.compile_ledger = compile_ledger
         # strict mode (Config.strict_recompile_guard / explicit ``strict=``):
         # the bucket tables declare the whole program family up front; a
@@ -184,9 +225,9 @@ class AdaptationEngine:
         self.recompile_guard = None
         strict = self.cfg.strict_recompile_guard if strict is None else strict
         if strict:
-            from ..utils.strictmode import RecompileGuard, serving_planned_programs
+            from ..utils.strictmode import RecompileGuard
 
-            self.recompile_guard = RecompileGuard(planned=serving_planned_programs(self.serving), name="serving-engine")
+            self.recompile_guard = RecompileGuard(planned=self._planned, name="serving-engine")
 
     @classmethod
     def from_run_dir(
@@ -222,7 +263,10 @@ class AdaptationEngine:
         ``MAMLSystem`` over the same config and model functions bound to
         that card, the state copied there, and the same fingerprint,
         injector, tracer and registry. The clone's tag is ``@r<index>`` and
-        it has a pager of its own (each card owns its tenant residency)."""
+        it has a pager of its own (each card owns its tenant residency), and
+        program tables of its own: its graphs are captured on its card, in
+        a pool and on a stream of that card, at its own first flushes or
+        prewarm."""
         system = MAMLSystem(self.cfg, model=self.system.model, device=device)
         move = lambda t: t.to(system.device)  # noqa: E731
         state = TrainState(
@@ -243,22 +287,27 @@ class AdaptationEngine:
         return clone
 
     def compile_counts(self) -> Dict[str, Any]:
-        """The shape grid served so far, the precision policy, the strategy
-        menu, and the fused-update kernel's launch count (process-wide, since
-        the last ``ops.fused_update.reset_launch_counts()``). The refine
-        shapes only under ``serving.refine_enabled``, as the JAX package
-        reports its refine programs."""
+        """The JAX engine's counts: the programs built so far, the precision
+        policy and the strategy menu (the refine programs only under
+        ``serving.refine_enabled``), and the fused-update kernel's launch
+        count (process-wide, since the last
+        ``ops.fused_update.reset_launch_counts()``). A program that runs
+        eagerly on the card is named in ``eager_programs`` with its
+        reason. The tables are read without the program lock, which a
+        capture holds for its seconds."""
         out = {
-            "adapt_shapes": len(self._adapt_shapes),
-            "predict_shapes": len(self._predict_shapes),
+            "adapt_programs": len(self._adapt_programs),
+            "predict_programs": len(self._predict_programs),
             "precision": self.system.precision.name,
             "strategies": list(self.strategies),
             "fused_sgd_launches": fused_update.launch_counts["fused_sgd"],
         }
         if self.serving.refine_enabled:
-            out["refine_programs"] = len(self._refine_shapes)
+            out["refine_programs"] = len(self._refine_programs)
+        if self._eager:
+            out["eager_programs"] = dict(self._eager)
         if self.registry is not None:
-            # tenant mode: the same shapes serve every tenant's master
+            # tenant mode: the same programs serve every tenant's master
             out["tenants"] = list(self.registry.tenants())
         if self.recompile_guard is not None:
             out["recompile_guard"] = self.recompile_guard.snapshot()
@@ -283,17 +332,20 @@ class AdaptationEngine:
             y = y.reshape(-1)
         return x, y
 
-    def _tenant_state(self, tenant: Optional[str]) -> TrainState:
-        """The master a dispatch runs against: the engine's own state, or
-        the tenant's, paged onto the card by the pager."""
+    def _master(self, tenant: Optional[str]):
+        """The master a flush runs against and its identity: the engine's
+        own state (None), or the tenant's, which the pager pages onto the
+        card, with the page-in's serial. The pager runs outside the
+        program lock: a page-in waits on the card."""
+        if tenant is None:
+            return self.state, (None, id(self.state))
         if self.pager is None:
-            if tenant is not None:
-                raise ValueError(
-                    f"request names tenant {tenant!r} but this engine has no "
-                    "tenant registry (serving.tenant_registry)"
-                )
-            return self.state
-        return self.pager.resident(tenant)
+            raise ValueError(
+                f"request names tenant {tenant!r} but this engine has no "
+                "tenant registry (serving.tenant_registry)"
+            )
+        state, serial = self.pager.resident_entry(tenant)
+        return state, (tenant, serial)
 
     @staticmethod
     def _dispatch_flows(ctxs):
@@ -302,14 +354,20 @@ class AdaptationEngine:
         return flow_end(ctxs) if ctxs else None
 
     @staticmethod
-    def _stamp_dispatch(ctxs, seconds: float) -> None:
+    def _stamp_dispatch(ctxs, seconds: float, program: str) -> None:
         """Every request of a flush shares its one device call, so each
-        carries the call's full duration."""
+        carries the call's full duration and its program's name."""
         for c in ctxs or ():
             if c is not None:
                 c.dispatch_s = seconds
+                c.program = program
 
-    def _dispatch(self, name: str, ctxs, strategy: str, n: int, bucket: int, call, tenant: Optional[str] = None):
+    def _program_name(self, base: str, strategy: str, bucket: int, b: int) -> Tuple[str, int, int]:
+        """The JAX engine's ledger key of a program."""
+        return (f"{strategy_kind('serve_' + base, strategy)}{self.ledger_tag}", bucket, b)
+
+    def _dispatch(self, name: str, ctxs, base: str, strategy: str, n: int, bucket: int, b: int, call,
+                  tenant: Optional[str] = None):
         """``call()`` under the dispatch span ``name``; the span and the
         request contexts get its wall seconds (up to the first
         synchronisation: predict copies to the host inside ``call``)."""
@@ -319,7 +377,7 @@ class AdaptationEngine:
         t0 = time.monotonic()
         with self.tracer.span(name, flows=self._dispatch_flows(ctxs), **span_kw):
             out = call()
-        self._stamp_dispatch(ctxs, time.monotonic() - t0)
+        self._stamp_dispatch(ctxs, time.monotonic() - t0, program_name(self._program_name(base, strategy, bucket, b)))
         return out
 
     def _support_flush(self, supports):
@@ -337,18 +395,13 @@ class AdaptationEngine:
         return np.stack(xs), np.stack(ys), np.stack(ws), bucket, b
 
     @staticmethod
-    def _stack_trees(trees, b: int):
-        """One request's tree per item, the last repeated up to ``b`` ->
-        one tree with a leading task axis."""
-        trees = list(trees) + [trees[-1]] * (b - len(trees))
-        return tree_map(lambda *leaves: torch.stack(leaves), *trees)
-
-    @staticmethod
     def _split(stacked, n: int):
         """A flush's stacked tree -> one tree per request, each leaf a copy
         that owns its memory (as JAX's ``a[i]`` does): a view would keep the
         whole flush alive in the adapted-weight cache, past its byte
-        budget."""
+        budget, and the program's static outputs are overwritten by its
+        next run. Under anil the body's leaves are views of the static
+        master, copied here as well."""
         return [tree_map(lambda a, i=i: a[i].clone(), stacked) for i in range(n)]
 
     def _note_program(self, base: str, strategy: str, bucket: int, b: int) -> None:
@@ -356,54 +409,161 @@ class AdaptationEngine:
         if self.recompile_guard is not None:
             self.recompile_guard.note((strategy_kind(base, strategy), bucket, b))
 
-    def _first_dispatch(self, shapes: set, base: str, strategy: str, bucket: int, b: int, call: Callable) -> Callable:
-        """Count the flush's shape among ``shapes``; the first dispatch of a
-        shape is timed into the compile ledger (total only)."""
-        first = (strategy, bucket, b) not in shapes
-        shapes.add((strategy, bucket, b))
-        ledger = self.compile_ledger
-        if ledger is None or not first:
-            return call
-        program = (f"{strategy_kind('serve_' + base, strategy)}{self.ledger_tag}", bucket, b)
+    # ------------------------------------------------------------------
+    # the programs (JAX's _compiled_adapt, _compiled_refine, _compiled_predict)
+    # ------------------------------------------------------------------
 
-        def timed():
-            t0 = time.perf_counter()
-            out = call()
-            ledger.record(program, total_s=time.perf_counter() - t0)
-            return out
+    def _program_fn(self, base: str, strategy: str) -> Callable:
+        """The call a program of ``base`` under ``strategy`` runs:
+        ``fn(master, inputs) -> outputs`` over the static buffers."""
+        system, steps = self.system, self.num_steps
+        if base == "adapt" and strategy == "protonet":
+            return lambda st, inp: system.protonet_adapt(st, inp["xs"], inp["ys"], support_weight=inp["ws"])
+        if base == "adapt":
+            return lambda st, inp: system.adapt_fast_weights(
+                st, inp["xs"], inp["ys"], num_steps=steps, support_weight=inp["ws"], strategy=strategy)
+        if base == "refine":
+            return lambda st, inp: system.refine_fast_weights(
+                st, inp["fw"], inp["xs"], inp["ys"], num_steps=steps, support_weight=inp["ws"], strategy=strategy)
 
-        return timed
-
-    def _adapt_call(self, state, xs, ys, ws, strategy: str, bucket: int, b: int) -> Callable:
-        """One adapt flush as a call: noted, then counted among the shapes."""
-        self._note_program("adapt", strategy, bucket, b)
-        if strategy == "protonet":
-            call = lambda: self.system.protonet_adapt(state, xs, ys, support_weight=ws)  # noqa: E731
-        else:
-            call = lambda: self.system.adapt_fast_weights(  # noqa: E731
-                state, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
-        return self._first_dispatch(self._adapt_shapes, "adapt", strategy, bucket, b, call)
-
-    def _refine_call(self, state, stacked_fw, xs, ys, ws, strategy: str, bucket: int, b: int) -> Callable:
-        self._note_program("refine", strategy, bucket, b)
-        call = lambda: self.system.refine_fast_weights(  # noqa: E731
-            state, stacked_fw, xs, ys, num_steps=self.num_steps, support_weight=ws, strategy=strategy)
-        return self._first_dispatch(self._refine_shapes, "refine", strategy, bucket, b, call)
-
-    def _predict_call(self, state, stacked, xs, ws, strategy: str, bucket: int, b: int) -> Callable:
-        """One predict flush as a call; the call returns host probabilities
-        (the flush's one device-to-host copy)."""
-        self._note_program("predict", strategy, bucket, b)
-        system = self.system
-
-        def call():
+        def predict(st, inp):
             if strategy == "protonet":
-                logits = system.protonet_predict_logits(state.params, state.bn_state, stacked, xs, ws)
+                logits = system.protonet_predict_logits(st.params, st.bn_state, inp["fw"], inp["xs"], inp["ws"])
             else:
-                logits = system.predict_logits(stacked, state.bn_state, xs, ws)
-            return torch.softmax(logits, dim=-1).cpu().numpy()
+                logits = system.predict_logits(inp["fw"], st.bn_state, inp["xs"], inp["ws"])
+            return torch.softmax(logits, dim=-1)
 
-        return self._first_dispatch(self._predict_shapes, "predict", strategy, bucket, b, call)
+        return predict
+
+    def _device_scope(self):
+        return torch.cuda.device(self.device) if self.device.type == "cuda" else contextlib.nullcontext()
+
+    def _graph_parts(self):
+        """The engine's one graph pool and capture stream, shared by all of
+        its programs (they never run at once) and apart from its system's
+        (``MAMLSystem._graph_pool_handle``): a runner's graphs and an
+        engine's can live in one process. None, None off a card."""
+        if self.device.type != "cuda":
+            return None, None
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(self.device)
+        return self._graph_pool, self._graph_stream
+
+    def _load_master(self, state, ident) -> None:
+        """Under the program lock: the flush's master into the programs'
+        static master, unless it is the one loaded last: the same tenant's
+        page-in (the pager's serial: not evicted, re-paged or reloaded
+        since), or the engine's own state object, kept alive here so that
+        its identity is never another's. An address is never the test: the
+        pager reuses memory after an eviction."""
+        served = TrainState(params=state.params, bn_state=state.bn_state, inner_hparams=state.inner_hparams,
+                            opt_state=None, step=None)
+        if self._static_master is None:
+            self._static_master = self._buffers.like("master", served)
+        elif ident == self._loaded:
+            return
+        _copy_into(tree_leaves_any(self._static_master), tree_leaves_any(served))
+        self._loaded = ident
+        self._loaded_own = state if ident[0] is None else None
+
+    def _stage(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """A flush's host array into the static input of its shape: through
+        page-locked memory, asynchronously, on the card (the pinned block
+        is not reused before the copy has run)."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        buf = self._buffers.get(name, src.shape, src.dtype)
+        if buf.is_cuda:
+            buf.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            buf.copy_(src)
+        return buf
+
+    def _stage_trees(self, trees, b: int):
+        """One request's tree per item, the last repeated up to ``b``,
+        stacked into the static fast weights (one kernel per leaf)."""
+        trees = list(trees) + [trees[-1]] * (b - len(trees))
+        static = self._buffers.like("fw", trees[0], lead=(b,))
+        for buf, leaves in zip(tree_leaves_any(static), zip(*(tree_leaves_any(t) for t in trees))):
+            torch.stack(leaves, out=buf)
+        return static
+
+    def _build(self, base: str, strategy: str, bucket: int, b: int, inputs, phase: Optional[str]) -> ServingCall:
+        """A new program on the staged inputs, recorded in the compile
+        ledger (priced; its capture seconds and the pool's bytes on the
+        card). A failed capture raises, except for a key outside the plan
+        first seen beside live traffic: that key runs eagerly from then on,
+        on the warmup's outputs first, with its reason in the ledger and in
+        ``compile_counts()["eager_programs"]``."""
+        pool, stream = self._graph_parts()
+        program = ServingCall(self._program_fn(base, strategy), self._static_master, inputs, self._buffers,
+                              self.device, pool, stream)
+        name = self._program_name(base, strategy, bucket, b)
+        try:
+            program.build()
+        except Exception as exc:
+            warmed = program.outputs is not None
+            what = "capture" if warmed else "warmup"
+            self._record(name, phase, error=f"{what} failed: {type(exc).__name__}: {exc}")
+            planned = (strategy_kind(base, strategy), bucket, b) in self._planned
+            if not warmed or planned or phase == "prewarm":
+                raise
+            reason = f"capture failed beside live traffic: {type(exc).__name__}: {exc}"
+            self._eager[program_name(name)] = reason
+            print(f"serving engine: {program_name(name)} runs eagerly: {reason}", file=sys.stderr, flush=True)
+            self._record(name, phase, graph=False, reason=reason)
+            return program
+        cost = program.cost
+        if program.graph is not None:
+            self._record(name, phase, lower_s=program.lower_s, compile_s=program.compile_s, flops=cost.get("flops"),
+                         memory=program.memory, graph=True, cost_error=cost.get("error"))
+        else:
+            self._record(name, phase, total_s=program.lower_s, flops=cost.get("flops"), graph=False,
+                         reason="no CUDA graph off a card", cost_error=cost.get("error"))
+        return program
+
+    def _record(self, name, phase: Optional[str], **entry) -> None:
+        if self.compile_ledger is not None:
+            self.compile_ledger.record(name, cold=True, phase=phase, **entry)
+
+    def _flush(self, base: str, strategy: str, bucket: int, b: int, master, stage: Callable, finish: Callable,
+               phase: Optional[str] = None):
+        """One run of the program ``(strategy, bucket, b)`` of ``base``:
+        noted (strict mode raises here, before anything runs), then under
+        the program lock the master loaded, the inputs staged (``stage()``
+        -> the static inputs), the program replayed, or built where it is
+        new (its warmup is this flush), and ``finish(static outputs)``
+        before another run may overwrite them. -> (finish's result, whether
+        the program was built)."""
+        self._note_program(base, strategy, bucket, b)
+        table = self._tables[base]
+        with self._device_scope(), self._program_lock:
+            self._load_master(*master)
+            inputs = stage()
+            program = table.get((strategy, bucket, b))
+            if program is None:
+                program = table[(strategy, bucket, b)] = self._build(base, strategy, bucket, b, inputs, phase)
+                return finish(program.outputs), True
+            return finish(program.run()), False
+
+    def _to_host(self, probs: torch.Tensor):
+        """Under the program lock: the static probabilities' copy to the
+        host enqueued -> a wait that returns the host array (outside the
+        lock: the copy is ordered before any later run)."""
+        if not probs.is_cuda:
+            out = probs.clone().numpy()
+            return lambda: out
+        host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
+        host.copy_(probs, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+        def wait():
+            with SYNC_GATE.host_sync():
+                done.synchronize()
+            return host.numpy()
+
+        return wait
 
     def adapt_batch(self, items: List[Tuple[Any, Any]], ctxs=None, strategy: Optional[str] = None,
                     tenant: Optional[str] = None):
@@ -413,13 +573,17 @@ class AdaptationEngine:
         prototype table. ``tenant`` names the master the whole group adapts
         against (None: the engine's own)."""
         strategy = validate_request_strategy(strategy, self.strategies)
-        state = self._tenant_state(tenant)
+        master = self._master(tenant)
         self.injector.fire("serving.dispatch")
         xs, ys, ws, bucket, b = self._support_flush(items)
         n = len(items)
-        call = self._adapt_call(state, xs, ys, ws, strategy, bucket, b)
-        stacked = self._dispatch("serve.adapt_dispatch", ctxs, strategy, n, bucket, call, tenant)
-        return self._split(stacked, n)
+
+        def stage():
+            return {"xs": self._stage("xs", xs), "ys": self._stage("ys", ys), "ws": self._stage("ws", ws)}
+
+        call = lambda: self._flush("adapt", strategy, bucket, b, master, stage,  # noqa: E731
+                                   lambda out: self._split(out, n))[0]
+        return self._dispatch("serve.adapt_dispatch", ctxs, "adapt", strategy, n, bucket, b, call, tenant)
 
     def adapt(self, x_support, y_support, strategy: Optional[str] = None,
               tenant: Optional[str] = None):
@@ -438,14 +602,18 @@ class AdaptationEngine:
         strategy = validate_request_strategy(strategy, self.strategies)
         if strategy == "protonet":
             raise ValueError("protonet has no refine rollout: recompute the prototypes with adapt_batch")
-        state = self._tenant_state(tenant)
+        master = self._master(tenant)
         fault = self.injector.fire("serving.refine")
         xs, ys, ws, bucket, b = self._support_flush([(x, y) for _, x, y in items])
-        stacked_fw = self._stack_trees([fw for fw, _, _ in items], b)
         n = len(items)
-        call = self._refine_call(state, stacked_fw, xs, ys, ws, strategy, bucket, b)
-        stacked = self._dispatch("serve.refine_dispatch", ctxs, strategy, n, bucket, call, tenant)
-        out = self._split(stacked, n)
+
+        def stage():
+            return {"fw": self._stage_trees([fw for fw, _, _ in items], b), "xs": self._stage("xs", xs),
+                    "ys": self._stage("ys", ys), "ws": self._stage("ws", ws)}
+
+        call = lambda: self._flush("refine", strategy, bucket, b, master, stage,  # noqa: E731
+                                   lambda out: self._split(out, n))[0]
+        out = self._dispatch("serve.refine_dispatch", ctxs, "refine", strategy, n, bucket, b, call, tenant)
         if fault == "nan-loss":
             # poisoned-refinement drill: hand the guard non-finite weights
             out = [tree_map(lambda a: torch.full_like(a, float("nan")), t) for t in out]
@@ -465,7 +633,7 @@ class AdaptationEngine:
         sliced off. Under ``protonet`` the queries embed through the master
         params and are scored against each item's prototype table."""
         strategy = validate_request_strategy(strategy, self.strategies)
-        state = self._tenant_state(tenant)
+        master = self._master(tenant)
         self.injector.fire("serving.dispatch")
         queries = [np.asarray(x, np.float32) for _, x in items]
         sizes = [q.shape[0] for q in queries]
@@ -477,9 +645,13 @@ class AdaptationEngine:
         while len(xs) < b:
             xs.append(xs[-1]); ws.append(ws[-1])
         xs, ws = np.stack(xs), np.stack(ws)
-        stacked = self._stack_trees([fw for fw, _ in items], b)
-        call = self._predict_call(state, stacked, xs, ws, strategy, bucket, b)
-        probs = self._dispatch("serve.predict_dispatch", ctxs, strategy, n, bucket, call, tenant)
+
+        def stage():
+            return {"fw": self._stage_trees([fw for fw, _ in items], b), "xs": self._stage("xs", xs),
+                    "ws": self._stage("ws", ws)}
+
+        call = lambda: self._flush("predict", strategy, bucket, b, master, stage, self._to_host)[0]()  # noqa: E731
+        probs = self._dispatch("serve.predict_dispatch", ctxs, "predict", strategy, n, bucket, b, call, tenant)
         return [probs[i, : sizes[i]] for i in range(n)]
 
     def predict(self, fast_weights, x_query, strategy: Optional[str] = None,
@@ -492,52 +664,67 @@ class AdaptationEngine:
     # ------------------------------------------------------------------
 
     def _prewarm_jobs(self, image_shape) -> List[Tuple[str, Callable]]:
-        """One job per planned ``(kind, bucket, batch)``: the flush it
-        names, on zero inputs of its shapes, through the ``_adapt_call``,
-        ``_refine_call`` and ``_predict_call`` the request path uses (they
-        note the keys). Support
-        labels cycle through the classes and every sample is real (weight
-        1), so no flush sees an empty class; predict and refine start from
-        the engine's own params with the task axis, a prototype table of
-        zeros under protonet. Tenant mode warms against the template: the
-        one shape-keyed grid serves every tenant."""
+        """One job per planned ``(kind, bucket, batch)``: its program built
+        (on the card, captured) on zero inputs of its shapes, through
+        :meth:`_flush`, as a request builds it (the keys are noted).
+        Support labels cycle through the classes and every sample is real
+        (weight 1), so no warmup sees an empty class; predict and refine
+        start from the engine's own params with the task axis, a prototype
+        table of zeros under protonet. Tenant mode warms against the
+        engine's own master: one program serves every tenant. The largest
+        flushes (support or query bucket x task batch) are built first:
+        the programs share one graph pool, and a later capture reuses the
+        blocks an earlier one freed only where they are large enough."""
         from ..core.strategies import protonet_prototype_shape
         from ..utils.strictmode import serving_planned_programs
 
         h, w, c = image_shape or self.cfg.image_shape
-        state = self.state
         jobs: List[Tuple[str, Callable]] = []
-        for key in sorted(serving_planned_programs(self.serving), key=repr):
+        for key in sorted(serving_planned_programs(self.serving), key=lambda k: (-k[1] * k[2], repr(k))):
             kind, bucket, b = key
             base, strategy = kind_base(kind), kind_strategy(kind)
-            xs = np.zeros((b, bucket, h, w, c), np.float32)
-            ws = np.ones((b, bucket), np.float32)
-            name = f"serve_{kind}{self.ledger_tag}/{bucket}/{b}"
-            if base == "predict":
-                if strategy == "protonet":
-                    fw = {"prototypes": torch.zeros((b,) + tuple(protonet_prototype_shape(self.num_classes)),
-                                                    device=self.device)}
-                else:
-                    fw = self._stack_trees([state.params], b)
-                job = (lambda fw=fw, xs=xs, ws=ws, st=strategy, bk=bucket, bb=b:
-                       self._predict_call(state, fw, xs, ws, st, bk, bb)())
+            if base == "predict" and strategy == "protonet":
+                fw = {"prototypes": torch.zeros(protonet_prototype_shape(self.num_classes), device=self.device)}
             else:
-                ys = np.tile(np.arange(bucket, dtype=np.int32) % self.num_classes, (b, 1))
-                if base == "adapt":
-                    job = (lambda xs=xs, ys=ys, ws=ws, st=strategy, bk=bucket, bb=b:
-                           self._adapt_call(state, xs, ys, ws, st, bk, bb)())
-                else:  # refine
-                    fw = self._stack_trees([state.params], b)
-                    job = (lambda fw=fw, xs=xs, ys=ys, ws=ws, st=strategy, bk=bucket, bb=b:
-                           self._refine_call(state, fw, xs, ys, ws, st, bk, bb)())
-            jobs.append((name, job))
+                fw = self.state.params
+            inputs = {"xs": np.zeros((b, bucket, h, w, c), np.float32), "ws": np.ones((b, bucket), np.float32)}
+            if base != "predict":
+                inputs["ys"] = np.tile(np.arange(bucket, dtype=np.int32) % self.num_classes, (b, 1))
+            jobs.append((program_name(self._program_name(base, strategy, bucket, b)),
+                         lambda base=base, st=strategy, bk=bucket, bb=b, inp=inputs, fw=fw:
+                         self._warm_program(base, st, bk, bb, inp, fw)))
         return jobs
 
-    def _warm_one(self, job: Callable) -> None:
-        job()
-        if self.device.type == "cuda":
-            # the program's time is its work on the card, not its launch
-            torch.cuda.synchronize(self.device)
+    def _warm_program(self, base: str, strategy: str, bucket: int, b: int, inputs, fw) -> Dict[str, Any]:
+        """Build one program on ``inputs`` (and ``fw`` stacked where the
+        program takes fast weights), its outputs dropped -> JAX's warm
+        result keys and ``graph``."""
+
+        def stage():
+            staged = {name: self._stage(name, arr) for name, arr in inputs.items()}
+            if base != "adapt":
+                staged["fw"] = self._stage_trees([fw], b)
+            return staged
+
+        table = self._tables[base]
+        warm = (strategy, bucket, b) in table
+        if not warm:
+            self._flush(base, strategy, bucket, b, self._master(None), stage, lambda out: None, phase="prewarm")
+            if self.device.type == "cuda":
+                # the program's seconds are its work on the card
+                with SYNC_GATE.host_sync():
+                    torch.cuda.synchronize(self.device)
+        else:
+            self._note_program(base, strategy, bucket, b)
+        return {"program": program_name(self._program_name(base, strategy, bucket, b)), "already_warm": warm,
+                "graph": table[(strategy, bucket, b)].graph is not None}
+
+    def program_memory(self) -> Dict[str, Any]:
+        """The bytes the programs hold on the card: the graph pool's
+        (``costs.pool_bytes``; None off a card or before a capture) and the
+        static buffers' (master, inputs and outputs, shared by every
+        program)."""
+        return {"pool_bytes": pool_bytes(self.device, self._graph_pool), "static_bytes": self._buffers.nbytes()}
 
     def prewarm(
         self,
@@ -546,15 +733,13 @@ class AdaptationEngine:
         image_shape: Optional[Tuple[int, int, int]] = None,
         on_program=None,
     ) -> Dict[str, Any]:
-        """Dispatch the full serving grid once before the first request and
-        seal the guard: ``compile/aot.py::prewarm_serving``, where the JAX
-        package keeps it. The eager counterpart of the JAX engine's AOT
-        prewarm, which compiles the grid and runs nothing: here the first
-        dispatch of each shape pays cuDNN's algorithm choice and the
-        allocator's first blocks, so that no request pays it.
+        """Build the full serving grid before the first request and seal
+        the guard: ``compile/aot.py::prewarm_serving``, where the JAX
+        package keeps it. On the card every planned program is captured,
+        as the JAX prewarm compiles it; nothing of the warmups is kept.
         ``on_program(name)`` is called as each program settles. The JAX
-        ``store`` (serialized executables) has no torch counterpart: an
-        eager program has nothing to serialize, so there is no such
+        ``store`` (serialized executables) has no torch counterpart: a CUDA
+        graph holds one process's device addresses, so there is no such
         parameter."""
         from ..compile.aot import prewarm_serving
 

@@ -11,7 +11,9 @@ spawns the replicas, replica k on card ``k % n``: every replica on the
 engine's card SHARES the one engine object — separate batchers, breakers,
 and caches over one state on the card — and every other card gets one
 clone of the engine (``AdaptationEngine.clone_for_device``), shared by the
-replicas landing there.
+replicas landing there. So each card has one engine's programs (CUDA
+graphs captured on that card, in its own pool, ledger names carrying the
+clone's ``@r<k>`` tag), and the replicas of one card share them.
 
 Dispatch guarding (breaker + queue shed + per-request deadline + timeout
 attribution) lives on the replica; the router (``serving/router.py``)

@@ -33,7 +33,8 @@ the engine names its device on every tensor and kernel launch, so a worker
 thread needs no current-device state of its own.
 
 Under ``aot.enabled`` the frontend runs the engine's serving prewarm
-(``AdaptationEngine.prewarm``: every planned shape dispatched once) at
+(``AdaptationEngine.prewarm``: every planned program built, on the card
+captured as a CUDA graph) at
 construction, in the background when ``aot.serving_background`` is set, and
 ``/healthz`` answers 503 ``warming`` until it returns, so that a gateway
 holds traffic off a cold backend. The lock-discipline sanitizer
@@ -41,9 +42,10 @@ holds traffic off a cold backend. The lock-discipline sanitizer
 armed before the frontend builds its locks; its findings go to the events
 log, and ``close()`` audits the threads the frontend started. With
 telemetry on, the engine gets a collector-only compile ledger
-(``observability/compile_ledger.py``): each planned shape's first dispatch
-is a row of the ``compile_ledger`` hub provider and of ``/metrics``
-``compiled.compile_ledger``.
+(``observability/compile_ledger.py``): each program's build is a row of
+the ``compile_ledger`` hub provider and of ``/metrics``
+``compiled.compile_ledger``; each access-log line names the program its
+flush ran (``program``).
 """
 
 import contextlib
@@ -268,11 +270,11 @@ class ServingFrontend:
             )
             self._rehydrate_sessions()
         # --- the serving prewarm (Config.aot; AdaptationEngine.prewarm) ---
-        # dispatch the full (bucket x batch-bucket) grid before (or, in the
+        # build the full (bucket x batch-bucket) grid before (or, in the
         # background, while) the frontend accepts work: /healthz answers 503
-        # "warming" until it returns, DISTINCT from the breaker's
+        # "warming" until every capture is done, DISTINCT from the breaker's
         # "degraded", so a gateway holds traffic off a replica whose first
-        # requests would pay every shape's first dispatch
+        # requests would pay every program's capture
         self._prewarm_lock = san_lock("ServingFrontend._prewarm_lock")
         self._prewarm: Dict[str, Any] = {"status": "disabled"}
         self._prewarm_thread: Optional[threading.Thread] = None
@@ -315,12 +317,12 @@ class ServingFrontend:
                 self._watchdogs.append(wd)
 
     def _run_prewarm(self) -> None:
-        """Dispatch the planned serving grid (``engine.prewarm``, or
+        """Build the planned serving grid (``engine.prewarm``, or
         ``pool.prewarm`` over every distinct engine of a fleet) and publish
         the outcome. Runs on the background prewarm thread (or inline when
-        ``aot.serving_background=false``); a failure degrades to cold first
-        dispatches with the error visible in /metrics, never a dead
-        server."""
+        ``aot.serving_background=false``); a failure leaves the programs to
+        be built at their first flushes, with the error visible in
+        /metrics, never a dead server."""
         t0 = time.monotonic()
         try:
             summary = self.pool.prewarm() if len(self.pool) > 1 else self.engine.prewarm()

@@ -28,6 +28,7 @@ which the frontend maps onto the shed contract (HTTP 429 +
 ``Retry-After``).
 """
 
+import itertools
 import threading
 import time
 from collections import OrderedDict
@@ -36,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..config import DEFAULT_TENANT
+from ..core.programs import SYNC_GATE
 from ..core.train_state import TrainState
 from ..utils.locks import note_blocking, san_lock
 from ..utils.trees import tree_map
@@ -136,8 +138,13 @@ class WeightPager:
         self.watermarks = watermarks
         self._clock = clock
         self._lock = san_lock("WeightPager._lock")
-        # tenant -> (device state, nbytes); OrderedDict order = LRU order
-        self._resident: "OrderedDict[str, Tuple[Any, int]]" = OrderedDict()
+        # tenant -> (device state, nbytes, page-in serial); OrderedDict
+        # order = LRU order. The serial is new for every page-in, so an
+        # engine that loaded a tenant's master into its programs' static
+        # state tells a re-paged copy (maybe at the same address) from the
+        # copy it loaded
+        self._resident: "OrderedDict[str, Tuple[Any, int, int]]" = OrderedDict()
+        self._serials = itertools.count(1)
         self._bytes = 0
         # tenant -> Event set when its page-in settles; bytes reserved for them
         self._inflight: Dict[str, threading.Event] = {}
@@ -155,13 +162,18 @@ class WeightPager:
         """The device-resident master state for ``tenant`` (None = the
         engine's own). Pages in on a miss; evicts LRU tenants while over
         the byte budget."""
+        return self.resident_entry(tenant)[0]
+
+    def resident_entry(self, tenant: Optional[str]) -> Tuple[Any, int]:
+        """:meth:`resident` and the page-in's serial (0 for the engine's
+        own state): the same serial means the same device copy."""
         if tenant is None:
-            return self.template
+            return self.template, 0
         with self._lock:
             entry = self._resident.get(tenant)
             if entry is not None:
                 self._resident.move_to_end(tenant)
-                return entry[0]
+                return entry[0], entry[2]
         # miss: load the host master OUTSIDE the pager lock — host_state
         # takes the registry lock (an earlier tier in the lock order, so
         # holding ours across it would invert it) and may read a checkpoint
@@ -179,7 +191,7 @@ class WeightPager:
                 entry = self._resident.get(tenant)
                 if entry is not None:
                     self._resident.move_to_end(tenant)
-                    return entry[0]
+                    return entry[0], entry[2]
                 wait = self._inflight.get(tenant)
                 if wait is None:
                     self._evict_for_locked(nbytes)
@@ -198,7 +210,8 @@ class WeightPager:
                 # dispatch must not silently pay it, and the time is the
                 # transfer's, not its launch's
                 note_blocking("WeightPager.page_in")
-                torch.cuda.synchronize(self.device)
+                with SYNC_GATE.host_sync():
+                    torch.cuda.synchronize(self.device)
             page_in_ms = (self._clock() - t0) * 1e3
             state = copied
         finally:
@@ -210,11 +223,12 @@ class WeightPager:
                     self._page_in_ms.append(page_in_ms)
                     if len(self._page_in_ms) > _PAGE_IN_SAMPLES:
                         del self._page_in_ms[:-_PAGE_IN_SAMPLES]
-                    self._resident[tenant] = (state, nbytes)
+                    serial = next(self._serials)
+                    self._resident[tenant] = (state, nbytes, serial)
                     self._bytes += nbytes
                     self.page_ins += 1
                     self._pending_events.append({"event": "tenant_paged_in", "tenant": tenant, "bytes": nbytes})
-        return state
+        return state, serial
 
     def _fits_locked(self, nbytes: int) -> bool:
         """Whether ``nbytes`` more fit the budget beside the resident and
@@ -237,7 +251,7 @@ class WeightPager:
 
     def _evict_lru_locked(self, reason: str = "byte_budget") -> Optional[str]:
         for tenant in self._resident:
-            _, nbytes = self._resident.pop(tenant)
+            _, nbytes, _ = self._resident.pop(tenant)
             self._bytes -= nbytes
             self.evictions += 1
             self._pending_events.append(

@@ -112,7 +112,7 @@ def test_port_engine_matches_jax_engine(reference):
         assert p.shape == (q, N_WAY)
         np.testing.assert_allclose(p, np.asarray(jp), rtol=0, atol=1e-5)
     counts = engine.compile_counts()
-    assert (counts["adapt_shapes"], counts["predict_shapes"]) == (1, 1)
+    assert (counts["adapt_programs"], counts["predict_programs"]) == (1, 1)
 
 
 def test_bf16_inner_policy_matches_jax_engine():
@@ -165,7 +165,7 @@ def test_request_alone_equals_its_place_in_the_padded_flush(reference):
     alone = engine.predict(engine.adapt(*supports[2]), queries[2])
     np.testing.assert_allclose(alone, flush_probs[2], rtol=0, atol=1e-6)
     np.testing.assert_allclose(alone.sum(-1), 1.0, rtol=0, atol=1e-6)
-    assert engine.compile_counts()["adapt_shapes"] == 2  # (bucket 8, batch 4) and (4, 1)
+    assert engine.compile_counts()["adapt_programs"] == 2  # (bucket 8, batch 4) and (4, 1)
 
 
 def test_unported_paths_raise(reference):

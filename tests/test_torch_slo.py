@@ -177,9 +177,9 @@ def test_run_load_against_tiny_frontend():
     assert run["breaker_trips"] == 0 and run["unresolved"] == 0
     engine = frontend.engine
     for b in (1, 2, 4):
-        assert ("maml++", 5, b) in engine._adapt_shapes
+        assert ("maml++", 5, b) in engine._adapt_programs
         for n_query in {r.n_query for r in schedule}:
-            assert ("maml++", min(q for q in (5, 10) if q >= n_query), b) in engine._predict_shapes
+            assert ("maml++", min(q for q in (5, 10) if q >= n_query), b) in engine._predict_programs
     assert any(m.startswith("loadgen: prewarmed") for m in logs), logs
     report = slo.slo_report(schedule, run, stairs_rps=[4.0], duration_s=1.5, seed=0, slo_p99_ms=30_000.0,
                             max_shed_rate=1.0)

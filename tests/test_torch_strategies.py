@@ -326,7 +326,7 @@ def test_dispatch_spans_and_request_contexts(served):
     assert all(c.dispatch_s is not None and c.dispatch_s > 0 for c in ctxs)
     events = tracer.to_chrome_trace()["traceEvents"]
     assert sum(1 for e in events if e.get("ph") == "f") == 3 * len(ctxs)
-    assert set(engine.compile_counts()) == {"adapt_shapes", "predict_shapes", "precision", "strategies",
+    assert set(engine.compile_counts()) == {"adapt_programs", "predict_programs", "precision", "strategies",
                                             "fused_sgd_launches"}
 
 

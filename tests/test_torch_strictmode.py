@@ -271,7 +271,8 @@ def test_engine_passes_repeated_mixed_shape_traffic(engines):
     assert snap["violations"] == []
     assert set(port.recompile_guard._seen) == set(jax_engine.recompile_guard._seen)
     assert snap["lowerings"] == jax_engine.recompile_guard.snapshot()["lowerings"] >= 2
-    assert port.compile_counts()["adapt_shapes"] <= len(serving_planned_programs(port.serving))
+    assert port.compile_counts()["adapt_programs"] <= len(serving_planned_programs(port.serving))
+    assert set(port._adapt_programs) == set(jax_engine._adapt_jit)
 
 
 def test_engine_trips_on_oversize_request_even_on_retry(engines):
@@ -279,12 +280,12 @@ def test_engine_trips_on_oversize_request_even_on_retry(engines):
     oversize request keeps getting refused, before anything dispatches."""
     engine, _ = engines
     x, y = _support(4, 99)  # support 20 > largest bucket 8: unplanned
-    shapes = set(engine._adapt_shapes)
+    programs = set(engine._adapt_programs)
     for _ in range(2):
         with pytest.raises(RecompileBudgetExceededError) as exc:
             engine.adapt(x, y)
         assert "unplanned program" in str(exc.value)
-    assert engine._adapt_shapes == shapes
+    assert set(engine._adapt_programs) == programs
 
 
 def test_engine_default_is_permissive():
@@ -293,7 +294,7 @@ def test_engine_default_is_permissive():
     assert engine.recompile_guard is None and "recompile_guard" not in engine.compile_counts()
     x, y = _support(4, 7)  # oversize dispatches on demand, as documented
     engine.adapt(x, y)
-    assert engine.compile_counts()["adapt_shapes"] == 1
+    assert engine.compile_counts()["adapt_programs"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +425,7 @@ def test_prewarm_without_a_guard_still_dispatches():
     engine = _prewarm_engine()
     engine.recompile_guard = None
     summary = engine.prewarm(max_workers=1)
-    assert summary["programs"] == 4 and engine.compile_counts()["adapt_shapes"] == 2
+    assert summary["programs"] == 4 and engine.compile_counts()["adapt_programs"] == 2
 
 
 def test_strict_clone_keeps_its_guard():
