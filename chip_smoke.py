@@ -106,6 +106,21 @@ Run from the repository root. Phases, one JSON line each:
    page-ins timed (cold against resident adapts), an eviction freeing the
    master's allocator blocks, an eviction through the memory watermark,
    ``clone_for_device(cuda:0)`` against the engine.
+9b. ``bench`` (children started before ``http``, collected after
+   ``tenancy``; budget 180 s): the port's two measurement entry points
+   as a user runs them, ``python -m howtotrainyourmamlpytorch_tpu_torch.bench``
+   (the JAX script's flagship recipe: 20-way 5-shot VGG-64, meta-batch 8,
+   K=5, second order, the legacy bf16 cast; 6 timed steps, 4 phase steps,
+   a K=3 chunk, 2 traced steps, the B=16 arm) and ``.bench_serving`` (its
+   defaults, 4 adapts, 16 predicts, a 3 s staircase, 2 refines, 2
+   tenants), and a third trainer child sent SIGTERM once its stage after
+   ``measure`` begins. Checks: each prints one JSON line with rc 0, the
+   JAX scripts' keys, a positive headline, ``platform`` naming the card,
+   ``mfu`` and the K-step arm measured, the serving programs all built by
+   the prewarm, B1/B2 launched no time (both recipes keep the fused update
+   off, as the JAX scripts do), and the SIGTERM child's line with
+   ``wedged_at`` and its headline (rc 0). Each line's headline and stages
+   are printed.
 10. ``fleet``: the serving fleet at the same config and trained state,
    through the port's import-light CLIs (``scripts/gateway.py``,
    ``scripts/fleet_serve.py``, ``scripts/rolling_restart.py`` of the
@@ -352,7 +367,8 @@ process runs phases ``small`` and ``resnet`` on the card beside phases
 beside phase ``runner`` (SIDE_BATCHES: card-bound, gating no time, needing
 nothing of the phases before them; ``http``, ``tenancy`` and ``runner``
 have no time budget, and their card mostly waits on processes, sockets and
-the loader); this process waits for each batch before phases ``fleet``
+the loader), and phase ``bench``'s three children beside ``http`` and
+``tenancy``; this process waits for each batch before phases ``fleet``
 and ``elastic``, and prints the side's lines when it ends. Phase ``operations``' training fleet (its
 leg 4: child processes behind the card gate) starts before phase
 ``elastic`` on a thread of this process and runs beside ``elastic`` and
@@ -382,6 +398,7 @@ import json
 import os
 import pickle
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -6160,6 +6177,181 @@ def phase_diagnostics(seed: int, tmp: str, runner: dict, cpu: dict, sweep: "Gate
     return result
 
 
+#: phase bench: the port's two measurement entry points (``python -m
+#: howtotrainyourmamlpytorch_tpu_torch.bench`` / ``.bench_serving``) as
+#: child processes on the card at the smoke's small counts, started before
+#: the phases in BENCH_BESIDE (their card mostly waits on processes and
+#: sockets) and collected after them; a third trainer child gets a SIGTERM
+#: once its stage after ``measure`` begins and must salvage its headline.
+#: The full-count lines are measured on their own (PERF.md, section 5).
+BENCH_BESIDE = ("http", "tenancy")
+BENCH_BUDGET_S = 180.0
+BENCH_TRAIN_ENV = {"BENCH_MEASURE_ITERS": "6", "BENCH_PHASE_ITERS": "4", "BENCH_STEPS_PER_DISPATCH": "3",
+                   "BENCH_TRACE_ITERS": "2", "BENCH_B16": "1"}
+BENCH_SERVING_ARGS = ("--adapt-reps", "4", "--predict-reps", "16")
+BENCH_SERVING_ENV = {"BENCH_SLO_DURATION_S": "3", "BENCH_REFINE": "2", "BENCH_TENANTS": "2"}
+BENCH_SIGTERM_STAGE = "phase-breakdown"
+#: the JAX scripts' report keys (tests/test_torch_bench.py and
+#: tests/test_torch_bench_serving.py hold these sets against the JAX
+#: scripts' own lines); the serving line's at the tiny engine with no
+#: staircase and no refine, then what BENCH_SERVING_ENV's arms add
+BENCH_KEYS = frozenset({
+    "metric", "value", "unit", "vs_baseline", "platform", "matmul_precision", "conv_via_patches",
+    "precision", "remat_policy", "strategy", "cold_start_s", "steps_per_dispatch",
+    "steps_per_sec_single_dispatch", "phase_breakdown", "steps_per_sec_multi_dispatch", "multi_dispatch_error",
+    "bytes_accessed_per_step", "flops_per_step", "flops_source", "peak_flops_per_sec", "mfu", "breakdown",
+    "prewarm", "peak_program_bytes", "donated_bytes", "b16_steps_per_sec", "b16_tasks_per_sec_ratio",
+})
+BENCH_SERVING_KEYS = frozenset({
+    "metric", "value", "unit", "vs_baseline", "platform", "adapt_p50_ms", "adapt_p95_ms", "cached_predict_p50_ms",
+    "cached_predict_p95_ms", "strategy", "predict_p50_ms", "n_way", "k_shot", "n_query", "micro_batch", "model",
+    "precision", "compiled", "phase_breakdown", "compile_tax_s", "remat_policy", "peak_program_bytes",
+    "donated_bytes", "cold_start_s", "prewarm", "predict_flops_per_query", "sustained_rps", "replicas", "tenants",
+    "page_in_p50_ms", "tenant_evictions", "scale_up_settle_s", "surge_recovery_s", "mfu",
+})
+BENCH_SERVING_ARM_KEYS = frozenset({"slo_breaker_trips", "refine_reps", "refine_p50_ms", "refine_p95_ms",
+                                    "rollbacks"})
+BENCH_WAIT_S = 300.0
+#: the trainer child: the module's main, then the fused update's launch
+#: counts to a file (the JAX script's line has no such key)
+_BENCH_TRAIN = r"""
+import json, sys
+from howtotrainyourmamlpytorch_tpu_torch import bench
+from howtotrainyourmamlpytorch_tpu_torch.ops import fused_update
+bench.main([])
+with open(sys.argv[1], "w") as f:
+    json.dump(fused_update.launch_counts, f)
+"""
+
+
+def start_bench(tmp: str) -> dict:
+    """Start phase ``bench``'s three children (their output to files under
+    ``tmp``) and a thread that notes when each ends and sends the third
+    its SIGTERM once it enters BENCH_SIGTERM_STAGE."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    counts = os.path.join(tmp, "bench_launches.json")
+    t0 = time.monotonic()
+
+    def spawn(name, argv, extra):
+        paths = {"out": os.path.join(tmp, f"{name}.out"), "err": os.path.join(tmp, f"{name}.err")}
+        with open(paths["out"], "w") as out, open(paths["err"], "w") as err:
+            proc = subprocess.Popen([sys.executable, *argv], cwd=root, stdout=out, stderr=err, env={**env, **extra})
+        return {"name": name, "proc": proc, **paths, "end_s": None}
+
+    children = [
+        spawn("bench", ["-c", _BENCH_TRAIN, counts], BENCH_TRAIN_ENV),
+        spawn("bench_serving", ["-m", "howtotrainyourmamlpytorch_tpu_torch.bench_serving", *BENCH_SERVING_ARGS],
+              BENCH_SERVING_ENV),
+        spawn("bench_sigterm", ["-m", "howtotrainyourmamlpytorch_tpu_torch.bench"], BENCH_TRAIN_ENV),
+    ]
+    pre = {"children": children, "t0": t0, "counts": counts, "sigterm_s": None}
+
+    def watch():
+        marker = f"bench: stage {BENCH_SIGTERM_STAGE} "
+        target = children[2]
+        while any(c["end_s"] is None for c in children):
+            for child in children:
+                if child["end_s"] is None and child["proc"].poll() is not None:
+                    child["end_s"] = round(time.monotonic() - t0, 1)
+            if pre["sigterm_s"] is None and target["end_s"] is None:
+                with open(target["err"]) as f:
+                    if marker in f.read():
+                        target["proc"].send_signal(signal.SIGTERM)
+                        pre["sigterm_s"] = round(time.monotonic() - t0, 1)
+            if time.monotonic() - t0 > BENCH_WAIT_S:
+                return
+            time.sleep(0.1)
+
+    pre["watcher"] = threading.Thread(target=watch, daemon=True)
+    pre["watcher"].start()
+    return pre
+
+
+def _tail(path: str, n: int = 15) -> list:
+    with open(path) as f:
+        return [line for line in f.read().splitlines() if not line.startswith("USDT")][-n:]
+
+
+def _bench_line(child: dict) -> dict:
+    """The child's one JSON line (rc 0, one stdout line)."""
+    with open(child["out"]) as f:
+        lines = f.read().strip().splitlines()
+    rc = child["proc"].returncode
+    check(rc == 0 and len(lines) == 1, "bench", f"{child['name']} did not print one line with rc 0", rc=rc,
+          stdout=[line[:300] for line in lines[-3:]], stderr=_tail(child["err"]))
+    return json.loads(lines[0])
+
+
+def phase_bench(pre: dict) -> dict:
+    """Collect phase ``bench``'s children (:func:`start_bench`) and check
+    their lines: the JAX scripts' keys, a positive headline, the card named,
+    ``mfu`` and the multi-step arm measured, the serving programs built by
+    the prewarm alone, B1/B2 not launched (the recipes keep the fused
+    update off, as the JAX scripts do), and the SIGTERM child's salvaged
+    headline. -> the phase's seconds and launches."""
+    t_wait = time.monotonic()
+    pre["watcher"].join(timeout=max(1.0, BENCH_WAIT_S - (t_wait - pre["t0"])))
+    for child in pre["children"]:
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
+        check(child["end_s"] is not None, "bench", f"{child['name']} did not end", timeout_s=BENCH_WAIT_S,
+              stderr=_tail(child["err"]))
+    waited_s = round(time.monotonic() - t_wait, 1)
+    train_child, serving_child, sigterm_child = pre["children"]
+    card = f"gpu:{torch.cuda.get_device_name(0)}"
+
+    train = _bench_line(train_child)
+    with open(pre["counts"]) as f:
+        train_launches = json.load(f)
+    stages = [line.split()[2] for line in _tail(train_child["err"], 10_000) if line.startswith("bench: stage ")]
+    emit({"phase": "bench", "module": "howtotrainyourmamlpytorch_tpu_torch.bench", "env": BENCH_TRAIN_ENV,
+          "seconds": train_child["end_s"], "stages": stages,
+          "headline": {k: train[k] for k in ("metric", "value", "unit", "steps_per_dispatch", "mfu", "cold_start_s")},
+          "launches": train_launches, "line": train})
+    check(set(train) == BENCH_KEYS, "bench", "the trainer's keys are not the JAX script's",
+          extra=sorted(set(train) - BENCH_KEYS), missing=sorted(BENCH_KEYS - set(train)))
+    check(train["value"] > 0 and train["platform"] == card and train["mfu"] is not None
+          and train["steps_per_sec_multi_dispatch"] is not None and train["multi_dispatch_error"] is None
+          and train["breakdown"] is not None and train["b16_steps_per_sec"] is not None, "bench",
+          "the trainer's line is not measured on the card", platform=train["platform"], mfu=train["mfu"],
+          multi=train["steps_per_sec_multi_dispatch"], error=train["multi_dispatch_error"])
+    check(train_launches == {"fused_sgd": 0, "fused_sgd_bwd": 0}, "bench",
+          "the trainer's recipe launched B1/B2 (the JAX script keeps the fused update off)", launches=train_launches)
+
+    serving = _bench_line(serving_child)
+    counts = serving["compiled"]
+    shown = {**serving, "compiled": {k: v for k, v in counts.items() if k != "compile_ledger"}}
+    emit({"phase": "bench", "module": "howtotrainyourmamlpytorch_tpu_torch.bench_serving",
+          "argv": BENCH_SERVING_ARGS, "env": BENCH_SERVING_ENV, "seconds": serving_child["end_s"],
+          "stages": sorted(serving["phase_breakdown"]),
+          "headline": {k: serving[k] for k in ("metric", "value", "unit", "mfu", "cold_start_s")},
+          "launches": {"fused_sgd": counts.get("fused_sgd_launches")}, "line": shown})
+    expected = BENCH_SERVING_KEYS | BENCH_SERVING_ARM_KEYS
+    check(set(serving) == expected, "bench", "the serving line's keys are not the JAX script's",
+          extra=sorted(set(serving) - expected), missing=sorted(expected - set(serving)))
+    built = counts["adapt_programs"] + counts["predict_programs"] + counts.get("refine_programs", 0)
+    check(serving["value"] > 0 and serving["platform"] == card and serving["mfu"] is not None, "bench",
+          "the serving line is not measured on the card", platform=serving["platform"], mfu=serving["mfu"])
+    check(built > 0 and built == serving["prewarm"]["programs"] == counts["compile_ledger"]["entries"]
+          and "eager_programs" not in counts, "bench", "a serving program was built after the prewarm",
+          built=built, prewarm=serving["prewarm"], entries=counts["compile_ledger"]["entries"])
+    check(counts["fused_sgd_launches"] == 0, "bench",
+          "the serving recipe launched B1 (the JAX script keeps the fused update off)",
+          launches=counts["fused_sgd_launches"])
+
+    salvaged = _bench_line(sigterm_child)
+    emit({"phase": "bench", "module": "howtotrainyourmamlpytorch_tpu_torch.bench", "sigterm_after_s": pre["sigterm_s"],
+          "seconds": sigterm_child["end_s"], "line": salvaged})
+    check(pre["sigterm_s"] is not None and "sigterm" in str(salvaged.get("wedged_at"))
+          and salvaged.get("value") is not None, "bench", "the SIGTERM child did not salvage its headline",
+          wedged_at=salvaged.get("wedged_at"), value=salvaged.get("value"))
+    seconds = max(child["end_s"] for child in pre["children"])
+    return {"seconds": seconds, "waited_s": waited_s, "sigterm_s": pre["sigterm_s"],
+            "launches": {"bench": train_launches, "bench_serving": {"fused_sgd": counts["fused_sgd_launches"]}}}
+
+
 def kernel_entry(name, source, replaces, launches_by_path, phase, in_graph=None):
     """One kernel's entry of the ``kernels`` line: float32 at the VGG-64
     tree under the write flush (the yardstick of the earlier slices) in the
@@ -6247,13 +6439,18 @@ def main() -> int:
         tr, system, trained, train_pending = timed("train", phase_train, args.seed)
         served = timed("serve_trained", phase_serve_trained, args.seed, system, trained)
         sp = timed("serve_programs", phase_serve_programs, args.seed)
-        # the side process's first batch runs beside http and tenancy
+        # the side process's first batch and phase bench's children run
+        # beside http and tenancy
         release_side(side, 0)
+        bench_pre = start_bench(data_tmp)
+        early += [child["proc"] for child in bench_pre["children"]]
         http = timed("http", phase_http, args.seed, system, trained, http_pre)
         # the fleet's two first backends import and start the card during tenancy
         fleet_pre = prestart_fleet(system, trained)
         tn = timed("tenancy", phase_tenancy, args.seed, system, trained, http["alone_bound"])
         wait_side(side, 0)
+        bench = phase_bench(bench_pre)
+        seconds["bench"] = bench["seconds"]
         fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"], fleet_pre)
         # the CPU twin's halves of the slice's and train's checks are ready by now
         timed("cross", phase_cross, twin, slice_pending, train_pending)
@@ -6301,17 +6498,19 @@ def main() -> int:
     rs, rm, br = (side_results[name] for name in ("resnet", "remat", "breadth"))
     total_s = round(time.monotonic() - t_run, 1)
     emit({"phase": "timing", "seconds": seconds, "total_s": total_s,
-          "side": {"batches": SIDE_BATCHES, "beside": [["http", "tenancy"], ["runner"]], **side_report},
-          "budget_s": {"serve_programs": SERVE_PROGRAMS_BUDGET_S, "elastic": ELASTIC_BUDGET_S,
+          "side": {"batches": SIDE_BATCHES, "beside": [["http", "tenancy"], ["runner"]], **side_report,
+                   "bench": {"beside": BENCH_BESIDE, "waited_s": bench["waited_s"]}},
+          "budget_s": {"serve_programs": SERVE_PROGRAMS_BUDGET_S, "bench": BENCH_BUDGET_S,
+                       "elastic": ELASTIC_BUDGET_S,
                        "tensor_parallel": TENSOR_PARALLEL_BUDGET_S,
                        "operations": OPERATIONS_BUDGET_S, "programs": PROGRAMS_BUDGET_S,
                        "prewarm": PREWARM_BUDGET_S, "diagnostics": DIAG_BUDGET_S, "run": RUN_BUDGET_S}})
-    check(seconds["serve_programs"] < SERVE_PROGRAMS_BUDGET_S
+    check(seconds["serve_programs"] < SERVE_PROGRAMS_BUDGET_S and seconds["bench"] < BENCH_BUDGET_S
           and seconds["elastic"] < ELASTIC_BUDGET_S and seconds["tensor_parallel"] < TENSOR_PARALLEL_BUDGET_S
           and seconds["operations"] < OPERATIONS_BUDGET_S
           and seconds["programs"] < PROGRAMS_BUDGET_S and seconds["prewarm"] < PREWARM_BUDGET_S
           and seconds["diagnostics"] < DIAG_BUDGET_S and total_s < RUN_BUDGET_S, "timing",
-          "phase serve_programs, elastic, tensor_parallel, operations, programs, prewarm or diagnostics, "
+          "phase serve_programs, bench, elastic, tensor_parallel, operations, programs, prewarm or diagnostics, "
           "or the run over its budget",
           seconds=seconds, total_s=total_s)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,

@@ -535,10 +535,13 @@ def initialize_distributed(
 ) -> None:
     """Join the hosts' process group: a no-op for one process, else
     ``torch.distributed.init_process_group`` over
-    ``tcp://coordinator_address`` with NCCL between cards or gloo where
-    ``device`` is the CPU (or no card is visible). Unset arguments fall back
-    to torch's own environment (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``
-    and ``MASTER_PORT``), where the JAX package reads ``JAX_NUM_PROCESSES``."""
+    ``tcp://coordinator_address`` with gloo where ``device`` is the CPU and
+    NCCL otherwise: ``None`` means the card, as everywhere in the port, and
+    raises where none is visible. Unset arguments fall back to torch's own
+    environment (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``), where the JAX package reads ``JAX_NUM_PROCESSES``."""
+    from ..core.maml import resolve_device  # core.maml imports this module
+
     if num_processes is None and "WORLD_SIZE" in os.environ:
         num_processes = int(os.environ["WORLD_SIZE"])
     if num_processes is None or num_processes <= 1:
@@ -547,7 +550,7 @@ def initialize_distributed(
         process_id = int(os.environ.get("RANK", "0"))
     if coordinator_address is None:
         coordinator_address = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
-    on_cpu = (device is not None and torch.device(device).type == "cpu") or not torch.cuda.is_available()
+    on_cpu = resolve_device(device).type == "cpu"
     dist.init_process_group(
         "gloo" if on_cpu else "nccl",
         init_method=f"tcp://{coordinator_address}",

@@ -1000,7 +1000,10 @@ def make_serving_run_dir(
     share one tree structure. ``serving_overrides`` patches the run's
     ServingConfig (e.g. ``refine_enabled``); with a ``template`` the
     checkpoint is still copied byte-for-byte (same fingerprint), only the
-    config is rewritten. The state is built on the CPU: writing a
+    config is rewritten. The init is drawn at ``SERVE_WEIGHT_SEED``, as the
+    serve episodes draw theirs: at the config's seed 0 torch's draw makes
+    the warm refine of ``serve-refine-across-drain`` and ``fleet-surge``
+    roll back. The state is built on the CPU: writing a
     checkpoint needs no card. AOT is on, as in the JAX drills: a backend
     answers /healthz ``warming`` until its serving prewarm has dispatched
     the planned grid, so the gateway admits only warm backends."""
@@ -1054,7 +1057,7 @@ def make_serving_run_dir(
     )
     save_config(cfg, os.path.join(run_dir, "config.yaml"))
     system = tiny_serving_system(cfg, device="cpu")
-    state = system.init_train_state()
+    state = system.init_train_state(SERVE_WEIGHT_SEED)
     feature_shape = system.model.feature_shape
     if perturb_seed is not None:
         from ..utils.interop import params_from_jax, params_to_jax

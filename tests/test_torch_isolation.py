@@ -127,11 +127,11 @@ def test_no_source_names_a_jax_package_file():
 def test_the_diagnostic_scripts_and_the_sweep_load_no_jax():
     code = (
         "import sys\n"
-        "from howtotrainyourmamlpytorch_tpu_torch import launch_all\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import bench, bench_serving, launch_all\n"
         "from howtotrainyourmamlpytorch_tpu_torch.scripts import (checkpoint_autopsy, descent_probe, donation_probe,\n"
         "    grad_precision_probe, imagenet_at_scale, stream_replay_probe, summarize_run)\n"
         "for module in (checkpoint_autopsy, descent_probe, donation_probe, grad_precision_probe, imagenet_at_scale,\n"
-        "               stream_replay_probe, launch_all):\n"
+        "               stream_replay_probe, launch_all, bench, bench_serving):\n"
         "    try:\n"
         "        module.main(['--help'])\n"
         "    except SystemExit as exc:\n"

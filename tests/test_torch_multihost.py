@@ -143,10 +143,34 @@ def test_initialize_distributed_nop_and_mocked(monkeypatch):
     monkeypatch.setenv("RANK", "1")
     monkeypatch.setenv("MASTER_ADDR", "c")
     monkeypatch.setenv("MASTER_PORT", "1")
-    tpar.initialize_distributed()
+    tpar.initialize_distributed(device="cpu")
     backend, kw = calls[-1]
     assert (kw["init_method"], kw["world_size"], kw["rank"]) == ("tcp://c:1", 2, 1)
     assert tpar.process_count() == 1 and tpar.process_index() == 0  # nothing was joined
+
+
+@pytest.mark.parametrize("device, card, backend", [
+    (None, False, None),  # no card and no CPU asked for: resolve_device's error
+    (None, True, "nccl"),
+    ("cpu", False, "gloo"),
+    ("cpu", True, "gloo"),
+    ("cuda", True, "nccl"),
+])
+def test_initialize_distributed_follows_the_device_rule(monkeypatch, device, card, backend):
+    """The backend follows the port's device rule: ``None`` means the card
+    (NCCL) and raises where none is visible; only the CPU asked for gives
+    gloo."""
+    calls = []
+    monkeypatch.setattr(mesh_module.dist, "init_process_group", lambda b, **kw: calls.append(b))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: card)
+    args = dict(coordinator_address="c:1", num_processes=2, process_id=0, device=device)
+    if backend is None:
+        with pytest.raises(RuntimeError, match="no CUDA device is available; pass device='cpu'"):
+            tpar.initialize_distributed(**args)
+        assert calls == []
+    else:
+        tpar.initialize_distributed(**args)
+        assert calls == [backend]
 
 
 def test_multihost_ensemble_gathers_via_the_group(toy_dataset, tmp_path, monkeypatch):
