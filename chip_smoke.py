@@ -121,6 +121,22 @@ Run from the repository root. Phases, one JSON line each:
    off, as the JAX scripts do), and the SIGTERM child's line with
    ``wedged_at`` and its headline (rc 0). Each line's headline and stages
    are printed.
+9c. ``lint`` (two children started with ``bench``'s, collected after it;
+   budget 180 s): the port's static gate and its runtime twin. (a) ``python
+   -m howtotrainyourmamlpytorch_tpu_torch.lint --json`` over the package
+   and this script on the card's host: rc 0, no finding, at most 20
+   suppressed (its findings, suppressions and seconds reported). (b) The
+   hot paths GL110 holds, driven once on the card under
+   ``torch.cuda.set_sync_debug_mode("warn")`` with every synchronizing
+   call recorded with its Python stack: a training chunk (K=2) captured
+   and replayed (``train_step_multi``), an adapt flush and a predict flush
+   built and replayed (the slice's 8 requests), and the frontend's guarded
+   dispatch (``EngineReplica.dispatch``: an in-process frontend's /adapt
+   and /predict). Checks: a known ``.item()`` is recorded at its line (the
+   recorder works); none inside a capture; every sync whose innermost
+   frame of the package lies in a hot function is at a suppressed GL110
+   line; a sync with no frame of the repository counts against its path's
+   suppressed sites (none here). Its sync sites, by path, are reported.
 10. ``fleet``: the serving fleet at the same config and trained state,
    through the port's import-light CLIs (``scripts/gateway.py``,
    ``scripts/fleet_serve.py``, ``scripts/rolling_restart.py`` of the
@@ -367,9 +383,9 @@ process runs phases ``small`` and ``resnet`` on the card beside phases
 beside phase ``runner`` (SIDE_BATCHES: card-bound, gating no time, needing
 nothing of the phases before them; ``http``, ``tenancy`` and ``runner``
 have no time budget, and their card mostly waits on processes, sockets and
-the loader), and phase ``bench``'s three children beside ``http`` and
-``tenancy``; this process waits for each batch before phases ``fleet``
-and ``elastic``, and prints the side's lines when it ends. Phase ``operations``' training fleet (its
+the loader), and phase ``bench``'s three children and phase ``lint``'s two
+beside ``http`` and ``tenancy``; this process waits for each batch before
+phases ``fleet`` and ``elastic``, and prints the side's lines when it ends. Phase ``operations``' training fleet (its
 leg 4: child processes behind the card gate) starts before phase
 ``elastic`` on a thread of this process and runs beside ``elastic`` and
 ``tensor_parallel``; ``operations`` checks it. Each is released where its phase used to start it; a
@@ -830,6 +846,12 @@ def vectors_of(ps, gs):
     return [p.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0 for p, g in zip(ps, gs)]
 
 
+def _timing_gen():
+    """The generator of a timed library call's learning-rate column (its
+    values change no time)."""
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
 def head_timing(ps, gs, lrs, launch, twin, backward: bool) -> dict:
     """B1 (or B2 where ``backward``) at the anil head tree under both
     flushes, beside an empty kernel (the floor), its twin, the byte bound
@@ -845,7 +867,7 @@ def head_timing(ps, gs, lrs, launch, twin, backward: bool) -> dict:
     }
     if not backward:
         p_buf, g_buf = packed(ps), packed(gs)
-        lr_col = torch.rand(p_buf.shape[0], device="cuda")[:, None]
+        lr_col = torch.rand(p_buf.shape[0], device="cuda", generator=_timing_gen())[:, None]
         out["library_ms"] = both_flushes(lambda: torch.addcmul(p_buf, lr_col, g_buf, value=-1))
     return out
 
@@ -887,7 +909,7 @@ def phase_kernel(seed: int, parent):
             "plain_ms": both_flushes(lambda: fu.fused_sgd_tree_reference(ps, gs, lrs)),
         }
         p_buf, g_buf = packed(ps), packed(gs)
-        lr_col = torch.rand(p_buf.shape[0], device="cuda")[:, None]
+        lr_col = torch.rand(p_buf.shape[0], device="cuda", generator=_timing_gen())[:, None]
         deep["library_ms"] = both_flushes(lambda: torch.addcmul(p_buf, lr_col, g_buf, value=-1))
         del p_buf, g_buf
         n = sum(p.numel() for p in ps)
@@ -903,7 +925,7 @@ def phase_kernel(seed: int, parent):
         n = sum(p.numel() for p in ps)
         moved = 3 * n * ps[0].element_size() + 4 * len(lrs)  # read p, g, lr; write out
         p_buf, g_buf = packed(ps), packed(gs)
-        lr_rows = torch.rand(p_buf.shape[0], device="cuda")
+        lr_rows = torch.rand(p_buf.shape[0], device="cuda", generator=_timing_gen())
         lr_col, lr_values = lr_rows[:, None], [float(x) for x in lrs]
         new = lambda: fu._launch_forward(ps, gs, lrs)  # noqa: E731
         timing = {}
@@ -1033,7 +1055,7 @@ def phase_kernel_bwd(seed: int, parent):
         n = sum(c.numel() for c in cts)
         moved = 3 * n * cts[0].element_size() + 8 * len(lrs)  # read ct, g, lr; write dg, dlr
         ct_buf, g_buf = packed(cts), packed(gs)
-        lr_rows = torch.rand(ct_buf.shape[0], device="cuda")
+        lr_rows = torch.rand(ct_buf.shape[0], device="cuda", generator=_timing_gen())
         lr_col = lr_rows[:, None]
         new = lambda: fu._launch_backward(cts, gs, lrs)  # noqa: E731
         timing = {}
@@ -2511,9 +2533,6 @@ class _Reaper:
     def watch(self, pid: int) -> None:
         import threading
 
-        if pid in self._threads:
-            return
-
         def wait():
             try:
                 _, status = os.waitpid(pid, 0)
@@ -2523,8 +2542,11 @@ class _Reaper:
             with self._lock:
                 self.rcs[pid] = rc
 
-        self._threads[pid] = threading.Thread(target=wait, name=f"reap-{pid}", daemon=True)
-        self._threads[pid].start()
+        with self._lock:
+            if pid in self._threads:
+                return
+            thread = self._threads[pid] = threading.Thread(target=wait, name=f"reap-{pid}", daemon=True)
+        thread.start()
 
     def rc(self, pid: int, timeout_s: float = 30.0):
         thread = self._threads.get(pid)
@@ -2885,7 +2907,8 @@ def phase_fleet(seed: int, system, trained, http_bound: float, pre: dict):
                             "adapt_direct_p50_ms": statistics.median(adapt_direct)},
             "b1_before_roll": b1, "b1_after_roll": rolled,
             "launches": sum(v["launches"] for v in list(b1.values()) + list(rolled.values())),
-            "roll_s": roll_s, "roll_rows": verdict["rows"], "roll_outcomes": {str(c): seen.count(c) for c in set(seen)},
+            "roll_s": roll_s, "roll_rows": verdict["rows"],
+            "roll_outcomes": {str(c): seen.count(c) for c in dict.fromkeys(seen)},
             "drain_rcs": {"roll": drain_rcs, "final": final_rcs, "gateway": gw_rc, "supervisor": sup_rc},
             "rehydrated": rehydrated, "rehydrated_max_abs": kept_dev, "rehydrated_bit_equal": kept_dev == 0.0,
             "supervisor_events": {name: sum(e.get("event") == name for e in events)
@@ -3156,7 +3179,7 @@ def phase_runner(seed: int, bare_step_ms: float, tmp: str, data_pre: dict):
     finally:
         for leg in legs.values():
             leg.stop()
-    done = {name: leg.result() for name, leg in legs.items()}
+    done = {name: leg.result(timeout=LEG_EXIT_WAIT_S) for name, leg in legs.items()}
     cli_s, resnet_cli_s, anil_cli_s = (done[name][1] for name in ("resume", "resnet12", "anil"))
 
     rc, _, stdout, stderr = done["resume"]
@@ -3247,6 +3270,10 @@ sys.exit(main(sys.argv[1:]))
 """
 
 
+#: the seconds a stopped leg's exit is waited for before its result is read
+LEG_EXIT_WAIT_S = 10.0
+
+
 class GatedCli:
     """One training CLI leg (or another module's ``main(argv)``,
     ``main_module``) started now and run at :meth:`release`: its
@@ -3284,10 +3311,15 @@ class GatedCli:
             self.proc.wait(timeout=timeout_s)
         finally:
             self.stop()
-        return self.result()
+        return self.result(timeout=LEG_EXIT_WAIT_S)
 
-    def result(self):
-        """-> (rc, seconds, stdout, stderr)."""
+    def result(self, timeout: float):
+        """Wait up to ``timeout`` s for the exit (a stopped leg has exited)
+        -> (rc, seconds, stdout, stderr); rc None if it is still running."""
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
         self.poll()
         stdout, stderr = (f.seek(0) or f.read() for f in (self.out, self.err))
         return self.proc.returncode, self.seconds, stdout, stderr
@@ -6150,7 +6182,7 @@ def phase_diagnostics(seed: int, tmp: str, runner: dict, cpu: dict, sweep: "Gate
         sweep.proc.wait(timeout=300)
     finally:
         sweep.stop()
-    rc, _, stdout, stderr = sweep.result()
+    rc, _, stdout, stderr = sweep.result(timeout=LEG_EXIT_WAIT_S)
     job_name = listed[SWEEP_JOB]
     job_dir = os.path.join(tmp, "sweep", job_name)
     check(rc == 0 and os.path.exists(os.path.join(job_dir, "logs", "test_summary.csv")), "diagnostics",
@@ -6352,6 +6384,222 @@ def phase_bench(pre: dict) -> dict:
             "launches": {"bench": train_launches, "bench_serving": {"fused_sgd": counts["fused_sgd_launches"]}}}
 
 
+#: phase lint: the port's static gate over LINT_SCOPE, and its runtime twin
+#: on LINT_DEVICE, as two children started beside http and tenancy (phase
+#: bench's window) and collected after phase bench
+LINT_SCOPE = ("howtotrainyourmamlpytorch_tpu_torch", "chip_smoke.py")
+LINT_SUPPRESSION_BUDGET = 20
+LINT_BUDGET_S = 180.0
+LINT_DEVICE = "cuda"
+LINT_CHUNK = 2
+#: the twin: lint_sync_record's result (or the check that failed) to a file
+_LINT_TWIN = r"""
+import json, sys
+import chip_smoke
+from howtotrainyourmamlpytorch_tpu_torch.core.maml import apply_matmul_precision
+apply_matmul_precision("highest")
+try:
+    result = chip_smoke.lint_sync_record(int(sys.argv[2]))
+except chip_smoke.CheckFailed as exc:
+    result = {"failed": str(exc)}
+with open(sys.argv[1], "w") as f:
+    json.dump(result, f)
+"""
+
+
+def _innermost(stack, root: str, package: bool):
+    """The innermost frame of ``stack`` ((path, line, function), outermost
+    first) in the package (``package``) or anywhere in the repository."""
+    for path, line, name in reversed(stack):
+        rel = os.path.relpath(path, root)
+        if not rel.startswith("..") and (not package or rel.startswith(LINT_SCOPE[0] + os.sep)):
+            return rel, line, name
+    return None
+
+
+def lint_sync_record(seed: int) -> dict:
+    """Phase ``lint``'s runtime twin of GL101/GL110: the designated hot
+    paths driven on LINT_DEVICE under ``set_sync_debug_mode("warn")``,
+    every synchronizing call recorded with its Python stack (the thread's
+    own: a batcher worker's for the frontend), then held against the
+    static gate's view of the same code: hot functions and their
+    suppressed GL110 lines (``lint.rules_torch.hot_functions``,
+    ``run_lint(..., ["GL110"])``) -> the sync sites by path."""
+    import contextlib
+    import inspect
+    import traceback
+    import warnings
+
+    from howtotrainyourmamlpytorch_tpu_torch.lint import rules_torch, run_lint
+    from howtotrainyourmamlpytorch_tpu_torch.serving import ServingFrontend
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import AdaptationEngine
+    from tools.graftlint.engine import load_project
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    hot = {}
+    for mod in load_project([LINT_SCOPE[0]]).modules:
+        spans = [(fn.name, fn.lineno, fn.end_lineno) for fn in rules_torch.hot_functions(mod)]
+        if spans:
+            hot[mod.rel] = spans
+    allowed = {(f.path, f.line) for f in run_lint([LINT_SCOPE[0]], ["GL110"])[1]}
+    static_s = time.perf_counter() - t0
+
+    records, current = [], {"path": None}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        records.append({"path": current["path"], "thread": threading.current_thread().name,
+                        "capturing": torch.cuda.is_current_stream_capturing(),
+                        "stack": [(fr.filename, fr.lineno, fr.name) for fr in traceback.extract_stack()[:-1]]})
+
+    @contextlib.contextmanager
+    def recording(path):
+        current["path"] = path
+        previous = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(previous)
+
+    cfg, system, state = full_width_system(seed, device=LINT_DEVICE)
+    _, stacked = _chunk(cfg, seed, LINT_CHUNK)
+    req = slice_requests(cfg, seed)
+    with recording("control"):
+        control_line = inspect.currentframe().f_lineno + 1
+        torch.ones(1, device=LINT_DEVICE).sum().item()
+    drive_t0 = time.perf_counter()
+    with recording("train_chunk"):
+        for _ in range(2):  # the capture, then a replay
+            state, (losses, _, _) = system.train_step_multi(state, stacked, 0)
+    check(bool(torch.isfinite(losses).all()), "lint", "non-finite losses of the replayed chunk",
+          losses=losses.tolist())
+    engine = AdaptationEngine(system, state)
+    with recording("adapt_flush"):
+        for _ in range(2):
+            adapted = engine.adapt_batch(req["a"])
+    with recording("predict_flush"):
+        for _ in range(2):
+            probs = engine.predict_batch(list(zip(adapted, req["qa"])))
+    _check_probs("lint", "predict_flush", probs, [len(q) for q in req["qa"]], cfg.num_classes_per_set)
+    frontend = ServingFrontend(engine)
+    try:
+        with recording("frontend_dispatch"):
+            for (x, y), q in zip(req["b"], req["qb"]):
+                answer = frontend.predict(frontend.adapt(x, y)["adaptation_id"], q)
+    finally:
+        frontend.close()
+    _check_probs("lint", "frontend_dispatch", [answer], [len(req["qb"][-1])], cfg.num_classes_per_set)
+    drive_s = time.perf_counter() - drive_t0
+
+    by_path, violations, in_capture, unplaced = {}, [], [], {}
+    for rec in records:
+        site = _innermost(rec["stack"], root, package=True)
+        anywhere = _innermost(rec["stack"], root, package=False)
+        where = f"{site[0]}:{site[1]} {site[2]}" if site else (f"{anywhere[0]}:{anywhere[1]}" if anywhere else
+                                                               "no frame of the repository")
+        sites = by_path.setdefault(rec["path"], {})
+        sites[where] = sites.get(where, 0) + 1
+        if rec["capturing"]:
+            in_capture.append({"path": rec["path"], "site": where})
+        if anywhere is None:
+            unplaced[rec["path"]] = unplaced.get(rec["path"], 0) + 1
+        elif site is not None:
+            rel = site[0].replace(os.sep, "/")
+            inside = [name for name, start, end in hot.get(rel, ()) if start <= site[1] <= end]
+            if inside and (rel, site[1]) not in allowed:
+                violations.append({"path": rec["path"], "site": where, "hot": inside[0], "thread": rec["thread"]})
+    result = {"hot_functions": {rel: [name for name, _, _ in spans] for rel, spans in sorted(hot.items())},
+              "allowed": sorted(f"{rel}:{line}" for rel, line in allowed), "syncs": len(records),
+              "by_path": by_path, "in_capture": in_capture, "violations": violations, "unplaced": unplaced,
+              "control_line": control_line, "static_s": static_s, "drive_s": drive_s,
+              "seconds": time.perf_counter() - t0}
+    control = by_path.get("control", {})
+    check(any(where.startswith(f"chip_smoke.py:{control_line}") for where in control), "lint",
+          "the recorder did not see a known .item() at its line", control=control, line=control_line)
+    check(not in_capture, "lint", "a synchronizing call inside a capture", in_capture=in_capture)
+    check(not violations, "lint", "a sync in a hot function at a line the static gate does not allow",
+          violations=violations, allowed=result["allowed"])
+    # a sync no Python line names counts against its path's allowed sites:
+    # the hot functions the paths drive have none (adapt_batch,
+    # predict_batch, EngineReplica.dispatch, the graphs' replays)
+    check(not unplaced, "lint", "a sync that names no line of the repository", unplaced=unplaced)
+    return result
+
+
+def start_lint(tmp: str, seed: int) -> dict:
+    """Start phase ``lint``'s two children (output under ``tmp``): the
+    static gate's CLI and the runtime twin (:data:`_LINT_TWIN`)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    twin_json = os.path.join(tmp, "lint_twin.json")
+    t0 = time.monotonic()
+    children = []
+    for name, argv in (("static", ["-m", "howtotrainyourmamlpytorch_tpu_torch.lint", "--json", *LINT_SCOPE]),
+                       ("twin", ["-c", _LINT_TWIN, twin_json, str(seed)])):
+        paths = {"out": os.path.join(tmp, f"lint_{name}.out"), "err": os.path.join(tmp, f"lint_{name}.err")}
+        with open(paths["out"], "w") as out, open(paths["err"], "w") as err:
+            proc = subprocess.Popen([sys.executable, *argv], cwd=root, stdout=out, stderr=err, env=env)
+        children.append({"name": name, "proc": proc, **paths, "end_s": None})
+    pre = {"children": children, "t0": t0, "twin_json": twin_json}
+
+    def watch():
+        while any(c["end_s"] is None for c in children) and time.monotonic() - t0 < LINT_BUDGET_S:
+            for child in children:
+                if child["end_s"] is None and child["proc"].poll() is not None:
+                    child["end_s"] = round(time.monotonic() - t0, 1)
+            time.sleep(0.1)
+
+    pre["watcher"] = threading.Thread(target=watch, daemon=True)
+    pre["watcher"].start()
+    return pre
+
+
+def phase_lint(pre: dict) -> dict:
+    """Collect phase ``lint``'s children (:func:`start_lint`) and check
+    them: the static gate clean within its suppression budget, the twin's
+    checks passed. -> the phase's seconds."""
+    t_wait = time.monotonic()
+    pre["watcher"].join(timeout=max(1.0, LINT_BUDGET_S - (t_wait - pre["t0"])))
+    for child in pre["children"]:
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
+        check(child["end_s"] is not None, "lint", f"the {child['name']} child did not end",
+              timeout_s=LINT_BUDGET_S, stderr=_tail(child["err"]))
+    waited_s = round(time.monotonic() - t_wait, 1)
+    static, twin = pre["children"]
+    with open(static["out"]) as f:
+        text = f.read()
+    try:
+        payload = json.loads(text)
+    except ValueError:
+        payload = None
+    check(payload is not None and static["proc"].returncode == 0 and payload["findings"] == []
+          and len(payload["suppressed"]) <= LINT_SUPPRESSION_BUDGET, "lint", "the static gate is not clean",
+          rc=static["proc"].returncode, findings=(payload or {}).get("findings"), stdout=text[-2000:],
+          stderr=_tail(static["err"]))
+    check(twin["proc"].returncode == 0 and os.path.exists(pre["twin_json"]), "lint", "the runtime twin failed",
+          rc=twin["proc"].returncode, stderr=_tail(twin["err"]))
+    with open(pre["twin_json"]) as f:
+        record = json.load(f)
+    check(record.get("failed") is None, "lint", f"the runtime twin: {record.get('failed')}")
+    seconds = max(child["end_s"] for child in pre["children"])
+    emit({"phase": "lint", "ok": True,
+          "static": {"scope": LINT_SCOPE, "rc": static["proc"].returncode, "findings": payload["findings"],
+                     "suppressed": [f"{f['path']}:{f['line']} {f['rule']}" for f in payload["suppressed"]],
+                     "seconds": static["end_s"], "rule_times_ms": payload["rule_times_ms"]},
+          "sync": {"device": torch.cuda.get_device_name(0), **{k: v for k, v in record.items() if k != "allowed"}},
+          "twin_seconds": twin["end_s"], "seconds": seconds, "waited_s": waited_s, "budget_s": LINT_BUDGET_S})
+    return {"seconds": seconds, "waited_s": waited_s}
+
+
 def kernel_entry(name, source, replaces, launches_by_path, phase, in_graph=None):
     """One kernel's entry of the ``kernels`` line: float32 at the VGG-64
     tree under the write flush (the yardstick of the earlier slices) in the
@@ -6443,7 +6691,8 @@ def main() -> int:
         # beside http and tenancy
         release_side(side, 0)
         bench_pre = start_bench(data_tmp)
-        early += [child["proc"] for child in bench_pre["children"]]
+        lint_pre = start_lint(data_tmp, args.seed)
+        early += [child["proc"] for child in bench_pre["children"] + lint_pre["children"]]
         http = timed("http", phase_http, args.seed, system, trained, http_pre)
         # the fleet's two first backends import and start the card during tenancy
         fleet_pre = prestart_fleet(system, trained)
@@ -6451,6 +6700,8 @@ def main() -> int:
         wait_side(side, 0)
         bench = phase_bench(bench_pre)
         seconds["bench"] = bench["seconds"]
+        lint = phase_lint(lint_pre)
+        seconds["lint"] = lint["seconds"]
         fl = timed("fleet", phase_fleet, args.seed, system, trained, http["alone_bound"], fleet_pre)
         # the CPU twin's halves of the slice's and train's checks are ready by now
         timed("cross", phase_cross, twin, slice_pending, train_pending)
@@ -6499,18 +6750,20 @@ def main() -> int:
     total_s = round(time.monotonic() - t_run, 1)
     emit({"phase": "timing", "seconds": seconds, "total_s": total_s,
           "side": {"batches": SIDE_BATCHES, "beside": [["http", "tenancy"], ["runner"]], **side_report,
-                   "bench": {"beside": BENCH_BESIDE, "waited_s": bench["waited_s"]}},
-          "budget_s": {"serve_programs": SERVE_PROGRAMS_BUDGET_S, "bench": BENCH_BUDGET_S,
+                   "bench": {"beside": BENCH_BESIDE, "waited_s": bench["waited_s"]},
+                   "lint": {"beside": BENCH_BESIDE, "waited_s": lint["waited_s"]}},
+          "budget_s": {"serve_programs": SERVE_PROGRAMS_BUDGET_S, "bench": BENCH_BUDGET_S, "lint": LINT_BUDGET_S,
                        "elastic": ELASTIC_BUDGET_S,
                        "tensor_parallel": TENSOR_PARALLEL_BUDGET_S,
                        "operations": OPERATIONS_BUDGET_S, "programs": PROGRAMS_BUDGET_S,
                        "prewarm": PREWARM_BUDGET_S, "diagnostics": DIAG_BUDGET_S, "run": RUN_BUDGET_S}})
     check(seconds["serve_programs"] < SERVE_PROGRAMS_BUDGET_S and seconds["bench"] < BENCH_BUDGET_S
+          and seconds["lint"] < LINT_BUDGET_S
           and seconds["elastic"] < ELASTIC_BUDGET_S and seconds["tensor_parallel"] < TENSOR_PARALLEL_BUDGET_S
           and seconds["operations"] < OPERATIONS_BUDGET_S
           and seconds["programs"] < PROGRAMS_BUDGET_S and seconds["prewarm"] < PREWARM_BUDGET_S
           and seconds["diagnostics"] < DIAG_BUDGET_S and total_s < RUN_BUDGET_S, "timing",
-          "phase serve_programs, bench, elastic, tensor_parallel, operations, programs, prewarm or diagnostics, "
+          "phase serve_programs, bench, lint, elastic, tensor_parallel, operations, programs, prewarm or diagnostics, "
           "or the run over its budget",
           seconds=seconds, total_s=total_s)
     fwd_paths = {"serving": sl["launches"], "train": tr["launches"]["fused_sgd"], "serve_trained": served,

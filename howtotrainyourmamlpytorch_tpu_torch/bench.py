@@ -261,10 +261,13 @@ class _Watchdog:
     def enter(self, stage: str, budget_s: float) -> None:
         """Stage deadlines assume card-speed execution; when disabled (the
         CPU: no card to wedge, and legitimately 100x slower) stages are
-        tracked for reporting but never expire."""
-        self._stage = stage
+        tracked for reporting but never expire. The stage and deadline are
+        set under the lock that the emitting paths hold."""
+        with self._lock:
+            self._stage = stage
+            if self.enabled:
+                self._deadline = time.monotonic() + budget_s
         if self.enabled:
-            self._deadline = time.monotonic() + budget_s
             print(f"bench: stage {stage} (budget {budget_s:.0f}s)",
                   file=sys.stderr, flush=True)
 

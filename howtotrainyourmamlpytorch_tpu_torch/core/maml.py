@@ -157,7 +157,7 @@ def cosine_epoch_schedule(meta_lr: float, min_lr: float, total_epochs: int, iter
     of an integer step-count tensor, computed in float32."""
 
     def schedule(count):
-        epoch = torch.div(torch.as_tensor(count), iters_per_epoch, rounding_mode="floor").to(torch.float32)
+        epoch = as_f32(torch.div(torch.as_tensor(count), iters_per_epoch, rounding_mode="floor"))
         cos = 0.5 * (1.0 + torch.cos(math.pi * epoch / total_epochs))
         return min_lr + (meta_lr - min_lr) * cos
 
@@ -468,7 +468,7 @@ class MAMLSystem:
         adam_state = next((part for part in opt_state if hasattr(part, "mu")), None)
         if adam_state is None:
             return inner_state
-        count = adam_state.count.to(torch.float32)
+        count = as_f32(adam_state.count)
         return {
             "step": tree_map(lambda p: count, params),
             "exp_avg": adam_state.mu["params"],
@@ -666,6 +666,8 @@ class MAMLSystem:
         if variant is not None:
             return tuple(variant)
         if epoch is None:
+            # a captured step passes its variant (_train_graph_step), so this
+            # host read runs only on the eager entry points  # graftlint: disable=GL101
             epoch = int(row_view(state).step) // self.cfg.total_iter_per_epoch
         return self.use_second_order(epoch), self.msl_active(epoch)
 

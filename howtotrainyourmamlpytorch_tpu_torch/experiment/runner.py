@@ -622,6 +622,8 @@ class ExperimentRunner:
             "train_loss_std": loss_std,
             "train_accuracy_mean": acc_mean,
             "train_accuracy_std": acc_std,
+            # once per epoch, after the loop and the losses' fetch above,
+            # which already waited for the card  # graftlint: disable=GL110
             "learning_rate": float(lr),
             "epoch_run_time": time.time() - start,
         }

@@ -617,12 +617,15 @@ def run_load(
 
 
 def _breaker_opens_total(frontend, breaker_snapshot: Dict[str, Any]) -> int:
-    """Lifetime breaker trips: summed across the pool's replicas when the
-    frontend has one, else the lone breaker's count (test doubles,
-    ``HttpFrontend``)."""
+    """Lifetime breaker trips: summed across the pool
+    (``EnginePool.breaker_opens``) when the frontend has one, else the lone
+    breaker's count (test doubles, ``HttpFrontend``)."""
     pool = getattr(frontend, "pool", None)
     if pool is not None:
-        return sum(int(r.breaker.snapshot().get("opens", 0)) for r in pool.replicas)
+        try:
+            return int(pool.breaker_opens())
+        except Exception:  # noqa: BLE001 — doubles with a stub pool
+            pass
     return int(breaker_snapshot.get("opens", 0))
 
 

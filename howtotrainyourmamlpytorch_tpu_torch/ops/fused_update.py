@@ -61,6 +61,7 @@ from torch.autograd.function import once_differentiable
 
 from ..parallel.mesh import shard_index
 from ..utils.trees import tree_flatten, tree_unflatten
+from .precision import as_f32
 
 KERNEL_SOURCE = "fused_sgd.cu"
 BWD_KERNEL_SOURCE = "fused_sgd_bwd.cu"
@@ -158,15 +159,15 @@ def dlr_rounding_chain(chunks: int, element_size: int) -> int:
 def fused_sgd_tree_reference(ps, gs, lrs) -> List[torch.Tensor]:
     """B1's plain twin, per leaf: f32 multiply, f32 subtract, one rounding
     to the operand dtype."""
-    return [(p.float() - lr * g.float()).to(p.dtype) for p, g, lr in zip(ps, gs, lrs)]
+    return [(as_f32(p) - lr * as_f32(g)).to(p.dtype) for p, g, lr in zip(ps, gs, lrs)]
 
 
 def fused_sgd_tree_bwd_reference(cts, gs, lrs) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """B2's plain twin -> ``(dg, dlr)``: per leaf ``dg = -lr * ct`` as one
     f32 product rounded once to the operand dtype, and ``dlr [L]`` with
     ``dlr_i = -sum(ct_i * g_i)``, one float32 ``sum`` over the leaf."""
-    dgs = [(-lr * ct.float()).to(ct.dtype) for ct, lr in zip(cts, lrs)]
-    dlr = torch.stack([-(ct.float() * g.float()).sum() for ct, g in zip(cts, gs)])
+    dgs = [(-lr * as_f32(ct)).to(ct.dtype) for ct, lr in zip(cts, lrs)]
+    dlr = torch.stack([-(as_f32(ct) * as_f32(g)).sum() for ct, g in zip(cts, gs)])
     return dgs, dlr
 
 

@@ -24,6 +24,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..utils.trees import tree_leaves, tree_map
+from .precision import as_f32
 
 # optax.adam's defaults, which the JAX package uses
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -58,7 +59,7 @@ def adam_update(grads, state, params, schedule: Callable):
     mu = tree_map(lambda g, m: (1 - B1) * g + B1 * m, grads, adam.mu)
     nu = tree_map(lambda g, v: (1 - B2) * (g * g) + B2 * v, grads, adam.nu)
     count = adam.count + 1
-    countf = count.to(torch.float32)
+    countf = as_f32(count)
     # torch.full, not torch.tensor: a fill kernel, no host-to-device copy
     # (a CUDA graph captures the step)
     bc1 = 1 - torch.full((), B1, dtype=torch.float32, device=countf.device) ** countf

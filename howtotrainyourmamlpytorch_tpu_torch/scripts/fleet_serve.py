@@ -38,6 +38,7 @@ knobs are flags, not config files): run by path, it file-path-loads
 Enforced by the same banned-import subprocess probe as the gateway.
 """
 
+# graftlint: import-light — supervises backends from a host with no torch (GL213 gates the closure)
 import argparse
 import importlib.util
 import json

@@ -37,6 +37,7 @@ primitives live in ``serving/fleetctl.py`` (stdlib-only, file-path-loaded
 here).
 """
 
+# graftlint: import-light — rolls a fleet from an ops host with no torch (GL213 gates the closure)
 import argparse
 import importlib.util
 import json

@@ -44,6 +44,7 @@ pid probe) is injectable so the tests drive the whole decision matrix on a
 fake clock with zero subprocesses.
 """
 
+# graftlint: import-light — file-path-loaded by scripts/fleet_serve.py on supervisor hosts (GL213 gates the closure)
 import json
 import os
 import signal as _signal

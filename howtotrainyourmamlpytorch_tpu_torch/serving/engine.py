@@ -635,6 +635,8 @@ class AdaptationEngine:
         strategy = validate_request_strategy(strategy, self.strategies)
         master = self._master(tenant)
         self.injector.fire("serving.dispatch")
+        # parses the requests' host payloads (JSON-decoded lists or numpy
+        # arrays), not device values  # graftlint: disable=GL110
         queries = [np.asarray(x, np.float32) for _, x in items]
         sizes = [q.shape[0] for q in queries]
         bucket = self.query_bucket(max(sizes))

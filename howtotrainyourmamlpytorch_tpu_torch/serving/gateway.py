@@ -40,6 +40,7 @@ stack installed. The traceparent grammar below is deliberately kept in sync
 with ``observability/context.py`` (which this module must not import).
 """
 
+# graftlint: import-light — file-path-loaded by scripts/gateway.py on gateway-only hosts (GL213 gates the closure)
 import hashlib
 import json
 import os

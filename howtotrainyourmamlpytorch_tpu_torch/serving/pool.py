@@ -371,6 +371,11 @@ class EnginePool:
                 seen.append(r.engine)
         return seen
 
+    def breaker_opens(self) -> int:
+        """Lifetime breaker trips summed over every replica: the SLO
+        harness's ``breaker_trips`` source."""
+        return sum(int(r.breaker.snapshot().get("opens", 0)) for r in self.replicas)
+
     def batcher_stats(self, kind: str) -> Dict[str, Any]:
         """Fleet-aggregate batcher stats under the single-batcher schema
         (counts summed, ``mean_batch`` recomputed) — /metrics keeps its

@@ -78,6 +78,8 @@ def test_importing_the_port_loads_no_jax():
         "from howtotrainyourmamlpytorch_tpu_torch import loadgen\n"
         "from howtotrainyourmamlpytorch_tpu_torch import parallel\n"
         "from howtotrainyourmamlpytorch_tpu_torch.parallel import mesh\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import lint\n"
+        "lint.run_lint(['howtotrainyourmamlpytorch_tpu_torch/exit_codes.py'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'howtotrainyourmamlpytorch_tpu'))\n"
         "assert not bad, bad\n"

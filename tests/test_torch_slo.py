@@ -215,6 +215,55 @@ class _Breaker:
         return {"opens": 0}
 
 
+class _StubReplica:
+    """A pool member: its own breaker, its stats."""
+
+    def __init__(self, breaker_cls):
+        self.breaker = breaker_cls(failure_threshold=1)
+
+    def stats(self):
+        return {"breaker": self.breaker.snapshot()}
+
+
+@pytest.mark.parametrize("side", ["port", "jax"])
+def test_breaker_trips_count_every_replica(side):
+    """A pool of two replicas in which only replica 1's breaker opens during
+    the run: ``breaker_trips`` counts it, through
+    ``EnginePool.breaker_opens``, in the port as in the JAX package; the
+    frontend's own breaker (replica 0's) never opened."""
+    if side == "port":
+        from howtotrainyourmamlpytorch_tpu_torch.resilience.breaker import CircuitBreaker
+        from howtotrainyourmamlpytorch_tpu_torch.serving.pool import EnginePool
+        harness = slo
+    else:
+        from howtotrainyourmamlpytorch_tpu.resilience.breaker import CircuitBreaker
+        from howtotrainyourmamlpytorch_tpu.serving.pool import EnginePool
+        harness = jax_slo
+    pool = EnginePool([_StubReplica(CircuitBreaker), _StubReplica(CircuitBreaker)])
+
+    class PoolFrontend:
+        breaker = pool.replicas[0].breaker
+
+        def __init__(self):
+            self.pool = pool
+
+        def adapt(self, x, y):
+            return {"adaptation_id": "warm"}
+
+        def predict(self, aid, xq):
+            if timed.is_set():  # the scheduled request, not the warmup's
+                pool.replicas[1].breaker.record_failure()
+
+    timed = threading.Event()
+    schedule = [harness.Request(t=0.0, kind="predict", episode_seed=0, n_query=5, stair=0)]
+    run = harness.run_load(PoolFrontend(), schedule, lambda s: (None, None), lambda s, n: None,
+                           warm_adaptations=1, max_workers=1,
+                           log=lambda m: timed.set() if m.startswith("loadgen: warm") else None)
+    assert pool.breaker_opens() == 1
+    assert run["breaker_trips"] == 1
+    assert run["breaker"]["opens"] == 0 and len(run["replicas"]) == 2
+
+
 def test_run_load_latency_counts_queue_wait_from_scheduled_arrival():
     """With one worker and a slow backend, the second request's latency
     includes the time it queued behind the first (measured from its
